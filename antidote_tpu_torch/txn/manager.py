@@ -1,0 +1,449 @@
+"""Transaction layer: ClockSI snapshot transactions over the sharded store.
+
+  * snapshot selection: txn snapshot VC = the DC's stable VC with the own
+    lane at the commit counter, merged with the client's causal clock.
+  * reads: batched device reads at the snapshot VC, with the
+    transaction's own pending writes overlaid on top.
+  * updates: type-check against the CRDT registry, run pre-commit hooks,
+    generate downstream effects (reading current state when the type
+    requires it), buffer in the write-set.
+  * commit: first-committer-wins certification per key, skipped for blind
+    updates of commutative types; then one commit-counter bump per txn
+    mints its commit VC and the effects reach the store in commit order.
+
+This slice is single-tenant and in memory: escrow counters (``counter_b``),
+tenancy rounds, maps, the GentleRain protocol, the durable log and the
+serving epochs are later slices.
+"""
+
+from __future__ import annotations
+
+import itertools
+import threading
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from antidote_tpu_torch.config import AntidoteConfig
+from antidote_tpu_torch.crdt import get_type, is_type
+from antidote_tpu_torch.crdt.base import RESOLVE_OVERFLOW
+from antidote_tpu_torch.overload import BusyError, check_deadline
+from antidote_tpu_torch.store.kv import BoundObject, Effect, KVStore, _pad_lane
+from antidote_tpu_torch.txn.hooks import HookRegistry
+
+Update = Tuple[Any, str, str, Tuple[str, Any]]  # (key, type_name, bucket, op)
+
+
+class AbortError(Exception):
+    """Transaction aborted (certification conflict or pre-commit hook)."""
+
+
+class Transaction:
+    _ids = itertools.count(1)
+
+    def __init__(self, snapshot_vc: np.ndarray, props: Optional[dict] = None):
+        self.txid = next(Transaction._ids)
+        self.snapshot_vc = np.asarray(snapshot_vc, np.int32)
+        self.props = dict(props or {})
+        self.writeset: List[Tuple[Effect, Tuple[str, Any]]] = []
+        self.active = True
+        #: (key, bucket) -> host base state at the snapshot, read once
+        self.base_states: Dict[Tuple[Any, str], Dict[str, Any]] = {}
+        #: (key, bucket) -> (overlaid device state, n effects folded): the
+        #: overlay advances incrementally as the write-set grows
+        self.overlay_cache: Dict[Tuple[Any, str], Tuple[Any, int]] = {}
+        #: tentative commit VC frozen at first overlay: all of the txn's
+        #: uncommitted dots share one stamp (re-stamped at real commit)
+        self.tentative_vc: Optional[np.ndarray] = None
+        #: True once the txn performed a client-level read (read-modify-
+        #: write txns keep first-committer-wins certification)
+        self.did_read = False
+        #: True once the txn buffered an update certification must cover
+        #: (state-dependent downstream or a non-commutative type)
+        self.cert_required = False
+
+    def pending_for(self, key, bucket) -> List[Effect]:
+        return [e for e, _ in self.writeset
+                if e.key == key and e.bucket == bucket]
+
+
+class TransactionManager:
+    """One per replica — owns the commit stream for ``my_dc``."""
+
+    def __init__(self, store: KVStore, my_dc: int = 0, cert: bool = True,
+                 protocol: str = "clocksi"):
+        if protocol != "clocksi":
+            raise NotImplementedError(
+                f"protocol {protocol!r} is not ported yet (clocksi only)")
+        self.store = store
+        self.cfg: AntidoteConfig = store.cfg
+        self.my_dc = my_dc
+        self.cert = cert
+        self.protocol = protocol
+        self.commit_counter = 0
+        self.commit_lock = threading.RLock()
+        #: threads allowed to park on the commit lock before new commit
+        #: attempts are refused with a typed BusyError
+        self.max_commit_backlog = 64
+        self._backlog_lock = threading.Lock()
+        self._commit_backlog = 0
+        #: (key, bucket) -> own-lane counter of its last certified commit;
+        #: entries at or below every open txn's snapshot are GC'd
+        self.committed_keys: Dict[Tuple[Any, str], int] = {}
+        #: open txid -> its own-lane snapshot (the GC floor)
+        self._open_snaps: Dict[int, int] = {}
+        self._cert_gc_every = 1024
+        self._next_cert_gc = self._cert_gc_every
+        self.hooks = HookRegistry()
+
+    # ------------------------------------------------------------------
+    # transaction lifecycle
+    # ------------------------------------------------------------------
+    def _snapshot_vc(self) -> np.ndarray:
+        """Remote lanes from the DC stable snapshot, own lane from the
+        commit counter (local commits apply synchronously)."""
+        snap = self.store.stable_vc().copy()
+        snap[self.my_dc] = self.commit_counter
+        return snap
+
+    def start_transaction(self, clock: Optional[np.ndarray] = None,
+                          props: Optional[dict] = None) -> Transaction:
+        snap = self._snapshot_vc()
+        if clock is not None:
+            clock = np.asarray(clock, np.int32)
+            mask = np.arange(len(snap)) != self.my_dc
+            if not (clock[mask] <= snap[mask]).all():
+                # a remote lane ahead of the stable snapshot can only be
+                # reached through replication, a later slice
+                raise TimeoutError(
+                    f"stable snapshot {snap} never reached client clock "
+                    f"{clock}")
+            snap = np.maximum(snap, clock)
+        txn = Transaction(snap, props)
+        self._open_snaps[txn.txid] = int(snap[self.my_dc])
+        return txn
+
+    def read_objects(self, objects: Sequence[BoundObject], txn: Transaction):
+        assert txn.active
+        # a client-level read makes the txn read-bearing: the
+        # commutativity bypass is off for it
+        txn.did_read = True
+        if txn.writeset:
+            # the pending-write overlay needs full states on the host
+            states = self._read_states_with_overlay(list(objects), txn)
+            return [get_type(t).value(st, self.store.blobs, self.cfg)
+                    for (_, t, _), st in zip(objects, states)]
+        return self._read_values_resolved(list(objects), txn)
+
+    def _read_values_resolved(self, objs, txn: Transaction) -> List[Any]:
+        """Values via the serving read: the compact resolved view decodes
+        on the host; a truncated view (count > resolve_top) re-fetches the
+        full state."""
+        resolved = self.store.read_resolved(objs, txn.snapshot_vc)
+        vals: List[Any] = [None] * len(objs)
+        refetch = []
+        for j, (_key, t, _bucket) in enumerate(objs):
+            ty = get_type(t)
+            if ty.resolve_spec(self.cfg) is None:
+                vals[j] = ty.value(resolved[j], self.store.blobs, self.cfg)
+                continue
+            v = ty.value_from_resolved(resolved[j], self.store.blobs,
+                                       self.cfg)
+            if v is RESOLVE_OVERFLOW:
+                refetch.append(j)
+            else:
+                vals[j] = v
+        if refetch:
+            states = self.store.read_states([objs[j] for j in refetch],
+                                            txn.snapshot_vc)
+            for j, st in zip(refetch, states):
+                vals[j] = get_type(objs[j][1]).value(st, self.store.blobs,
+                                                     self.cfg)
+        return vals
+
+    def update_objects(self, updates: Sequence[Update],
+                       txn: Transaction) -> None:
+        assert txn.active
+        for u in updates:
+            self._apply_update(u, txn)
+
+    def _apply_update(self, update, txn: Transaction) -> None:
+        key, type_name, bucket, op = update
+        if not is_type(type_name):
+            raise TypeError(f"unknown CRDT type {type_name!r}")
+        ty = get_type(type_name)
+        if not ty.is_operation(op):
+            raise TypeError(f"invalid operation {op!r} for {type_name}")
+        try:
+            key, type_name, op = self.hooks.execute_pre_commit_hook(
+                key, type_name, bucket, op)
+        except Exception as e:
+            self._mark_aborted(txn)
+            raise AbortError(f"pre-commit hook failed: {e}") from e
+        # re-validate the hook-transformed update: a misbehaving hook must
+        # abort, not generate malformed effects
+        if not is_type(type_name):
+            self._mark_aborted(txn)
+            raise AbortError(
+                f"pre-commit hook produced unknown type {type_name!r}")
+        ty = get_type(type_name)
+        if not ty.is_operation(op):
+            self._mark_aborted(txn)
+            raise AbortError(
+                f"pre-commit hook produced invalid op {op!r} for {type_name}")
+        if ty.require_state_downstream(op) or not ty.commutative_blind:
+            txn.cert_required = True
+        state = None
+        # the key's slot-tier cfg: a promoted key's state has the wider
+        # tier's widths
+        cfg_k = self.cfg
+        if ty.require_state_downstream(op):
+            state = self._read_states_with_overlay(
+                [(key, type_name, bucket)], txn)[0]
+            ent = self.store.locate(key, type_name, bucket, create=False)
+            if ent is not None:
+                cfg_k = self.store.table(ent[0]).cfg
+        for eff_a, eff_b, blob_refs in ty.downstream(op, state,
+                                                     self.store.blobs, cfg_k):
+            txn.writeset.append(
+                (Effect(key, type_name, bucket, eff_a, eff_b, blob_refs), op))
+
+    def commit_transaction(self, txn: Transaction) -> np.ndarray:
+        out = self.commit_transactions_group([txn])[0]
+        if isinstance(out, Exception):
+            raise out
+        return out
+
+    def commit_transactions_group(self, txns: Sequence[Transaction],
+                                  deadline: Optional[float] = None):
+        """Commit several independent transactions as ONE grouped store
+        append — semantically identical to committing them one after the
+        other: each txn gets its own commit timestamp, certification is
+        first-committer-wins INCLUDING against earlier txns of the group,
+        and effects reach the store in commit order.  Returns, per txn, the
+        commit VC or the AbortError it would have raised.
+
+        Admission is bounded: past ``max_commit_backlog`` parked callers
+        the group is refused with :class:`BusyError` (the txns stay open
+        for a retry).  ``deadline`` (absolute monotonic) is re-checked
+        once the lock is held."""
+        with self._backlog_lock:
+            if self._commit_backlog >= self.max_commit_backlog:
+                raise BusyError(
+                    f"commit backlog at max_commit_backlog="
+                    f"{self.max_commit_backlog}")
+            self._commit_backlog += 1
+        try:
+            with self.commit_lock:
+                check_deadline(deadline, "commit dequeue")
+                return self._commit_group_locked(txns)
+        except BaseException:
+            # a failed group must not leak open transactions: they pin the
+            # certification-GC floor forever
+            for t in txns:
+                if t.active:
+                    self._mark_aborted(t)
+            raise
+        finally:
+            with self._backlog_lock:
+                self._commit_backlog -= 1
+
+    def _commit_group_locked(self, txns: Sequence[Transaction]):
+        out: List[Any] = []
+        # (txn, commit_vc, effects, stamped {ck: prev}, counter)
+        pend: List[tuple] = []
+        # each unique written key is looked up once for the whole group;
+        # members then check/update this batch-local view
+        last_seen: Dict[tuple, int] = {}
+        for txn in txns:
+            for eff, _ in txn.writeset:
+                ck = (eff.key, eff.bucket)
+                if ck not in last_seen:
+                    last_seen[ck] = self.committed_keys.get(ck, 0)
+        for txn in txns:
+            assert txn.active
+            txn.active = False
+            self._open_snaps.pop(txn.txid, None)
+            if not txn.writeset:
+                out.append(txn.snapshot_vc.copy())
+                continue
+            explicit = txn.props.get("certify")
+            cert = self.cert if explicit is None else bool(explicit)
+            # commutativity bypass: blind updates of commutative types from
+            # a txn that read nothing commute with every interleaving, so
+            # they need no first-committer-wins round.  An EXPLICIT
+            # certify=true prop opts back in.
+            bypass = (cert and explicit is None and not txn.did_read
+                      and not txn.cert_required)
+            if bypass:
+                cert = False
+            snap_here = int(txn.snapshot_vc[self.my_dc])
+            conflict = next((eff.key for eff, _ in txn.writeset
+                             if last_seen[(eff.key, eff.bucket)] > snap_here),
+                            None) if cert else None
+            if conflict is not None:
+                out.append(AbortError(
+                    f"certification conflict on key {conflict!r}"))
+                continue
+            self.commit_counter += 1
+            commit_vc = txn.snapshot_vc.copy()
+            commit_vc[self.my_dc] = self.commit_counter
+            # dots observed from the txn's OWN overlay carry the tentative
+            # own-lane ts; if other txns committed in between, the real ts
+            # differs — rewrite them
+            if txn.tentative_vc is not None:
+                tent_own = int(txn.tentative_vc[self.my_dc])
+                if tent_own != self.commit_counter:
+                    for eff, _ in txn.writeset:
+                        eff.eff_a, eff.eff_b = get_type(
+                            eff.type_name).restamp_own_dots(
+                                self.cfg, eff.eff_a, eff.eff_b, self.my_dc,
+                                tent_own, self.commit_counter)
+            # mark BEFORE later group members certify; bypassed members
+            # never touch the stamp table (a blind write invalidates nobody)
+            stamped: Dict[tuple, Optional[int]] = {}
+            if not bypass:
+                for eff, _ in txn.writeset:
+                    ck = (eff.key, eff.bucket)
+                    if ck not in stamped:
+                        stamped[ck] = self.committed_keys.get(ck)
+                    self.committed_keys[ck] = self.commit_counter
+                    last_seen[ck] = self.commit_counter
+            pend.append((txn, commit_vc, [e for e, _ in txn.writeset],
+                         stamped, self.commit_counter))
+            out.append(commit_vc)
+        if pend:
+            try:
+                self.store.apply_effect_groups([
+                    (effs, [vc] * len(effs), [self.my_dc] * len(effs))
+                    for _t, vc, effs, _s, _c in pend
+                ])
+            except BaseException:
+                # nothing reached the store: un-stamp every member's marks
+                # and counters, or later txns would first-committer-abort
+                # against writes that never existed
+                for _t, _vc, _e, stamped, ctr in reversed(pend):
+                    for ck, old in stamped.items():
+                        if self.committed_keys.get(ck) == ctr:
+                            if old is None:
+                                self.committed_keys.pop(ck, None)
+                            else:
+                                self.committed_keys[ck] = old
+                self.commit_counter = pend[0][4] - 1
+                raise
+            for txn, _vc, _e, _s, _c in pend:
+                for eff, op in txn.writeset:
+                    self.hooks.execute_post_commit_hook(
+                        eff.key, eff.type_name, eff.bucket, op)
+        if self.commit_counter >= self._next_cert_gc:
+            self._gc_committed_keys()
+            self._next_cert_gc = self.commit_counter + self._cert_gc_every
+        return out
+
+    def _gc_committed_keys(self) -> None:
+        """Drop certification entries no open (or future) txn can conflict
+        with: cert aborts iff last_commit > snapshot, every open txn's
+        own-lane snapshot is ≥ the floor, and future txns start at the
+        current counter."""
+        floor = min(self._open_snaps.values(), default=self.commit_counter)
+        if self.commit_counter - floor > 64 * self._cert_gc_every:
+            import warnings
+
+            warnings.warn(
+                f"certification GC floor lags {self.commit_counter - floor} "
+                f"commits behind: {len(self._open_snaps)} transaction(s) "
+                "left open",
+                RuntimeWarning,
+                stacklevel=2,
+            )
+        if floor <= 0:
+            return
+        self.committed_keys = {
+            k: v for k, v in self.committed_keys.items() if v > floor
+        }
+
+    def _mark_aborted(self, txn: Transaction) -> None:
+        self._open_snaps.pop(txn.txid, None)
+        txn.active = False
+
+    def abort_transaction(self, txn: Transaction) -> None:
+        self._mark_aborted(txn)
+        txn.writeset.clear()
+
+    # ------------------------------------------------------------------
+    # static transactions
+    # ------------------------------------------------------------------
+    def update_objects_static(self, updates: Sequence[Update],
+                              clock: Optional[np.ndarray] = None
+                              ) -> np.ndarray:
+        txn = self.start_transaction(clock)
+        try:
+            self.update_objects(updates, txn)
+            return self.commit_transaction(txn)
+        except Exception:
+            if txn.active:
+                self.abort_transaction(txn)
+            raise
+
+    def read_objects_static(self, objects: Sequence[BoundObject],
+                            clock: Optional[np.ndarray] = None):
+        txn = self.start_transaction(clock)
+        try:
+            vals = self.read_objects(objects, txn)
+            self.commit_transaction(txn)  # empty write-set: closes the txn
+        except Exception:
+            if txn.active:
+                self.abort_transaction(txn)
+            raise
+        return vals, txn.snapshot_vc
+
+    # ------------------------------------------------------------------
+    def _read_states_with_overlay(self, objects, txn: Transaction):
+        """Host states at the txn snapshot with its pending writes applied
+        on the store's device (stamped with a tentative commit VC one past
+        the snapshot, frozen at the txn's first overlay)."""
+        miss = [i for i, (k, _t, b) in enumerate(objects)
+                if (k, b) not in txn.base_states]
+        if miss:
+            fresh = self.store.read_states([objects[i] for i in miss],
+                                           txn.snapshot_vc)
+            for i, st in zip(miss, fresh):
+                k, _t, b = objects[i]
+                txn.base_states[(k, b)] = st
+        states = [txn.base_states[(k, b)] for k, _t, b in objects]
+        if not txn.writeset:
+            return states
+        if txn.tentative_vc is None:
+            tentative = txn.snapshot_vc.copy()
+            tentative[self.my_dc] = self.commit_counter + 1
+            txn.tentative_vc = tentative
+        dev = self.store.device
+        tvc = torch.as_tensor(txn.tentative_vc, device=dev)[None]
+        origin = torch.full((1,), self.my_dc, dtype=torch.int32, device=dev)
+        for i, (key, type_name, bucket) in enumerate(objects):
+            pend = txn.pending_for(key, bucket)
+            if not pend:
+                continue
+            ty = get_type(type_name)
+            # overlay at the key's slot-tier widths
+            ent = self.store.locate(key, type_name, bucket, create=False)
+            cfg_k = self.store.table(ent[0]).cfg if ent else self.cfg
+            dk = (key, bucket)
+            cached = txn.overlay_cache.get(dk)
+            if cached is not None and cached[1] <= len(pend):
+                state, done = cached
+            else:
+                state = {f: torch.as_tensor(x, device=dev)[None]
+                         for f, x in states[i].items()}
+                done = 0
+            for eff in pend[done:]:
+                a = _pad_lane(eff.eff_a, ty.eff_a_width(cfg_k), np.int64)
+                b = _pad_lane(eff.eff_b, ty.eff_b_width(cfg_k), np.int32)
+                state = ty.apply(cfg_k, state,
+                                 torch.as_tensor(a, device=dev)[None],
+                                 torch.as_tensor(b, device=dev)[None],
+                                 tvc, origin)
+            txn.overlay_cache[dk] = (state, len(pend))
+            states[i] = {f: x[0].cpu().numpy() for f, x in state.items()}
+        return states

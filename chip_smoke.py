@@ -1,0 +1,579 @@
+#!/usr/bin/env python3
+"""Chip smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Run from the root of a checkout on a machine with a CUDA card (one card;
+``nvcc`` under /usr/local/cuda or on PATH).  Phases, each fatal on failure:
+
+1. report the card (nvidia-smi name and power limit) and build the
+   kernels of ``antidote_tpu_torch/csrc/`` with nvcc for sm_90a;
+2. hold each kernel against its plain PyTorch version on the card at the
+   main path's shapes (exact equality: integer work) and time both;
+3. drive the port's main path: populate a 1M-key ``set_aw`` table (3 adds
+   per key, removes on 10% of the keys) through ``TypedTable.append``,
+   serve 60 Zipf(1.0) batches of 16384 keys through ``read_resolved_flat``
+   (every fifth at the VC 60% through the add stream), check a sample
+   against a host oracle built from the op stream, then run an
+   ``AntidoteNode`` workload on ``set_aw`` and ``counter_pn`` against a
+   host model, historical reads included;
+4. print one JSON line per kernel record, the card line, and last the
+   ``{"ok": true, ...}`` line.
+
+The launch counts are reset just before the serve and just before the
+node workload, and read just after each; each must show the kernels that
+``PATH_KERNELS`` names for it, and a kernel record's ``launches`` is the
+sum of the two.  Exits non-zero without a CUDA
+device, and outside a checkout of the repository.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
+OPS_PER_S = 67e12          # H100 SXM FP32 rate outside the tensor cores
+SOURCE = "antidote_tpu_torch/csrc/materializer.cu"
+REPLACES = {
+    "orset_presence": "antidote_tpu/materializer/pallas_kernels.py:526",
+    "counter_fold": "antidote_tpu/materializer/pallas_kernels.py:84",
+    "set_aw_fold": "antidote_tpu/materializer/pallas_kernels.py:281",
+}
+# main-path shapes: serve batch, ring, clock lanes, set slots
+B, K, D, E = 16384, 16, 4, 16
+N_KEYS, ADDS_PER_KEY, POP_BATCH = 1_000_000, 3, 16384
+SERVE_BATCHES, HIST_EVERY = 60, 5
+# the kernels each part of phase 3 must launch: the serve resolves sets
+# (presence) and folds the historical batches; the node session folds a
+# set and a counter at older snapshots
+PATH_KERNELS = {"serve": ("orset_presence", "set_aw_fold"),
+                "node": ("counter_fold", "set_aw_fold")}
+
+
+def log(msg: str) -> None:
+    print(f"[chip_smoke] {msg}", file=sys.stderr, flush=True)
+
+
+def card_line() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+
+
+# ---------------------------------------------------------------------------
+# phase 2: kernels against their plain versions
+# ---------------------------------------------------------------------------
+def time_ms(torch, fn, reps: int, flush) -> float:
+    """Median device time of ``fn`` (CUDA events around each call), with
+    the L2 cache flushed before every call.  A ~1 ms spin queued ahead of
+    the start event keeps the wrapper's host-side work (checks, output
+    allocation, the launch itself) out of the measured interval."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        flush.zero_()
+        torch.cuda._sleep(2_000_000)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def max_abs_err(torch, got, want) -> float:
+    if isinstance(got, dict):
+        return max(max_abs_err(torch, got[f], want[f]) for f in got)
+    if isinstance(got, (tuple, list)):
+        return max(max_abs_err(torch, g, w) for g, w in zip(got, want))
+    diff = (got.to(torch.int64) - want.to(torch.int64)).abs()
+    return float(diff.max()) if diff.numel() else 0.0
+
+
+def bound_ms(n_bytes: float, n_ops: float) -> tuple:
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def kernel_inputs(torch, dev, e: int, seed: int):
+    """A set_aw ring batch like the serve path's stale rows: a warm base
+    state, rings of adds and removes over a small handle pool per key,
+    clocks around the base/read window."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+
+    def ri(lo, hi, shape, dtype=torch.int32):
+        return torch.randint(lo, hi, shape, generator=g, device=dev,
+                             dtype=dtype)
+
+    pool = ri(1, 2**62, (B, 24), torch.int64)
+    pick = ri(0, 24, (B, e), torch.int64)
+    elems = torch.gather(pool, 1, pick)
+    elems[ri(0, 10, (B, e)) < 4] = 0
+    state = {"elems": elems, "addvc": ri(0, 6, (B, e, D)),
+             "rmvc": ri(0, 6, (B, e, D)), "ovf": ri(0, 2, (B,))}
+    handles = torch.gather(pool, 1, ri(0, 24, (B, K), torch.int64))
+    kind = (ri(0, 10, (B, K)) < 3).to(torch.int32)
+    ops_b = torch.cat([kind[..., None], ri(0, 8, (B, K, D))], -1)
+    ring = {
+        "ops_a": handles[..., None].contiguous(),
+        "ops_b": ops_b.contiguous(),
+        "ops_vc": ri(0, 9, (B, K, D)),
+        "ops_origin": ri(0, D, (B, K)),
+        "n_ops": ri(0, K + 1, (B,)),
+        "base_vc": ri(0, 3, (B, D)),
+        "read_vc": ri(4, 9, (B, D)),
+    }
+    return state, ring
+
+
+def included(torch, ring):
+    """bool[B, K]: the slots the inclusion test admits (what the folds'
+    data needs)."""
+    v = ring["ops_vc"]
+    slots = torch.arange(v.shape[1], device=v.device)
+    return (~(v <= ring["base_vc"][:, None]).all(-1)
+            & (v <= ring["read_vc"][:, None]).all(-1)
+            & (slots[None] < ring["n_ops"][:, None]))
+
+
+def check_kernels(torch, ck, dev) -> dict:
+    """Each kernel against its plain version on the same card inputs.
+    Returns name -> record (without launches)."""
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    out = {}
+    ring_order = ("ops_a", "ops_b", "ops_vc", "ops_origin", "n_ops",
+                  "base_vc", "read_vc")
+    for e in (E, 4 * E):
+        state, ring = kernel_inputs(torch, dev, e, seed=e)
+        inc = included(torch, ring)
+        n_inc = int(inc.sum())
+        visited = int(torch.clamp(ring["n_ops"], max=K).sum())
+        args = [ring[n] for n in ring_order]
+        got = ck.set_aw_fold(state, *args)
+        want = ck.set_aw_fold_plain(state, *args)
+        torch.cuda.synchronize()
+        err = max_abs_err(torch, got, want)
+        if err != 0:
+            raise AssertionError(f"set_aw_fold E={e} differs: {err}")
+        per_op = 8 + 4 * (1 + D) + 4  # handle, kind + observed VC, origin
+        n_b = (2 * nbytes(*state.values()) + visited * 4 * D
+               + n_inc * per_op + 4 * B * (1 + 2 * D) + 4 * B)
+        n_o = visited * 2 * D + n_inc * e * (2 * D + 3)
+        bms, by = bound_ms(n_b, n_o)
+        rec = {
+            "max_abs_err": err,
+            "ms": time_ms(torch, lambda: ck.set_aw_fold(state, *args), 20,
+                          flush),
+            "plain_ms": time_ms(torch, lambda: ck.set_aw_fold_plain(
+                state, *args), 3, flush),
+            "bound_ms": bms, "bound_by": by, "library_ms": None,
+            "shape": f"B={B} K={K} D={D} E={e}, {n_inc} ops included",
+        }
+        log(f"set_aw_fold E={e}: exact; {rec}")
+        if e != E:
+            # the tier-1 width: a sub-record of the same kernel
+            out["set_aw_fold"]["tier1"] = rec
+            continue
+        out["set_aw_fold"] = rec
+        # orset_presence over the same state
+        pres = (state["addvc"], state["rmvc"], state["elems"])
+        err = max_abs_err(torch, ck.orset_presence(*pres),
+                          ck.orset_presence_plain(*pres))
+        if err != 0:
+            raise AssertionError(f"orset_presence differs: {err}")
+        bms, by = bound_ms(nbytes(*pres) + B * e, B * e * (2 * D + 2))
+        out["orset_presence"] = {
+            "max_abs_err": err,
+            "ms": time_ms(torch, lambda: ck.orset_presence(*pres), 20, flush),
+            "plain_ms": time_ms(torch, lambda: ck.orset_presence_plain(*pres),
+                                5, flush),
+            "bound_ms": bms, "bound_by": by, "library_ms": None,
+            "shape": f"B={B} E={e} D={D}",
+        }
+        log(f"orset_presence: exact; {out['orset_presence']}")
+        # counter_fold over the same ring, int64 deltas past the i32 bound
+        g = torch.Generator(device=dev)
+        g.manual_seed(3)
+        deltas = torch.randint(-2**40, 2**40, (B, K), generator=g,
+                               device=dev, dtype=torch.int64)
+        base = torch.randint(-2**40, 2**40, (B,), generator=g, device=dev,
+                             dtype=torch.int64)
+        cargs = (base, deltas, ring["ops_vc"], ring["n_ops"],
+                 ring["base_vc"], ring["read_vc"])
+        err = max_abs_err(torch, ck.counter_fold(*cargs),
+                          ck.counter_fold_plain(*cargs))
+        if err != 0:
+            raise AssertionError(f"counter_fold differs: {err}")
+        n_b = (8 * B + visited * 4 * D + n_inc * 8 + 4 * B * (1 + 2 * D)
+               + 12 * B)
+        bms, by = bound_ms(n_b, visited * (2 * D + 2))
+        out["counter_fold"] = {
+            "max_abs_err": err,
+            "ms": time_ms(torch, lambda: ck.counter_fold(*cargs), 20, flush),
+            "plain_ms": time_ms(torch, lambda: ck.counter_fold_plain(*cargs),
+                                5, flush),
+            "bound_ms": bms, "bound_by": by, "library_ms": None,
+            "shape": f"B={B} K={K} D={D}, {n_inc} ops included",
+        }
+        log(f"counter_fold: exact; {out['counter_fold']}")
+    return out
+
+
+def profile_serve(torch, serve) -> dict:
+    """Where a serve batch's time goes: ``torch.profiler`` over one round
+    of HIST_EVERY batches (one historical).  Reports the device's busy
+    share of the wall time and the kernels with the most device time.
+    The profiler's own host overhead inflates the wall time, so the busy
+    share is a lower bound.  An observation, not a phase: a profiler that
+    cannot start or read its trace is reported, not fatal; an error of a
+    serve batch ends the run like any other."""
+    from torch.profiler import ProfilerActivity, profile
+
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    try:
+        prof.start()
+    except Exception as e:  # noqa: BLE001 — reported, see docstring
+        return {"error": repr(e)}
+    t0 = time.perf_counter()
+    for i in range(HIST_EVERY):
+        serve(i)
+        torch.cuda.synchronize()
+    wall_us = (time.perf_counter() - t0) * 1e6
+    try:
+        prof.stop()
+        # device-side events only (the host ops that launched them would
+        # count the same time again)
+        rows = [(e.self_device_time_total, e.key)
+                for e in prof.key_averages()
+                if str(e.device_type).endswith("CUDA")]
+    except Exception as e:  # noqa: BLE001 — reported, see docstring
+        return {"error": repr(e)}
+    busy_us = sum(t for t, _ in rows)
+    by_name: dict = {}
+    for t, k in rows:  # template instances share a truncated name
+        by_name[k[:100]] = by_name.get(k[:100], 0.0) + t / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    return {"wall_ms": wall_us / 1e3, "device_ms": busy_us / 1e3,
+            "device_busy_share": busy_us / wall_us,
+            "top_device_ms": {k: ms for k, ms in top if ms > 0}}
+
+
+# ---------------------------------------------------------------------------
+# phase 3a: the 1M-key OR-set populate + serve
+# ---------------------------------------------------------------------------
+def serve_main_path(torch, dev) -> dict:
+    from antidote_tpu_torch.config import AntidoteConfig
+    from antidote_tpu_torch.crdt import get_type
+    from antidote_tpu_torch.store import TypedTable
+
+    n_shards = 8
+    cfg = AntidoteConfig(n_shards=n_shards, max_dcs=D, ops_per_key=K,
+                         snap_versions=2, set_slots=E,
+                         keys_per_table=N_KEYS // n_shards)
+    ty = get_type("set_aw")
+    bw = ty.eff_b_width(cfg)
+    table = TypedTable(ty, cfg, device=dev)
+    table.used_rows[:] = N_KEYS // n_shards
+    rng = np.random.default_rng(7)
+
+    def srows(keys):
+        return keys % n_shards, keys // n_shards
+
+    keys = np.repeat(np.arange(N_KEYS, dtype=np.int64), ADDS_PER_KEY)
+    rng.shuffle(keys)
+    total = keys.shape[0]
+    elems = rng.integers(1, 1 << 62, size=total, dtype=np.int64)
+    lane0 = np.arange(1, total + 1, dtype=np.int32)  # commit order on lane 0
+    first_idx = np.full(N_KEYS, -1, np.int64)
+    rev = np.arange(total - 1, -1, -1)
+    first_idx[keys[rev]] = rev
+    t0 = time.perf_counter()
+    for lo in range(0, total, POP_BATCH):
+        hi = min(lo + POP_BATCH, total)
+        m = hi - lo
+        vcs = np.zeros((m, D), np.int32)
+        vcs[:, 0] = lane0[lo:hi]
+        ss, rr = srows(keys[lo:hi])
+        table.append(ss, rr, elems[lo:hi, None], np.zeros((m, bw), np.int32),
+                     vcs, np.zeros(m, np.int32))
+    rm_keys = rng.choice(N_KEYS, size=N_KEYS // 10,
+                         replace=False).astype(np.int64)
+    rm_t = np.zeros(N_KEYS, np.int64)
+    for lo in range(0, len(rm_keys), POP_BATCH):
+        kk = rm_keys[lo:lo + POP_BATCH]
+        m = len(kk)
+        eff_b = np.zeros((m, bw), np.int32)
+        eff_b[:, 0] = 1
+        eff_b[:, 1] = lane0[first_idx[kk]]  # observes the first add's dot
+        vcs = np.zeros((m, D), np.int32)
+        vcs[:, 0] = total + 1 + lo + np.arange(m)
+        rm_t[kk] = vcs[:, 0]
+        ss, rr = srows(kk)
+        table.append(ss, rr, elems[first_idx[kk], None], eff_b, vcs,
+                     np.zeros(m, np.int32))
+    torch.cuda.synchronize()
+    populate_s = time.perf_counter() - t0
+    final_t, mid_t = total + len(rm_keys), int(total * 0.6)
+    log(f"populate: {total + len(rm_keys)} ops in {populate_s:.2f} s")
+
+    # ---- serve: Zipf(1.0) batches, every fifth at the historical VC ----
+    w = 1.0 / np.arange(1, N_KEYS + 1, dtype=np.float64)
+    cdf = np.cumsum(w / w.sum())
+    streams = [np.searchsorted(cdf, rng.random(B)).astype(np.int64)
+               for _ in range(37)]
+    vc_final = np.zeros((B, D), np.int32)
+    vc_final[:, 0] = final_t
+    vc_mid = np.zeros((B, D), np.int32)
+    vc_mid[:, 0] = mid_t
+
+    def serve(i):
+        ss, rr = srows(streams[i % len(streams)])
+        hist = i % HIST_EVERY == HIST_EVERY - 1
+        return table.read_resolved_flat(ss, rr, vc_mid if hist else vc_final)
+
+    for i in range(2 * HIST_EVERY):  # warm-up: both VC variants
+        serve(i)
+    torch.cuda.synchronize()
+    from antidote_tpu_torch.materializer import cuda_kernels as ck
+
+    before = dict(ck.LAUNCHES)
+    disp_before = dict(table.fold_dispatches)
+    lat = {"fresh": [], "historical": []}
+    t0 = time.perf_counter()
+    for i in range(SERVE_BATCHES):
+        t1 = time.perf_counter()
+        resolved, fresh, complete = serve(i)
+        torch.cuda.synchronize()
+        kind = "historical" if i % HIST_EVERY == HIST_EVERY - 1 else "fresh"
+        lat[kind].append((time.perf_counter() - t1) * 1e3)
+        if not complete.all():
+            raise AssertionError(f"serve batch {i}: incomplete rows")
+    serve_s = time.perf_counter() - t0
+    serve_launches = {n: ck.LAUNCHES[n] - before[n] for n in before}
+    dispatches = {s: n - disp_before.get(s, 0)
+                  for s, n in table.fold_dispatches.items()}
+    profile = profile_serve(torch, serve)
+
+    # ---- check: a 2,000-key sample at both VCs against the op stream ----
+    sample = rng.choice(N_KEYS, size=2000, replace=False).astype(np.int64)
+    pos = np.nonzero(np.isin(keys, sample))[0]
+    adds = {int(k): [] for k in sample}
+    for p in pos:
+        adds[int(keys[p])].append((int(lane0[p]), int(elems[p])))
+    for t_read in (final_t, mid_t):
+        vcs = np.zeros((len(sample), D), np.int32)
+        vcs[:, 0] = t_read
+        ss, rr = srows(sample)
+        res, _, complete = table.read_resolved(ss, rr, vcs)
+        if not complete.all():
+            raise AssertionError("sample read incomplete")
+        for j, k in enumerate(sample.tolist()):
+            want = {el for t, el in adds[k] if t <= t_read}
+            if 0 < rm_t[k] <= t_read:
+                want.discard(int(elems[first_idx[k]]))
+            got = {int(h) for h in res["top"][j] if h != 0}
+            if got != want or int(res["count"][j]) != len(want):
+                raise AssertionError(
+                    f"key {k} at t={t_read}: {sorted(got)} (count "
+                    f"{int(res['count'][j])}) != oracle {sorted(want)}")
+    log("serve: 2000-key sample matches the oracle at both VCs")
+    all_lat = sorted(lat["fresh"] + lat["historical"])
+    pct = lambda xs, q: float(np.percentile(xs, q))  # noqa: E731
+    return {
+        "populate_s": populate_s,
+        "serve_keys_per_s": SERVE_BATCHES * B / serve_s,
+        "batch_p50_ms": pct(all_lat, 50), "batch_p99_ms": pct(all_lat, 99),
+        "fresh_p50_ms": pct(lat["fresh"], 50),
+        "historical_p50_ms": pct(lat["historical"], 50),
+        "timed_loop_launches": serve_launches,
+        "serve_fold_dispatches": dispatches,
+        "profile": profile,
+        "resident_gib": torch.cuda.memory_allocated(dev) / 2**30,
+    }
+
+
+# ---------------------------------------------------------------------------
+# phase 3b: an AntidoteNode workload against a host model
+# ---------------------------------------------------------------------------
+def node_workload(dev) -> dict:
+    from antidote_tpu_torch.api import AbortError, AntidoteNode
+    from antidote_tpu_torch.config import AntidoteConfig
+
+    cfg = AntidoteConfig(n_shards=8, max_dcs=D, ops_per_key=K,
+                         snap_versions=2, set_slots=E, keys_per_table=4096)
+    node = AntidoteNode(cfg, device=dev)
+    rng = np.random.default_rng(11)
+    S, C, Bk = "set_aw", "counter_pn", "b"
+    model = {**{f"s{i}": set() for i in range(40)},
+             **{f"c{i}": 0 for i in range(20)}}
+    # ring fill and GC count per key: a read at an old snapshot is served
+    # from the device (complete) iff the key was not GC'd since
+    fill, gcs = {}, {}
+    n_txn = 0
+
+    def ring(key, m=1):
+        f = fill.get(key, 0)
+        if f + m > K:
+            gcs[key] = gcs.get(key, 0) + 1
+            f = 0
+        fill[key] = f + m
+
+    def objs_of(names):
+        return [(k, S if k[0] in "sb" else C, Bk) for k in names]
+
+    def check(names, vals, want, where):
+        for k, v in zip(names, vals):
+            w = sorted(want[k], key=repr) if isinstance(want[k], set) \
+                else want[k]
+            if v != w:
+                raise AssertionError(f"{where}: {k} = {v!r}, want {w!r}")
+
+    t0 = time.perf_counter()
+    for i in range(200):  # static txns
+        k = f"s{int(rng.integers(0, 40))}"
+        c = f"c{int(rng.integers(0, 20))}"
+        x = int(rng.integers(0, 30))
+        n = int(rng.integers(1, 1000)) * (1 if i % 7 else 2**35)
+        ups = [(k, S, Bk, ("add", x)), (c, C, Bk, ("increment", n))]
+        model[k].add(x)
+        if i % 5 == 4:
+            y = sorted(model[k])[0]
+            ups.append((k, S, Bk, ("remove", y)))
+            model[k].discard(y)
+        node.update_objects(ups)
+        n_txn += 1
+        model[c] += n
+        ring(k, len(ups) - 1)
+        ring(c)
+    old = node.start_transaction()
+    old_model, old_gcs = dict(model), dict(gcs)
+    old_model.update({k: set(v) for k, v in model.items()
+                      if isinstance(v, set)})
+    # interactive txns with read-your-writes
+    for i in range(40):
+        t = node.start_transaction()
+        k, c = f"s{i}", f"c{i % 20}"
+        node.update_objects([(k, S, Bk, ("add", 100 + i)),
+                             (c, C, Bk, ("decrement", 3))], txn=t)
+        model[k].add(100 + i)
+        model[c] -= 3
+        check([k, c], node.read_objects(objs_of([k, c]), txn=t), model,
+              "read-your-writes")
+        node.commit_transaction(t)
+        n_txn += 1
+        ring(k)
+        ring(c)
+    # two racing read-modify-write txns: the second aborts
+    t1, t2 = node.start_transaction(), node.start_transaction()
+    for t in (t1, t2):
+        node.read_objects(objs_of(["c0"]), txn=t)
+        node.update_objects([("c0", C, Bk, ("increment", 1))], txn=t)
+    node.commit_transaction(t1)
+    model["c0"] += 1
+    ring("c0")
+    try:
+        node.commit_transaction(t2)
+        raise AssertionError("the second racing txn committed")
+    except AbortError:
+        pass
+    n_txn += 2
+    # tier promotion: one set past its 16 slots
+    node.update_objects([("big", S, Bk, ("add_all", list(range(40))))])
+    node.update_objects([("big", S, Bk,
+                          ("remove_all", list(range(0, 40, 3))))])
+    model["big"] = set(range(40)) - set(range(0, 40, 3))
+    # a counter past the ring size (GC folds), then a historical reader
+    model["hot"] = 0
+    for i in range(40):
+        node.update_objects([("hot", C, Bk, ("increment", i + 1))])
+        model["hot"] += i + 1
+    mid = node.start_transaction()
+    mid_model = {"hot": model["hot"], "big": set(model["big"])}
+    for i in range(5):
+        node.update_objects([("hot", C, Bk, ("increment", 1000))])
+        model["hot"] += 1000
+    n_txn += 47
+    txn_s = time.perf_counter() - t0
+    names = list(model)
+    check(names, node.read_objects(objs_of(names))[0], model, "latest")
+    hist = [k for k in old_model if gcs.get(k, 0) == old_gcs.get(k, 0)]
+    check(hist, node.read_objects(objs_of(hist), txn=old), old_model,
+          "historical (old)")
+    check(["hot", "big"], node.read_objects(objs_of(["hot", "big"]),
+                                            txn=mid),
+          mid_model, "historical (mid)")
+    log(f"node: {n_txn} txns match the host model; {len(hist)} keys read "
+        "at an older snapshot")
+    return {"txns": n_txn, "txn_s": txn_s,
+            "historical_keys": len(hist),
+            "promotions": node.store.promotions,
+            "fold_dispatches": {n: dict(t.fold_dispatches)
+                                for n, t in node.store.tables.items()}}
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        log("no CUDA device: this smoke test runs on the card only")
+        return 2
+    from antidote_tpu_torch.materializer import cuda_kernels as ck
+
+    dev = torch.device("cuda", 0)
+    card = card_line()
+    kind = torch.cuda.get_device_name(0)
+    log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    t0 = time.perf_counter()
+    lib, report = ck.build()
+    log(f"built {lib.name} in {time.perf_counter() - t0:.1f} s")
+    for line in report.splitlines():
+        if "registers" in line or "Compiling entry" in line:
+            log(f"ptxas: {line.strip()}")
+    records = check_kernels(torch, ck, dev)
+    # each path's launches, counted from 0 just before it
+    ck.reset_launches()
+    serve = serve_main_path(torch, dev)
+    serve["launches"] = dict(ck.LAUNCHES)
+    ck.reset_launches()
+    node = node_workload(dev)
+    node["launches"] = dict(ck.LAUNCHES)
+    log(f"serve: {json.dumps(serve)}")
+    log(f"node: {json.dumps(node)}")
+    for path, res in (("serve", serve), ("node", node)):
+        missing = [n for n in PATH_KERNELS[path] if res["launches"][n] == 0]
+        if missing:
+            raise AssertionError(f"the {path} path never launched {missing}")
+    launches = {n: serve["launches"][n] + node["launches"][n]
+                for n in records}
+    kernels = []
+    for name, rec in records.items():
+        kernels.append({"name": name, "route": "cuda", "source": SOURCE,
+                        "replaces": REPLACES[name],
+                        "launches": launches[name], **rec})
+    print(json.dumps({"serve": serve, "node": node}))
+    print(json.dumps({"kernels": kernels}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

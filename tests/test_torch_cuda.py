@@ -1,0 +1,119 @@
+"""Kernels on the card: each hand-written kernel against its plain
+PyTorch version on the same CUDA tensors, and a CUDA table and node
+against their CPU twins.  Marked ``cuda``; without a CUDA device every test
+here skips (the CPU tests cover the plain versions against the JAX package).
+
+Run on a machine with the card:
+    python -m pytest tests/test_torch_cuda.py -q -m cuda --noconftest
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from antidote_tpu_torch.api import AntidoteNode
+from antidote_tpu_torch.config import AntidoteConfig
+from antidote_tpu_torch.crdt import get_type
+from antidote_tpu_torch.materializer import cuda_kernels as ck
+from antidote_tpu_torch.store import TypedTable
+
+pytestmark = pytest.mark.cuda
+D = 4
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    return torch.device("cuda", 0)
+
+
+def _set_batch(rng, b, k, e):
+    pool = rng.integers(1, 2**62, size=(b, 12), dtype=np.int64)
+    elems = np.take_along_axis(pool, rng.integers(0, 12, (b, e)), 1)
+    elems[rng.random((b, e)) < 0.4] = 0
+    state = {"elems": elems,
+             "addvc": rng.integers(0, 6, (b, e, D)).astype(np.int32),
+             "rmvc": rng.integers(0, 6, (b, e, D)).astype(np.int32),
+             "ovf": rng.integers(0, 2, b).astype(np.int32)}
+    ops_b = np.concatenate([(rng.random((b, k, 1)) < 0.3),
+                            rng.integers(0, 8, (b, k, D))], -1)
+    ring = [np.take_along_axis(pool, rng.integers(0, 12, (b, k)), 1)[..., None],
+            ops_b.astype(np.int32),
+            rng.integers(0, 9, (b, k, D)).astype(np.int32),
+            rng.integers(0, D, (b, k)).astype(np.int32),
+            rng.integers(0, k + 1, b).astype(np.int32),
+            rng.integers(0, 3, (b, D)).astype(np.int32),
+            rng.integers(4, 9, (b, D)).astype(np.int32)]
+    return state, ring
+
+
+def _same(a, b):
+    if isinstance(a, dict):
+        return all(_same(a[f], b[f]) for f in a)
+    if isinstance(a, (tuple, list)):
+        return all(_same(x, y) for x, y in zip(a, b))
+    return torch.equal(a.cpu(), b.cpu())
+
+
+@pytest.mark.parametrize("b,k,e", [(1000, 16, 16), (300, 16, 64),
+                                   (77, 5, 40)])
+def test_kernels_equal_plain_versions_on_the_card(dev, b, k, e):
+    state, ring = _set_batch(np.random.default_rng(e), b, k, e)
+    st_d = {f: torch.as_tensor(x, device=dev) for f, x in state.items()}
+    ring_d = [torch.as_tensor(x, device=dev) for x in ring]
+    before = dict(ck.LAUNCHES)
+    got = ck.set_aw_fold(st_d, *ring_d)
+    want = ck.set_aw_fold_plain(st_d, *ring_d)
+    assert _same(got, want)
+    pres = (st_d["addvc"], st_d["rmvc"], st_d["elems"])
+    assert _same(ck.orset_presence(*pres), ck.orset_presence_plain(*pres))
+    deltas = torch.randint(-2**40, 2**40, (b, k), device=dev)
+    cargs = (torch.zeros(b, dtype=torch.int64, device=dev), deltas,
+             ring_d[2], ring_d[4], ring_d[5], ring_d[6])
+    assert _same(ck.counter_fold(*cargs), ck.counter_fold_plain(*cargs))
+    torch.cuda.synchronize()
+    assert all(ck.LAUNCHES[n] == before[n] + 1 for n in before)
+
+
+def test_cuda_table_reads_like_a_cpu_table(dev):
+    cfg = AntidoteConfig(n_shards=2, max_dcs=D, ops_per_key=4, set_slots=8,
+                         keys_per_table=8)
+    tabs = [TypedTable(get_type("set_aw"), cfg, device=d)
+            for d in ("cpu", dev)]
+    rng = np.random.default_rng(1)
+    clock = np.zeros(D, np.int32)
+    clocks = []
+    for t in tabs:
+        t.used_rows[:] = 8
+    for _ in range(30):
+        m = 6
+        vcs = np.zeros((m, D), np.int32)
+        for i in range(m):
+            clock[0] += 1
+            vcs[i] = clock
+        args = (rng.integers(0, 2, m), rng.integers(0, 8, m),
+                rng.integers(1, 9, (m, 1)),
+                np.concatenate([rng.random((m, 1)) < 0.3,
+                                rng.integers(0, clock[0], (m, D))], -1),
+                vcs, np.zeros(m, np.int32))
+        for t in tabs:
+            t.append(*args)
+        clocks.append(clock.copy())
+    shards, rows = np.repeat([0, 1], 8), np.tile(np.arange(8), 2)
+    for c in (clocks[-1], clocks[-3], clocks[-6]):
+        vcs = np.broadcast_to(c, (16, D))
+        outs = [t.read_resolved(shards, rows, vcs) for t in tabs]
+        for f in outs[0][0]:
+            np.testing.assert_array_equal(outs[0][0][f], outs[1][0][f])
+        np.testing.assert_array_equal(outs[0][2], outs[1][2])
+
+
+def test_cuda_node_reads_back(dev):
+    node = AntidoteNode(AntidoteConfig(n_shards=2, max_dcs=D), device=dev)
+    node.update_objects([("s", "set_aw", "b", ("add_all", list(range(20)))),
+                         ("c", "counter_pn", "b", ("increment", 2**40))])
+    vals, _ = node.read_objects([("s", "set_aw", "b"),
+                                 ("c", "counter_pn", "b")])
+    assert vals == [sorted(range(20), key=repr), 2**40]
+    assert node.store.promotions == 1

@@ -1,0 +1,217 @@
+"""Parity of the port's materializer kernels (plain versions, CPU) with the
+JAX package: the same seeded numpy inputs go through both.
+
+Oracles are the JAX entries that run on the CPU: ``fold.fold_batch``, the
+Pallas kernels in interpret mode through their trace-safe entries
+(``_presence_call``, ``counter_fold_local``, ``set_aw_fold``).  Every
+comparison is exact equality — all of this is integer work."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from antidote_tpu.config import AntidoteConfig as JaxConfig
+from antidote_tpu.crdt import get_type as jax_type
+from antidote_tpu.materializer import fold as jax_fold
+from antidote_tpu.materializer import pallas_kernels as pk
+from antidote_tpu_torch.materializer import cuda_kernels as ck
+
+D = 3
+
+
+def _t(x):
+    return torch.as_tensor(np.array(x))
+
+
+def _assert_state(want, got, msg=""):
+    for f, x in want.items():
+        np.testing.assert_array_equal(np.asarray(x), got[f].numpy(),
+                                      err_msg=f"{msg}{f}")
+
+
+def _set_state(rng, b, e, n_handles, fill=0.6):
+    elems = rng.integers(1, n_handles + 1, size=(b, e)).astype(np.int64)
+    elems *= 0x1_0000_0003  # handles with both 32-bit halves set
+    elems[rng.random((b, e)) > fill] = 0
+    elems[:, 0] = np.where(rng.random(b) < 0.2, 1 << 32, elems[:, 0])
+    return {
+        "elems": elems,
+        "addvc": rng.integers(0, 6, size=(b, e, D)).astype(np.int32),
+        "rmvc": rng.integers(0, 6, size=(b, e, D)).astype(np.int32),
+        "ovf": rng.integers(0, 3, size=(b,)).astype(np.int32),
+    }
+
+
+def _set_ring(rng, b, k, n_handles, p_rm=0.4):
+    handles = rng.integers(1, n_handles + 1, size=(b, k)).astype(np.int64)
+    handles *= 0x1_0000_0003
+    is_rm = (rng.random((b, k)) < p_rm).astype(np.int32)
+    obs = rng.integers(0, 7, size=(b, k, D)).astype(np.int32)
+    ops_vc = rng.integers(0, 8, size=(b, k, D)).astype(np.int32)
+    origin = rng.integers(0, D, size=(b, k)).astype(np.int32)
+    ops_vc[np.arange(b)[:, None], np.arange(k)[None, :], origin] = (
+        rng.integers(1, 9, size=(b, k)))
+    return {
+        "ops_a": handles[..., None],
+        "ops_b": np.concatenate([is_rm[..., None], obs], -1).astype(np.int32),
+        "ops_vc": ops_vc,
+        "ops_origin": origin,
+        "n_ops": rng.integers(0, k + 1, size=(b,)).astype(np.int32),
+        "base_vc": rng.integers(0, 3, size=(b, D)).astype(np.int32),
+        "read_vc": rng.integers(3, 9, size=(b, D)).astype(np.int32),
+    }
+
+
+RING_ORDER = ("ops_a", "ops_b", "ops_vc", "ops_origin", "n_ops", "base_vc",
+              "read_vc")
+
+
+# ---------------------------------------------------------------------------
+# orset_presence
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("b,e", [(64, 8), (40, 32)])
+def test_presence_plain_matches_pallas(b, e):
+    rng = np.random.default_rng(11 + e)
+    st = _set_state(rng, b, e, n_handles=6)
+    occ = (st["elems"] | (st["elems"] >> 32)).astype(np.int32)
+    want = pk._presence_call(jnp.asarray(st["addvc"]), jnp.asarray(st["rmvc"]),
+                             jnp.asarray(occ), 8, True)
+    got = ck.orset_presence(_t(st["addvc"]), _t(st["rmvc"]), _t(st["elems"]))
+    assert got.dtype == torch.bool
+    np.testing.assert_array_equal(np.asarray(want) > 0, got.numpy())
+
+
+# ---------------------------------------------------------------------------
+# counter_fold
+# ---------------------------------------------------------------------------
+def _counter_case(seed, b, k, big=False):
+    rng = np.random.default_rng(seed)
+    ring = _set_ring(rng, b, k, n_handles=4)
+    hi = (2**31 - 1) if big else 1000
+    deltas = rng.integers(-hi, hi, size=(b, k)).astype(np.int64)
+    base = rng.integers(-5000, 5000, size=(b,)).astype(np.int64)
+    return base, deltas, ring
+
+
+def _jax_counter_fold(base, deltas, ring):
+    cfg = JaxConfig(n_shards=1, max_dcs=D, ops_per_key=deltas.shape[1])
+    ty = jax_type("counter_pn")
+    b, k = deltas.shape
+    state, applied = jax_fold.fold_batch(
+        ty, cfg, {"cnt": jnp.asarray(base)}, jnp.asarray(deltas[..., None]),
+        jnp.zeros((b, k, 1), jnp.int32), jnp.asarray(ring["ops_vc"]),
+        jnp.asarray(ring["ops_origin"]), jnp.asarray(ring["n_ops"]),
+        jnp.asarray(ring["base_vc"]), jnp.asarray(ring["read_vc"]))
+    return np.asarray(state["cnt"]), np.asarray(applied)
+
+
+@pytest.mark.parametrize("seed,b,k", [(1, 64, 8), (2, 24, 5)])
+def test_counter_fold_plain_matches_fold_and_pallas(seed, b, k):
+    base, deltas, ring = _counter_case(seed, b, k)
+    cnt, applied = ck.counter_fold(
+        _t(base), _t(deltas), _t(ring["ops_vc"]), _t(ring["n_ops"]),
+        _t(ring["base_vc"]), _t(ring["read_vc"]))
+    want_cnt, want_applied = _jax_counter_fold(base, deltas, ring)
+    np.testing.assert_array_equal(want_cnt, cnt.numpy())
+    np.testing.assert_array_equal(want_applied, applied.numpy())
+    dsum, p_applied = pk.counter_fold_local(
+        deltas.astype(np.int32), ring["ops_vc"], ring["n_ops"],
+        ring["base_vc"], ring["read_vc"], block=b, interpret=True)
+    np.testing.assert_array_equal(base + np.asarray(dsum, np.int64),
+                                  cnt.numpy())
+    np.testing.assert_array_equal(np.asarray(p_applied), applied.numpy())
+
+
+def test_counter_fold_plain_exact_past_the_int32_bound():
+    """|delta| > INT32_MAX // K: the TPU kernel refuses these; the int64 sum
+    must still equal fold_batch (the Pallas entry is no oracle here)."""
+    base, deltas, ring = _counter_case(3, 48, 8, big=True)
+    ring["n_ops"][:] = 8
+    ring["base_vc"][:] = 0
+    ring["read_vc"][:] = 9
+    assert np.abs(deltas).max() > (2**31 - 1) // 8
+    cnt, applied = ck.counter_fold(
+        _t(base), _t(deltas), _t(ring["ops_vc"]), _t(ring["n_ops"]),
+        _t(ring["base_vc"]), _t(ring["read_vc"]))
+    want_cnt, want_applied = _jax_counter_fold(base, deltas, ring)
+    np.testing.assert_array_equal(want_cnt, cnt.numpy())
+    np.testing.assert_array_equal(want_applied, applied.numpy())
+    assert (applied.numpy() == 8).all()
+
+
+# ---------------------------------------------------------------------------
+# set_aw_fold
+# ---------------------------------------------------------------------------
+def _set_case(seed, b, k, e, n_handles, p_rm, fill):
+    rng = np.random.default_rng(seed)
+    return _set_state(rng, b, e, n_handles, fill), _set_ring(
+        rng, b, k, n_handles, p_rm)
+
+
+@pytest.mark.parametrize("name,seed,b,k,e,n_handles,p_rm,fill", [
+    # removes and re-adds over a warm base: matches, steals of absent slots
+    ("steal", 5, 64, 8, 8, 10, 0.4, 0.6),
+    # more distinct adds than free slots: the ovf counter
+    ("ovf", 6, 32, 8, 8, 40, 0.05, 1.0),
+    # a tier-1 width (E = 32 spans a whole warp chunk in the kernel)
+    ("tier", 7, 24, 8, 32, 48, 0.3, 0.5),
+])
+def test_set_aw_fold_plain_matches_fold_and_pallas(name, seed, b, k, e,
+                                                   n_handles, p_rm, fill):
+    st, ring = _set_case(seed, b, k, e, n_handles, p_rm, fill)
+    got, applied = ck.set_aw_fold({f: _t(x) for f, x in st.items()},
+                                  *(_t(ring[n]) for n in RING_ORDER))
+    cfg = JaxConfig(n_shards=1, max_dcs=D, ops_per_key=k, set_slots=e)
+    want, want_applied = jax_fold.fold_batch(
+        jax_type("set_aw"), cfg, {f: jnp.asarray(x) for f, x in st.items()},
+        *(jnp.asarray(ring[n]) for n in RING_ORDER))
+    _assert_state(want, got, f"{name}:fold_batch:")
+    np.testing.assert_array_equal(np.asarray(want_applied), applied.numpy())
+    p_state, p_applied = pk.set_aw_fold(
+        st, *(ring[n] for n in RING_ORDER), block=b, interpret=True)
+    _assert_state(p_state, got, f"{name}:pallas:")
+    np.testing.assert_array_equal(np.asarray(p_applied), applied.numpy())
+    if name == "ovf":
+        assert (got["ovf"].numpy() > st["ovf"]).any()
+    if name == "steal":
+        changed = got["elems"].numpy() != st["elems"]
+        assert (changed & (st["elems"] != 0)).any()  # an occupied slot taken
+
+
+def test_wrappers_refuse_unsupported_devices():
+    x = torch.zeros((1, 1, D), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        ck.orset_presence(x, x, torch.zeros((1, 1), dtype=torch.int64,
+                                            device="meta"))
+    with pytest.raises(ValueError, match="operands on"):
+        ck.orset_presence(x, torch.zeros((1, 1, D), dtype=torch.int32),
+                          torch.zeros((1, 1), dtype=torch.int64))
+
+
+def test_fold_key_and_eager_fold_match_jax():
+    """The generic fold's single-key entry and the unconditional (overlay)
+    fold, against the JAX package's."""
+    from antidote_tpu_torch.crdt import get_type
+    from antidote_tpu_torch.materializer import fold
+
+    st, ring = _set_case(9, 16, 6, 8, 10, 0.4, 0.6)
+    cfg = JaxConfig(n_shards=1, max_dcs=D, ops_per_key=6, set_slots=8)
+    jty, tty = jax_type("set_aw"), get_type("set_aw")
+    one = {f: x[3] for f, x in st.items()}
+    r1 = [ring[n][3] for n in RING_ORDER]
+    want, w_applied = jax_fold.fold_key(
+        jty, cfg, {f: jnp.asarray(x) for f, x in one.items()},
+        *(jnp.asarray(x) for x in r1))
+    got, g_applied = fold.fold_key(tty, None, {f: _t(x) for f, x in
+                                               one.items()},
+                                   *(_t(x) for x in r1))
+    _assert_state(want, got, "fold_key:")
+    assert int(w_applied) == int(g_applied)
+    eager_in = [ring[n] for n in RING_ORDER[:5]]
+    want = jax_fold.eager_fold_batch(
+        jty, cfg, {f: jnp.asarray(x) for f, x in st.items()},
+        *(jnp.asarray(x) for x in eager_in))
+    got = fold.eager_fold_batch(tty, None, {f: _t(x) for f, x in st.items()},
+                                *(_t(x) for x in eager_in))
+    _assert_state(want, got, "eager:")
