@@ -1,5 +1,5 @@
 // Materializer kernels for Hopper (sm_90a): the OR-set presence test, the
-// counter_pn ring fold and the set_aw ring fold.
+// counter_pn ring fold, the set_aw ring fold and the stable-time column min.
 //
 // Built by antidote_tpu_torch/materializer/cuda_kernels.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
@@ -199,6 +199,45 @@ __global__ void set_aw_fold_kernel(
   }
 }
 
+// ---------------------------------------------------------------------------
+// stable_min
+//
+// Replaces pallas_kernels.py::_stable_min_kernel (stable_min): the
+// column-wise minimum of a clock matrix int32[N, D], the stable-time merge
+// over every member's per-shard clock rows.  INT32_MAX is the identity; the
+// output arrives filled with it, so N == 0 leaves it untouched.
+// Bound: bytes — N * D int32 read once against one compare each; at the
+// cluster path's 2048 x 4 (32 KiB) the launch itself dominates.  Design: a
+// grid-stride loop whose stride S is a multiple of D, so each thread stays
+// on one column while a warp's loads cover contiguous words; each block
+// then folds its threads' minima per column through shared memory (the
+// first thread of each column class scans its class), and issues one
+// integer atomicMin per column — exact and order-free.  Nothing of the TPU
+// kernel's (block, D) tiling or INT32_MAX padding is kept: the ragged tail
+// is just the loop's bound.
+// ---------------------------------------------------------------------------
+constexpr int kMinThreads = 256;
+
+__global__ void stable_min_kernel(const int32_t* __restrict__ clocks,
+                                  int32_t* __restrict__ out, int64_t n_elems,
+                                  int d, int64_t stride) {
+  __shared__ int32_t part[kMinThreads];
+  const int64_t t = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
+  int32_t m = INT32_MAX;
+  if (t < stride)
+    for (int64_t i = t; i < n_elems; i += stride) m = min(m, __ldg(clocks + i));
+  part[threadIdx.x] = m;
+  __syncthreads();
+  // threads tid < D of a block hold D distinct columns; each folds the
+  // block's other threads of its column (tid + k * D)
+  if ((int)threadIdx.x < d) {
+    for (int j = threadIdx.x + d; j < (int)blockDim.x; j += d)
+      m = min(m, part[j]);
+    const int64_t first = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
+    if (m != INT32_MAX && first < stride) atomicMin(out + first % d, m);
+  }
+}
+
 inline unsigned blocks_for(int64_t threads, int per_block) {
   return (unsigned)((threads + per_block - 1) / per_block);
 }
@@ -251,6 +290,21 @@ int set_aw_fold_launch(const void* elems0, const void* addvc0,
       (const int32_t*)base_vc, (const int32_t*)read_vc, (int64_t*)elems,
       (int32_t*)addvc, (int32_t*)rmvc, (int32_t*)ovf, (int32_t*)applied,
       n_keys, k, e, d, a_w, b_w);
+  return (int)cudaGetLastError();
+}
+
+// `out` must hold D int32 set to INT32_MAX; n_rows >= 1, d >= 1.
+int stable_min_launch(const void* clocks, void* out, long long n_rows, int d,
+                      void* stream) {
+  const int64_t n = n_rows * (int64_t)d;
+  // ~8 elements a thread, at most 8 blocks an SM, and at least D threads
+  int64_t blocks = blocks_for(n, kMinThreads * 8);
+  if (blocks > 132 * 8) blocks = 132 * 8;
+  if (blocks < blocks_for(d, kMinThreads)) blocks = blocks_for(d, kMinThreads);
+  const int64_t stride = blocks * kMinThreads / d * d;
+  stable_min_kernel<<<(unsigned)blocks, kMinThreads, 0,
+                      (cudaStream_t)stream>>>((const int32_t*)clocks,
+                                              (int32_t*)out, n, d, stride);
   return (int)cudaGetLastError();
 }
 

@@ -1,14 +1,16 @@
 """Hand-written Hopper kernels of the materializer hot path, and their plain
 PyTorch versions.
 
-Three kernels live in ``antidote_tpu_torch/csrc/materializer.cu``:
+Four kernels live in ``antidote_tpu_torch/csrc/materializer.cu``:
 
 * ``orset_presence`` — the OR-set presence test behind every ``set_aw``
   resolve (replaces ``pallas_kernels.py::_presence_kernel``);
 * ``counter_fold`` — the ``counter_pn`` ring fold, a masked int64 sum
   (replaces ``_counter_fold_kernel``);
 * ``set_aw_fold`` — the add-wins ring fold (replaces
-  ``_set_aw_fold_kernel``).
+  ``_set_aw_fold_kernel``);
+* ``stable_min`` — the column-wise min of a clock matrix, the stable-time
+  merge over a cluster's shard rows (replaces ``_stable_min_kernel``).
 
 Each wrapper dispatches on where its tensors live: CPU tensors run the
 plain version (the CPU tests' path and the kernels' oracle), CUDA tensors
@@ -39,7 +41,9 @@ SOURCE = _PKG / "csrc" / "materializer.cu"
 BUILD_DIR = _PKG / "_build"
 
 #: kernel name -> launches since the last reset
-LAUNCHES = {"orset_presence": 0, "counter_fold": 0, "set_aw_fold": 0}
+LAUNCHES = {"orset_presence": 0, "counter_fold": 0, "set_aw_fold": 0,
+            "stable_min": 0}
+INT32_MAX = 2**31 - 1
 
 _lib = None
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -91,6 +95,8 @@ def _load():
         lib.counter_fold_launch.argtypes = [_P] * 8 + [_LL, _I, _I, _P]
         lib.set_aw_fold_launch.restype = _I
         lib.set_aw_fold_launch.argtypes = [_P] * 16 + [_LL] + [_I] * 5 + [_P]
+        lib.stable_min_launch.restype = _I
+        lib.stable_min_launch.argtypes = [_P, _P, _LL, _I, _P]
         _lib = lib
     return _lib
 
@@ -248,3 +254,31 @@ def set_aw_fold(state, ops_a, ops_b, ops_vc, ops_origin, n_ops, base_vc,
                                                "ovf")),
                 applied.data_ptr(), b, k, e, d, a_w, b_w)
     return out, applied
+
+
+# ---------------------------------------------------------------------------
+# stable_min
+# ---------------------------------------------------------------------------
+def stable_min_plain(clocks):
+    if clocks.shape[0] == 0:
+        return torch.full((clocks.shape[1],), INT32_MAX, dtype=torch.int32,
+                          device=clocks.device)
+    return torch.amin(clocks, 0)
+
+
+def stable_min(clocks):
+    """Column-wise min of a clock matrix: ``clocks`` int32[N, D] →
+    int32[D].  INT32_MAX rows are the identity, and N = 0 gives all
+    INT32_MAX.  Exact for any int32 values and any D ≥ 1."""
+    if not _on_cuda("stable_min", clocks):
+        return stable_min_plain(clocks)
+    if clocks.dim() != 2 or clocks.shape[1] < 1:
+        raise ValueError(f"stable_min: clocks has shape "
+                         f"{tuple(clocks.shape)}, expected (N, D >= 1)")
+    n, d = clocks.shape
+    _expect("stable_min", "clocks", clocks, torch.int32, (n, d))
+    out = torch.full((d,), INT32_MAX, dtype=torch.int32, device=clocks.device)
+    if n:
+        _launch("stable_min", clocks.device, "stable_min_launch",
+                clocks.data_ptr(), out.data_ptr(), n, d)
+    return out

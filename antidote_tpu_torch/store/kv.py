@@ -23,10 +23,14 @@ import torch
 from antidote_tpu_torch.config import AntidoteConfig, resolve_device
 from antidote_tpu_torch.crdt import get_type
 from antidote_tpu_torch.crdt.blob import BlobStore
+from antidote_tpu_torch.materializer import cuda_kernels
 from antidote_tpu_torch.store.router import shard_batch, shard_of
 from antidote_tpu_torch.store.typed_table import TypedTable
 
 BoundObject = Tuple[Any, str, str]  # (key, type_name, bucket)
+
+#: below this many clock rows the host numpy min beats a device round trip
+_KERNEL_MIN_ROWS = 2048
 
 # ---------------------------------------------------------------------------
 # slot tiers — the overflow escape hatch
@@ -57,11 +61,26 @@ def scaled_cfg(cfg: AntidoteConfig, tier: int) -> AntidoteConfig:
     return dataclasses.replace(cfg, set_slots=cfg.set_slots * s)
 
 
-def stable_min_of(clock_rows: np.ndarray) -> np.ndarray:
+def stable_min_of(clock_rows: np.ndarray, device) -> np.ndarray:
     """Entry-wise min over a clock matrix int32[N, D] — the stable-time
-    merge.  A store's n_shards rows stay on the host; the ``stable_min``
-    kernel for many-member matrices comes with the cluster slice."""
-    return np.asarray(clock_rows).min(axis=0)
+    merge for any collection of per-shard / per-member clocks.  Below
+    ``_KERNEL_MIN_ROWS`` rows the host numpy min stays; larger matrices
+    (a cluster's members x shards) go to ``device`` and through the
+    ``stable_min`` wrapper: its kernel on a CUDA device, its plain version
+    on the CPU."""
+    clock_rows = np.asarray(clock_rows)
+    if clock_rows.shape[0] < _KERNEL_MIN_ROWS:
+        return clock_rows.min(axis=0)
+    x = torch.from_numpy(np.ascontiguousarray(clock_rows, np.int32))
+    return cuda_kernels.stable_min(x.to(device)).cpu().numpy()
+
+
+def freeze_key(key: Any) -> Any:
+    """Normalize a key after wire deserialization: msgpack returns tuples
+    as lists, but directory keys must be hashable."""
+    if isinstance(key, list):
+        return tuple(freeze_key(k) for k in key)
+    return key
 
 
 class ShardDirectory(dict):
@@ -452,7 +471,7 @@ class KVStore:
     # ------------------------------------------------------------------
     def stable_vc(self) -> np.ndarray:
         """DC-wide stable snapshot = entry-wise min of per-shard clocks."""
-        return stable_min_of(self.applied_vc)
+        return stable_min_of(self.applied_vc, self.device)
 
     def dc_max_vc(self) -> np.ndarray:
         """Entry-wise max of per-shard clocks — the freshest local view."""

@@ -9,7 +9,9 @@ Run from the root of a checkout on a machine with a CUDA card (one card;
 1. report the card (nvidia-smi name and power limit) and build the
    kernels of ``antidote_tpu_torch/csrc/`` with nvcc for sm_90a;
 2. hold each kernel against its plain PyTorch version on the card at the
-   main path's shapes (exact equality: integer work) and time both;
+   main path's shapes (exact equality: integer work) and time both; the
+   ``stable_min`` kernel also at the edge shapes (2047 rows, 1<<20 rows,
+   D in {1, 3, 8}, a ragged N, N = 0, all-INT32_MAX rows, negatives);
 3. drive the port's main path: populate a 1M-key ``set_aw`` table (3 adds
    per key, removes on 10% of the keys) through ``TypedTable.append``,
    serve 60 Zipf(1.0) batches of 16384 keys through ``read_resolved_flat``
@@ -17,14 +19,21 @@ Run from the root of a checkout on a machine with a CUDA card (one card;
    against a host oracle built from the op stream, then run an
    ``AntidoteNode`` workload on ``set_aw`` and ``counter_pn`` against a
    host model, historical reads included;
-4. print one JSON line per kernel record, the card line, and last the
+4. drive a 4-member DC (``ClusterMember``/``ClusterNode`` over localhost
+   RPC, 2048 shards, all on the card): populate 200,000 ``set_aw`` keys
+   from every member's coordinator, remove on 2,000 keys through the
+   owners' downstream, run mixed transactions from every coordinator
+   (every start launches ``stable_min`` on the 2048 x 4 clock matrix),
+   and check every key against a host model, at the stable snapshot and
+   at an older one;
+5. print one JSON line per kernel record, the card line, and last the
    ``{"ok": true, ...}`` line.
 
-The launch counts are reset just before the serve and just before the
-node workload, and read just after each; each must show the kernels that
+The launch counts are reset just before the serve, the node workload and
+the cluster, and read just after each; each must show the kernels that
 ``PATH_KERNELS`` names for it, and a kernel record's ``launches`` is the
-sum of the two.  Exits non-zero without a CUDA
-device, and outside a checkout of the repository.
+sum over the three.  Exits non-zero without a CUDA device, and outside a
+checkout of the repository.
 """
 
 from __future__ import annotations
@@ -43,16 +52,23 @@ REPLACES = {
     "orset_presence": "antidote_tpu/materializer/pallas_kernels.py:526",
     "counter_fold": "antidote_tpu/materializer/pallas_kernels.py:84",
     "set_aw_fold": "antidote_tpu/materializer/pallas_kernels.py:281",
+    "stable_min": "antidote_tpu/materializer/pallas_kernels.py:223",
 }
 # main-path shapes: serve batch, ring, clock lanes, set slots
 B, K, D, E = 16384, 16, 4, 16
 N_KEYS, ADDS_PER_KEY, POP_BATCH = 1_000_000, 3, 16384
 SERVE_BATCHES, HIST_EVERY = 60, 5
-# the kernels each part of phase 3 must launch: the serve resolves sets
-# (presence) and folds the historical batches; the node session folds a
-# set and a counter at older snapshots
+# the cluster: members, shards, keys, adds per key, updates per populate
+# txn, removed keys, mixed txns per coordinator
+CL_MEMBERS, CL_SHARDS, CL_KEYS, CL_ADDS = 4, 2048, 200_000, 3
+CL_TXN, CL_REMOVES, CL_MIXED = 1024, 2000, 256
+# the kernels each path must launch: the serve resolves sets (presence)
+# and folds the historical batches; the node session folds a set and a
+# counter at older snapshots; every cluster transaction start merges the
+# members' clock rows
 PATH_KERNELS = {"serve": ("orset_presence", "set_aw_fold"),
-                "node": ("counter_fold", "set_aw_fold")}
+                "node": ("counter_fold", "set_aw_fold"),
+                "cluster": ("stable_min",)}
 
 
 def log(msg: str) -> None:
@@ -235,14 +251,91 @@ def check_kernels(torch, ck, dev) -> dict:
     return out
 
 
-def profile_serve(torch, serve) -> dict:
-    """Where a serve batch's time goes: ``torch.profiler`` over one round
-    of HIST_EVERY batches (one historical).  Reports the device's busy
+def check_stable_min(torch, ck, dev) -> dict:
+    """The ``stable_min`` kernel against its plain version, bit for bit, on
+    the edge cases; timed at the cluster path's 2048 x 4 and at 1<<20 x 4
+    beside the plain version and one ``torch.amin`` call (the library's),
+    and at the path shape a whole ``stable_min_of`` round trip (host to
+    device, kernel, device to host) beside the host numpy minimum."""
+    from antidote_tpu_torch.store.kv import stable_min_of
+
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    rng = np.random.default_rng(5)
+    i32max = 2**31 - 1
+
+    def matrix(n, d, lo=-2**31, hi=i32max, max_share=0.3):
+        x = rng.integers(lo, hi, size=(n, d), dtype=np.int64)
+        x[rng.random(n) < max_share] = i32max  # identity rows
+        return torch.from_numpy(x.astype(np.int32)).to(dev)
+
+    cases = {
+        "path 2048x4": matrix(CL_SHARDS, D, 0, 1 << 20, 0.0),
+        "2047x4 (below the threshold)": matrix(CL_SHARDS - 1, D),
+        "1<<20x4": matrix(1 << 20, D),
+        "D=1": matrix(1000, 1), "D=3": matrix(777, 3), "D=8": matrix(3001, 8),
+        "ragged N=2125": matrix(2125, D),
+        "N=0": torch.empty((0, D), dtype=torch.int32, device=dev),
+        "all INT32_MAX": torch.full((4096, D), i32max, dtype=torch.int32,
+                                    device=dev),
+        "negative": matrix(5000, D, -2**31, 0, 0.0),
+    }
+    for name, x in cases.items():
+        got, want = ck.stable_min(x), ck.stable_min_plain(x)
+        torch.cuda.synchronize()
+        err = max_abs_err(torch, got, want)
+        host = x.cpu().numpy()
+        ref = host.min(axis=0) if len(host) else np.full(x.shape[1], i32max)
+        if err != 0 or not np.array_equal(got.cpu().numpy(), ref):
+            raise AssertionError(f"stable_min {name} differs: {err}")
+    log(f"stable_min: exact on {len(cases)} cases ({', '.join(cases)})")
+
+    def record(x):
+        n, d = x.shape
+        bms, by = bound_ms(4 * n * d + 4 * d, n * d)
+        return {
+            "max_abs_err": max_abs_err(torch, ck.stable_min(x),
+                                       ck.stable_min_plain(x)),
+            "ms": time_ms(torch, lambda: ck.stable_min(x), 50, flush),
+            "plain_ms": time_ms(torch, lambda: ck.stable_min_plain(x), 50,
+                                flush),
+            "bound_ms": bms, "bound_by": by,
+            "library_ms": time_ms(torch, lambda: torch.amin(x, 0), 50,
+                                  flush),
+            "shape": f"N={n} D={d}",
+        }
+
+    rec = record(cases["path 2048x4"])
+    rec["stress"] = record(cases["1<<20x4"])
+    # a whole stable-time merge, as a member runs it, beside the host
+    # numpy min of the same matrix: at the path's shape and at larger row
+    # counts, to place the crossover against the 2048-row threshold
+    sweep = {}
+    for n in (CL_SHARDS, 4 * CL_SHARDS, 16 * CL_SHARDS, 64 * CL_SHARDS):
+        mat = rng.integers(0, 1 << 20, size=(n, D)).astype(np.int32)
+        trips, host = [], []
+        for _ in range(100):
+            t0 = time.perf_counter()
+            stable_min_of(mat, dev)
+            t1 = time.perf_counter()
+            mat.min(axis=0)
+            host.append((time.perf_counter() - t1) * 1e3)
+            trips.append((t1 - t0) * 1e3)
+        sweep[n] = {"stable_min_of_ms": float(np.median(trips)),
+                    "host_numpy_min_ms": float(np.median(host))}
+    rec["stable_min_of_vs_host"] = sweep
+    log(f"stable_min: {rec}")
+    return rec
+
+
+def profile_window(torch, step, steps) -> dict:
+    """Where a path's time goes: ``torch.profiler`` over ``step(i)`` for i
+    in ``steps`` (one serve round of HIST_EVERY batches, one historical;
+    or a window of cluster transactions).  Reports the device's busy
     share of the wall time and the kernels with the most device time.
     The profiler's own host overhead inflates the wall time, so the busy
     share is a lower bound.  An observation, not a phase: a profiler that
     cannot start or read its trace is reported, not fatal; an error of a
-    serve batch ends the run like any other."""
+    step ends the run like any other."""
     from torch.profiler import ProfilerActivity, profile
 
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
@@ -251,8 +344,8 @@ def profile_serve(torch, serve) -> dict:
     except Exception as e:  # noqa: BLE001 — reported, see docstring
         return {"error": repr(e)}
     t0 = time.perf_counter()
-    for i in range(HIST_EVERY):
-        serve(i)
+    for i in steps:
+        step(i)
         torch.cuda.synchronize()
     wall_us = (time.perf_counter() - t0) * 1e6
     try:
@@ -368,7 +461,7 @@ def serve_main_path(torch, dev) -> dict:
     serve_launches = {n: ck.LAUNCHES[n] - before[n] for n in before}
     dispatches = {s: n - disp_before.get(s, 0)
                   for s, n in table.fold_dispatches.items()}
-    profile = profile_serve(torch, serve)
+    profile = profile_window(torch, serve, range(HIST_EVERY))
 
     # ---- check: a 2,000-key sample at both VCs against the op stream ----
     sample = rng.choice(N_KEYS, size=2000, replace=False).astype(np.int64)
@@ -527,6 +620,254 @@ def node_workload(dev) -> dict:
                                 for n, t in node.store.tables.items()}}
 
 
+# ---------------------------------------------------------------------------
+# phase 4: a 4-member DC on the card
+# ---------------------------------------------------------------------------
+def cluster_workload(torch, dev, n_shards=CL_SHARDS, n_keys=CL_KEYS,
+                     n_removes=CL_REMOVES, n_mixed=CL_MIXED) -> dict:
+    """Members over localhost RPC, one process, one card.  Populate: one
+    add per key per round, CL_ADDS rounds, in transactions of CL_TXN
+    updates from the coordinators in turn; then removes on ``n_removes``
+    keys (observed-remove: downstream at the owner).  Mixed: ``n_mixed``
+    transactions per coordinator (static cross-member adds,
+    read-then-write, removes, read-only at the stable snapshot), every
+    start checked to launch ``stable_min``; one first-committer-wins
+    abort across members.  Checks: the stable VC never passes the
+    sequencer's frontier nor claims a remote lane; every key equals the
+    host model at the stable snapshot, and the keys the mixed phase
+    touched equal it at the snapshot taken before that phase."""
+    from antidote_tpu_torch.api import AbortError
+    from antidote_tpu_torch.cluster import ClusterMember
+    from antidote_tpu_torch.config import AntidoteConfig
+    from antidote_tpu_torch.materializer import cuda_kernels as ck
+
+    cfg = AntidoteConfig(n_shards=n_shards, max_dcs=D, ops_per_key=K,
+                         snap_versions=2, set_slots=E, keys_per_table=128)
+    on_card = torch.device(dev).type == "cuda"
+    members = [ClusterMember(cfg, 0, i, CL_MEMBERS, device=dev)
+               for i in range(CL_MEMBERS)]
+    try:
+        for m in members:
+            for p in members:
+                if p is not m:
+                    m.connect(p.member_id, *p.address)
+        coords = [m.coordinator() for m in members]
+        seq = members[0].seq
+        S, Bk = "set_aw", "b"
+        rng = np.random.default_rng(17)
+        model = {k: set() for k in range(n_keys)}
+        fill, gcs = {}, {}
+        stats = {"aborts_retried": 0, "starts": 0, "stable_checks": 0}
+        last = np.zeros(D, np.int32)  # the client session's causal clock
+
+        def ring(key):  # ring fill per key: a full ring is GC'd first
+            f = fill.get(key, 0) + 1
+            if f > K:
+                gcs[key] = gcs.get(key, 0) + 1
+                f = 1
+            fill[key] = f
+
+        start_ms = []
+
+        def start(c):
+            before = ck.LAUNCHES["stable_min"]
+            t1 = time.perf_counter()
+            t = coords[c].start_transaction(clock=last)
+            start_ms.append((time.perf_counter() - t1) * 1e3)
+            stats["starts"] += 1
+            if on_card and ck.LAUNCHES["stable_min"] == before:
+                raise AssertionError("a transaction start did not launch "
+                                     "stable_min")
+            return t
+
+        def commit(c, t):
+            vc = coords[c].commit_transaction(t)
+            np.maximum(last, vc, out=last)
+            return vc
+
+        def static(c, ops):
+            """A static txn; a certification abort is retried (the
+            cluster coordinator certifies every write)."""
+            while True:
+                t = start(c)
+                try:
+                    coords[c].update_objects(ops, txn=t)
+                    return commit(c, t)
+                except AbortError:
+                    stats["aborts_retried"] += 1
+
+        def check_stable():
+            for m in members:
+                m.refresh_peer_clocks()
+            for m in members:
+                st = m.stable_vc()
+                if int(st[0]) > seq.counter or st[1:].any():
+                    raise AssertionError(
+                        f"member {m.member_id} stable {st} past the "
+                        f"frontier {seq.counter} or on a remote lane")
+                stats["stable_checks"] += 1
+
+        def check(c, keys, txn=None, want=None):
+            want = model if want is None else want
+            objs = [(int(k), S, Bk) for k in keys]
+            if txn is None:
+                t = start(c)
+                vals = coords[c].read_objects(objs, txn=t)
+                commit(c, t)
+            else:
+                vals = coords[c].read_objects(objs, txn=txn)
+            for k, v in zip(keys, vals):
+                if v != sorted(want[int(k)], key=repr):
+                    raise AssertionError(
+                        f"key {k}: {v!r} != model {sorted(want[int(k)])}")
+            return vals
+
+        # ---- populate ---------------------------------------------------
+        t0 = time.perf_counter()
+        n_txn = 0
+        for _ in range(CL_ADDS):
+            keys = rng.permutation(n_keys)
+            elems = rng.integers(0, 1000, n_keys)
+            for lo in range(0, n_keys, CL_TXN):
+                kk = keys[lo:lo + CL_TXN].tolist()
+                static(n_txn % CL_MEMBERS,
+                       [(k, S, Bk, ("add", int(elems[k]))) for k in kk])
+                n_txn += 1
+                for k in kk:
+                    model[k].add(int(elems[k]))
+                    ring(k)
+        add_s = time.perf_counter() - t0
+        rm_keys = rng.choice(n_keys, n_removes, replace=False).tolist()
+        for lo in range(0, n_removes, 100):
+            ops = [(k, S, Bk, ("remove", min(model[k])))
+                   for k in rm_keys[lo:lo + 100]]
+            static(n_txn % CL_MEMBERS, ops)
+            n_txn += 1
+            for k, _, _, (_, e) in ops:
+                model[k].discard(e)
+                ring(k)
+        populate_s = time.perf_counter() - t0
+        log(f"cluster populate: {n_txn} txns, "
+            f"{CL_ADDS * n_keys + n_removes} ops in {populate_s:.2f} s")
+        check_stable()
+        old_c = 1 % CL_MEMBERS
+        old = start(old_c)  # the snapshot before the mixed phase
+        old_model = {k: set(v) for k, v in model.items()}
+        old_gcs = dict(gcs)
+
+        # ---- mixed transactions from every coordinator -----------------
+        lat = []
+        touched = set()
+
+        def mixed(i):
+            c, kind = i % CL_MEMBERS, (i // CL_MEMBERS) % 4
+            t1 = time.perf_counter()
+            if kind == 0:  # cross-member static adds
+                kk = rng.choice(n_keys, 8, replace=False).tolist()
+                ee = rng.integers(1000, 2000, 8).tolist()
+                static(c, [(k, S, Bk, ("add", e)) for k, e in zip(kk, ee)])
+                for k, e in zip(kk, ee):
+                    model[k].add(e)
+            elif kind == 1:  # interactive read-then-write
+                kk = rng.choice(n_keys, 4, replace=False).tolist()
+                t = start(c)
+                vals = check(c, kk, txn=t)
+                ee = [2000 + len(v) for v in vals]
+                coords[c].update_objects(
+                    [(k, S, Bk, ("add", e)) for k, e in zip(kk, ee)], txn=t)
+                commit(c, t)
+                for k, e in zip(kk, ee):
+                    model[k].add(e)
+            elif kind == 2:  # observed-remove at the owners
+                kk = [k for k in rng.choice(n_keys, 3, replace=False).tolist()
+                      if model[k]]
+                ops = [(k, S, Bk, ("remove", max(model[k]))) for k in kk]
+                static(c, ops)
+                for k, _, _, (_, e) in ops:
+                    model[k].discard(e)
+            else:  # read-only at the stable snapshot
+                kk = rng.choice(n_keys, 16, replace=False).tolist()
+                check(c, kk)
+            lat.append((time.perf_counter() - t1) * 1e3)
+            if kind != 3:
+                for k in kk:
+                    touched.add(k)
+                    ring(k)
+
+        # the timed window holds the transactions only: the stable checks
+        # between them (gossip rounds) stay outside it
+        n_mixed_txns = n_mixed * CL_MEMBERS
+        start_ms.clear()
+        mixed_s = 0.0
+        for i in range(n_mixed_txns):
+            t0 = time.perf_counter()
+            mixed(i)
+            mixed_s += time.perf_counter() - t0
+            if i % 16 == 15:
+                check_stable()
+        start_p = [float(np.percentile(start_ms, q)) for q in (50, 99)]
+        window = range(n_mixed_txns, n_mixed_txns + 16)
+        profile = None
+        if on_card:
+            profile = profile_window(torch, mixed, window)
+        else:
+            for i in window:
+                mixed(i)
+        n_mixed_txns += len(window)
+        # one first-committer-wins abort across members: two coordinators
+        # read-then-write one key that a third member owns
+        key = next(k for k in range(n_keys)
+                   if k % n_shards % CL_MEMBERS == 2 % CL_MEMBERS)
+        ta, tb = start(0), start(1 % CL_MEMBERS)
+        for c, t in ((0, ta), (1 % CL_MEMBERS, tb)):
+            check(c, [key], txn=t)
+            coords[c].update_objects([(key, S, Bk, ("add", 5000 + c))],
+                                     txn=t)
+        commit(0, ta)
+        model[key].add(5000)
+        touched.add(key)
+        ring(key)
+        try:
+            commit(1 % CL_MEMBERS, tb)
+            raise AssertionError("the second racing txn committed")
+        except AbortError:
+            pass
+        log(f"cluster mixed: {n_mixed_txns + 2} txns; the racing txn "
+            "aborted")
+
+        # ---- checks: every key at the stable snapshot, the touched keys
+        # at the old one -------------------------------------------------
+        check_stable()
+        for lo in range(0, n_keys, 16384):
+            check(lo // 16384 % CL_MEMBERS,
+                  range(lo, min(lo + 16384, n_keys)))
+        hist = sorted(k for k in touched
+                      if gcs.get(k, 0) == old_gcs.get(k, 0))
+        check(old_c, hist, txn=old, want=old_model)
+        commit(old_c, old)
+        log(f"cluster: {n_keys} keys match the model; {len(hist)} keys "
+            "read at the older snapshot")
+        pct = lambda xs, q: float(np.percentile(xs, q))  # noqa: E731
+        return {
+            "members": CL_MEMBERS, "shards": n_shards, "keys": n_keys,
+            "populate_txns": n_txn, "populate_add_s": add_s,
+            "populate_s": populate_s,
+            "mixed_timed_txns": n_mixed * CL_MEMBERS, "mixed_s": mixed_s,
+            "mixed_txns_per_s": n_mixed * CL_MEMBERS / mixed_s,
+            "txn_p50_ms": pct(lat[:n_mixed * CL_MEMBERS], 50),
+            "txn_p99_ms": pct(lat[:n_mixed * CL_MEMBERS], 99),
+            "start_p50_ms": start_p[0], "start_p99_ms": start_p[1],
+            "profile": profile,
+            "historical_keys": len(hist), "sequencer_ts": seq.counter,
+            "resident_gib": (torch.cuda.memory_allocated(dev) / 2**30
+                             if on_card else None),
+            **stats,
+        }
+    finally:
+        for m in members:
+            m.close()
+
+
 def main() -> int:
     import torch
 
@@ -546,6 +887,7 @@ def main() -> int:
         if "registers" in line or "Compiling entry" in line:
             log(f"ptxas: {line.strip()}")
     records = check_kernels(torch, ck, dev)
+    records["stable_min"] = check_stable_min(torch, ck, dev)
     # each path's launches, counted from 0 just before it
     ck.reset_launches()
     serve = serve_main_path(torch, dev)
@@ -553,20 +895,23 @@ def main() -> int:
     ck.reset_launches()
     node = node_workload(dev)
     node["launches"] = dict(ck.LAUNCHES)
-    log(f"serve: {json.dumps(serve)}")
-    log(f"node: {json.dumps(node)}")
-    for path, res in (("serve", serve), ("node", node)):
+    ck.reset_launches()
+    cluster = cluster_workload(torch, dev)
+    cluster["launches"] = dict(ck.LAUNCHES)
+    paths = {"serve": serve, "node": node, "cluster": cluster}
+    for path, res in paths.items():
+        log(f"{path}: {json.dumps(res)}")
         missing = [n for n in PATH_KERNELS[path] if res["launches"][n] == 0]
         if missing:
             raise AssertionError(f"the {path} path never launched {missing}")
-    launches = {n: serve["launches"][n] + node["launches"][n]
+    launches = {n: sum(res["launches"][n] for res in paths.values())
                 for n in records}
     kernels = []
     for name, rec in records.items():
         kernels.append({"name": name, "route": "cuda", "source": SOURCE,
                         "replaces": REPLACES[name],
                         "launches": launches[name], **rec})
-    print(json.dumps({"serve": serve, "node": node}))
+    print(json.dumps(paths))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -72,8 +72,51 @@ def test_kernels_equal_plain_versions_on_the_card(dev, b, k, e):
     cargs = (torch.zeros(b, dtype=torch.int64, device=dev), deltas,
              ring_d[2], ring_d[4], ring_d[5], ring_d[6])
     assert _same(ck.counter_fold(*cargs), ck.counter_fold_plain(*cargs))
+    clocks = ring_d[2].reshape(-1, D)
+    assert _same(ck.stable_min(clocks), ck.stable_min_plain(clocks))
     torch.cuda.synchronize()
     assert all(ck.LAUNCHES[n] == before[n] + 1 for n in before)
+
+
+@pytest.mark.parametrize("n,d", [(2048, 4), (2047, 4), (1 << 20, 4),
+                                 (1000, 1), (777, 3), (3001, 8), (5, 300),
+                                 (0, 4)])
+def test_stable_min_equals_plain_on_the_card(dev, n, d):
+    rng = np.random.default_rng(n + d)
+    x = rng.integers(-2**31, 2**31 - 1, size=(n, d),
+                     dtype=np.int64).astype(np.int32)
+    x[rng.random(n) < 0.3] = 2**31 - 1  # identity rows
+    xd = torch.as_tensor(x, device=dev)
+    got = ck.stable_min(xd)
+    assert _same(got, ck.stable_min_plain(xd))
+    want = x.min(axis=0) if n else np.full(d, 2**31 - 1, np.int32)
+    np.testing.assert_array_equal(got.cpu().numpy(), want)
+    allmax = torch.full((n, d), 2**31 - 1, dtype=torch.int32, device=dev)
+    assert _same(ck.stable_min(allmax), ck.stable_min_plain(allmax))
+
+
+def test_cuda_cluster_stable_vc_launches_the_kernel(dev):
+    from antidote_tpu_torch.cluster import ClusterMember
+
+    cfg = AntidoteConfig(n_shards=2048, max_dcs=D, keys_per_table=16)
+    ms = [ClusterMember(cfg, 0, i, 2, device=dev) for i in range(2)]
+    ms[0].connect(1, *ms[1].address)
+    ms[1].connect(0, *ms[0].address)
+    try:
+        n0 = ms[0].coordinator()
+        vc = n0.update_objects([(1, "counter_pn", "b", ("increment", 3)),
+                                (2, "set_aw", "b", ("add", "x"))])
+        before = ck.LAUNCHES["stable_min"]
+        for m in ms:
+            m.refresh_peer_clocks()
+        vals, snap = ms[1].coordinator().read_objects(
+            [(1, "counter_pn", "b"), (2, "set_aw", "b")], clock=vc)
+        assert vals == [3, ["x"]]
+        assert [int(x) for x in ms[0].stable_vc()] == [1, 0, 0, 0]
+        assert ck.LAUNCHES["stable_min"] >= before + 2
+    finally:
+        for m in ms:
+            m.close()
 
 
 def test_cuda_table_reads_like_a_cpu_table(dev):

@@ -46,3 +46,13 @@ def test_importing_every_module_loads_no_jax():
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
+
+
+def test_sources_cover_every_subpackage():
+    """The walk above reaches every subpackage of the port, the cluster
+    slice's included."""
+    pkgs = {p.parent.name for p in SOURCES if p.parent != ROOT}
+    assert {"api", "clock", "cluster", "crdt", "materializer", "store",
+            "txn"} <= pkgs
+    assert {p.name for p in SOURCES if p.parent.name == "cluster"} >= {
+        "__init__.py", "rpc.py", "member.py", "coordinator.py"}

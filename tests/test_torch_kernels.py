@@ -215,3 +215,53 @@ def test_fold_key_and_eager_fold_match_jax():
     got = fold.eager_fold_batch(tty, None, {f: _t(x) for f, x in st.items()},
                                 *(_t(x) for x in eager_in))
     _assert_state(want, got, "eager:")
+
+
+# ---------------------------------------------------------------------------
+# stable_min
+# ---------------------------------------------------------------------------
+I32_MAX = 2**31 - 1
+
+
+def _clock_matrix(seed, n, d, all_max_rows=0.0, negative=False):
+    rng = np.random.default_rng(seed)
+    lo = -2**31 if negative else 0
+    x = rng.integers(lo, 2**31 - 1, size=(n, d),
+                     dtype=np.int64).astype(np.int32)
+    x[rng.random(n) < all_max_rows] = I32_MAX  # identity rows
+    return x
+
+
+@pytest.mark.parametrize("name,n,d,block,max_rows,neg", [
+    ("path", 2048, 4, 512, 0.1, False),       # the cluster path's shape
+    ("below-threshold", 2047, 4, 512, 0.0, False),
+    ("stress", 1 << 16, 4, 4096, 0.3, True),
+    ("d1", 1000, 1, 128, 0.0, True),
+    ("d3", 777, 3, 128, 0.2, False),          # N not a block multiple
+    ("d8", 3001, 8, 512, 0.5, True),
+    ("one-row", 1, 4, 8, 0.0, True),
+    ("all-max", 600, 4, 256, 1.0, False),
+])
+def test_stable_min_plain_matches_pallas(name, n, d, block, max_rows, neg):
+    x = _clock_matrix(n + d, n, d, max_rows, neg)
+    got = ck.stable_min(_t(x))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), x.min(axis=0), name)
+    want = pk._stable_min_call(jnp.asarray(x, jnp.int32), block, True)
+    np.testing.assert_array_equal(np.asarray(want), got.numpy(), name)
+    if name == "all-max":
+        assert (got.numpy() == I32_MAX).all()
+
+
+@pytest.mark.parametrize("d", [1, 4])
+def test_stable_min_plain_empty_is_identity(d):
+    """N = 0 gives all INT32_MAX, the rule of the JAX entry
+    (``pallas_kernels.stable_min``), whose kernel call never sees N = 0."""
+    got = ck.stable_min(torch.zeros((0, d), dtype=torch.int32))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), np.full(d, I32_MAX, np.int32))
+
+
+def test_stable_min_refuses_unsupported_devices():
+    with pytest.raises(ValueError, match="no kernel"):
+        ck.stable_min(torch.zeros((4, 4), dtype=torch.int32, device="meta"))
