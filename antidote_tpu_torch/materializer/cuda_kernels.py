@@ -44,6 +44,10 @@ BUILD_DIR = _PKG / "_build"
 LAUNCHES = {"orset_presence": 0, "counter_fold": 0, "set_aw_fold": 0,
             "stable_min": 0}
 INT32_MAX = 2**31 - 1
+#: stable_min runs as one block up to this many elements (the cluster
+#: path's 2048 x 4 among them), as a grid of at most this many blocks past it
+STABLE_MIN_ONE_BLOCK = 1 << 15
+STABLE_MIN_MAX_PARTS = 4096
 
 _lib = None
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -95,8 +99,12 @@ def _load():
         lib.counter_fold_launch.argtypes = [_P] * 8 + [_LL, _I, _I, _P]
         lib.set_aw_fold_launch.restype = _I
         lib.set_aw_fold_launch.argtypes = [_P] * 16 + [_LL] + [_I] * 5 + [_P]
+        lib.set_aw_fold_variant.restype = ctypes.c_char_p
+        lib.set_aw_fold_variant.argtypes = [_I, _I]
+        lib.set_aw_fold_variant_names.restype = ctypes.c_char_p
+        lib.set_aw_fold_variant_names.argtypes = []
         lib.stable_min_launch.restype = _I
-        lib.stable_min_launch.argtypes = [_P, _P, _LL, _I, _P]
+        lib.stable_min_launch.argtypes = [_P, _P, _P, _I, _LL, _I, _P]
         _lib = lib
     return _lib
 
@@ -214,6 +222,17 @@ def set_aw_fold_plain(state, ops_a, ops_b, ops_vc, ops_origin, n_ops,
                                ops_origin, n_ops, base_vc, read_vc)
 
 
+def set_aw_fold_variants() -> list:
+    """Names of the ``set_aw_fold`` kernel variants (builds the kernels)."""
+    return _load().set_aw_fold_variant_names().decode().split(",")
+
+
+def set_aw_fold_variant(e: int, d: int) -> str:
+    """The variant the CUDA wrapper launches for E slots and D clock lanes
+    (chosen by shape only; builds the kernels)."""
+    return _load().set_aw_fold_variant(e, d).decode()
+
+
 def set_aw_fold(state, ops_a, ops_b, ops_vc, ops_origin, n_ops, base_vc,
                 read_vc):
     """set_aw ring fold: ``state`` = {elems int64[B, E], addvc/rmvc
@@ -277,8 +296,19 @@ def stable_min(clocks):
                          f"{tuple(clocks.shape)}, expected (N, D >= 1)")
     n, d = clocks.shape
     _expect("stable_min", "clocks", clocks, torch.int32, (n, d))
-    out = torch.full((d,), INT32_MAX, dtype=torch.int32, device=clocks.device)
-    if n:
-        _launch("stable_min", clocks.device, "stable_min_launch",
-                clocks.data_ptr(), out.data_ptr(), n, d)
+    if not n:
+        return torch.full((d,), INT32_MAX, dtype=torch.int32,
+                          device=clocks.device)
+    # one launch that stores each output once: one block up to
+    # STABLE_MIN_ONE_BLOCK elements, else a grid whose blocks leave their
+    # column minima in a per-call partials buffer
+    out = torch.empty((d,), dtype=torch.int32, device=clocks.device)
+    parts = None
+    if n * d > STABLE_MIN_ONE_BLOCK:
+        parts = torch.empty((STABLE_MIN_MAX_PARTS * d,), dtype=torch.int32,
+                            device=clocks.device)
+    _launch("stable_min", clocks.device, "stable_min_launch",
+            clocks.data_ptr(), out.data_ptr(),
+            None if parts is None else parts.data_ptr(),
+            STABLE_MIN_MAX_PARTS, n, d)
     return out

@@ -10,8 +10,12 @@ Run from the root of a checkout on a machine with a CUDA card (one card;
    kernels of ``antidote_tpu_torch/csrc/`` with nvcc for sm_90a;
 2. hold each kernel against its plain PyTorch version on the card at the
    main path's shapes (exact equality: integer work) and time both; the
-   ``stable_min`` kernel also at the edge shapes (2047 rows, 1<<20 rows,
-   D in {1, 3, 8}, a ragged N, N = 0, all-INT32_MAX rows, negatives);
+   ``set_aw_fold`` kernel also on ``SET_AW_CASES`` (E from 8 to 1024, D
+   in {1, 3, 4, 8, 12}, K in {1, 16, 33}, an odd B, the edge rows of
+   ``materializer/fold_cases.py``), which between them reach every
+   variant its launcher can pick; the ``stable_min`` kernel also at the
+   edge shapes (2047 rows, 1<<20 rows, D in {1, 3, 8}, a ragged N, N = 0,
+   all-INT32_MAX rows, negatives, a misaligned view);
 3. drive the port's main path: populate a 1M-key ``set_aw`` table (3 adds
    per key, removes on 10% of the keys) through ``TypedTable.append``,
    serve 60 Zipf(1.0) batches of 16384 keys through ``read_resolved_flat``
@@ -62,6 +66,16 @@ SERVE_BATCHES, HIST_EVERY = 60, 5
 # txn, removed keys, mixed txns per coordinator
 CL_MEMBERS, CL_SHARDS, CL_KEYS, CL_ADDS = 4, 2048, 200_000, 3
 CL_TXN, CL_REMOVES, CL_MIXED = 1024, 2000, 256
+# set_aw_fold's edge cases (K, E, D) at an odd B: the tier widths, widths
+# that fill no whole segment of lanes, 1 to 12 clock lanes, rings of one
+# op and past one warp; together they reach every variant of the launcher
+SET_AW_EDGE_B = 999
+SET_AW_CASES = [
+    (16, 8, 4), (16, 16, 4), (16, 17, 4), (16, 40, 4), (16, 64, 4),
+    (16, 256, 4), (16, 16, 1), (16, 16, 3), (33, 40, 3), (16, 8, 8),
+    (16, 16, 8), (16, 17, 8), (16, 64, 8), (16, 256, 8), (1, 16, 4),
+    (33, 16, 4), (16, 1024, 4), (16, 16, 12),
+]
 # the kernels each path must launch: the serve resolves sets (presence)
 # and folds the historical batches; the node session folds a set and a
 # counter at older snapshots; every cluster transaction start merges the
@@ -158,6 +172,37 @@ def kernel_inputs(torch, dev, e: int, seed: int):
     return state, ring
 
 
+def check_set_aw_edges(torch, ck, dev, flush) -> dict:
+    """``set_aw_fold`` against its plain version on every case of
+    SET_AW_CASES; fails unless the cases reached every variant of the
+    launcher.  Returns variant -> {case, ms} (the kernel's time on that
+    case, L2 flushed)."""
+    from antidote_tpu_torch.materializer.fold_cases import set_aw_edge_batch
+
+    rng = np.random.default_rng(29)
+    seen = {}
+    for k, e, d in SET_AW_CASES:
+        state, ring = set_aw_edge_batch(rng, SET_AW_EDGE_B, k, e, d)
+        st = {f: torch.as_tensor(x, device=dev) for f, x in state.items()}
+        args = [torch.as_tensor(x, device=dev) for x in ring]
+        got = ck.set_aw_fold(st, *args)
+        want = ck.set_aw_fold_plain(st, *args)
+        torch.cuda.synchronize()
+        err = max_abs_err(torch, got, want)
+        variant = ck.set_aw_fold_variant(e, d)
+        if err != 0:
+            raise AssertionError(f"set_aw_fold K={k} E={e} D={d} "
+                                 f"({variant}) differs: {err}")
+        case = f"B={SET_AW_EDGE_B} K={k} E={e} D={d}"
+        ms = time_ms(torch, lambda: ck.set_aw_fold(st, *args), 5, flush)
+        seen.setdefault(variant, {"case": case, "ms": ms})
+        log(f"set_aw_fold {case} ({variant}): exact, {ms:.4f} ms")
+    missing = sorted(set(ck.set_aw_fold_variants()) - set(seen))
+    if missing:
+        raise AssertionError(f"set_aw_fold variants never checked: {missing}")
+    return seen
+
+
 def included(torch, ring):
     """bool[B, K]: the slots the inclusion test admits (what the folds'
     data needs)."""
@@ -204,9 +249,12 @@ def check_kernels(torch, ck, dev) -> dict:
         log(f"set_aw_fold E={e}: exact; {rec}")
         if e != E:
             # the tier-1 width: a sub-record of the same kernel
+            rec["variant"] = ck.set_aw_fold_variant(e, D)
             out["set_aw_fold"]["tier1"] = rec
             continue
         out["set_aw_fold"] = rec
+        rec["variant"] = ck.set_aw_fold_variant(e, D)
+        rec["variants"] = check_set_aw_edges(torch, ck, dev, flush)
         # orset_presence over the same state
         pres = (state["addvc"], state["rmvc"], state["elems"])
         err = max_abs_err(torch, ck.orset_presence(*pres),
@@ -278,6 +326,10 @@ def check_stable_min(torch, ck, dev) -> dict:
         "all INT32_MAX": torch.full((4096, D), i32max, dtype=torch.int32,
                                     device=dev),
         "negative": matrix(5000, D, -2**31, 0, 0.0),
+        # one word into an allocation: the grid takes 4-byte loads
+        "misaligned view": torch.cat([
+            torch.zeros(1, dtype=torch.int32, device=dev),
+            matrix(1 << 20, D).reshape(-1)])[1:].view(1 << 20, D),
     }
     for name, x in cases.items():
         got, want = ck.stable_min(x), ck.stable_min_plain(x)
@@ -884,7 +936,7 @@ def main() -> int:
     lib, report = ck.build()
     log(f"built {lib.name} in {time.perf_counter() - t0:.1f} s")
     for line in report.splitlines():
-        if "registers" in line or "Compiling entry" in line:
+        if any(w in line for w in ("registers", "Compiling entry", "spill")):
             log(f"ptxas: {line.strip()}")
     records = check_kernels(torch, ck, dev)
     records["stable_min"] = check_stable_min(torch, ck, dev)

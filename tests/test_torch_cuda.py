@@ -56,10 +56,26 @@ def _same(a, b):
     return torch.equal(a.cpu(), b.cpu())
 
 
-@pytest.mark.parametrize("b,k,e", [(1000, 16, 16), (300, 16, 64),
-                                   (77, 5, 40)])
-def test_kernels_equal_plain_versions_on_the_card(dev, b, k, e):
-    state, ring = _set_batch(np.random.default_rng(e), b, k, e)
+# random batches at the main path's widths, then (B, K, E, D) batches of
+# the edge rows (n_ops = 0, every op excluded, overflow, repeated adds and
+# removes of absent handles, negative handles): every tier width up to 256
+# and widths that fill no whole segment of lanes, 1 to 12 clock lanes,
+# rings of one op and past one warp, an odd B (a packed warp holds one key
+# alone)
+@pytest.mark.parametrize("b,k,e,d,edges", [
+    (1000, 16, 16, 4, False), (300, 16, 64, 4, False), (77, 5, 40, 4, False),
+    (1000, 16, 16, 4, True), (300, 16, 64, 4, True), (77, 5, 40, 4, True),
+    (999, 16, 8, 4, True), (999, 16, 17, 4, True), (201, 16, 256, 4, True),
+    (999, 16, 16, 1, True), (999, 16, 16, 3, True), (999, 16, 16, 8, True),
+    (301, 16, 64, 8, True), (999, 1, 16, 4, True), (999, 33, 16, 4, True),
+    (499, 33, 40, 3, True), (99, 16, 1024, 4, True), (199, 16, 16, 12, True),
+])
+def test_kernels_equal_plain_versions_on_the_card(dev, b, k, e, d, edges):
+    from antidote_tpu_torch.materializer.fold_cases import set_aw_edge_batch
+
+    rng = np.random.default_rng(e + d if edges else e)
+    state, ring = (set_aw_edge_batch(rng, b, k, e, d) if edges
+                   else _set_batch(rng, b, k, e))
     st_d = {f: torch.as_tensor(x, device=dev) for f, x in state.items()}
     ring_d = [torch.as_tensor(x, device=dev) for x in ring]
     before = dict(ck.LAUNCHES)
@@ -72,7 +88,7 @@ def test_kernels_equal_plain_versions_on_the_card(dev, b, k, e):
     cargs = (torch.zeros(b, dtype=torch.int64, device=dev), deltas,
              ring_d[2], ring_d[4], ring_d[5], ring_d[6])
     assert _same(ck.counter_fold(*cargs), ck.counter_fold_plain(*cargs))
-    clocks = ring_d[2].reshape(-1, D)
+    clocks = ring_d[2].reshape(-1, d)
     assert _same(ck.stable_min(clocks), ck.stable_min_plain(clocks))
     torch.cuda.synchronize()
     assert all(ck.LAUNCHES[n] == before[n] + 1 for n in before)
@@ -93,6 +109,20 @@ def test_stable_min_equals_plain_on_the_card(dev, n, d):
     np.testing.assert_array_equal(got.cpu().numpy(), want)
     allmax = torch.full((n, d), 2**31 - 1, dtype=torch.int32, device=dev)
     assert _same(ck.stable_min(allmax), ck.stable_min_plain(allmax))
+
+
+@pytest.mark.parametrize("n", [2048, 1 << 20])
+def test_stable_min_misaligned_view_on_the_card(dev, n):
+    """A view one word into its allocation: no 16-byte loads."""
+    rng = np.random.default_rng(n)
+    flat = rng.integers(-2**31, 2**31 - 1, size=n * D + 1,
+                        dtype=np.int64).astype(np.int32)
+    xd = torch.as_tensor(flat, device=dev)[1:].view(n, D)
+    assert xd.data_ptr() % 16 == 4
+    got = ck.stable_min(xd)
+    np.testing.assert_array_equal(got.cpu().numpy(),
+                                  flat[1:].reshape(n, D).min(axis=0))
+    assert _same(got, ck.stable_min_plain(xd))
 
 
 def test_cuda_cluster_stable_vc_launches_the_kernel(dev):

@@ -30,26 +30,31 @@ def _assert_state(want, got, msg=""):
                                       err_msg=f"{msg}{f}")
 
 
-def _set_state(rng, b, e, n_handles, fill=0.6):
-    elems = rng.integers(1, n_handles + 1, size=(b, e)).astype(np.int64)
-    elems *= 0x1_0000_0003  # handles with both 32-bit halves set
+def _handles(ids, neg=False):
+    """Handle ids -> int64 handles with both 32-bit halves set; with
+    ``neg`` the odd ids are negative."""
+    h = ids.astype(np.int64) * 0x1_0000_0003
+    return np.where(ids % 2 == 1, -h, h) if neg else h
+
+
+def _set_state(rng, b, e, n_handles, fill=0.6, d=D, neg=False):
+    elems = _handles(rng.integers(1, n_handles + 1, size=(b, e)), neg)
     elems[rng.random((b, e)) > fill] = 0
     elems[:, 0] = np.where(rng.random(b) < 0.2, 1 << 32, elems[:, 0])
     return {
         "elems": elems,
-        "addvc": rng.integers(0, 6, size=(b, e, D)).astype(np.int32),
-        "rmvc": rng.integers(0, 6, size=(b, e, D)).astype(np.int32),
+        "addvc": rng.integers(0, 6, size=(b, e, d)).astype(np.int32),
+        "rmvc": rng.integers(0, 6, size=(b, e, d)).astype(np.int32),
         "ovf": rng.integers(0, 3, size=(b,)).astype(np.int32),
     }
 
 
-def _set_ring(rng, b, k, n_handles, p_rm=0.4):
-    handles = rng.integers(1, n_handles + 1, size=(b, k)).astype(np.int64)
-    handles *= 0x1_0000_0003
+def _set_ring(rng, b, k, n_handles, p_rm=0.4, d=D, neg=False):
+    handles = _handles(rng.integers(1, n_handles + 1, size=(b, k)), neg)
     is_rm = (rng.random((b, k)) < p_rm).astype(np.int32)
-    obs = rng.integers(0, 7, size=(b, k, D)).astype(np.int32)
-    ops_vc = rng.integers(0, 8, size=(b, k, D)).astype(np.int32)
-    origin = rng.integers(0, D, size=(b, k)).astype(np.int32)
+    obs = rng.integers(0, 7, size=(b, k, d)).astype(np.int32)
+    ops_vc = rng.integers(0, 8, size=(b, k, d)).astype(np.int32)
+    origin = rng.integers(0, d, size=(b, k)).astype(np.int32)
     ops_vc[np.arange(b)[:, None], np.arange(k)[None, :], origin] = (
         rng.integers(1, 9, size=(b, k)))
     return {
@@ -58,8 +63,8 @@ def _set_ring(rng, b, k, n_handles, p_rm=0.4):
         "ops_vc": ops_vc,
         "ops_origin": origin,
         "n_ops": rng.integers(0, k + 1, size=(b,)).astype(np.int32),
-        "base_vc": rng.integers(0, 3, size=(b, D)).astype(np.int32),
-        "read_vc": rng.integers(3, 9, size=(b, D)).astype(np.int32),
+        "base_vc": rng.integers(0, 3, size=(b, d)).astype(np.int32),
+        "read_vc": rng.integers(3, 9, size=(b, d)).astype(np.int32),
     }
 
 
@@ -143,10 +148,16 @@ def test_counter_fold_plain_exact_past_the_int32_bound():
 # ---------------------------------------------------------------------------
 # set_aw_fold
 # ---------------------------------------------------------------------------
-def _set_case(seed, b, k, e, n_handles, p_rm, fill):
+def _set_case(seed, b, k, e, n_handles, p_rm, fill, d=D, neg=False):
     rng = np.random.default_rng(seed)
-    return _set_state(rng, b, e, n_handles, fill), _set_ring(
-        rng, b, k, n_handles, p_rm)
+    return (_set_state(rng, b, e, n_handles, fill, d, neg),
+            _set_ring(rng, b, k, n_handles, p_rm, d, neg))
+
+
+# the clock lanes and handle signs of the cases that are not D = 3 with
+# positive handles
+_SET_CASE_OPTS = {"d8": {"d": 8}, "d1-k33-e17-neg": {"d": 1, "neg": True},
+                  "e40-neg": {"neg": True}}
 
 
 @pytest.mark.parametrize("name,seed,b,k,e,n_handles,p_rm,fill", [
@@ -156,13 +167,22 @@ def _set_case(seed, b, k, e, n_handles, p_rm, fill):
     ("ovf", 6, 32, 8, 8, 40, 0.05, 1.0),
     # a tier-1 width (E = 32 spans a whole warp chunk in the kernel)
     ("tier", 7, 24, 8, 32, 48, 0.3, 0.5),
+    # eight clock lanes (the kernel's wider register variant)
+    ("d8", 11, 9, 4, 16, 10, 0.4, 0.6),
+    # one clock lane, a ring past one warp of ops, a width that fills no
+    # segment of lanes, negative handles
+    ("d1-k33-e17-neg", 12, 9, 33, 17, 12, 0.4, 0.6),
+    # two slots a lane in the kernel, negative handles
+    ("e40-neg", 13, 9, 16, 40, 30, 0.3, 0.5),
 ])
 def test_set_aw_fold_plain_matches_fold_and_pallas(name, seed, b, k, e,
                                                    n_handles, p_rm, fill):
-    st, ring = _set_case(seed, b, k, e, n_handles, p_rm, fill)
+    opts = _SET_CASE_OPTS.get(name, {})
+    st, ring = _set_case(seed, b, k, e, n_handles, p_rm, fill, **opts)
     got, applied = ck.set_aw_fold({f: _t(x) for f, x in st.items()},
                                   *(_t(ring[n]) for n in RING_ORDER))
-    cfg = JaxConfig(n_shards=1, max_dcs=D, ops_per_key=k, set_slots=e)
+    cfg = JaxConfig(n_shards=1, max_dcs=opts.get("d", D), ops_per_key=k,
+                    set_slots=e)
     want, want_applied = jax_fold.fold_batch(
         jax_type("set_aw"), cfg, {f: jnp.asarray(x) for f, x in st.items()},
         *(jnp.asarray(ring[n]) for n in RING_ORDER))
@@ -177,6 +197,8 @@ def test_set_aw_fold_plain_matches_fold_and_pallas(name, seed, b, k, e,
     if name == "steal":
         changed = got["elems"].numpy() != st["elems"]
         assert (changed & (st["elems"] != 0)).any()  # an occupied slot taken
+    if opts.get("neg"):
+        assert (got["elems"].numpy() < 0).any()
 
 
 def test_wrappers_refuse_unsupported_devices():
