@@ -18,7 +18,7 @@ import numpy as np
 import torch
 
 from antidote_tpu_torch.crdt.base import (CRDTType, Effect, TopCountResolved,
-                                          compact_top, warn_overflow)
+                                          warn_overflow)
 from antidote_tpu_torch.crdt.blob import EMPTY_HANDLE
 
 
@@ -105,13 +105,13 @@ class SetAW(TopCountResolved, CRDTType):
                 "ovf": ((), torch.int32)}
 
     def resolve(self, cfg, state):
-        """OR-set presence (the ``orset_presence`` kernel on a CUDA state,
-        its plain version on a CPU one) + top-K compaction."""
+        """OR-set presence + top-K compaction: one ``orset_presence`` kernel
+        launch on a CUDA state (``orset_resolve``), its plain version
+        (presence, then ``compact_top``) on a CPU one."""
         from antidote_tpu_torch.materializer import cuda_kernels
 
-        present = cuda_kernels.orset_presence(
-            state["addvc"], state["rmvc"], state["elems"])
-        top, count = compact_top(state["elems"], present, self.resolve_top)
+        top, count = cuda_kernels.orset_resolve(
+            state["elems"], state["addvc"], state["rmvc"], self.resolve_top)
         return {"top": top, "count": count, "ovf": state["ovf"]}
 
     def slot_capacity(self, cfg):

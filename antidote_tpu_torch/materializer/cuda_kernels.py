@@ -4,7 +4,9 @@ PyTorch versions.
 Four kernels live in ``antidote_tpu_torch/csrc/materializer.cu``:
 
 * ``orset_presence`` — the OR-set presence test behind every ``set_aw``
-  resolve (replaces ``pallas_kernels.py::_presence_kernel``);
+  resolve (replaces ``pallas_kernels.py::_presence_kernel``), as a mask
+  (``orset_presence``) or fused with the resolve's top-K compaction
+  (``orset_resolve``); both forms count as ``orset_presence`` launches;
 * ``counter_fold`` — the ``counter_pn`` ring fold, a masked int64 sum
   (replaces ``_counter_fold_kernel``);
 * ``set_aw_fold`` — the add-wins ring fold (replaces
@@ -94,9 +96,14 @@ def _load():
         lib.materializer_error_string.restype = ctypes.c_char_p
         lib.materializer_error_string.argtypes = [_I]
         lib.orset_presence_launch.restype = _I
-        lib.orset_presence_launch.argtypes = [_P, _P, _P, _P, _LL, _I, _P]
+        lib.orset_presence_launch.argtypes = [_P] * 4 + [_LL, _I, _I, _P]
+        lib.orset_resolve_launch.restype = _I
+        lib.orset_resolve_launch.argtypes = [_P] * 5 + [_LL] + [_I] * 3 + [_P]
         lib.counter_fold_launch.restype = _I
-        lib.counter_fold_launch.argtypes = [_P] * 8 + [_LL, _I, _I, _P]
+        lib.counter_fold_launch.argtypes = [_P] * 8 + [_LL] * 3 + [_I, _I,
+                                                                  _P]
+        lib.empty_launch.restype = _I
+        lib.empty_launch.argtypes = [_P]
         lib.set_aw_fold_launch.restype = _I
         lib.set_aw_fold_launch.argtypes = [_P] * 16 + [_LL] + [_I] * 5 + [_P]
         lib.set_aw_fold_variant.restype = ctypes.c_char_p
@@ -123,25 +130,35 @@ def _on_cuda(name: str, first: torch.Tensor, *rest: torch.Tensor) -> bool:
     return True
 
 
-def _expect(name: str, arg: str, t: torch.Tensor, dtype, shape) -> None:
+def _expect(name: str, arg: str, t: torch.Tensor, dtype, shape,
+            contiguous: bool = True) -> None:
     if t.dtype != dtype:
         raise TypeError(f"{name}: {arg} is {t.dtype}, expected {dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: {arg} has shape {tuple(t.shape)}, "
                          f"expected {tuple(shape)}")
-    if not t.is_contiguous():
+    if contiguous and not t.is_contiguous():
         raise ValueError(f"{name}: {arg} must be contiguous")
 
 
 def _launch(name: str, device, entry, *args) -> None:
+    """Launch ``entry`` on ``device``'s current stream and count it under
+    ``name`` (None: counted nowhere)."""
     lib = _load()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = getattr(lib, entry)(*args, stream)
     if err != 0:
         msg = lib.materializer_error_string(err).decode()
-        raise RuntimeError(f"{name}: kernel launch failed ({err}): {msg}")
-    LAUNCHES[name] += 1
+        raise RuntimeError(f"{entry}: kernel launch failed ({err}): {msg}")
+    if name is not None:
+        LAUNCHES[name] += 1
+
+
+def launch_floor(device) -> None:
+    """One launch of an empty kernel through the same ``ctypes`` path: the
+    floor under every kernel's time.  Counted by no path."""
+    _launch(None, device, "empty_launch")
 
 
 # ---------------------------------------------------------------------------
@@ -154,19 +171,54 @@ def orset_presence_plain(addvc, rmvc, elems):
 def orset_presence(addvc, rmvc, elems):
     """OR-set element presence: ``addvc``/``rmvc`` int32[B, E, D],
     ``elems`` int64[B, E] → bool[B, E], present ⟺ (∃d: addvc > rmvc) ∧
-    the slot holds a handle."""
+    the slot holds a handle (any of its 64 bits set)."""
     if not _on_cuda("orset_presence", addvc, rmvc, elems):
         return orset_presence_plain(addvc, rmvc, elems)
-    b, e, d = addvc.shape
-    _expect("orset_presence", "addvc", addvc, torch.int32, (b, e, d))
-    _expect("orset_presence", "rmvc", rmvc, torch.int32, (b, e, d))
-    _expect("orset_presence", "elems", elems, torch.int64, (b, e))
+    b, e, d = _orset_shape("orset_presence", addvc, rmvc, elems)
     out = torch.empty((b, e), dtype=torch.bool, device=addvc.device)
     if b * e:
         _launch("orset_presence", addvc.device, "orset_presence_launch",
                 addvc.data_ptr(), rmvc.data_ptr(), elems.data_ptr(),
-                out.data_ptr(), b * e, d)
+                out.data_ptr(), b, e, d)
     return out
+
+
+def orset_resolve_plain(elems, addvc, rmvc, top: int):
+    from antidote_tpu_torch.crdt.base import compact_top
+
+    return compact_top(elems, orset_presence_plain(addvc, rmvc, elems), top)
+
+
+def orset_resolve(elems, addvc, rmvc, top: int):
+    """The ``set_aw`` resolve: presence and top-K compaction in one launch.
+    ``elems`` int64[B, E], ``addvc``/``rmvc`` int32[B, E, D] → (the first
+    ``top`` present handles in slot order, zero-padded, int64[B, min(top,
+    E)]; the number present int32[B], also past ``top``), bit for bit
+    ``compact_top(elems, orset_presence(addvc, rmvc, elems), top)``."""
+    if not _on_cuda("orset_resolve", elems, addvc, rmvc):
+        return orset_resolve_plain(elems, addvc, rmvc, top)
+    b, e, d = _orset_shape("orset_resolve", addvc, rmvc, elems)
+    if top < 0:
+        raise ValueError(f"orset_resolve: top = {top} < 0")
+    t = min(top, e)
+    out = torch.empty((b, t), dtype=torch.int64, device=elems.device)
+    count = torch.empty((b,), dtype=torch.int32, device=elems.device)
+    if b:
+        _launch("orset_presence", elems.device, "orset_resolve_launch",
+                addvc.data_ptr(), rmvc.data_ptr(), elems.data_ptr(),
+                out.data_ptr(), count.data_ptr(), b, e, d, t)
+    return out, count
+
+
+def _orset_shape(name, addvc, rmvc, elems) -> tuple:
+    if addvc.dim() != 3:
+        raise ValueError(f"{name}: addvc has shape {tuple(addvc.shape)}, "
+                         "expected (B, E, D)")
+    b, e, d = addvc.shape
+    _expect(name, "addvc", addvc, torch.int32, (b, e, d))
+    _expect(name, "rmvc", rmvc, torch.int32, (b, e, d))
+    _expect(name, "elems", elems, torch.int64, (b, e))
+    return b, e, d
 
 
 # ---------------------------------------------------------------------------
@@ -186,8 +238,10 @@ def counter_fold_plain(base_cnt, deltas, ops_vc, n_ops, base_vc, read_vc):
 
 def counter_fold(base_cnt, deltas, ops_vc, n_ops, base_vc, read_vc):
     """counter_pn ring fold: ``base_cnt`` int64[B], ``deltas`` int64[B, K]
-    (effect lane 0), ``ops_vc`` int32[B, K, D], ``n_ops`` int32[B],
-    ``base_vc``/``read_vc`` int32[B, D] → (cnt int64[B], applied int32[B]).
+    (effect lane 0; any strides, so lane 0 of the ring's int64[B, K, A]
+    effect lanes passes as a view), ``ops_vc`` int32[B, K, D], ``n_ops``
+    int32[B], ``base_vc``/``read_vc`` int32[B, D] → (cnt int64[B], applied
+    int32[B]).
 
     The sum is int64 on both paths, so it equals ``fold.fold_batch`` for any
     delta; the JAX package's int32 kernel sum needed the
@@ -195,9 +249,13 @@ def counter_fold(base_cnt, deltas, ops_vc, n_ops, base_vc, read_vc):
     args = (base_cnt, deltas, ops_vc, n_ops, base_vc, read_vc)
     if not _on_cuda("counter_fold", *args):
         return counter_fold_plain(*args)
+    if ops_vc.dim() != 3:
+        raise ValueError(f"counter_fold: ops_vc has shape "
+                         f"{tuple(ops_vc.shape)}, expected (B, K, D)")
     b, k, d = ops_vc.shape
     _expect("counter_fold", "base_cnt", base_cnt, torch.int64, (b,))
-    _expect("counter_fold", "deltas", deltas, torch.int64, (b, k))
+    _expect("counter_fold", "deltas", deltas, torch.int64, (b, k),
+            contiguous=False)
     _expect("counter_fold", "ops_vc", ops_vc, torch.int32, (b, k, d))
     _expect("counter_fold", "n_ops", n_ops, torch.int32, (b,))
     _expect("counter_fold", "base_vc", base_vc, torch.int32, (b, d))
@@ -207,7 +265,8 @@ def counter_fold(base_cnt, deltas, ops_vc, n_ops, base_vc, read_vc):
     if b:
         _launch("counter_fold", deltas.device, "counter_fold_launch",
                 *(t.data_ptr() for t in args), cnt.data_ptr(),
-                applied.data_ptr(), b, k, d)
+                applied.data_ptr(), b, deltas.stride(0), deltas.stride(1),
+                k, d)
     return cnt, applied
 
 

@@ -262,8 +262,7 @@ class TypedTable:
         strategy = self._fold_strategy()
         if strategy == "kernel_counter":
             cnt, applied = cuda_kernels.counter_fold(
-                base["cnt"], opa[..., 0].contiguous(), opv, n_ops, base_vc,
-                read_vcs)
+                base["cnt"], opa[..., 0], opv, n_ops, base_vc, read_vcs)
             state = {"cnt": cnt}
         else:
             opb = self.ops_b[ss, rr, :kmax]

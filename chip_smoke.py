@@ -13,9 +13,13 @@ Run from the root of a checkout on a machine with a CUDA card (one card;
    ``set_aw_fold`` kernel also on ``SET_AW_CASES`` (E from 8 to 1024, D
    in {1, 3, 4, 8, 12}, K in {1, 16, 33}, an odd B, the edge rows of
    ``materializer/fold_cases.py``), which between them reach every
-   variant its launcher can pick; the ``stable_min`` kernel also at the
-   edge shapes (2047 rows, 1<<20 rows, D in {1, 3, 8}, a ragged N, N = 0,
-   all-INT32_MAX rows, negatives, a misaligned view);
+   variant its launcher can pick; ``orset_presence`` in both forms (the
+   mask, and ``orset_resolve`` fused with the top-K compaction) on
+   ``ORSET_CASES`` and ``counter_fold`` on ``COUNTER_CASES`` (edge rows,
+   strided deltas, misaligned views); the ``stable_min`` kernel also at
+   the edge shapes (2047 rows, 1<<20 rows, D in {1, 3, 8}, a ragged N,
+   N = 0, all-INT32_MAX rows, negatives, a misaligned view); and time an
+   empty kernel through the same launch path (the launch floor);
 3. drive the port's main path: populate a 1M-key ``set_aw`` table (3 adds
    per key, removes on 10% of the keys) through ``TypedTable.append``,
    serve 60 Zipf(1.0) batches of 16384 keys through ``read_resolved_flat``
@@ -36,7 +40,9 @@ Run from the root of a checkout on a machine with a CUDA card (one card;
 The launch counts are reset just before the serve, the node workload and
 the cluster, and read just after each; each must show the kernels that
 ``PATH_KERNELS`` names for it, and a kernel record's ``launches`` is the
-sum over the three.  Exits non-zero without a CUDA device, and outside a
+sum over the three.  The serve must launch ``orset_presence`` exactly
+once per ``SetAW.resolve``, and a resolve on a CUDA state must call no
+torch sort.  Exits non-zero without a CUDA device, and outside a
 checkout of the repository.
 """
 
@@ -76,6 +82,14 @@ SET_AW_CASES = [
     (16, 16, 8), (16, 17, 8), (16, 64, 8), (16, 256, 8), (1, 16, 4),
     (33, 16, 4), (16, 1024, 4), (16, 16, 12),
 ]
+# orset_presence's edge cases (E, D) at an odd B: the tier widths, widths
+# that fill no whole group of lanes, 1 to 8 clock lanes
+ORSET_EDGE_B = 999
+ORSET_CASES = [(8, 4), (16, 4), (17, 4), (40, 4), (64, 4), (256, 4),
+               (16, 1), (16, 3), (40, 3), (16, 8), (64, 8)]
+# counter_fold's edge cases (K, D): a ring of one op, the path's, one past
+# a warp
+COUNTER_CASES = [(1, 4), (16, 4), (33, 4), (16, 1), (16, 3), (33, 8)]
 # the kernels each path must launch: the serve resolves sets (presence)
 # and folds the historical batches; the node session folds a set and a
 # counter at older snapshots; every cluster transaction start merges the
@@ -102,14 +116,17 @@ def card_line() -> str:
 # ---------------------------------------------------------------------------
 def time_ms(torch, fn, reps: int, flush) -> float:
     """Median device time of ``fn`` (CUDA events around each call), with
-    the L2 cache flushed before every call.  A ~1 ms spin queued ahead of
-    the start event keeps the wrapper's host-side work (checks, output
-    allocation, the launch itself) out of the measured interval."""
+    the L2 cache flushed before every call: ``flush`` is a tensor to zero
+    (64 MiB: every line of the cache evicted, and left dirty) or a callable
+    that does the flushing.  A ~1 ms spin queued ahead of the start event
+    keeps the wrapper's host-side work (checks, output allocation, the
+    launch itself) out of the measured interval."""
+    do_flush = flush if callable(flush) else flush.zero_
     fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
-        flush.zero_()
+        do_flush()
         torch.cuda._sleep(2_000_000)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -251,26 +268,15 @@ def check_kernels(torch, ck, dev) -> dict:
             # the tier-1 width: a sub-record of the same kernel
             rec["variant"] = ck.set_aw_fold_variant(e, D)
             out["set_aw_fold"]["tier1"] = rec
+            out["orset_presence"]["tier1"] = orset_records(torch, ck, state,
+                                                           flush)
             continue
         out["set_aw_fold"] = rec
         rec["variant"] = ck.set_aw_fold_variant(e, D)
         rec["variants"] = check_set_aw_edges(torch, ck, dev, flush)
-        # orset_presence over the same state
-        pres = (state["addvc"], state["rmvc"], state["elems"])
-        err = max_abs_err(torch, ck.orset_presence(*pres),
-                          ck.orset_presence_plain(*pres))
-        if err != 0:
-            raise AssertionError(f"orset_presence differs: {err}")
-        bms, by = bound_ms(nbytes(*pres) + B * e, B * e * (2 * D + 2))
-        out["orset_presence"] = {
-            "max_abs_err": err,
-            "ms": time_ms(torch, lambda: ck.orset_presence(*pres), 20, flush),
-            "plain_ms": time_ms(torch, lambda: ck.orset_presence_plain(*pres),
-                                5, flush),
-            "bound_ms": bms, "bound_by": by, "library_ms": None,
-            "shape": f"B={B} E={e} D={D}",
-        }
-        log(f"orset_presence: exact; {out['orset_presence']}")
+        out["orset_presence"] = orset_records(torch, ck, state, flush)
+        out["orset_presence"]["edge_cases"] = check_orset_edges(torch, ck,
+                                                                dev)
         # counter_fold over the same ring, int64 deltas past the i32 bound
         g = torch.Generator(device=dev)
         g.manual_seed(3)
@@ -295,8 +301,158 @@ def check_kernels(torch, ck, dev) -> dict:
             "bound_ms": bms, "bound_by": by, "library_ms": None,
             "shape": f"B={B} K={K} D={D}, {n_inc} ops included",
         }
+        out["counter_fold"]["edge_cases"] = check_counter_edges(torch, ck,
+                                                                dev)
         log(f"counter_fold: exact; {out['counter_fold']}")
     return out
+
+
+def orset_records(torch, ck, state, flush) -> dict:
+    """``orset_presence`` (the mask form) at the state's shape, with its
+    ``orset_resolve`` sub-record (presence fused with the resolve's top-K
+    compaction), each exact against its plain version and timed beside it.
+    The sub-record's ``library_ms`` is the unfused sequence it replaces:
+    the mask kernel, then ``compact_top`` (argsort, where, gather, sum)."""
+    from antidote_tpu_torch.crdt import get_type
+    from antidote_tpu_torch.crdt.base import compact_top
+
+    top = get_type("set_aw").resolve_top
+    b, e = state["elems"].shape
+    pres = (state["addvc"], state["rmvc"], state["elems"])
+    err = max_abs_err(torch, ck.orset_presence(*pres),
+                      ck.orset_presence_plain(*pres))
+    if err != 0:
+        raise AssertionError(f"orset_presence E={e} differs: {err}")
+    ops = b * e * (2 * D + 2)
+    bms, by = bound_ms(nbytes(*pres) + b * e, ops)
+    rec = {
+        "max_abs_err": err,
+        "ms": time_ms(torch, lambda: ck.orset_presence(*pres), 20, flush),
+        "plain_ms": time_ms(torch, lambda: ck.orset_presence_plain(*pres),
+                            5, flush),
+        "bound_ms": bms, "bound_by": by, "library_ms": None,
+        "shape": f"B={b} E={e} D={D}",
+    }
+    res = (state["elems"], state["addvc"], state["rmvc"], top)
+    err = max_abs_err(torch, ck.orset_resolve(*res),
+                      ck.orset_resolve_plain(*res))
+    if err != 0:
+        raise AssertionError(f"orset_resolve E={e} differs: {err}")
+    calls = resolve_torch_calls(torch, state)
+    if any("sort" in c for c in calls):
+        raise AssertionError(f"SetAW.resolve on a CUDA state sorts: {calls}")
+    bms, by = bound_ms(nbytes(*pres) + b * (8 * min(top, e) + 4), ops)
+    rec["orset_resolve"] = {
+        "max_abs_err": err,
+        "ms": time_ms(torch, lambda: ck.orset_resolve(*res), 20, flush),
+        "plain_ms": time_ms(torch, lambda: ck.orset_resolve_plain(*res), 5,
+                            flush),
+        "bound_ms": bms, "bound_by": by,
+        "library_ms": time_ms(torch, lambda: compact_top(
+            state["elems"], ck.orset_presence(*pres), top), 20, flush),
+        "library": "orset_presence mask kernel + compact_top (unfused)",
+        "shape": f"B={b} E={e} D={D} top={top}",
+        "resolve_torch_calls": sorted(set(calls)),
+    }
+    log(f"orset_presence E={e}: both forms exact; {rec}")
+    return rec
+
+
+def resolve_torch_calls(torch, state) -> list:
+    """The names of the torch functions that one ``SetAW.resolve`` calls
+    on ``state`` (a sort among them would be the compaction's argsort)."""
+    from torch.overrides import TorchFunctionMode
+
+    from antidote_tpu_torch.crdt import get_type
+
+    seen = []
+
+    class Record(TorchFunctionMode):
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            seen.append(getattr(func, "__name__", repr(func)))
+            return func(*args, **(kwargs or {}))
+
+    with Record():
+        get_type("set_aw").resolve(None, state)
+    return seen
+
+
+def misaligned(torch, x):
+    """A copy of ``x`` as a view one element into its allocation (an
+    int32 view then sits 4 bytes past a 16-byte boundary)."""
+    flat = torch.cat([torch.zeros(1, dtype=x.dtype, device=x.device),
+                      x.reshape(-1)])
+    return flat[1:].view(x.shape)
+
+
+def check_orset_edges(torch, ck, dev) -> list:
+    """Both forms of ``orset_presence`` against their plain versions on
+    ORSET_CASES (``orset_edge_batch``: counts 0, top and past top, empty
+    slots with present clocks, the special handles, negatives), with top
+    0 and past E on the path's widths and misaligned clock views (the
+    scalar-load form) at D = 4.  Returns the cases checked."""
+    from antidote_tpu_torch.crdt import get_type
+    from antidote_tpu_torch.materializer.fold_cases import orset_edge_batch
+
+    top = get_type("set_aw").resolve_top
+    rng = np.random.default_rng(31)
+    done = []
+    for e, d in ORSET_CASES:
+        el, av, rv = (torch.as_tensor(x, device=dev)
+                      for x in orset_edge_batch(rng, ORSET_EDGE_B, e, d, top))
+        views = [("aligned", av, rv)]
+        tops = [top]
+        if d == 4 and e in (E, 4 * E):
+            views.append(("misaligned", misaligned(torch, av),
+                          misaligned(torch, rv)))
+            tops += [0, e + 3]
+        for view, a, r in views:
+            err = max_abs_err(torch, ck.orset_presence(a, r, el),
+                              ck.orset_presence_plain(a, r, el))
+            for t in tops:
+                err = max(err, max_abs_err(
+                    torch, ck.orset_resolve(el, a, r, t),
+                    ck.orset_resolve_plain(el, a, r, t)))
+            torch.cuda.synchronize()
+            case = f"B={ORSET_EDGE_B} E={e} D={d} {view} top={tops}"
+            if err != 0:
+                raise AssertionError(f"orset_presence {case} differs: {err}")
+            done.append(case)
+    log(f"orset_presence: both forms exact on {len(done)} edge cases")
+    return done
+
+
+def check_counter_edges(torch, ck, dev) -> list:
+    """``counter_fold`` against its plain version on COUNTER_CASES
+    (``counter_edge_batch``: n_ops 0 and past K, deltas past int32, all
+    excluded), with the deltas contiguous and as lane 0 of a [B, K, 3]
+    ring (a strided view), and at D = 4 with misaligned clock views (the
+    scalar-load form).  Returns the cases checked."""
+    from antidote_tpu_torch.materializer.fold_cases import counter_edge_batch
+
+    rng = np.random.default_rng(37)
+    done = []
+    for k, d in COUNTER_CASES:
+        args = [torch.as_tensor(x, device=dev)
+                for x in counter_edge_batch(rng, ORSET_EDGE_B, k, d)]
+        want = ck.counter_fold_plain(*args)
+        wide = torch.zeros(args[1].shape + (3,), dtype=torch.int64,
+                           device=dev)
+        wide[..., 0] = args[1]
+        forms = {"contiguous": args,
+                 "strided": args[:1] + [wide[..., 0]] + args[2:]}
+        if d == 4:
+            forms["misaligned"] = ([args[0], wide[..., 0]]
+                                   + [misaligned(torch, x) for x in args[2:]])
+        for form, a in forms.items():
+            err = max_abs_err(torch, ck.counter_fold(*a), want)
+            torch.cuda.synchronize()
+            case = f"B={ORSET_EDGE_B} K={k} D={d} {form}"
+            if err != 0:
+                raise AssertionError(f"counter_fold {case} differs: {err}")
+            done.append(case)
+    log(f"counter_fold: exact on {len(done)} edge cases")
+    return done
 
 
 def check_stable_min(torch, ck, dev) -> dict:
@@ -920,6 +1076,25 @@ def cluster_workload(torch, dev, n_shards=CL_SHARDS, n_keys=CL_KEYS,
             m.close()
 
 
+def count_resolves(fn):
+    """``fn()`` with every ``SetAW.resolve`` call counted: (its result,
+    the count)."""
+    from antidote_tpu_torch.crdt.sets import SetAW
+
+    orig = SetAW.resolve
+    calls = [0]
+
+    def counted(self, cfg, state):
+        calls[0] += 1
+        return orig(self, cfg, state)
+
+    SetAW.resolve = counted
+    try:
+        return fn(), calls[0]
+    finally:
+        SetAW.resolve = orig
+
+
 def main() -> int:
     import torch
 
@@ -940,10 +1115,19 @@ def main() -> int:
             log(f"ptxas: {line.strip()}")
     records = check_kernels(torch, ck, dev)
     records["stable_min"] = check_stable_min(torch, ck, dev)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    floor_ms = time_ms(torch, lambda: ck.launch_floor(dev), 50, flush)
+    log(f"launch floor (empty kernel, same path and timing): {floor_ms} ms")
     # each path's launches, counted from 0 just before it
     ck.reset_launches()
-    serve = serve_main_path(torch, dev)
+    serve, resolves = count_resolves(lambda: serve_main_path(torch, dev))
     serve["launches"] = dict(ck.LAUNCHES)
+    serve["set_aw_resolves"] = resolves
+    if serve["launches"]["orset_presence"] != resolves:
+        raise AssertionError(
+            f"the serve launched orset_presence "
+            f"{serve['launches']['orset_presence']} times in {resolves} "
+            "resolves (want one launch per resolve)")
     ck.reset_launches()
     node = node_workload(dev)
     node["launches"] = dict(ck.LAUNCHES)
@@ -964,7 +1148,7 @@ def main() -> int:
                         "replaces": REPLACES[name],
                         "launches": launches[name], **rec})
     print(json.dumps(paths))
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": kernels, "floor_ms": floor_ms}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""An earlier commit's ``set_aw_fold`` and ``stable_min`` against this
-tree's, timed in turns on one card.
+"""An earlier commit's ``orset_presence`` (the mask, and the mask followed
+by ``compact_top``: the unfused resolve) and ``counter_fold`` against this
+tree's, timed in turns on one card, under three states of the L2 cache.
 
     mkdir -p _proof/parent
     git archive <commit> antidote_tpu_torch | tar -x -C _proof/parent
@@ -9,18 +10,26 @@ tree's, timed in turns on one card.
 Run from the root of a checkout on a machine with a CUDA card.  The
 earlier commit's ``antidote_tpu_torch/materializer/cuda_kernels.py`` is
 loaded as a module of its own: it builds its own kernel source into its
-own ``_build/`` and its wrappers keep their own launches (an output fill,
-say), so the two are compared through the wrappers' signatures only.
-``set_aw_fold`` (``chip_smoke.kernel_inputs``: B=16384, K=16, D=4, E=16
-and 64) and ``stable_min`` (2048 x 4 and 1<<20 x 4) are first checked
-equal between the two, then timed in turns earlier, this, this, earlier
-with ``chip_smoke.time_ms`` (median device time, the L2 cache flushed
-before every launch), ``stable_min`` beside one ``torch.amin(x, 0)``.
-Then where this tree's ``set_aw_fold`` spends its time: the same state
-with no ring (n_ops = 0: the state loaded and stored only) and with a full
-ring of included ops, beside a clone of the state (the same state bytes
-moved by three copy launches), each with the L2 flushed and warm (the
-flush tensor cut to 16 bytes).  Prints one JSON line.
+own ``_build/`` and its wrappers keep their own launches, so the two are
+compared through the wrappers' signatures only.  At the main path's
+shapes (``chip_smoke.kernel_inputs``: B=16384, K=16, D=4, E=16 and 64)
+each pair is first checked equal, then timed in turns earlier, this,
+this, earlier with ``chip_smoke.time_ms`` (median device time), under
+each L2 state:
+
+* ``zeroed``: 64 MiB zeroed before every launch (``chip_smoke.py``'s
+  timing): the cache holds none of the inputs, and dirty lines that the
+  kernel's reads write back first;
+* ``read``: a read of the same 64 MiB: none of the inputs, clean lines;
+* ``warm``: no flush (a 16-byte tensor zeroed): the inputs in the cache.
+
+Beside them, under each state, an empty kernel through the same launch
+path (this tree's ``launch_floor``): the floor under every kernel's time.
+And for each function, the device time of its kernels alone (``device``:
+``torch.profiler``'s kernel durations per call, the flush's own kernels
+left out, so no launch or event overhead) and how many kernels it runs.
+The resolve pair is this tree's ``orset_resolve`` against the earlier
+mask kernel followed by ``crdt.base.compact_top``.  Prints one JSON line.
 """
 
 from __future__ import annotations
@@ -30,16 +39,15 @@ import json
 import sys
 from pathlib import Path
 
-import numpy as np
 import torch
 
 import chip_smoke as cs
+from antidote_tpu_torch.crdt import get_type
+from antidote_tpu_torch.crdt.base import compact_top
 from antidote_tpu_torch.materializer import cuda_kernels as ck
 
 REPS = 50
-FIELDS = ("elems", "addvc", "rmvc")
-RING = ("ops_a", "ops_b", "ops_vc", "ops_origin", "n_ops", "base_vc",
-        "read_vc")
+TOP = get_type("set_aw").resolve_top
 
 
 def earlier_kernels(root: str):
@@ -58,21 +66,80 @@ def turns(earlier_fn, new_fn, flush) -> dict:
             "turns_ms": t}
 
 
-def anatomy(state, ring, flushes) -> dict:
-    no_ring = dict(ring, n_ops=torch.zeros_like(ring["n_ops"]))
-    k = ring["ops_vc"].shape[1]
-    # every op of a full ring past base_vc (< 3) and within read_vc (>= 4)
-    all_in = dict(ring, n_ops=torch.full_like(ring["n_ops"], k),
-                  ops_vc=torch.full_like(ring["ops_vc"], 3))
+def device_time(fn, flush) -> dict:
+    """``fn``'s kernels as the profiler sees them, REPS calls each after
+    ``flush``: device ms and kernels per call.  The kernels that the flush
+    runs alone (profiled first) are left out."""
+    from torch.profiler import ProfilerActivity, profile
+
+    do_flush = flush if callable(flush) else flush.zero_
+
+    def kernels(with_fn) -> dict:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(REPS):
+                do_flush()
+                if with_fn:
+                    fn()
+            torch.cuda.synchronize()
+        return {e.key: (e.self_device_time_total, e.count)
+                for e in prof.key_averages()
+                if str(e.device_type).endswith("CUDA")}
+
+    fn()
+    # the profiler now and then loses a share of a run's device events: the
+    # flush's kernels are those of any of three runs of it alone, and a run
+    # of fn whose kernels per call come out fractional is taken again (at
+    # most three times)
+    flush_keys = set().union(*(kernels(False) for _ in range(3)))
+    for attempt in range(1, 4):
+        mine = {k: v for k, v in kernels(True).items()
+                if k not in flush_keys}
+        n = sum(c for _, c in mine.values())
+        if n and n % REPS == 0:
+            break
+    return {"ms": sum(t for t, _ in mine.values()) / REPS / 1e3,
+            "kernels": n / REPS, "attempts": attempt}
+
+
+def pairs(old, dev) -> dict:
+    """name -> (earlier fn, this tree's fn), each pair checked equal."""
     out = {}
-    for l2, fl in flushes.items():
-        for name, r in (("path", ring), ("no_ring", no_ring),
-                        ("all_included", all_in)):
-            args = [r[n] for n in RING]
-            out[f"{name}_{l2}_ms"] = cs.time_ms(
-                torch, lambda: ck.set_aw_fold(state, *args), REPS, fl)
-        out[f"state_clone_{l2}_ms"] = cs.time_ms(
-            torch, lambda: [state[f].clone() for f in FIELDS], REPS, fl)
+    for e in (cs.E, 4 * cs.E):
+        state, ring = cs.kernel_inputs(torch, dev, e, seed=e)
+        el, av, rv = state["elems"], state["addvc"], state["rmvc"]
+        pres = (av, rv, el)
+        if cs.max_abs_err(torch, ck.orset_presence(*pres),
+                          old.orset_presence(*pres)) != 0:
+            raise AssertionError(f"orset_presence E={e}: the builds differ")
+        out[f"orset_presence E={e}"] = (lambda p=pres: old.orset_presence(*p),
+                                        lambda p=pres: ck.orset_presence(*p))
+
+        def unfused(p=pres, h=el):
+            return compact_top(h, old.orset_presence(*p), TOP)
+
+        def fused(h=el, a=av, r=rv):
+            return ck.orset_resolve(h, a, r, TOP)
+
+        if cs.max_abs_err(torch, fused(), unfused()) != 0:
+            raise AssertionError(f"orset_resolve E={e}: differs from the "
+                                 "earlier presence + compact_top")
+        out[f"orset_resolve E={e}"] = (unfused, fused)
+        if e != cs.E:
+            continue
+        g = torch.Generator(device=dev)
+        g.manual_seed(3)
+        deltas = torch.randint(-2**40, 2**40, (cs.B, cs.K), generator=g,
+                               device=dev, dtype=torch.int64)
+        base = torch.randint(-2**40, 2**40, (cs.B,), generator=g, device=dev,
+                             dtype=torch.int64)
+        cargs = (base, deltas, ring["ops_vc"], ring["n_ops"],
+                 ring["base_vc"], ring["read_vc"])
+        if cs.max_abs_err(torch, ck.counter_fold(*cargs),
+                          old.counter_fold(*cargs)) != 0:
+            raise AssertionError("counter_fold: the builds differ")
+        out["counter_fold"] = (lambda: old.counter_fold(*cargs),
+                               lambda: ck.counter_fold(*cargs))
     return out
 
 
@@ -85,33 +152,20 @@ def main(argv) -> int:
         return 2
     dev = torch.device("cuda", 0)
     old = earlier_kernels(argv[1])
-    flushes = {
-        "flushed": torch.empty(64 << 20, dtype=torch.uint8, device=dev),
-        "warm": torch.empty(16, dtype=torch.uint8, device=dev)}
-    flush = flushes["flushed"]
-    res = {"card": cs.card_line(), "set_aw_fold": {}, "stable_min": {}}
-    for e in (cs.E, 4 * cs.E):
-        state, ring = cs.kernel_inputs(torch, dev, e, seed=e)
-        args = [ring[n] for n in RING]
-        if cs.max_abs_err(torch, ck.set_aw_fold(state, *args),
-                          old.set_aw_fold(state, *args)) != 0:
-            raise AssertionError(f"set_aw_fold E={e}: the builds differ")
-        res["set_aw_fold"][f"E={e}"] = {
-            "variant": ck.set_aw_fold_variant(e, cs.D),
-            **turns(lambda: old.set_aw_fold(state, *args),
-                    lambda: ck.set_aw_fold(state, *args), flush),
-            "anatomy": anatomy(state, ring, flushes)}
-    rng = np.random.default_rng(5)
-    for n in (cs.CL_SHARDS, 1 << 20):
-        x = torch.as_tensor(rng.integers(0, 1 << 20, (n, cs.D),
-                                         dtype=np.int32), device=dev)
-        if cs.max_abs_err(torch, ck.stable_min(x), old.stable_min(x)) != 0:
-            raise AssertionError(f"stable_min N={n}: the builds differ")
-        rec = turns(lambda: old.stable_min(x), lambda: ck.stable_min(x),
-                    flush)
-        rec["amin_ms"] = cs.time_ms(torch, lambda: torch.amin(x, 0), REPS,
-                                    flush)
-        res["stable_min"][f"{n}x{cs.D}"] = rec
+    big = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    small = torch.empty(16, dtype=torch.uint8, device=dev)
+    flushes = {"zeroed": big, "read": lambda: big.sum(), "warm": small}
+    res = {"card": cs.card_line(), "reps": REPS}
+    for name, (earlier_fn, new_fn) in pairs(old, dev).items():
+        res[name] = {l2: {**turns(earlier_fn, new_fn, fl),
+                          "earlier_device": device_time(earlier_fn, fl),
+                          "new_device": device_time(new_fn, fl)}
+                     for l2, fl in flushes.items()}
+    floor = lambda: ck.launch_floor(dev)  # noqa: E731
+    res["launch_floor"] = {
+        l2: {"ms": cs.time_ms(torch, floor, REPS, fl),
+             "device": device_time(floor, fl)}
+        for l2, fl in flushes.items()}
     print(json.dumps(res))
     return 0
 

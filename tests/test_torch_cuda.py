@@ -125,6 +125,109 @@ def test_stable_min_misaligned_view_on_the_card(dev, n):
     assert _same(got, ck.stable_min_plain(xd))
 
 
+def _misaligned(x):
+    """A copy of ``x`` as a view one element into its allocation."""
+    flat = torch.cat([torch.zeros(1, dtype=x.dtype, device=x.device),
+                      x.reshape(-1)])
+    return flat[1:].view(x.shape)
+
+
+# orset_edge_batch rows (counts 0, top and past top, empty slots with
+# present clocks, handles 1 << 32 and negatives) at the tier widths and
+# widths that fill no whole group of lanes, 1 to 8 clock lanes; both forms
+# with top 0, the resolve's 4 and past E
+@pytest.mark.parametrize("e,d", [(8, 4), (16, 4), (17, 4), (40, 4), (64, 4),
+                                 (256, 4), (16, 1), (16, 3), (40, 3), (16, 8),
+                                 (64, 8)])
+def test_orset_forms_equal_plain_on_the_card(dev, e, d):
+    from antidote_tpu_torch.materializer.fold_cases import orset_edge_batch
+
+    rng = np.random.default_rng(100 + e + d)
+    el, av, rv = (torch.as_tensor(x, device=dev)
+                  for x in orset_edge_batch(rng, 999, e, d))
+    before = ck.LAUNCHES["orset_presence"]
+    assert _same(ck.orset_presence(av, rv, el),
+                 ck.orset_presence_plain(av, rv, el))
+    for top in (0, 4, e + 3):
+        got = ck.orset_resolve(el, av, rv, top)
+        assert got[0].shape == (999, min(top, e))
+        assert _same(got, ck.orset_resolve_plain(el, av, rv, top))
+    torch.cuda.synchronize()
+    assert ck.LAUNCHES["orset_presence"] == before + 4
+
+
+@pytest.mark.parametrize("e", [16, 64])
+def test_orset_misaligned_views_on_the_card(dev, e):
+    """Clock rows 4 bytes past a 16-byte boundary: no 16-byte loads."""
+    from antidote_tpu_torch.materializer.fold_cases import orset_edge_batch
+
+    rng = np.random.default_rng(e)
+    el, av, rv = (torch.as_tensor(x, device=dev)
+                  for x in orset_edge_batch(rng, 1001, e, D))
+    av, rv = _misaligned(av), _misaligned(rv)
+    assert av.data_ptr() % 16 == 4 and rv.data_ptr() % 16 == 4
+    assert _same(ck.orset_presence(av, rv, el),
+                 ck.orset_presence_plain(av, rv, el))
+    assert _same(ck.orset_resolve(el, av, rv, 4),
+                 ck.orset_resolve_plain(el, av, rv, 4))
+
+
+# counter_edge_batch rows (n_ops 0 and past K, deltas past int32, every op
+# excluded): rings of one op, the path's 16 and one past a warp; the
+# deltas contiguous, as lane 0 of a [B, K, 3] ring, and (D = 4) with
+# misaligned clock views
+@pytest.mark.parametrize("k,d", [(1, 4), (16, 4), (33, 4), (16, 1), (16, 3),
+                                 (33, 8)])
+def test_counter_fold_forms_equal_plain_on_the_card(dev, k, d):
+    from antidote_tpu_torch.materializer.fold_cases import counter_edge_batch
+
+    rng = np.random.default_rng(200 + k + d)
+    args = [torch.as_tensor(x, device=dev)
+            for x in counter_edge_batch(rng, 999, k, d)]
+    want = ck.counter_fold_plain(*args)
+    wide = torch.zeros((999, k, 3), dtype=torch.int64, device=dev)
+    wide[..., 0] = args[1]
+    strided = wide[..., 0]
+    assert not strided.is_contiguous()
+    assert _same(ck.counter_fold(*args), want)
+    assert _same(ck.counter_fold(args[0], strided, *args[2:]), want)
+    if d == 4:
+        views = [_misaligned(x) for x in args[2:]]
+        assert views[0].data_ptr() % 16 == 4
+        assert _same(ck.counter_fold(args[0], strided, *views), want)
+
+
+def test_set_aw_resolve_on_the_card_is_one_launch_and_no_sort(dev):
+    """SetAW.resolve on a CUDA state: one orset_presence launch, no torch
+    sort, the CPU state's result."""
+    from torch.overrides import TorchFunctionMode
+
+    from antidote_tpu_torch.materializer.fold_cases import orset_edge_batch
+
+    rng = np.random.default_rng(3)
+    el, av, rv = orset_edge_batch(rng, 600, 16, D)
+    ty = get_type("set_aw")
+    states = [{"elems": torch.as_tensor(el, device=d),
+               "addvc": torch.as_tensor(av, device=d),
+               "rmvc": torch.as_tensor(rv, device=d),
+               "ovf": torch.zeros(600, dtype=torch.int32, device=d)}
+              for d in ("cpu", dev)]
+    seen = []
+
+    class Record(TorchFunctionMode):
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            seen.append(getattr(func, "__name__", repr(func)))
+            return func(*args, **(kwargs or {}))
+
+    before = ck.LAUNCHES["orset_presence"]
+    with Record():
+        got = ty.resolve(None, states[1])
+    assert ck.LAUNCHES["orset_presence"] == before + 1
+    assert not [f for f in seen if "sort" in f], seen
+    want = ty.resolve(None, states[0])
+    assert _same(got, want)
+
+
 def test_cuda_cluster_stable_vc_launches_the_kernel(dev):
     from antidote_tpu_torch.cluster import ClusterMember
 

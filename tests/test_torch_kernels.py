@@ -3,7 +3,8 @@ JAX package: the same seeded numpy inputs go through both.
 
 Oracles are the JAX entries that run on the CPU: ``fold.fold_batch``, the
 Pallas kernels in interpret mode through their trace-safe entries
-(``_presence_call``, ``counter_fold_local``, ``set_aw_fold``).  Every
+(``_presence_call``, ``counter_fold_local``, ``set_aw_fold``),
+``crdt.base.compact_top`` and ``SetAW.resolve``'s plain-XLA branch.  Every
 comparison is exact equality — all of this is integer work."""
 
 import jax.numpy as jnp
@@ -13,9 +14,12 @@ import torch
 
 from antidote_tpu.config import AntidoteConfig as JaxConfig
 from antidote_tpu.crdt import get_type as jax_type
+from antidote_tpu.crdt.base import compact_top as jax_compact_top
 from antidote_tpu.materializer import fold as jax_fold
 from antidote_tpu.materializer import pallas_kernels as pk
 from antidote_tpu_torch.materializer import cuda_kernels as ck
+from antidote_tpu_torch.materializer.fold_cases import (counter_edge_batch,
+                                                        orset_edge_batch)
 
 D = 3
 
@@ -87,6 +91,54 @@ def test_presence_plain_matches_pallas(b, e):
     np.testing.assert_array_equal(np.asarray(want) > 0, got.numpy())
 
 
+def _jax_presence(el, av, rv):
+    occ = (el | (el >> 32)).astype(np.int32)
+    return np.asarray(pk._presence_call(jnp.asarray(av), jnp.asarray(rv),
+                                        jnp.asarray(occ), 8, True)) > 0
+
+
+# orset_edge_batch rows: counts 0, the resolve's top and past it, empty
+# slots with present clocks, handles 1 << 32 / -(1 << 32) and negatives;
+# widths that fill no whole group of the kernel's lanes, 1 to 8 clock lanes
+@pytest.mark.parametrize("e,d", [(8, 4), (16, 4), (17, 3), (40, 1), (64, 8),
+                                 (16, 1), (64, 4), (40, 8)])
+def test_orset_resolve_plain_matches_pallas_and_compact_top(e, d):
+    rng = np.random.default_rng(40 + e + d)
+    el, av, rv = orset_edge_batch(rng, 60, e, d)
+    present = _jax_presence(el, av, rv)
+    np.testing.assert_array_equal(
+        present, ck.orset_presence(_t(av), _t(rv), _t(el)).numpy())
+    want_top, want_count = jax_compact_top(jnp.asarray(el),
+                                           jnp.asarray(present), 4)
+    top, count = ck.orset_resolve(_t(el), _t(av), _t(rv), 4)
+    assert top.dtype == torch.int64 and count.dtype == torch.int32
+    np.testing.assert_array_equal(np.asarray(want_top), top.numpy())
+    np.testing.assert_array_equal(np.asarray(want_count), count.numpy())
+    c = count.numpy()
+    assert {0, 4} <= set(c.tolist()) and (c > 4).any()
+    assert (top.numpy() < 0).any() and (top.numpy() == 1 << 32).any()
+
+
+@pytest.mark.parametrize("e,d", [(16, 4), (40, 3)])
+def test_set_aw_resolve_matches_jax_plain_branch(e, d):
+    """The port's SetAW.resolve on a CPU state (presence, then
+    compact_top) against the JAX SetAW.resolve without Pallas."""
+    from antidote_tpu_torch.crdt import get_type
+
+    rng = np.random.default_rng(50 + e)
+    el, av, rv = orset_edge_batch(rng, 48, e, d)
+    ovf = rng.integers(0, 3, 48).astype(np.int32)
+    cfg = JaxConfig(n_shards=1, max_dcs=d, set_slots=e)
+    assert not cfg.use_pallas
+    state = {"elems": el, "addvc": av, "rmvc": rv, "ovf": ovf}
+    want = jax_type("set_aw").resolve(
+        cfg, {f: jnp.asarray(x) for f, x in state.items()})
+    got = get_type("set_aw").resolve(None, {f: _t(x)
+                                           for f, x in state.items()})
+    assert set(got) == set(want) == {"top", "count", "ovf"}
+    _assert_state(want, got, "resolve:")
+
+
 # ---------------------------------------------------------------------------
 # counter_fold
 # ---------------------------------------------------------------------------
@@ -143,6 +195,52 @@ def test_counter_fold_plain_exact_past_the_int32_bound():
     np.testing.assert_array_equal(want_cnt, cnt.numpy())
     np.testing.assert_array_equal(want_applied, applied.numpy())
     assert (applied.numpy() == 8).all()
+
+
+# counter_edge_batch rows: n_ops 0 and past K, every slot included with
+# deltas past the int32 range, every op excluded; rings of one op, the
+# path's and one past a warp of lanes
+@pytest.mark.parametrize("k,d", [(1, 4), (16, 4), (33, 3)])
+def test_counter_fold_plain_strided_view_matches_contiguous_and_fold(k, d):
+    rng = np.random.default_rng(60 + k)
+    base, deltas, ops_vc, n_ops, base_vc, read_vc = counter_edge_batch(
+        rng, 40, k, d)
+    assert np.abs(deltas).max() > 2**31 and (n_ops == 0).any()
+    assert (n_ops > k).any()
+    wide = np.zeros((40, k, 3), np.int64)
+    wide[..., 0] = deltas
+    strided = _t(wide)[..., 0]
+    assert not strided.is_contiguous()
+    rest = [_t(x) for x in (ops_vc, n_ops, base_vc, read_vc)]
+    got = ck.counter_fold(_t(base), strided, *rest)
+    contiguous = ck.counter_fold(_t(base), _t(deltas), *rest)
+    cfg = JaxConfig(n_shards=1, max_dcs=d, ops_per_key=max(k, 2))
+    want, want_applied = jax_fold.fold_batch(
+        jax_type("counter_pn"), cfg, {"cnt": jnp.asarray(base)},
+        jnp.asarray(deltas[..., None]), jnp.zeros((40, k, 1), jnp.int32),
+        jnp.asarray(ops_vc), jnp.zeros((40, k), jnp.int32),
+        jnp.asarray(n_ops), jnp.asarray(base_vc), jnp.asarray(read_vc))
+    for g in (got, contiguous):
+        np.testing.assert_array_equal(np.asarray(want["cnt"]), g[0].numpy())
+        np.testing.assert_array_equal(np.asarray(want_applied),
+                                      g[1].numpy())
+
+
+def test_orset_resolve_and_counter_fold_refuse_unsupported_devices():
+    m = dict(device="meta")
+    clocks = torch.zeros((1, 2, D), dtype=torch.int32, **m)
+    elems = torch.zeros((1, 2), dtype=torch.int64, **m)
+    with pytest.raises(ValueError, match="no kernel"):
+        ck.orset_resolve(elems, clocks, clocks, 4)
+    with pytest.raises(ValueError, match="operands on"):
+        ck.orset_resolve(torch.zeros((1, 2), dtype=torch.int64), clocks,
+                         clocks, 4)
+    ring = torch.zeros((1, 2, D), dtype=torch.int32, **m)
+    row = torch.zeros((1, D), dtype=torch.int32, **m)
+    with pytest.raises(ValueError, match="no kernel"):
+        ck.counter_fold(torch.zeros(1, dtype=torch.int64, **m),
+                        torch.zeros((1, 2), dtype=torch.int64, **m), ring,
+                        torch.zeros(1, dtype=torch.int32, **m), row, row)
 
 
 # ---------------------------------------------------------------------------
