@@ -5,10 +5,14 @@ coordinates any transaction, routing per-key work to shard owners over the
 intra-DC RPC (ownership never moves in this slice: the re-route after a
 ``not_owner`` reply comes with live join/leave):
 
-  reads      -> owner's read at the snapshot VC
+  reads      -> owner's read at the snapshot VC; maps assemble from one
+                membership read per batch and one field read per nesting
+                level
   downstream -> stateless ops generate locally; state-dependent ops
-                (observed-remove sets) generate at the owner against its
-                replica
+                (observed-remove sets) and escrow spends (counter_b
+                decrements, transfers) generate at the owner against its
+                replica; map ops expand into membership and field
+                updates first
   commit     -> prepare at every involved owner (certify + key lock),
                 then one sequencer timestamp (member 0), then commit
                 fan-out; a failed prepare releases the prepared keys
@@ -30,7 +34,8 @@ import numpy as np
 from antidote_tpu_torch.cluster.member import (ClusterMember, _freeze_op,
                                                overlay_digest, unwire_value)
 from antidote_tpu_torch.cluster.rpc import eff_from_wire, eff_to_wire
-from antidote_tpu_torch.crdt import get_type, is_type
+from antidote_tpu_torch.crdt import COMPOSITE_NAMES, get_type, is_type
+from antidote_tpu_torch.crdt import maps as maps_mod
 from antidote_tpu_torch.store.kv import Effect, freeze_key, key_to_shard
 from antidote_tpu_torch.txn.manager import AbortError
 
@@ -119,8 +124,18 @@ class ClusterNode:
     def _read(self, objects, txn: ClusterTxn) -> list:
         assert txn.active
         out: List[Any] = [None] * len(objects)
+        comp = [(i, (freeze_key(k), t, b))
+                for i, (k, t, b) in enumerate(objects)
+                if t in COMPOSITE_NAMES]
+        if comp:
+            vals = maps_mod.assemble([o for _, o in comp],
+                                     lambda objs: self._read(objs, txn))
+            for (i, _), v in zip(comp, vals):
+                out[i] = v
         by_owner: Dict[Optional[int], list] = {}
         for i, (key, t, bucket) in enumerate(objects):
+            if t in COMPOSITE_NAMES:
+                continue
             key = freeze_key(key)
             by_owner.setdefault(self._owner_of(key, bucket), []).append(
                 (i, (key, t, bucket)))
@@ -196,9 +211,23 @@ class ClusterNode:
             ty = get_type(type_name)
             if not ty.is_operation(op):
                 raise TypeError(f"invalid operation {op!r} for {type_name}")
-            if not ty.require_state_downstream(op):
+            if type_name in COMPOSITE_NAMES:
+                def read_field_value(fk, ft, bucket=bucket):
+                    return self._read([(fk, ft, bucket)], txn)[0]
+
+                self._update(maps_mod.expand_update(
+                    key, type_name, bucket, op, read_field_value), txn)
+                continue
+            seq = len(txn.pend_idx.get((key, bucket), ()))
+            # counter_b decrements and transfers are escrow-guarded at the
+            # key's owner although their downstream needs no state
+            guarded_b = (type_name == "counter_b"
+                         and op[0] in ("decrement", "transfer"))
+            if not (ty.require_state_downstream(op) or guarded_b):
                 blobs = self.member.node.store.blobs
                 for a, b, refs in ty.downstream(op, None, blobs, self.cfg):
+                    a, b = ty.stamp_op_seq(a, b, seq)
+                    seq += 1
                     txn.add_effect(Effect(key, type_name, bucket, a, b,
                                           refs))
                 continue
@@ -230,7 +259,11 @@ class ClusterNode:
                                             [overlay])
                 break
             for w in wires:
-                txn.add_effect(eff_from_wire(w))
+                eff = eff_from_wire(w)
+                eff.eff_a, eff.eff_b = ty.stamp_op_seq(eff.eff_a, eff.eff_b,
+                                                       seq)
+                seq += 1
+                txn.add_effect(eff)
 
     # ------------------------------------------------------------------
     def commit_transaction(self, txn: ClusterTxn) -> np.ndarray:

@@ -32,14 +32,15 @@ from collections import OrderedDict
 from typing import Any, Dict, Tuple
 
 import numpy as np
-import torch
 
 from antidote_tpu_torch.api.node import AntidoteNode
 from antidote_tpu_torch.cluster.rpc import RpcClient, RpcServer, eff_from_wire
 from antidote_tpu_torch.config import AntidoteConfig
 from antidote_tpu_torch.crdt import get_type
-from antidote_tpu_torch.store.kv import (Effect, _pad_lane, freeze_key,
-                                         key_to_shard, stable_min_of)
+from antidote_tpu_torch.store.kv import (Effect, freeze_key, key_to_shard,
+                                         stable_min_of)
+from antidote_tpu_torch.txn.bcounter import NoPermissionsError
+from antidote_tpu_torch.txn.manager import host_state, overlay_effects
 
 #: the RPC surface of a member in this slice
 HANDLERS = ("m_read_values", "m_downstream", "m_prepare", "m_commit",
@@ -256,8 +257,9 @@ class ClusterMember:
     def _overlay_state(self, key, type_name, bucket, state, read_vc,
                        overlay) -> dict:
         """Fold a txn's pending effect wires onto a host state (the
-        overlay at the owner, on the store's device through the type's
-        batched apply).  The tentative own-lane stamp is read_vc[own]+1 =
+        overlay at the owner: ``overlay_effects``, on the store's device
+        through the type's batched apply, or on the host for a type with
+        a host twin).  The tentative own-lane stamp is read_vc[own]+1 =
         snapshot+1 — the value m_commit's restamp rewrites to the real
         commit ts.
 
@@ -267,8 +269,6 @@ class ClusterMember:
         yet.  An owner without the cached prefix raises
         ``overlay-resync`` and the coordinator re-sends in full."""
         store = self.node.store
-        dev = store.device
-        ty = get_type(type_name)
         ent = store.locate(key, type_name, bucket, create=False)
         cfg_k = store.table(ent[0]).cfg if ent else self.cfg
         tvc = np.asarray(read_vc, np.int32).copy()
@@ -283,35 +283,27 @@ class ClusterMember:
         n_total = n0 + len(wires)
         if cached is not None and cached[1] == n_total and cached[2] == nd:
             # idempotent re-send (the same object twice in one batch)
-            return {f: x[0].cpu().numpy() for f, x in cached[0].items()}
-        if n0 == 0:
-            state = {f: torch.as_tensor(x, device=dev)[None]
-                     for f, x in state.items()}
-        elif cached is not None and cached[1] == n0 and cached[2] == d0:
+            return host_state(cached[0])
+        if n0 != 0:
+            if cached is None or cached[1:3] != (n0, d0):
+                raise RuntimeError(
+                    "overlay-resync: owner has no matching overlay prefix "
+                    f"for {key!r} (have "
+                    f"{None if cached is None else cached[1:3]}, want "
+                    f"({n0}, {d0}))")
             state = cached[0]
-        else:
-            raise RuntimeError(
-                "overlay-resync: owner has no matching overlay prefix for "
-                f"{key!r} (have {None if cached is None else cached[1:3]}, "
-                f"want ({n0}, {d0}))")
-        tvc_t = torch.as_tensor(tvc, device=dev)[None]
-        origin = torch.full((1,), self.dc_id, dtype=torch.int32, device=dev)
-        for w in wires:
-            eff = eff_from_wire(w)
+        effs = [eff_from_wire(w) for w in wires]
+        for eff in effs:
             # the txn's blob payloads travel with its effects; the owner
             # interns them before value decode resolves
             for h, data in eff.blob_refs:
                 store.blobs.intern_bytes(h, data)
-            a = _pad_lane(eff.eff_a, ty.eff_a_width(cfg_k), np.int64)
-            b = _pad_lane(eff.eff_b, ty.eff_b_width(cfg_k), np.int32)
-            state = ty.apply(cfg_k, state,
-                             torch.tensor(a, device=dev)[None],
-                             torch.tensor(b, device=dev)[None],
-                             tvc_t, origin)
+        state = overlay_effects(get_type(type_name), cfg_k, state, effs, tvc,
+                                self.dc_id, store.device, fresh=n0 == 0)
         self._overlay_fold_cache[ck] = (state, n_total, nd)
         while len(self._overlay_fold_cache) > 512:
             self._overlay_fold_cache.popitem(last=False)
-        return {f: x[0].cpu().numpy() for f, x in state.items()}
+        return host_state(state)
 
     def _read_values_overlaid(self, objs, read_vc, overlays) -> list:
         store = self.node.store
@@ -353,7 +345,11 @@ class ClusterMember:
                      overlay=None) -> list:
         """Generate downstream effects for a state-dependent op at my
         replica of the key, with the coordinator txn's pending effects for
-        it overlaid (observed-remove must see same-txn adds)."""
+        it overlaid (observed-remove must see same-txn adds).  A
+        counter_b decrement or transfer runs its escrow guard here, against
+        the owner's replica: the lane must be this DC's and hold the
+        rights; first-committer-wins certification closes the race
+        between the check and the commit."""
         from antidote_tpu_torch.cluster.rpc import eff_to_wire
 
         key = freeze_key(key)
@@ -372,11 +368,31 @@ class ClusterMember:
             if overlay:
                 state = self._overlay_state(key, type_name, bucket, state,
                                             read_vc, overlay)
+            if type_name == "counter_b" and op[0] in ("decrement",
+                                                      "transfer"):
+                self._escrow_guard(ty, state, key, bucket, op)
             ent = store.locate(key, type_name, bucket, create=False)
             cfg_k = store.table(ent[0]).cfg if ent else self.cfg
             effs = ty.downstream(op, state, store.blobs, cfg_k)
         return [eff_to_wire(Effect(key, type_name, bucket, a, b, refs))
                 for a, b, refs in effs]
+
+    def _escrow_guard(self, ty, state, key, bucket, op) -> None:
+        """Refuse (as an ``abort:`` error) a counter_b spend on another
+        DC's lane or past the rights this lane holds."""
+        amount, src_lane = op[1][0], op[1][-1]
+        if src_lane != self.dc_id:
+            raise RuntimeError(
+                f"abort: counter_b {op[0]} must spend this DC's lane "
+                f"{self.dc_id}, not {src_lane}")
+        bcm = self.node.txm.bcounters
+        try:
+            bcm.check_decrement(ty, state, key, bucket, amount)
+        except NoPermissionsError as e:
+            if op[0] == "transfer":
+                bcm.satisfied(key, bucket)
+            raise RuntimeError(f"abort: {e}") from e
+        bcm.satisfied(key, bucket)
 
     def _check_owner(self, shard: int) -> None:
         if shard not in self.shards:

@@ -29,8 +29,12 @@ class AntidoteConfig:
     ops_per_key: int = 16
     #: materialized snapshot versions retained per key
     snap_versions: int = 2
-    #: element slots per set key (set_aw)
+    #: element slots per set key (set_aw, set_rw, set_go)
     set_slots: int = 16
+    #: concurrent-value slots per multi-value register key (register_mv)
+    mv_slots: int = 4
+    #: element slots per sequence key (rga), tombstones included
+    rga_slots: int = 64
     #: number of key slots per (shard, type) table; grows by doubling
     keys_per_table: int = 1024
 

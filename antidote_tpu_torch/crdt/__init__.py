@@ -1,9 +1,6 @@
-"""CRDT type registry.
-
-``is_type`` answers for every type name the JAX package registers; this
-slice ports ``counter_pn`` and ``set_aw``, and ``get_type`` of any other
-known name raises ``NotImplementedError`` naming it.
-"""
+"""CRDT type registry: the store's 13 types under the JAX package's
+``type_id``s.  Maps (``map_rr``/``map_go``) are composites over the device
+types, expanded and assembled by the transaction layer."""
 
 from __future__ import annotations
 
@@ -11,32 +8,32 @@ from typing import Dict
 
 from antidote_tpu_torch.crdt.base import CRDTType
 from antidote_tpu_torch.crdt.blob import BlobStore
-from antidote_tpu_torch.crdt.counters import CounterPN
-from antidote_tpu_torch.crdt.sets import SetAW
+from antidote_tpu_torch.crdt.counters import CounterB, CounterFat, CounterPN
+from antidote_tpu_torch.crdt.flags import FlagDW, FlagEW
+from antidote_tpu_torch.crdt.maps import MapGO, MapRR
+from antidote_tpu_torch.crdt.registers import RegisterLWW, RegisterMV
+from antidote_tpu_torch.crdt.rga import RGA
+from antidote_tpu_torch.crdt.sets import SetAW, SetGO, SetRW
 
-#: every type name of the store's capability surface
-TYPE_NAMES = (
-    "counter_pn", "counter_fat", "counter_b", "register_lww", "register_mv",
-    "set_aw", "set_rw", "set_go", "flag_ew", "flag_dw", "rga", "map_go",
-    "map_rr",
-)
-
-TYPES: Dict[str, CRDTType] = {t.name: t for t in (CounterPN(), SetAW())}
+TYPES: Dict[str, CRDTType] = {
+    t.name: t for t in (
+        CounterPN(), CounterFat(), CounterB(), RegisterLWW(), RegisterMV(),
+        SetAW(), SetRW(), SetGO(), FlagEW(), FlagDW(), RGA(), MapGO(),
+        MapRR())
+}
+TYPE_NAMES = tuple(TYPES)
+#: the composite (map) type names
+COMPOSITE_NAMES = frozenset(
+    n for n, t in TYPES.items() if getattr(t, "composite", False))
 
 
 def is_type(name: str) -> bool:
-    return name in TYPE_NAMES
+    return name in TYPES
 
 
 def get_type(name: str) -> CRDTType:
-    t = TYPES.get(name)
-    if t is not None:
-        return t
-    if name in TYPE_NAMES:
-        raise NotImplementedError(
-            f"CRDT type {name!r} is not ported to antidote_tpu_torch yet")
-    raise KeyError(name)
+    return TYPES[name]
 
 
-__all__ = ["TYPES", "TYPE_NAMES", "is_type", "get_type", "BlobStore",
-           "CRDTType"]
+__all__ = ["TYPES", "TYPE_NAMES", "COMPOSITE_NAMES", "is_type", "get_type",
+           "BlobStore", "CRDTType"]

@@ -91,6 +91,13 @@ class CRDTType(abc.ABC):
     ) -> Any:
         """Client-visible value of a host state copy."""
 
+    def stamp_op_seq(self, eff_a, eff_b, seq: int):
+        """Number an effect within its transaction (per key).  Types whose
+        apply derives identity from the commit clock alone (rga uids)
+        carry the sequence in an effect lane so that same-commit ops stay
+        distinguishable.  Default: unchanged."""
+        return eff_a, eff_b
+
     def restamp_own_dots(self, cfg: AntidoteConfig, eff_a, eff_b,
                          my_dc: int, tentative_own: int, commit_own: int):
         """Rewrite dots an effect observed from the txn's OWN uncommitted
@@ -159,6 +166,13 @@ def warn_overflow(type_name: str, ovf: int, stacklevel: int = 3) -> None:
         )
 
 
+def warn_overflow_state(type_name: str, state) -> None:
+    """Slot-exhaustion warning from a full host state copy (the
+    resolved-view twin lives in :class:`TopCountResolved`)."""
+    warn_overflow(type_name, int(np.asarray(state.get("ovf", 0))),
+                  stacklevel=4)
+
+
 def value_from_top(resolved, blobs: BlobStore, top: int):
     """Decode a ``{top, count}`` view: the packed handles' values sorted by
     repr, or RESOLVE_OVERFLOW when the true count exceeds ``top``."""
@@ -169,6 +183,13 @@ def value_from_top(resolved, blobs: BlobStore, top: int):
     return sorted(
         (blobs.resolve(int(h)) for h in handles if h != 0), key=repr
     )
+
+
+def top_count_spec(top: int):
+    """The ``{top, count, ovf}`` resolved view of slotted multi-element
+    types."""
+    return {"top": ((top,), torch.int64), "count": ((), torch.int32),
+            "ovf": ((), torch.int32)}
 
 
 class TopCountResolved:
@@ -193,6 +214,44 @@ def compact_top(elems, present, top: int):
                           stable=True)[..., :top]
     kept = torch.where(present, elems, torch.zeros_like(elems))
     return torch.gather(kept, -1, order), present.sum(-1, dtype=torch.int32)
+
+
+def first_true(mask):
+    """(index of the first True along the last axis — 0 when there is
+    none, as ``jnp.argmax`` of a bool row gives —, whether any is True).
+    The argmax runs on uint8: CUDA has no argmax of bool."""
+    return mask.to(torch.uint8).argmax(-1), mask.any(-1)
+
+
+def lane_hit(idx, width: int):
+    """bool[B, width]: the lane a per-row index names, with the JAX
+    package's scatter semantics: a negative index wraps once, and an index
+    still out of range names no lane (the update is dropped)."""
+    idx = idx.long()
+    idx = torch.where(idx < 0, idx + width, idx)
+    return torch.arange(width, device=idx.device) == idx[:, None]
+
+
+def own_stamp(commit_vc, origin_dc):
+    """int32[B]: each row's commit clock at its origin lane."""
+    return commit_vc.gather(1, origin_dc.long()[:, None])[:, 0]
+
+
+def raise_lane(row, origin_dc, commit_vc):
+    """``row.at[origin_dc].max(commit_vc[origin_dc])`` per batch row:
+    ``row`` int32[B, D] with its origin lane raised to the commit stamp."""
+    hit = lane_hit(origin_dc, row.shape[-1])
+    return torch.where(hit, torch.maximum(
+        row, own_stamp(commit_vc, origin_dc)[:, None]), row)
+
+
+def set_at(x, idx, val, do):
+    """``x.at[idx].set(val)`` per batch row where ``do``: ``x`` [B, S,
+    ...], ``idx`` int[B] (in range), ``val`` [B, ...], ``do`` bool[B]."""
+    hit = (torch.arange(x.shape[1], device=x.device) == idx[:, None]) \
+        & do[:, None]
+    hit = hit.view(hit.shape + (1,) * (x.dim() - 2))
+    return torch.where(hit, val[:, None], x)
 
 
 def pack_a(*vals: int, width: int) -> np.ndarray:

@@ -54,11 +54,14 @@ def tiered_name(base: str, tier: int) -> str:
 
 
 def scaled_cfg(cfg: AntidoteConfig, tier: int) -> AntidoteConfig:
-    """The config a tier table sizes its slotted state from."""
+    """The config a tier table sizes its slotted state (and slot-scaled
+    effect lanes, e.g. register_mv observed ids) from."""
     if tier == 0:
         return cfg
     s = _TIER_SCALE ** tier
-    return dataclasses.replace(cfg, set_slots=cfg.set_slots * s)
+    return dataclasses.replace(cfg, set_slots=cfg.set_slots * s,
+                               mv_slots=cfg.mv_slots * s,
+                               rga_slots=cfg.rga_slots * s)
 
 
 def stable_min_of(clock_rows: np.ndarray, device) -> np.ndarray:

@@ -3,17 +3,21 @@
   * snapshot selection: txn snapshot VC = the DC's stable VC with the own
     lane at the commit counter, merged with the client's causal clock.
   * reads: batched device reads at the snapshot VC, with the
-    transaction's own pending writes overlaid on top.
+    transaction's own pending writes overlaid on top; maps assemble from
+    one membership read per batch and one field read per nesting level.
   * updates: type-check against the CRDT registry, run pre-commit hooks,
-    generate downstream effects (reading current state when the type
-    requires it), buffer in the write-set.
+    expand map ops into membership and field updates, generate downstream
+    effects (reading current state when the type requires it), number
+    them per key within the txn, buffer in the write-set.
   * commit: first-committer-wins certification per key, skipped for blind
-    updates of commutative types; then one commit-counter bump per txn
-    mints its commit VC and the effects reach the store in commit order.
+    updates of commutative types; the escrow pass reserves ``counter_b``
+    rights once per key for the whole group; then one commit-counter bump
+    per txn mints its commit VC and the effects reach the store in commit
+    order.
 
-This slice is single-tenant and in memory: escrow counters (``counter_b``),
-tenancy rounds, maps, the GentleRain protocol, the durable log and the
-serving epochs are later slices.
+This slice is single-tenant and in memory: tenancy rounds, the GentleRain
+protocol, the durable log, value caches and the serving epochs are later
+slices.
 """
 
 from __future__ import annotations
@@ -26,10 +30,13 @@ import numpy as np
 import torch
 
 from antidote_tpu_torch.config import AntidoteConfig
-from antidote_tpu_torch.crdt import get_type, is_type
+from antidote_tpu_torch.crdt import COMPOSITE_NAMES, get_type, is_type
+from antidote_tpu_torch.crdt import maps as maps_mod
 from antidote_tpu_torch.crdt.base import RESOLVE_OVERFLOW
-from antidote_tpu_torch.overload import BusyError, check_deadline
+from antidote_tpu_torch.overload import (BusyError, InsufficientRightsError,
+                                         check_deadline)
 from antidote_tpu_torch.store.kv import BoundObject, Effect, KVStore, _pad_lane
+from antidote_tpu_torch.txn.bcounter import BCounterManager
 from antidote_tpu_torch.txn.hooks import HookRegistry
 
 Update = Tuple[Any, str, str, Tuple[str, Any]]  # (key, type_name, bucket, op)
@@ -96,6 +103,7 @@ class TransactionManager:
         self._cert_gc_every = 1024
         self._next_cert_gc = self._cert_gc_every
         self.hooks = HookRegistry()
+        self.bcounters = BCounterManager(my_dc)
 
     # ------------------------------------------------------------------
     # transaction lifecycle
@@ -124,17 +132,36 @@ class TransactionManager:
         self._open_snaps[txn.txid] = int(snap[self.my_dc])
         return txn
 
-    def read_objects(self, objects: Sequence[BoundObject], txn: Transaction):
+    def read_objects(self, objects: Sequence[BoundObject], txn: Transaction,
+                     _internal: bool = False):
         assert txn.active
-        # a client-level read makes the txn read-bearing: the
-        # commutativity bypass is off for it
-        txn.did_read = True
-        if txn.writeset:
-            # the pending-write overlay needs full states on the host
-            states = self._read_states_with_overlay(list(objects), txn)
-            return [get_type(t).value(st, self.store.blobs, self.cfg)
-                    for (_, t, _), st in zip(objects, states)]
-        return self._read_values_resolved(list(objects), txn)
+        if not _internal:
+            # a client-level read makes the txn read-bearing: the
+            # commutativity bypass is off for it (internal reads — map
+            # fields, downstream state — mark cert_required at the update)
+            txn.did_read = True
+        out: List[Any] = [None] * len(objects)
+        plain = [i for i, o in enumerate(objects)
+                 if o[1] not in COMPOSITE_NAMES]
+        comp = [i for i, o in enumerate(objects) if o[1] in COMPOSITE_NAMES]
+        if plain:
+            objs = [objects[i] for i in plain]
+            if txn.writeset:
+                # the pending-write overlay needs full states on the host
+                states = self._read_states_with_overlay(objs, txn)
+                vals = [get_type(t).value(st, self.store.blobs, self.cfg)
+                        for (_, t, _), st in zip(objs, states)]
+            else:
+                vals = self._read_values_resolved(objs, txn)
+            for i, v in zip(plain, vals):
+                out[i] = v
+        if comp:
+            vals = maps_mod.assemble(
+                [objects[i] for i in comp],
+                lambda objs: self.read_objects(objs, txn, _internal=True))
+            for i, v in zip(comp, vals):
+                out[i] = v
+        return out
 
     def _read_values_resolved(self, objs, txn: Transaction) -> List[Any]:
         """Values via the serving read: the compact resolved view decodes
@@ -166,33 +193,51 @@ class TransactionManager:
                        txn: Transaction) -> None:
         assert txn.active
         for u in updates:
-            self._apply_update(u, txn)
+            self._apply_update(u, txn, run_hooks=True)
 
-    def _apply_update(self, update, txn: Transaction) -> None:
+    def _apply_update(self, update, txn: Transaction,
+                      run_hooks: bool = False) -> None:
         key, type_name, bucket, op = update
         if not is_type(type_name):
             raise TypeError(f"unknown CRDT type {type_name!r}")
         ty = get_type(type_name)
         if not ty.is_operation(op):
             raise TypeError(f"invalid operation {op!r} for {type_name}")
-        try:
-            key, type_name, op = self.hooks.execute_pre_commit_hook(
-                key, type_name, bucket, op)
-        except Exception as e:
-            self._mark_aborted(txn)
-            raise AbortError(f"pre-commit hook failed: {e}") from e
-        # re-validate the hook-transformed update: a misbehaving hook must
-        # abort, not generate malformed effects
-        if not is_type(type_name):
-            self._mark_aborted(txn)
-            raise AbortError(
-                f"pre-commit hook produced unknown type {type_name!r}")
-        ty = get_type(type_name)
-        if not ty.is_operation(op):
-            self._mark_aborted(txn)
-            raise AbortError(
-                f"pre-commit hook produced invalid op {op!r} for {type_name}")
-        if ty.require_state_downstream(op) or not ty.commutative_blind:
+        if run_hooks:
+            try:
+                key, type_name, op = self.hooks.execute_pre_commit_hook(
+                    key, type_name, bucket, op)
+            except Exception as e:
+                self._mark_aborted(txn)
+                raise AbortError(f"pre-commit hook failed: {e}") from e
+            # re-validate the hook-transformed update: a misbehaving hook
+            # must abort, not generate malformed effects
+            if not is_type(type_name):
+                self._mark_aborted(txn)
+                raise AbortError(
+                    f"pre-commit hook produced unknown type {type_name!r}")
+            ty = get_type(type_name)
+            if not ty.is_operation(op):
+                self._mark_aborted(txn)
+                raise AbortError(f"pre-commit hook produced invalid op "
+                                 f"{op!r} for {type_name}")
+        if type_name in COMPOSITE_NAMES:
+            # a map op expands into membership and field updates; the
+            # children skip the bucket hooks (they ran on the map op)
+            txn.cert_required = True
+
+            def read_field_value(fk, ft):
+                return self.read_objects([(fk, ft, bucket)], txn,
+                                         _internal=True)[0]
+
+            for sub in maps_mod.expand_update(key, type_name, bucket, op,
+                                              read_field_value):
+                self._apply_update(sub, txn)
+            return
+        guarded_b = (type_name == "counter_b"
+                     and op[0] in ("decrement", "transfer"))
+        if (guarded_b or ty.require_state_downstream(op)
+                or not ty.commutative_blind):
             txn.cert_required = True
         state = None
         # the key's slot-tier cfg: a promoted key's state has the wider
@@ -204,8 +249,21 @@ class TransactionManager:
             ent = self.store.locate(key, type_name, bucket, create=False)
             if ent is not None:
                 cfg_k = self.store.table(ent[0]).cfg
+        # escrow lane guard: a counter_b decrement or outgoing transfer
+        # must spend THIS replica's lane; whether the lane holds the
+        # rights is the commit's escrow pass
+        if guarded_b:
+            src_lane = op[1][-1]
+            if src_lane != self.my_dc:
+                self._mark_aborted(txn)
+                raise AbortError(
+                    f"counter_b {op[0]} must spend this replica's lane "
+                    f"{self.my_dc}, not {src_lane}")
+        seq = len(txn.pending_for(key, bucket))
         for eff_a, eff_b, blob_refs in ty.downstream(op, state,
                                                      self.store.blobs, cfg_k):
+            eff_a, eff_b = ty.stamp_op_seq(eff_a, eff_b, seq)
+            seq += 1
             txn.writeset.append(
                 (Effect(key, type_name, bucket, eff_a, eff_b, blob_refs), op))
 
@@ -261,6 +319,7 @@ class TransactionManager:
                 ck = (eff.key, eff.bucket)
                 if ck not in last_seen:
                     last_seen[ck] = self.committed_keys.get(ck, 0)
+        esc_spends, esc_avail = self._escrow_ledger(txns)
         for txn in txns:
             assert txn.active
             txn.active = False
@@ -285,6 +344,11 @@ class TransactionManager:
             if conflict is not None:
                 out.append(AbortError(
                     f"certification conflict on key {conflict!r}"))
+                continue
+            refusal = self._escrow_reserve(esc_spends.get(txn.txid),
+                                           esc_avail)
+            if refusal is not None:
+                out.append(refusal)
                 continue
             self.commit_counter += 1
             commit_vc = txn.snapshot_vc.copy()
@@ -340,6 +404,70 @@ class TransactionManager:
             self._gc_committed_keys()
             self._next_cert_gc = self.commit_counter + self._cert_gc_every
         return out
+
+    def _escrow_ledger(self, txns):
+        """The escrow pass's batch-local view: per txn, its net counter_b
+        spends per key ``{ck: (net spend, decremented)}``, and per spent
+        key the rights this lane holds, read ONCE for the whole group at
+        the freshest local view.  Within a txn, spends net against its own
+        increments on this lane (its effects apply atomically), but a
+        surplus never credits the group's ledger."""
+        spends: Dict[int, Dict[tuple, Tuple[int, int]]] = {}
+        avail: Dict[tuple, int] = {}
+        for txn in txns:
+            dec: Dict[tuple, int] = {}
+            spend: Dict[tuple, int] = {}
+            credit: Dict[tuple, int] = {}
+            for eff, op in txn.writeset:
+                if eff.type_name != "counter_b":
+                    continue
+                ck = (eff.key, eff.bucket)
+                n = int(op[1][0])
+                if op[0] in ("decrement", "transfer"):
+                    spend[ck] = spend.get(ck, 0) + n
+                    if op[0] == "decrement":
+                        dec[ck] = dec.get(ck, 0) + n
+                elif op[0] == "increment" and op[1][1] == self.my_dc:
+                    credit[ck] = credit.get(ck, 0) + n
+            net = {ck: (n - credit.get(ck, 0), dec.get(ck, 0))
+                   for ck, n in spend.items() if n > credit.get(ck, 0)}
+            if net:
+                spends[txn.txid] = net
+                avail.update(dict.fromkeys(net, 0))
+        if avail:
+            ty_b = get_type("counter_b")
+            keys = list(avail)
+            states = self.store.read_states(
+                [(k, "counter_b", b) for k, b in keys],
+                self.store.dc_max_vc())
+            for ck, st in zip(keys, states):
+                avail[ck] = int(ty_b.local_rights(st, self.my_dc))
+        return spends, avail
+
+    def _escrow_reserve(self, spends, avail):
+        """Reserve one txn's net spends against the group's ledger.
+        Returns the typed refusal for the first key short of rights
+        (nothing reserved), or None once every spend is reserved."""
+        if spends is None:
+            return None
+        short = next(((ck, n, d) for ck, (n, d) in spends.items()
+                      if n > avail[ck]), None)
+        if short is not None:
+            (key, bucket), needed, dec_amt = short
+            if dec_amt > 0:
+                self.bcounters.note_refusal(key, bucket, dec_amt)
+            else:
+                # a refused outgoing transfer is not queued as demand
+                self.bcounters.refused_total += 1
+            return InsufficientRightsError(
+                f"insufficient rights for {key!r}: need {needed}, hold "
+                f"{avail[(key, bucket)]}",
+                retry_after_ms=self.bcounters.grant_hint_ms(key, bucket),
+                key=key, needed=needed, held=avail[(key, bucket)])
+        for ck, (n, _d) in spends.items():
+            avail[ck] -= n
+            self.bcounters.satisfied(*ck)
+        return None
 
     def _gc_committed_keys(self) -> None:
         """Drop certification entries no open (or future) txn can conflict
@@ -418,14 +546,10 @@ class TransactionManager:
             tentative = txn.snapshot_vc.copy()
             tentative[self.my_dc] = self.commit_counter + 1
             txn.tentative_vc = tentative
-        dev = self.store.device
-        tvc = torch.as_tensor(txn.tentative_vc, device=dev)[None]
-        origin = torch.full((1,), self.my_dc, dtype=torch.int32, device=dev)
         for i, (key, type_name, bucket) in enumerate(objects):
             pend = txn.pending_for(key, bucket)
             if not pend:
                 continue
-            ty = get_type(type_name)
             # overlay at the key's slot-tier widths
             ent = self.store.locate(key, type_name, bucket, create=False)
             cfg_k = self.store.table(ent[0]).cfg if ent else self.cfg
@@ -434,16 +558,51 @@ class TransactionManager:
             if cached is not None and cached[1] <= len(pend):
                 state, done = cached
             else:
-                state = {f: torch.as_tensor(x, device=dev)[None]
-                         for f, x in states[i].items()}
-                done = 0
-            for eff in pend[done:]:
-                a = _pad_lane(eff.eff_a, ty.eff_a_width(cfg_k), np.int64)
-                b = _pad_lane(eff.eff_b, ty.eff_b_width(cfg_k), np.int32)
-                state = ty.apply(cfg_k, state,
-                                 torch.as_tensor(a, device=dev)[None],
-                                 torch.as_tensor(b, device=dev)[None],
-                                 tvc, origin)
+                state, done = states[i], 0
+            state = overlay_effects(get_type(type_name), cfg_k, state,
+                                    pend[done:], txn.tentative_vc,
+                                    self.my_dc, self.store.device,
+                                    fresh=done == 0)
             txn.overlay_cache[dk] = (state, len(pend))
-            states[i] = {f: x[0].cpu().numpy() for f, x in state.items()}
+            states[i] = host_state(state)
         return states
+
+
+def host_state(state) -> Dict[str, np.ndarray]:
+    """A host copy of one key's overlay state: the ``[1, ...]`` tensors a
+    batched ``apply`` returns, or the numpy arrays of an ``apply_host``."""
+    return {f: (x[0].cpu().numpy() if isinstance(x, torch.Tensor) else x)
+            for f, x in state.items()}
+
+
+def overlay_effects(ty, cfg_k, state, effects, tentative_vc, my_dc: int,
+                    device, fresh: bool):
+    """Fold pending effects onto one key's state, stamped with the
+    tentative commit VC at lane ``my_dc``.  Types with a host twin
+    (``apply_host``, rga) fold numpy arrays on the host: a transaction's
+    Nth insert then costs a few array ops instead of device launches.
+    Other types fold through their batched ``apply`` on ``device``, on a
+    batch of one.  ``fresh`` says ``state`` is a host base state (not an
+    earlier overlay's result)."""
+    apply_host = getattr(ty, "apply_host", None)
+    if apply_host is not None:
+        tvc = np.asarray(tentative_vc, np.int32)
+        for eff in effects:
+            state = apply_host(
+                cfg_k, state,
+                _pad_lane(eff.eff_a, ty.eff_a_width(cfg_k), np.int64),
+                _pad_lane(eff.eff_b, ty.eff_b_width(cfg_k), np.int32),
+                tvc, my_dc)
+        return state
+    if fresh:
+        state = {f: torch.as_tensor(x, device=device)[None]
+                 for f, x in state.items()}
+    tvc = torch.as_tensor(np.asarray(tentative_vc, np.int32),
+                          device=device)[None]
+    origin = torch.full((1,), my_dc, dtype=torch.int32, device=device)
+    for eff in effects:
+        a = _pad_lane(eff.eff_a, ty.eff_a_width(cfg_k), np.int64)
+        b = _pad_lane(eff.eff_b, ty.eff_b_width(cfg_k), np.int32)
+        state = ty.apply(cfg_k, state, torch.tensor(a, device=device)[None],
+                         torch.tensor(b, device=device)[None], tvc, origin)
+    return state

@@ -32,15 +32,23 @@ Run from the root of a checkout on a machine with a CUDA card (one card;
    from every member's coordinator, remove on 2,000 keys through the
    owners' downstream, run mixed transactions from every coordinator
    (every start launches ``stable_min`` on the 2048 x 4 clock matrix),
-   and check every key against a host model, at the stable snapshot and
-   at an older one;
-5. print one JSON line per kernel record, the card line, and last the
+   a segment of maps, rga and counter_b across the members, and check
+   every key against a host model, at the stable snapshot and at an
+   older one;
+5. the other types (``types``): the nine device types other than set_aw
+   and counter_pn, one 100,000-key table each at BASELINE widths, filled
+   by a seeded three-lane stream and read fresh and historical, equal to
+   the same table built on the CPU; then a node session over them and the
+   maps against a host model (``bench_suite.py``'s map and rga workloads,
+   counter_b refusals, concurrent writers, slot promotion, maps read at an
+   older snapshot);
+6. print one JSON line per kernel record, the card line, and last the
    ``{"ok": true, ...}`` line.
 
-The launch counts are reset just before the serve, the node workload and
-the cluster, and read just after each; each must show the kernels that
-``PATH_KERNELS`` names for it, and a kernel record's ``launches`` is the
-sum over the three.  The serve must launch ``orset_presence`` exactly
+The launch counts are reset just before the serve, the node workload, the
+cluster and the types phase, and read just after each; each must show the
+kernels that ``PATH_KERNELS`` names for it, and a kernel record's
+``launches`` is the sum over the four.  The serve must launch ``orset_presence`` exactly
 once per ``SetAW.resolve``, and a resolve on a CUDA state must call no
 torch sort.  Exits non-zero without a CUDA device, and outside a
 checkout of the repository.
@@ -90,13 +98,21 @@ ORSET_CASES = [(8, 4), (16, 4), (17, 4), (40, 4), (64, 4), (256, 4),
 # counter_fold's edge cases (K, D): a ring of one op, the path's, one past
 # a warp
 COUNTER_CASES = [(1, 4), (16, 4), (33, 4), (16, 1), (16, 3), (33, 8)]
+# the types phase: the nine device types at BASELINE widths, one table of
+# TY_KEYS keys each, TY_ROUNDS ops a key (every ring GCs once), historical
+# reads at the cut after TY_CUT rounds
+TY_KEYS, TY_ROUNDS, TY_CUT, TY_SHARDS = 100_000, 20, 18, 8
+MV_SLOTS, RGA_SLOTS = 4, 64
 # the kernels each path must launch: the serve resolves sets (presence)
 # and folds the historical batches; the node session folds a set and a
 # counter at older snapshots; every cluster transaction start merges the
-# members' clock rows
+# members' clock rows; the types session resolves map_rr memberships
+# (sets) and reads maps at an older snapshot (membership sets and
+# counter_pn fields)
 PATH_KERNELS = {"serve": ("orset_presence", "set_aw_fold"),
                 "node": ("counter_fold", "set_aw_fold"),
-                "cluster": ("stable_min",)}
+                "cluster": ("stable_min",),
+                "types": ("orset_presence", "set_aw_fold", "counter_fold")}
 
 
 def log(msg: str) -> None:
@@ -1042,6 +1058,8 @@ def cluster_workload(torch, dev, n_shards=CL_SHARDS, n_keys=CL_KEYS,
             pass
         log(f"cluster mixed: {n_mixed_txns + 2} txns; the racing txn "
             "aborted")
+        types_stats = cluster_types_segment(coords, start, commit, static,
+                                            check_stable)
 
         # ---- checks: every key at the stable snapshot, the touched keys
         # at the old one -------------------------------------------------
@@ -1067,6 +1085,7 @@ def cluster_workload(torch, dev, n_shards=CL_SHARDS, n_keys=CL_KEYS,
             "start_p50_ms": start_p[0], "start_p99_ms": start_p[1],
             "profile": profile,
             "historical_keys": len(hist), "sequencer_ts": seq.counter,
+            "types_segment": types_stats,
             "resident_gib": (torch.cuda.memory_allocated(dev) / 2**30
                              if on_card else None),
             **stats,
@@ -1074,6 +1093,411 @@ def cluster_workload(torch, dev, n_shards=CL_SHARDS, n_keys=CL_KEYS,
     finally:
         for m in members:
             m.close()
+
+
+# ---------------------------------------------------------------------------
+# phase 5: the other device types and the composites
+# ---------------------------------------------------------------------------
+def table_bytes(t) -> int:
+    """Device bytes of a TypedTable's tensors."""
+    tensors = list(t.snap.values()) + list(t.head.values()) + [
+        t.snap_vc, t.snap_seq, t.ops_a, t.ops_b, t.ops_vc, t.ops_origin,
+        t.head_vc]
+    return sum(x.numel() * x.element_size() for x in tensors)
+
+
+def types_tables(torch, dev, n_keys=TY_KEYS) -> dict:
+    """Each of the nine device types as one TypedTable of ``n_keys`` keys at
+    BASELINE widths, on the card and, by the same appends, on the CPU:
+    a seeded three-lane stream with concurrent clocks
+    (``type_cases.populate_stream``, TY_ROUNDS ops a key, so every ring
+    GCs once), then resolved reads of every key in batches of B at the
+    final clock (fresh: head gathers) and at the cut after TY_CUT rounds
+    (historical: the ring fold over the GC'd version).  The card's reads
+    must equal the CPU's exactly and be complete.  Returns, per type,
+    populate seconds, fresh and historical keys/s and the table's bytes
+    (card), and the CPU twin's populate seconds."""
+    from antidote_tpu_torch.config import AntidoteConfig
+    from antidote_tpu_torch.crdt import get_type
+    from antidote_tpu_torch.crdt.type_cases import (DEVICE_TYPES,
+                                                    populate_stream)
+    from antidote_tpu_torch.store import TypedTable
+
+    p = TY_SHARDS
+    cfg = AntidoteConfig(n_shards=p, max_dcs=D, ops_per_key=K,
+                         snap_versions=2, set_slots=E, mv_slots=MV_SLOTS,
+                         rga_slots=RGA_SLOTS, keys_per_table=n_keys // p)
+    cpu = torch.device("cpu")
+    keys = np.arange(n_keys)
+    out = {}
+    for i, name in enumerate(DEVICE_TYPES):
+        st = populate_stream(name, np.random.default_rng(100 + i), n_keys,
+                             TY_ROUNDS, cfg)
+        cuts = {"fresh": st["cum"][-1],
+                "historical": st["cum"][TY_CUT * n_keys - 1]}
+        runs = {}
+        for where, d in (("card", torch.device(dev)), ("cpu", cpu)):
+            sync = (torch.cuda.synchronize if d.type == "cuda"
+                    else (lambda: None))
+            t = TypedTable(get_type(name), cfg, device=d)
+            t.used_rows[:] = n_keys // p
+            t0 = time.perf_counter()
+            for lo in range(0, len(st["keys"]), B):
+                sl = slice(lo, lo + B)
+                k = st["keys"][sl]
+                t.append(k % p, k // p, st["eff_a"][sl], st["eff_b"][sl],
+                         st["vcs"][sl], st["origins"][sl])
+            sync()
+            run = {"populate_s": time.perf_counter() - t0,
+                   "bytes": table_bytes(t)}
+            for kind, vc in cuts.items():
+                vcs = np.broadcast_to(vc, (B, D))
+                secs, parts, stale = 0.0, [], 0
+                for lo in range(0, n_keys, B):
+                    kk = keys[lo:lo + B]
+                    t1 = time.perf_counter()
+                    res, fresh, complete = t.read_resolved_flat(
+                        kk % p, kk // p, vcs[:len(kk)])
+                    sync()
+                    secs += time.perf_counter() - t1
+                    if not complete.all():
+                        raise AssertionError(
+                            f"{name} {kind} read on {where}: incomplete rows")
+                    stale += int((~fresh).sum())
+                    parts.append({f: x.cpu().numpy() for f, x in res.items()})
+                run[kind] = {f: np.concatenate([x[f] for x in parts])
+                             for f in parts[0]}
+                run[f"{kind}_keys_per_s"] = n_keys / secs
+                run[f"{kind}_stale_rows"] = stale
+            if d.type == "cuda":
+                # where a historical batch's time goes (serial fold, plain
+                # resolve): device busy share and the top device kernels
+                hv = np.broadcast_to(cuts["historical"], (B, D))
+                run["historical_profile"] = profile_window(
+                    torch, lambda j: t.read_resolved_flat(
+                        keys[j * B:(j + 1) * B] % p,
+                        keys[j * B:(j + 1) * B] // p, hv), range(2))
+            runs[where] = run
+            del t
+            if d.type == "cuda":
+                torch.cuda.empty_cache()
+        card, host = runs["card"], runs["cpu"]
+        for kind in cuts:
+            for f, want in host[kind].items():
+                if not np.array_equal(card[kind][f], want):
+                    bad = int((card[kind][f] != want).reshape(n_keys, -1)
+                              .any(-1).sum())
+                    raise AssertionError(
+                        f"{name} {kind} {f}: {bad} keys differ from the CPU")
+        if card["historical_stale_rows"] == 0:
+            raise AssertionError(f"{name}: the historical cut folded no row")
+        rec = {k: v for k, v in card.items() if k not in cuts}
+        rec["cpu_populate_s"] = host["populate_s"]
+        out[name] = rec
+        log(f"types {name}: {n_keys} keys equal to the CPU twin, fresh and "
+            f"historical; {json.dumps(rec)}")
+    return out
+
+
+def _expect(ftype, v):
+    """A host model entry as the node returns it: sets sorted by repr, maps
+    as dicts of their fields' expectations."""
+    if ftype in ("set_aw", "set_rw", "set_go", "register_mv"):
+        return sorted(v, key=repr)
+    if ftype in ("map_rr", "map_go"):
+        return {(f, ft): _expect(ft, x) for (f, ft), x in v.items()}
+    return v
+
+
+def types_node_session(dev) -> dict:
+    """An AntidoteNode on the card over the other types and the maps,
+    checked against a host model: ``bench_suite.py``'s map workload (400
+    map_rr maps of counter_pn, register_lww and set_aw fields, here with a
+    nested map_rr field too), field removes and an add-wins re-add, reads
+    of every map at an older snapshot (map_rr memberships through
+    ``set_aw_fold``, counter fields through ``counter_fold``); its rga
+    workload (60 documents of 15 inserts each, single DC) with deletes and
+    head inserts; counter_b spends inside and past the held rights (a
+    typed refusal, the value never negative); counter_fat resets, both
+    flags, set_rw and set_go, concurrent writers; and set_rw, register_mv
+    and rga keys promoted past their slot widths."""
+    import copy
+
+    from antidote_tpu_torch.api import AbortError, AntidoteNode
+    from antidote_tpu_torch.config import AntidoteConfig
+    from antidote_tpu_torch.overload import InsufficientRightsError
+
+    cfg = AntidoteConfig(n_shards=8, max_dcs=D, ops_per_key=K,
+                         snap_versions=2, set_slots=E, mv_slots=MV_SLOTS,
+                         rga_slots=RGA_SLOTS, keys_per_table=4096)
+    node = AntidoteNode(cfg, device=dev)
+    rng = np.random.default_rng(23)
+    Bk, M = "b", "map_rr"
+    nocert = {"certify": False}
+    model = {}  # (key, type) -> host value
+    upd, start, commit = (node.update_objects, node.start_transaction,
+                          node.commit_transaction)
+    stats = {"txns": 0, "refusals": 0, "aborts": 0}
+
+    def static(ups):
+        stats["txns"] += 1
+        return upd(ups)
+
+    def check(objs, where, txn=None, want=None):
+        want = model if want is None else want
+        vals = (node.read_objects([(k, t, Bk) for k, t in objs], txn=txn)
+                if txn is not None else
+                node.read_objects([(k, t, Bk) for k, t in objs])[0])
+        for (k, t), v in zip(objs, vals):
+            w = _expect(t, want[(k, t)])
+            if v != w:
+                raise AssertionError(f"{where}: {k} ({t}) = {v!r}, want {w!r}")
+
+    t0 = time.perf_counter()
+    # ---- maps: bench_suite.py's map workload, with a nested map -----------
+    n_maps = 400
+    maps = [(f"m{i}", M) for i in range(n_maps)]
+    for i in range(n_maps):
+        static([(f"m{i}", M, Bk, ("update", {
+            ("clicks", "counter_pn"): ("increment", i + 1),
+            ("name", "register_lww"): ("assign", f"user{i}"),
+            ("tags", "set_aw"): ("add", f"t{i % 7}"),
+            ("meta", M): ("update", {("visits", "counter_pn"):
+                                     ("increment", 1),
+                                     ("seen", "flag_ew"): ("enable", None)}),
+        }))])
+        model[(f"m{i}", M)] = {
+            ("clicks", "counter_pn"): i + 1,
+            ("name", "register_lww"): f"user{i}",
+            ("tags", "set_aw"): {f"t{i % 7}"},
+            ("meta", M): {("visits", "counter_pn"): 1,
+                          ("seen", "flag_ew"): True}}
+    check(maps, "maps populate")
+    old = start()
+    old_model = copy.deepcopy(model)
+    for i in range(0, n_maps, 2):
+        static([(f"m{i}", M, Bk, ("update", {
+            ("clicks", "counter_pn"): ("increment", 5),
+            ("tags", "set_aw"): ("add", f"x{i}")}))])
+        m = model[(f"m{i}", M)]
+        m[("clicks", "counter_pn")] += 5
+        m[("tags", "set_aw")].add(f"x{i}")
+    for i in range(0, n_maps, 10):  # field removes
+        static([(f"m{i}", M, Bk, ("remove", ("name", "register_lww")))])
+        del model[(f"m{i}", M)][("name", "register_lww")]
+    for i in range(1, n_maps, 40):
+        # a remove and a concurrent update of one field, uncertified: the
+        # update's membership add wins, the remove reset the old tags
+        ta, tb = start(props=nocert), start(props=nocert)
+        upd([(f"m{i}", M, Bk, ("update", {("tags", "set_aw"):
+                                          ("add", "w")}))], txn=ta)
+        upd([(f"m{i}", M, Bk, ("remove", ("tags", "set_aw")))], txn=tb)
+        commit(tb)
+        commit(ta)
+        stats["txns"] += 2
+        model[(f"m{i}", M)][("tags", "set_aw")] = {"w"}
+    for i in range(0, n_maps, 20):  # a removed field re-added
+        static([(f"m{i}", M, Bk, ("update", {("name", "register_lww"):
+                                             ("assign", "back")}))])
+        model[(f"m{i}", M)][("name", "register_lww")] = "back"
+    check(maps, "maps at the older snapshot", txn=old, want=old_model)
+    commit(old)
+    check(maps, "maps latest")
+
+    # ---- rga: bench_suite.py's documents (single DC) ----------------------
+    docs = [(f"doc{d}", "rga") for d in range(60)]
+    for key, _ in docs:
+        doc = ["@"]
+        static([(key, "rga", Bk, ("insert", (0, "@")))])
+        ins = [(key, "rga", Bk, ("insert", (1, f"{key}:{j}")))
+               for j in range(15)]
+        static(ins)
+        for j in range(15):
+            doc.insert(1, f"{key}:{j}")
+        k = int(rng.integers(0, len(doc)))
+        static([(key, "rga", Bk, ("delete", k)),
+                (key, "rga", Bk, ("insert", (0, "^")))])
+        del doc[k]
+        doc.insert(0, "^")
+        model[(key, "rga")] = doc
+    check(docs, "rga documents")
+
+    # ---- counter_b: spends inside and past the rights ---------------------
+    cbs = [(f"cb{i}", "counter_b") for i in range(10)]
+    for key, _ in cbs:
+        static([(key, "counter_b", Bk, ("increment", (100, 0)))])
+        for _ in range(3):
+            static([(key, "counter_b", Bk, ("decrement", (30, 0)))])
+        model[(key, "counter_b")] = 10
+        try:
+            static([(key, "counter_b", Bk, ("decrement", (20, 0)))])
+            raise AssertionError(f"{key}: a spend past the rights committed")
+        except InsufficientRightsError:
+            stats["refusals"] += 1
+    # a commit group in which the first spend fits and the others do not
+    group = [start(props=nocert) for _ in range(3)]
+    for t in group:
+        upd([("cb0", "counter_b", Bk, ("decrement", (6, 0)))], txn=t)
+    res = node.txm.commit_transactions_group(group)
+    stats["txns"] += 3
+    if not (isinstance(res[0], np.ndarray)
+            and all(isinstance(r, InsufficientRightsError) for r in res[1:])):
+        raise AssertionError(f"escrow group: {res}")
+    stats["refusals"] += 2
+    model[("cb0", "counter_b")] = 4
+    try:
+        static([("cb1", "counter_b", Bk, ("decrement", (1, 1)))])
+        raise AssertionError("a spend on another DC's lane committed")
+    except AbortError:
+        stats["aborts"] += 1
+    check(cbs, "counter_b")
+    if any(model[o] < 0 for o in cbs):
+        raise AssertionError("a counter_b model value went negative")
+
+    # ---- counter_fat, flags, set_rw, set_go ------------------------------
+    for i in range(10):
+        f, ew, dw = f"fat{i}", f"ew{i}", f"dw{i}"
+        rw, go = f"rw{i}", f"go{i}"
+        static([(f, "counter_fat", Bk, ("increment", 7 + i)),
+                (ew, "flag_ew", Bk, ("enable", None)),
+                (dw, "flag_dw", Bk, ("enable", None)),
+                (rw, "set_rw", Bk, ("add_all", [1, 2, 3])),
+                (go, "set_go", Bk, ("add_all", [i, i + 1]))])
+        static([(f, "counter_fat", Bk, ("reset", None)),
+                (rw, "set_rw", Bk, ("remove", 2))])
+        static([(f, "counter_fat", Bk, ("increment", i)),
+                (go, "set_go", Bk, ("add", 99))])
+        # concurrent uncertified writers: enable vs disable, add vs remove
+        ta, tb = start(props=nocert), start(props=nocert)
+        upd([(ew, "flag_ew", Bk, ("enable", None)),
+             (dw, "flag_dw", Bk, ("enable", None)),
+             (rw, "set_rw", Bk, ("add", 3))], txn=ta)
+        upd([(ew, "flag_ew", Bk, ("disable", None)),
+             (dw, "flag_dw", Bk, ("disable", None)),
+             (rw, "set_rw", Bk, ("remove", 3))], txn=tb)
+        commit(ta)
+        commit(tb)
+        stats["txns"] += 5
+        model.update({(f, "counter_fat"): i, (ew, "flag_ew"): True,
+                      (dw, "flag_dw"): False, (rw, "set_rw"): {1},
+                      (go, "set_go"): {i, i + 1, 99}})
+    small = [o for o in model if o[1] in ("counter_fat", "flag_ew", "flag_dw",
+                                          "set_rw", "set_go")]
+    check(small, "counter_fat, flags, set_rw, set_go")
+
+    # ---- slot promotion past the widths ----------------------------------
+    static([("rwbig", "set_rw", Bk, ("add_all", list(range(40))))])
+    static([("rwbig", "set_rw", Bk, ("remove_all", list(range(0, 40, 3))))])
+    model[("rwbig", "set_rw")] = set(range(40)) - set(range(0, 40, 3))
+    static([("mvbig", "register_mv", Bk, ("assign", "base"))])
+    ts = [start(props=nocert) for _ in range(6)]
+    for j, t in enumerate(ts):
+        upd([("mvbig", "register_mv", Bk, ("assign", f"v{j}"))], txn=t)
+    for t in ts:
+        commit(t)
+    stats["txns"] += 6
+    model[("mvbig", "register_mv")] = {f"v{j}" for j in range(6)}
+    # rga: a transaction's own inserts overlay the key at its current
+    # width, so the inserts past RGA_SLOTS come one a transaction
+    long_doc = []
+    for r in range(RGA_SLOTS // 16 + 30):
+        ups = []
+        for j in range(15 if len(long_doc) + 15 <= RGA_SLOTS else 1):
+            idx = int(rng.integers(0, len(long_doc) + 1))
+            ups.append(("long", "rga", Bk, ("insert", (idx, f"L{r}.{j}"))))
+            long_doc.insert(idx, f"L{r}.{j}")
+        static(ups)
+    model[("long", "rga")] = long_doc
+    check([("rwbig", "set_rw"), ("mvbig", "register_mv"), ("long", "rga")],
+          "promoted keys")
+    promoted = sorted(n for n in node.store.tables if "#" in n)
+    for base in ("set_rw", "register_mv", "rga"):
+        if not any(n.startswith(base + "#") for n in promoted):
+            raise AssertionError(f"no {base} key was promoted: {promoted}")
+    session_s = time.perf_counter() - t0
+    check(list(model), "every key, latest")
+    log(f"types session: {stats['txns']} txns, {len(model)} keys match the "
+        f"host model; promoted tables {promoted}")
+    return {**stats, "session_s": session_s, "keys": len(model),
+            "promotions": node.store.promotions, "promoted_tables": promoted,
+            "fold_dispatches": {n: dict(t.fold_dispatches)
+                                for n, t in node.store.tables.items()
+                                if t.fold_dispatches}}
+
+
+def cluster_types_segment(coords, start, commit, static, check_stable,
+                          n_maps=32, n_docs=16, n_cb=8) -> dict:
+    """Maps, rga and counter_b across the members, against a host model:
+    map_rr maps with nested fields updated from every coordinator and a
+    field removed from another, rga documents edited in interactive
+    transactions (inserts and deletes, read-your-writes through the
+    owners' overlays), counter_b spends at the key's owner (one past the
+    lane's rights aborts, the value unchanged).  Every key is read back
+    from every coordinator."""
+    from antidote_tpu_torch.api import AbortError
+
+    n_c = len(coords)
+    Bk, M = "b", "map_rr"
+    model = {}
+    t0 = time.perf_counter()
+    for i in range(n_maps):
+        static(i % n_c, [(f"cm{i}", M, Bk, ("update", {
+            ("clicks", "counter_pn"): ("increment", i + 1),
+            ("tags", "set_aw"): ("add_all", [f"t{i}", "all"]),
+            ("meta", M): ("update", {("n", "counter_fat"):
+                                     ("increment", 2)})}))])
+        model[(f"cm{i}", M)] = {
+            ("clicks", "counter_pn"): i + 1,
+            ("tags", "set_aw"): {f"t{i}", "all"},
+            ("meta", M): {("n", "counter_fat"): 2}}
+    for i in range(0, n_maps, 4):
+        static((i + 1) % n_c, [(f"cm{i}", M, Bk, ("remove",
+                                                   ("tags", "set_aw")))])
+        del model[(f"cm{i}", M)][("tags", "set_aw")]
+    for d in range(n_docs):
+        c, key = d % n_c, f"cdoc{d}"
+        t = start(c)
+        coords[c].update_objects([(key, "rga", Bk, ("insert", (0, "a"))),
+                                  (key, "rga", Bk, ("insert", (1, "b"))),
+                                  (key, "rga", Bk, ("insert", (1, "c")))],
+                                 txn=t)
+        coords[c].update_objects([(key, "rga", Bk, ("delete", 0))], txn=t)
+        got = coords[c].read_objects([(key, "rga", Bk)], txn=t)[0]
+        if got != ["c", "b"]:
+            raise AssertionError(f"{key} read-your-writes: {got}")
+        commit(c, t)
+        static((c + 1) % n_c, [(key, "rga", Bk, ("insert", (2, f"z{d}")))])
+        model[(key, "rga")] = ["c", "b", f"z{d}"]
+    refused = 0
+    for i in range(n_cb):
+        key = f"ccb{i}"
+        static(i % n_c, [(key, "counter_b", Bk, ("increment", (50, 0)))])
+        static((i + 1) % n_c, [(key, "counter_b", Bk,
+                                ("decrement", (20, 0)))])
+        t = start((i + 2) % n_c)
+        try:
+            coords[(i + 2) % n_c].update_objects(
+                [(key, "counter_b", Bk, ("decrement", (40, 0)))], txn=t)
+            raise AssertionError(f"{key}: a spend past the rights went "
+                                 "through")
+        except AbortError:
+            refused += 1
+        model[(key, "counter_b")] = 30
+    check_stable()
+    objs = sorted(model, key=repr)
+    for c in range(n_c):
+        t = start(c)
+        vals = coords[c].read_objects([(k, ty, Bk) for k, ty in objs],
+                                      txn=t)
+        commit(c, t)
+        for (k, ty), v in zip(objs, vals):
+            if v != _expect(ty, model[(k, ty)]):
+                raise AssertionError(f"cluster {k} ({ty}) from coordinator "
+                                     f"{c}: {v!r} != {model[(k, ty)]!r}")
+    log(f"cluster types: {len(objs)} map, rga and counter_b keys match the "
+        f"model from every coordinator; {refused} spends refused")
+    return {"keys": len(objs), "refused": refused,
+            "segment_s": time.perf_counter() - t0}
 
 
 def count_resolves(fn):
@@ -1134,7 +1558,12 @@ def main() -> int:
     ck.reset_launches()
     cluster = cluster_workload(torch, dev)
     cluster["launches"] = dict(ck.LAUNCHES)
-    paths = {"serve": serve, "node": node, "cluster": cluster}
+    ck.reset_launches()
+    types = {"tables": types_tables(torch, dev),
+             "session": types_node_session(dev)}
+    types["launches"] = dict(ck.LAUNCHES)
+    paths = {"serve": serve, "node": node, "cluster": cluster,
+             "types": types}
     for path, res in paths.items():
         log(f"{path}: {json.dumps(res)}")
         missing = [n for n in PATH_KERNELS[path] if res["launches"][n] == 0]

@@ -7,6 +7,7 @@ and the idle-shard stable advance.  A DC of 2048 shards routes its clock
 matrix through the ``stable_min`` wrapper and aggregates the same stable
 VC as the JAX member."""
 
+import itertools
 import threading
 
 import numpy as np
@@ -16,10 +17,12 @@ from antidote_tpu.cluster import ClusterMember as JaxMember
 from antidote_tpu.cluster import ClusterNode as JaxNode
 from antidote_tpu.cluster.rpc import eff_to_wire as jax_eff_to_wire
 from antidote_tpu.config import AntidoteConfig as JaxConfig
+from antidote_tpu.crdt import registers as jax_registers
 from antidote_tpu.txn.manager import AbortError as JaxAbort
 from antidote_tpu_torch.cluster import ClusterMember, ClusterNode
 from antidote_tpu_torch.cluster.rpc import eff_to_wire
 from antidote_tpu_torch.config import AntidoteConfig
+from antidote_tpu_torch.crdt import registers
 from antidote_tpu_torch.materializer import cuda_kernels as ck
 from antidote_tpu_torch.store import kv as port_kv
 from antidote_tpu_torch.txn.manager import AbortError
@@ -32,6 +35,7 @@ class _Jax:
     """The JAX package's cluster, as the script drives it."""
     Abort = JaxAbort
     wire = staticmethod(jax_eff_to_wire)
+    registers = jax_registers
 
     @staticmethod
     def members(**kw):
@@ -52,6 +56,7 @@ class _Port:
     """The port's cluster on the CPU."""
     Abort = AbortError
     wire = staticmethod(eff_to_wire)
+    registers = registers
 
     @staticmethod
     def members(**kw):
@@ -197,6 +202,106 @@ def test_cluster_script_matches_jax(scripts):
         assert st == [frontier, 0, 0]
 
 
+def _types_script(pkg):
+    """Maps, rga and counter_b across the members: map fields and their
+    membership on different owners, nested maps, a field remove and
+    re-add, rga inserts and deletes in one transaction with read-your-
+    writes through the owner's overlay, and counter_b spends checked at
+    the key's owner (a spend past the lane's rights and one on another
+    lane abort)."""
+    out = []
+
+    def log(tag, x):
+        out.append((tag, _plain(x)))
+
+    def attempt(tag, fn):
+        try:
+            log(tag, fn())
+        except pkg.Abort as e:
+            log(tag, ["aborted", "insufficient rights" in str(e),
+                      "lane" in str(e)])
+
+    m0, m1 = _wire(pkg)
+    try:
+        n0, n1 = pkg.node(m0), pkg.node(m1)
+        M, G, R, CB = "map_rr", "map_go", "rga", "counter_b"
+        maps = [("m1", M, B), ("g1", G, B), (5, M, B)]
+        vc = n0.update_objects([
+            ("m1", M, B, ("update", {
+                ("clicks", C): ("increment", 3),
+                ("name", "register_lww"): ("assign", "u"),
+                ("tags", S): ("add_all", ["t1", "t2"]),
+                ("sub", M): ("update", {("on", "flag_ew"): ("enable", None),
+                                        ("n", "counter_fat"):
+                                        ("increment", 2)})})),
+            ("g1", G, B, ("update", [(("f", "set_go"), ("add", 1)),
+                                     (("v", "register_mv"),
+                                      ("assign", "x"))])),
+            (5, M, B, ("update", {("c", C): ("increment", 1)})),
+            ("cb", CB, B, ("increment", (10, 0))),
+            ("doc", R, B, ("insert", (0, "h")))])
+        log("populate", vc)
+        _gossip(m0, m1)
+        log("read-1", n1.read_objects(maps + [("doc", R, B), ("cb", CB, B)],
+                                      clock=vc))
+        # rga and maps in one interactive txn on the other coordinator
+        t = n1.start_transaction(clock=vc)
+        n1.update_objects([("doc", R, B, ("insert", (1, "a"))),
+                           ("doc", R, B, ("insert", (1, "b"))),
+                           ("doc", R, B, ("delete", 0)),
+                           ("m1", M, B, ("remove", ("name", "register_lww"))),
+                           ("g1", G, B, ("update", [(("f", "set_go"),
+                                                     ("add", 2))]))], txn=t)
+        log("ryw", n1.read_objects([("doc", R, B), ("m1", M, B),
+                                    ("g1", G, B)], txn=t))
+        n1.update_objects([("doc", R, B, ("insert", (0, "c")))], txn=t)
+        log("ryw2", n1.read_objects([("doc", R, B)], txn=t))
+        vc = n1.commit_transaction(t)
+        log("commit", vc)
+        # a field remove, then its re-add
+        vc = n0.update_objects([("m1", M, B, ("remove", ("tags", S)))],
+                               clock=vc)
+        _gossip(m0, m1)
+        log("removed", n1.read_objects([("m1", M, B)], clock=vc))
+        vc = n1.update_objects([("m1", M, B, ("update", {
+            ("tags", S): ("add", "t9")}))], clock=vc)
+        # counter_b: spends at the owner, net of the lane's rights
+        vc = n0.update_objects([("cb", CB, B, ("decrement", (4, 0)))],
+                               clock=vc)
+        log("spend", vc)
+        attempt("overspend", lambda: n1.update_objects(
+            [("cb", CB, B, ("decrement", (7, 0)))], clock=vc))
+        attempt("other-lane", lambda: n1.update_objects(
+            [("cb", CB, B, ("decrement", (1, 1)))], clock=vc))
+        vc = n1.update_objects([("cb", CB, B, ("transfer", (2, 1, 0)))],
+                               clock=vc)
+        _gossip(m0, m1)
+        log("final", n0.read_objects(maps + [("doc", R, B), ("cb", CB, B)],
+                                     clock=vc))
+        log("stable", [m0.stable_vc(), m1.stable_vc()])
+    finally:
+        m0.close(), m1.close()
+    return out
+
+
+def test_cluster_types_script_matches_jax():
+    got = {}
+    for pkg in (_Jax, _Port):
+        ticks = itertools.count(5_000, 3)
+        with pytest.MonkeyPatch.context() as mp:
+            # the LWW downstream reads the wall clock: one tape for both
+            mp.setattr(pkg.registers, "_now_micros", lambda: next(ticks))
+            got[pkg.__name__] = _types_script(pkg)
+    want = got["_Jax"]
+    assert [t for t, _ in got["_Port"]] == [t for t, _ in want]
+    for (tag, w), (_, g) in zip(want, got["_Port"]):
+        assert g == w, tag
+    log = dict(want)
+    assert log["overspend"] == ["aborted", True, False]
+    assert log["other-lane"] == ["aborted", False, True]
+    assert log["final"][0][4] == 6  # 10 minted, 4 spent (a transfer moves)
+
+
 @pytest.mark.parametrize("pkg", [_Jax, _Port], ids=["jax", "port"])
 def test_concurrent_coordinators_chain_in_ts_order(pkg):
     """Two coordinators commit concurrently on the same two shards (one per
@@ -302,7 +407,8 @@ def test_unported_cluster_options_raise():
             "m_abort", "m_clocks", "m_seq", "m_seq_counter", "m_ready",
             "m_shard_map", "m_membership"}
         assert m.m_membership() == {"n_members": 1, "members": [0]}
-        with pytest.raises(NotImplementedError):
-            n.update_objects([(1, "counter_b", B, ("increment", 1))])
+        # granting escrow rights to another DC rides the inter-DC channel
+        with pytest.raises(NotImplementedError, match="inter-DC"):
+            m.node.txm.bcounters.process_transfer(m.node.txm, 1, B, 1, 1)
     finally:
         m.close()

@@ -169,15 +169,22 @@ def test_downstream_and_value_match_jax_through_blobs():
 
 
 def test_registry_answers_for_every_jax_type():
+    """Every one of the store's 13 types resolves in the port, under the
+    JAX package's ``type_id``, with the same lane widths, commutativity
+    and composite flag."""
     assert set(crdt.TYPE_NAMES) == set(jax_crdt.TYPES)
-    for name in jax_crdt.TYPES:
+    assert len(crdt.TYPES) == 13
+    for name, jt in jax_crdt.TYPES.items():
         assert crdt.is_type(name)
-        if name in ("set_aw", "counter_pn"):
-            t = crdt.get_type(name)
-            assert t.type_id == jax_crdt.get_type(name).type_id
-        else:
-            with pytest.raises(NotImplementedError, match=name):
-                crdt.get_type(name)
+        t = crdt.get_type(name)
+        assert (t.name, t.type_id) == (name, jt.type_id)
+        assert t.commutative_blind == jt.commutative_blind
+        composite = getattr(jt, "composite", False)
+        assert getattr(t, "composite", False) == composite
+        assert (name in crdt.COMPOSITE_NAMES) == composite
+        if not composite:
+            assert t.eff_a_width(TCFG) == jt.eff_a_width(JCFG)
+            assert t.eff_b_width(TCFG) == jt.eff_b_width(JCFG)
     assert not crdt.is_type("no_such_type")
     with pytest.raises(KeyError):
         crdt.get_type("no_such_type")

@@ -293,3 +293,80 @@ def test_cuda_node_reads_back(dev):
                                  ("c", "counter_pn", "b")])
     assert vals == [sorted(range(20), key=repr), 2**40]
     assert node.store.promotions == 1
+
+
+# ---------------------------------------------------------------------------
+# the other device types: batched apply, resolve and a table on the card
+# against the same calls on the CPU (the CPU tests hold the CPU path to the
+# JAX package)
+# ---------------------------------------------------------------------------
+TYPES_CFG = AntidoteConfig(n_shards=4, max_dcs=D, ops_per_key=16,
+                           snap_versions=2, set_slots=16, mv_slots=4,
+                           rga_slots=64, keys_per_table=256)
+
+
+def _on(state, d):
+    return {f: torch.as_tensor(np.asarray(x), device=d)
+            for f, x in state.items()}
+
+
+@pytest.mark.parametrize("name", ["counter_fat", "counter_b", "register_lww",
+                                  "register_mv", "set_rw", "set_go",
+                                  "flag_ew", "flag_dw", "rga"])
+def test_type_apply_and_resolve_on_the_card_equal_cpu(dev, name):
+    """Steps of one effect per row from seeded states, then rows that are
+    all full (the argmax of an all-false row) and all empty (argmax ties),
+    each applied and resolved on the card and on the CPU."""
+    from antidote_tpu_torch.crdt.type_cases import (clock_batch, edge_states,
+                                                    effect_batch,
+                                                    state_batch)
+
+    ty, cfg, b = get_type(name), TYPES_CFG, 777
+    rng = np.random.default_rng(17)
+    state = state_batch(name, rng, b, cfg)
+    edges = edge_states(name, rng, state, cfg)
+
+    def step(st, tag):
+        a, eb = effect_batch(name, rng, st, cfg)
+        v, o = clock_batch(rng, b, cfg, hi=2**20)
+        outs = [ty.apply(cfg, _on(st, d), *(torch.as_tensor(x, device=d)
+                                            for x in (a, eb, v, o)))
+                for d in ("cpu", dev)]
+        assert _same(outs[0], outs[1]), (name, tag)
+        if ty.resolve_spec(cfg) is not None:
+            assert _same(ty.resolve(cfg, outs[0]), ty.resolve(cfg, outs[1]))
+        return {f: x.numpy() for f, x in outs[0].items()}
+
+    for i in range(20):
+        state = step(state, f"step {i}")
+    for tag, st in edges.items():
+        step(st, tag)
+
+
+@pytest.mark.parametrize("name", ["counter_fat", "counter_b", "register_lww",
+                                  "register_mv", "set_rw", "set_go",
+                                  "flag_ew", "flag_dw", "rga"])
+def test_type_table_on_the_card_reads_like_a_cpu_table(dev, name):
+    """A seeded three-lane op stream with concurrent clocks (every ring GCs
+    once) into a CUDA table and a CPU table: fresh and historical resolved
+    reads of every key are equal, and complete."""
+    from antidote_tpu_torch.crdt.type_cases import populate_stream
+
+    cfg, n_keys, rounds = TYPES_CFG, 1024, 20
+    p = cfg.n_shards
+    st = populate_stream(name, np.random.default_rng(5), n_keys, rounds, cfg)
+    tabs = [TypedTable(get_type(name), cfg, device=d) for d in ("cpu", dev)]
+    for t in tabs:
+        t.used_rows[:] = n_keys // p
+        for lo in range(0, len(st["keys"]), 4096):
+            sl = slice(lo, lo + 4096)
+            k = st["keys"][sl]
+            t.append(k % p, k // p, st["eff_a"][sl], st["eff_b"][sl],
+                     st["vcs"][sl], st["origins"][sl])
+    keys = np.arange(n_keys)
+    for cut in (rounds * n_keys - 1, 18 * n_keys - 1):
+        vcs = np.broadcast_to(st["cum"][cut], (n_keys, D))
+        outs = [t.read_resolved(keys % p, keys // p, vcs) for t in tabs]
+        assert outs[0][2].all() and outs[1][2].all()
+        for f in outs[0][0]:
+            np.testing.assert_array_equal(outs[0][0][f], outs[1][0][f])
