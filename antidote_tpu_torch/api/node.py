@@ -1,19 +1,23 @@
 """AntidoteNode — the public API facade: static and interactive
-transactions over typed bound objects, and hook registration, over one
-replica's TransactionManager + KVStore.
+transactions over typed bound objects, hook registration and the metrics
+registry, over one replica's TransactionManager + KVStore.
 
-This slice runs in memory: ``log_dir``, ``meta``, metrics and handoff
-raise ``NotImplementedError`` until their slices land.
+The node runs in memory: ``log_dir``, ``meta`` and handoff raise
+``NotImplementedError`` until their slices land.
 """
 
 from __future__ import annotations
 
+import logging
 from typing import Optional, Sequence
 
 import numpy as np
 
 from antidote_tpu_torch.config import AntidoteConfig
 from antidote_tpu_torch.crdt import is_type
+from antidote_tpu_torch.obs import (MetricsServer, NodeMetrics,
+                                    install_error_monitor)
+from antidote_tpu_torch.obs.server import DEFAULT_METRICS_PORT
 from antidote_tpu_torch.store.kv import KVStore
 from antidote_tpu_torch.txn.manager import (
     AbortError,
@@ -40,10 +44,29 @@ class AntidoteNode:
         self.dc_id = dc_id
         self.store = KVStore(self.cfg, device=device)
         self.txm = TransactionManager(self.store, my_dc=dc_id, cert=cert)
+        #: the prometheus metric set; the manager's and the store's
+        #: counters land in it
+        self.metrics = NodeMetrics()
+        self.txm.metrics = self.metrics
+        self.store.metrics = self.metrics
+        # the package's ERROR-level log records bump antidote_error_count
+        self._error_handler = install_error_monitor(
+            self.metrics, logging.getLogger("antidote_tpu_torch"))
+        self._metrics_server: Optional[MetricsServer] = None
 
-    @property
-    def metrics(self):
-        raise NotImplementedError("metrics are not ported yet")
+    def serve_metrics(self, port: Optional[int] = None) -> MetricsServer:
+        """Serve ``/metrics`` over HTTP on ``port`` (default 3001; 0 picks
+        a free port).  A second call returns the running server."""
+        if port is None:
+            port = DEFAULT_METRICS_PORT
+        if self._metrics_server is not None:
+            if port not in (0, self._metrics_server.port):
+                raise RuntimeError(
+                    f"metrics already served on port "
+                    f"{self._metrics_server.port}, not {port}")
+            return self._metrics_server
+        self._metrics_server = MetricsServer(self.metrics.registry, port=port)
+        return self._metrics_server
 
     def receive_handoff(self, pkg, shard: Optional[int] = None) -> None:
         raise NotImplementedError("handoff is not ported yet")

@@ -37,6 +37,19 @@ class CRDTType(abc.ABC):
     name: str
     #: stable small integer id (the JAX package's ids)
     type_id: int
+    #: True when the fold is an associative+commutative monoid: the type
+    #: also provides ``delta_of_ops``/``delta_merge``/``delta_apply``, so a
+    #: long op log reduces to one masked delta (``materializer/longlog.py``)
+    supports_assoc: bool = False
+    #: the assoc fold is exact only from a BOTTOM base state: the delta
+    #: window replays slot claims in sequence order, which matches
+    #: ``apply`` only when every slot starts empty (sets).  Ring folds
+    #: serve from an arbitrary GC'd base and must not route these types
+    #: through ``assoc_fold``
+    assoc_bottom_only: bool = False
+    #: the assoc fold also needs an all-adds window (set_aw: an
+    #: observed-remove is order-sensitive against the adds around it)
+    assoc_add_only: bool = False
     #: True for op-based types whose BLIND effects commute: an update with
     #: no state-dependent downstream from a txn that read nothing needs no
     #: first-committer-wins certification (the write-plane bypass)

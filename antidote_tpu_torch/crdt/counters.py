@@ -20,14 +20,26 @@ from antidote_tpu_torch.crdt.base import (CRDTType, Effect, lane_hit, pack_a,
 
 class CounterPN(CRDTType):
     """Positive-negative counter: state = one int64; effect = signed delta.
-    The fold is a masked sum (``cuda_kernels.counter_fold``)."""
+    The fold is a masked sum (``cuda_kernels.counter_fold``), so it is
+    also a monoid: the assoc hooks sum in int64."""
 
     name = "counter_pn"
     commutative_blind = True
     type_id = 1
+    supports_assoc = True
 
     def state_spec(self, cfg):
         return {"cnt": ((), torch.int64)}
+
+    # -- associative fold over [B, L] op windows ------------------------
+    def delta_of_ops(self, cfg, ops_a, ops_b, ops_vc, ops_origin, mask):
+        return {"cnt": torch.where(mask, ops_a[..., 0], 0).sum(-1)}
+
+    def delta_merge(self, a, b):
+        return {"cnt": a["cnt"] + b["cnt"]}
+
+    def delta_apply(self, state, d):
+        return {"cnt": state["cnt"] + d["cnt"]}
 
     def is_operation(self, op):
         kind, arg = op

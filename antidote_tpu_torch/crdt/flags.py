@@ -7,7 +7,8 @@ The sets' dot pattern over a single implicit element:
   * flag_dw: enabled ⟺ enables exist ∧ en_vc ≥ dis_vc pointwise.  An enable
     covers the observed disables; a concurrent disable wins.
 
-Both folds are elementwise clock maxima.
+Both folds are elementwise clock maxima: a monoid, so a window of ops
+also reduces to one delta (``_FlagAssocMixin``).
 """
 
 from __future__ import annotations
@@ -50,9 +51,48 @@ class _FlagBase(CRDTType):
         return bool(int(resolved["value"]))
 
 
-class FlagEW(_FlagBase):
+def _origin_rows(ops_vc, ops_origin):
+    """(one-hot origin lanes bool[..., D], each op's own commit stamp
+    int32[...]) of a [B, L] op window."""
+    d = ops_vc.shape[-1]
+    origin = ops_origin.long()
+    onehot = torch.arange(d, device=ops_vc.device) == origin[..., None]
+    own = ops_vc.gather(-1, origin[..., None])[..., 0]
+    return onehot, own
+
+
+class _FlagAssocMixin:
+    """Both flags fold by elementwise clock max — an associative,
+    commutative monoid from ANY base, so the ring fold may reduce a
+    window of ops at once (``materializer/longlog.assoc_fold``)."""
+
+    supports_assoc = True
+
+    def delta_merge(self, a, b):
+        return {"envc": torch.maximum(a["envc"], b["envc"]),
+                "disvc": torch.maximum(a["disvc"], b["disvc"])}
+
+    def delta_apply(self, state, d):
+        return self.delta_merge(state, d)
+
+    @staticmethod
+    def _lane_max(sel, rows):
+        """Lane max over the op axis of the rows ``sel`` picks (zero
+        elsewhere): int32[B, L, D] -> int32[B, D]."""
+        return torch.where(sel[..., None], rows, 0).amax(-2)
+
+
+class FlagEW(_FlagAssocMixin, _FlagBase):
     name = "flag_ew"
     type_id = 9
+
+    def delta_of_ops(self, cfg, ops_a, ops_b, ops_vc, ops_origin, mask):
+        d = cfg.max_dcs
+        enable = ops_b[..., 0] == _ENABLE
+        onehot, own = _origin_rows(ops_vc, ops_origin)
+        en = torch.where(onehot, own[..., None], 0)
+        return {"envc": self._lane_max(mask & enable, en),
+                "disvc": self._lane_max(mask & ~enable, ops_b[..., 1:1 + d])}
 
     def require_state_downstream(self, op):
         return op[0] in ("disable", "reset")
@@ -82,9 +122,18 @@ class FlagEW(_FlagBase):
         }
 
 
-class FlagDW(_FlagBase):
+class FlagDW(_FlagAssocMixin, _FlagBase):
     name = "flag_dw"
     type_id = 10
+
+    def delta_of_ops(self, cfg, ops_a, ops_b, ops_vc, ops_origin, mask):
+        d = cfg.max_dcs
+        enable = ops_b[..., 0] == _ENABLE
+        onehot, own = _origin_rows(ops_vc, ops_origin)
+        stamp = torch.where(onehot, own[..., None], 0)
+        en = torch.maximum(ops_b[..., 1:1 + d], stamp)
+        return {"envc": self._lane_max(mask & enable, en),
+                "disvc": self._lane_max(mask & ~enable, stamp)}
 
     def require_state_downstream(self, op):
         return op[0] == "enable"

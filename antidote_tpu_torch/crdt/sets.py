@@ -53,6 +53,45 @@ def _clock_slots_spec(cfg):
     }
 
 
+def _dedup_window(w: int, hs, counts, rows=None):
+    """Compress [B, L] handle sequences (possibly duplicated) into W-entry
+    delta windows: first-occurrence-ordered distinct handles int64[B, W],
+    per-handle summed ``counts`` int32[B, W], optional per-handle
+    lane-maxed clock ``rows`` int32[B, W, D], and the op count that
+    overflowed the window (``tail`` int32[B]) — the set types'
+    associative-delta core.
+
+    W passes, each claiming the sequence-FIRST unclaimed handle of every
+    row and tagging all its occurrences with the window slot; ops whose
+    handle never wins a slot keep the ``w`` sentinel and fall into
+    ``tail``.  EMPTY_HANDLE marks a masked-out op."""
+    valid = hs != EMPTY_HANDLE
+    entry = torch.full(hs.shape, w, dtype=torch.int64, device=hs.device)
+    remaining = valid
+    elems_slots = []
+    for slot in range(w):
+        idx, any_left = first_true(remaining)  # first unclaimed position
+        h = torch.where(any_left, hs.gather(-1, idx[:, None])[:, 0],
+                        EMPTY_HANDLE)
+        match = remaining & (hs == h[:, None])
+        entry = torch.where(match, slot, entry)
+        remaining = remaining & ~match
+        elems_slots.append(h)
+    elems = torch.stack(elems_slots, -1)
+    # the sentinel column w collects the tail and the masked ops; dropped
+    ent_idx = torch.where(valid, entry, w)
+    cnt = counts.new_zeros((hs.shape[0], w + 1)).scatter_add_(
+        1, ent_idx, counts)[:, :w]
+    tail = torch.where(valid & (entry >= w), counts, 0).sum(
+        -1, dtype=torch.int32)
+    if rows is None:
+        return elems, cnt, tail
+    d = rows.shape[-1]
+    vcs = rows.new_zeros((hs.shape[0], w + 1, d)).scatter_reduce_(
+        1, ent_idx[..., None].expand(-1, -1, d), rows, "amax")[:, :w]
+    return elems, cnt, tail, vcs
+
+
 def _restamp_obs_row(eff_a, eff_b, my_dc, tentative_own, commit_own):
     """Rewrite the observed-VC row at eff_b[1:1+d] when its own lane
     carries the txn's tentative stamp (the observed-remove and remove-wins
@@ -73,9 +112,63 @@ class SetAW(TopCountResolved, CRDTType):
     name = "set_aw"
     commutative_blind = True
     type_id = 6
+    # the ADD lane is a monoid: from a bottom base, an all-adds window
+    # reduces to (first-occurrence handles, per-handle dot maxes) and
+    # partial windows merge associatively.  Removes and warm bases are
+    # order-sensitive (slot steals), so dispatchers gate on both flags.
+    supports_assoc = True
+    assoc_bottom_only = True
+    assoc_add_only = True
 
     def eff_b_width(self, cfg):
         return 1 + cfg.max_dcs
+
+    # -- associative add-lane fold over [B, L] windows ------------------
+    # Exact from a bottom base, with no removes in the window, distinct
+    # handles ≤ set_slots, and positive own commit dots.
+    def delta_of_ops(self, cfg, ops_a, ops_b, ops_vc, ops_origin, mask):
+        ok = mask & (ops_b[..., 0] == 0)  # defensive: adds only
+        hs = torch.where(ok, ops_a[..., 0], EMPTY_HANDLE)
+        origin = ops_origin.long()
+        own = ops_vc.gather(-1, origin[..., None])[..., 0]
+        onehot = torch.arange(cfg.max_dcs, device=ops_vc.device) \
+            == origin[..., None]
+        rows = torch.where(onehot & ok[..., None], own[..., None], 0)
+        elems, cnt, tail, addvc = _dedup_window(
+            cfg.set_slots, hs, ok.to(torch.int32), rows)
+        return {"elems": elems, "counts": cnt, "addvc": addvc, "tail": tail}
+
+    def delta_merge(self, a, b):
+        w = a["elems"].shape[-1]
+        elems, cnt, tail, addvc = _dedup_window(
+            w, torch.cat([a["elems"], b["elems"]], -1),
+            torch.cat([a["counts"], b["counts"]], -1),
+            torch.cat([a["addvc"], b["addvc"]], -2))
+        return {"elems": elems, "counts": cnt, "addvc": addvc,
+                "tail": a["tail"] + b["tail"] + tail}
+
+    def delta_apply(self, state, d):
+        elems, addvc, rmvc = state["elems"], state["addvc"], state["rmvc"]
+        ovf = state["ovf"] + d["tail"]
+        for j in range(d["elems"].shape[-1]):
+            h, cnt, row = d["elems"][:, j], d["counts"][:, j], d["addvc"][:, j]
+            valid = h != EMPTY_HANDLE
+            occupied = elems != EMPTY_HANDLE
+            idx_match, has_match = first_true((elems == h[:, None])
+                                              & occupied)
+            present = (addvc > rmvc).any(-1) & occupied
+            idx_free, has_free = first_true(~present)
+            idx = torch.where(has_match, idx_match, idx_free)
+            take = torch.arange(elems.shape[0], device=elems.device)
+            keep = has_match[:, None]
+            base_add = torch.where(keep, addvc[take, idx], 0)
+            base_rm = torch.where(keep, rmvc[take, idx], 0)
+            can = valid & (has_match | has_free)
+            elems = set_at(elems, idx, h, can)
+            addvc = set_at(addvc, idx, torch.maximum(base_add, row), can)
+            rmvc = set_at(rmvc, idx, base_rm, can)
+            ovf = ovf + torch.where(valid & ~can, cnt, 0)
+        return {"elems": elems, "addvc": addvc, "rmvc": rmvc, "ovf": ovf}
 
     def state_spec(self, cfg):
         return _clock_slots_spec(cfg)
@@ -301,10 +394,42 @@ class SetGO(TopCountResolved, CRDTType):
     name = "set_go"
     commutative_blind = True
     type_id = 8
+    # grow-only inserts from a bottom base are first-occurrence order —
+    # the same delta-window monoid as set_aw's add lane, minus clocks
+    supports_assoc = True
+    assoc_bottom_only = True
 
     def state_spec(self, cfg):
         return {"elems": ((cfg.set_slots,), torch.int64),
                 "ovf": ((), torch.int32)}
+
+    # -- associative fold; exact from a bottom base with distinct handles
+    # ≤ set_slots (see SetAW.delta_of_ops) ------------------------------
+    def delta_of_ops(self, cfg, ops_a, ops_b, ops_vc, ops_origin, mask):
+        hs = torch.where(mask, ops_a[..., 0], EMPTY_HANDLE)
+        elems, cnt, tail = _dedup_window(cfg.set_slots, hs,
+                                         mask.to(torch.int32))
+        return {"elems": elems, "counts": cnt, "tail": tail}
+
+    def delta_merge(self, a, b):
+        w = a["elems"].shape[-1]
+        elems, cnt, tail = _dedup_window(
+            w, torch.cat([a["elems"], b["elems"]], -1),
+            torch.cat([a["counts"], b["counts"]], -1))
+        return {"elems": elems, "counts": cnt,
+                "tail": a["tail"] + b["tail"] + tail}
+
+    def delta_apply(self, state, d):
+        elems = state["elems"]
+        ovf = state["ovf"] + d["tail"]
+        for j in range(d["elems"].shape[-1]):
+            h, cnt = d["elems"][:, j], d["counts"][:, j]
+            valid = h != EMPTY_HANDLE
+            has_match = (elems == h[:, None]).any(-1)
+            idx, has_free = first_true(elems == EMPTY_HANDLE)
+            elems = set_at(elems, idx, h, valid & ~has_match & has_free)
+            ovf = ovf + torch.where(valid & ~has_match & ~has_free, cnt, 0)
+        return {"elems": elems, "ovf": ovf}
 
     def is_operation(self, op):
         return op[0] in ("add", "add_all")

@@ -1,0 +1,802 @@
+"""Prometheus-style metrics registry.
+
+The port's own copy of the JAX package's registry (pure Python; the port
+imports nothing of that package).  The metric set mirrors AntidoteDB's
+``antidote_stats_collector``:
+
+  antidote_error_count                counter
+  antidote_staleness                  histogram (ms buckets 1..10000)
+  antidote_open_transactions          gauge
+  antidote_aborted_transactions_total counter
+  antidote_operations_total{type}     counter (read | read_async | update)
+
+plus framework-native extras (device launch timing, commit batch sizes).
+Exposition follows the prometheus text format so AntidoteDB's Grafana
+dashboard queries (monitoring/Antidote-Dashboard.json) keep working.
+"""
+
+from __future__ import annotations
+
+import logging
+import threading
+import time
+from typing import Dict, List, Optional, Tuple
+
+
+def _fmt_labels(labels: Dict[str, str]) -> str:
+    if not labels:
+        return ""
+    inner = ",".join(f'{k}="{v}"' for k, v in sorted(labels.items()))
+    return "{" + inner + "}"
+
+
+class Counter:
+    def __init__(self, name: str, help_: str = "", label_names: Tuple[str, ...] = ()):
+        self.name = name
+        self.help = help_
+        self.label_names = label_names
+        self._values: Dict[Tuple[str, ...], float] = {}
+        self._lock = threading.Lock()
+
+    def inc(self, amount: float = 1.0, **labels) -> None:
+        key = tuple(str(labels.get(n, "")) for n in self.label_names)
+        with self._lock:
+            self._values[key] = self._values.get(key, 0.0) + amount
+
+    def value(self, **labels) -> float:
+        key = tuple(str(labels.get(n, "")) for n in self.label_names)
+        return self._values.get(key, 0.0)
+
+    def snapshot(self) -> Dict[Tuple[str, ...], float]:
+        """Locked copy of label-tuple -> value (readers must not iterate
+        ``_values`` live: a concurrent first inc() of a new label set
+        inserts a key mid-iteration)."""
+        with self._lock:
+            return dict(self._values)
+
+    def expose(self) -> List[str]:
+        out = [f"# HELP {self.name} {self.help}", f"# TYPE {self.name} counter"]
+        with self._lock:  # the HTTP server scrapes from another thread
+            vals = dict(self._values)
+        if not self.label_names and not vals:
+            vals = {(): 0.0}
+        for key, v in sorted(vals.items()):
+            labels = dict(zip(self.label_names, key))
+            out.append(f"{self.name}{_fmt_labels(labels)} {v:g}")
+        return out
+
+
+class Gauge:
+    """Scalar gauge, optionally labeled (``label_names``): the labeled
+    form keys one value per label tuple — e.g. the per-segment WAL
+    depth gauge, ``antidote_wal_segment_depth{segment="0"}``."""
+
+    def __init__(self, name: str, help_: str = "",
+                 label_names: Tuple[str, ...] = ()):
+        self.name = name
+        self.help = help_
+        self.label_names = label_names
+        self._value = 0.0
+        self._values: Dict[Tuple[str, ...], float] = {}
+        self._lock = threading.Lock()
+
+    def _key(self, labels) -> Tuple[str, ...]:
+        return tuple(str(labels.get(n, "")) for n in self.label_names)
+
+    def set(self, v: float, **labels) -> None:
+        with self._lock:
+            if self.label_names:
+                self._values[self._key(labels)] = v
+            else:
+                self._value = v
+
+    def inc(self, amount: float = 1.0, **labels) -> None:
+        with self._lock:
+            if self.label_names:
+                k = self._key(labels)
+                self._values[k] = self._values.get(k, 0.0) + amount
+            else:
+                self._value += amount
+
+    def dec(self, amount: float = 1.0, **labels) -> None:
+        self.inc(-amount, **labels)
+
+    def value(self, **labels) -> float:
+        if self.label_names:
+            return self._values.get(self._key(labels), 0.0)
+        return self._value
+
+    def snapshot(self) -> Dict[Tuple[str, ...], float]:
+        with self._lock:
+            return dict(self._values)
+
+    def expose(self) -> List[str]:
+        out = [
+            f"# HELP {self.name} {self.help}",
+            f"# TYPE {self.name} gauge",
+        ]
+        if not self.label_names:
+            out.append(f"{self.name} {self._value:g}")
+            return out
+        with self._lock:
+            vals = dict(self._values)
+        for key, v in sorted(vals.items()):
+            labels = dict(zip(self.label_names, key))
+            out.append(f"{self.name}{_fmt_labels(labels)} {v:g}")
+        return out
+
+
+#: AntidoteDB's staleness buckets: ms 1..10000
+DEFAULT_BUCKETS = (1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 1024, 2048, 4096, 10000)
+
+
+class Histogram:
+    """Fixed-bucket histogram, optionally labeled.
+
+    With ``label_names`` set, each observed label tuple gets its own
+    (buckets, sum, count) child series in the exposition, while the
+    unlabeled aggregate keeps feeding :meth:`summary` / :meth:`percentile`
+    so node-status blocks stay label-agnostic.
+    """
+
+    def __init__(self, name: str, help_: str = "", buckets=DEFAULT_BUCKETS,
+                 label_names: Tuple[str, ...] = ()):
+        self.name = name
+        self.help = help_
+        self.buckets = tuple(sorted(buckets))
+        self.label_names = tuple(label_names)
+        self._counts = [0] * (len(self.buckets) + 1)
+        self._sum = 0.0
+        self._n = 0
+        #: label tuple -> [bucket counts, sum, count]
+        self._children: Dict[Tuple[str, ...], list] = {}
+        self._lock = threading.Lock()
+
+    def observe(self, v: float, **labels) -> None:
+        with self._lock:
+            i = 0
+            while i < len(self.buckets) and v > self.buckets[i]:
+                i += 1
+            self._counts[i] += 1
+            self._sum += v
+            self._n += 1
+            if self.label_names:
+                key = tuple(str(labels.get(n, "")) for n in self.label_names)
+                child = self._children.get(key)
+                if child is None:
+                    child = [[0] * (len(self.buckets) + 1), 0.0, 0]
+                    self._children[key] = child
+                child[0][i] += 1
+                child[1] += v
+                child[2] += 1
+
+    @property
+    def count(self) -> int:
+        return self._n
+
+    def summary(self) -> Dict[str, float]:
+        """Compact (count, mean, p50, p99) view for node-status blocks —
+        quantiles are bucket upper bounds, same as :meth:`percentile`."""
+        with self._lock:
+            n, s = self._n, self._sum
+        return {
+            "count": n,
+            "mean": (s / n) if n else 0.0,
+            "p50": self.percentile(0.5),
+            "p99": self.percentile(0.99),
+        }
+
+    def percentile(self, q: float) -> float:
+        """Approximate q-quantile from bucket counts (upper bound)."""
+        if self._n == 0:
+            return 0.0
+        target = q * self._n
+        acc = 0
+        for i, c in enumerate(self._counts):
+            acc += c
+            if acc >= target:
+                return float(self.buckets[i]) if i < len(self.buckets) else float("inf")
+        return float("inf")
+
+    def expose(self) -> List[str]:
+        out = [f"# HELP {self.name} {self.help}", f"# TYPE {self.name} histogram"]
+        with self._lock:  # consistent (buckets, sum, count) snapshot
+            counts, total, n = list(self._counts), self._sum, self._n
+            children = {
+                k: (list(c[0]), c[1], c[2]) for k, c in self._children.items()
+            }
+        if self.label_names:
+            for key in sorted(children):
+                labels = dict(zip(self.label_names, key))
+                ccounts, csum, cn = children[key]
+                acc = 0
+                for i, b in enumerate(self.buckets):
+                    acc += ccounts[i]
+                    out.append(
+                        f"{self.name}_bucket"
+                        f"{_fmt_labels({**labels, 'le': str(b)})} {acc}"
+                    )
+                acc += ccounts[-1]
+                out.append(
+                    f"{self.name}_bucket"
+                    f"{_fmt_labels({**labels, 'le': '+Inf'})} {acc}"
+                )
+                out.append(f"{self.name}_sum{_fmt_labels(labels)} {csum:g}")
+                out.append(f"{self.name}_count{_fmt_labels(labels)} {cn}")
+            return out
+        acc = 0
+        for i, b in enumerate(self.buckets):
+            acc += counts[i]
+            out.append(f'{self.name}_bucket{{le="{b}"}} {acc}')
+        acc += counts[-1]
+        out.append(f'{self.name}_bucket{{le="+Inf"}} {acc}')
+        out.append(f"{self.name}_sum {total:g}")
+        out.append(f"{self.name}_count {n}")
+        return out
+
+
+class MetricsRegistry:
+    def __init__(self):
+        self._metrics: Dict[str, object] = {}
+        self._lock = threading.Lock()
+
+    def register(self, metric):
+        with self._lock:
+            if metric.name in self._metrics:
+                raise ValueError(f"metric {metric.name!r} already registered")
+            self._metrics[metric.name] = metric
+        return metric
+
+    def counter(self, name, help_="", label_names=()):
+        return self.register(Counter(name, help_, tuple(label_names)))
+
+    def gauge(self, name, help_="", label_names=()):
+        return self.register(Gauge(name, help_, tuple(label_names)))
+
+    def histogram(self, name, help_="", buckets=DEFAULT_BUCKETS, label_names=()):
+        return self.register(Histogram(name, help_, buckets, tuple(label_names)))
+
+    def get(self, name):
+        return self._metrics[name]
+
+    def expose(self) -> str:
+        lines: List[str] = []
+        for m in self._metrics.values():
+            lines.extend(m.expose())
+        return "\n".join(lines) + "\n"
+
+
+class NetMetrics:
+    """Process-wide fabric/RPC resilience counters.
+
+    These live OUTSIDE any node's registry because their owners (the TCP
+    fabric's reconnect loops, the cluster RPC client, the fault
+    injector) have no node reference — yet operators need them on the
+    same ``/metrics`` page.  :func:`net_metrics` returns the process
+    singleton; ``NodeMetrics`` attaches the same counter objects into
+    every node registry, so each node's exposition includes them.
+    """
+
+    def __init__(self):
+        self.reconnects = Counter(
+            "antidote_interdc_reconnects_total",
+            "Successful inter-DC subscription reconnects", ("link",)
+        )
+        self.reconnect_attempts = Counter(
+            "antidote_interdc_reconnect_attempts_total",
+            "Inter-DC subscription reconnect dial attempts", ("link",)
+        )
+        self.corrupt_frames = Counter(
+            "antidote_interdc_corrupt_frames_total",
+            "Undecodable inter-DC stream frames discarded"
+        )
+        self.catchup_failures = Counter(
+            "antidote_interdc_catchup_failures_total",
+            "Log catch-up queries that failed transiently"
+        )
+        self.rpc_retries = Counter(
+            "antidote_rpc_retries_total",
+            "Cluster RPC attempts retried after a transport error"
+        )
+        self.rpc_deadline_exceeded = Counter(
+            "antidote_rpc_deadline_exceeded_total",
+            "Cluster RPC calls that exhausted their deadline/retry budget"
+        )
+        self.faults_injected = Counter(
+            "antidote_faults_injected_total",
+            "Fault-injection decisions taken", ("site", "action")
+        )
+        self.pump_fallback = Counter(
+            "antidote_native_pump_fallback_total",
+            "Times the native receive plane was unavailable and the "
+            "Python reader fallback engaged"
+        )
+        self.frontend_fallback = Counter(
+            "antidote_native_frontend_fallback_total",
+            "Times the native serving front-end was unavailable and the "
+            "Python socketserver plane engaged"
+        )
+        self.shard_moves = Counter(
+            "antidote_cluster_shard_moves_total",
+            "Live shard ownership moves (two-phase handoff legs)",
+            ("role",)  # import | relinquish
+        )
+        self.route_updates = Counter(
+            "antidote_interdc_reroutes_total",
+            "Inter-DC catch-up routes re-pointed at a new shard owner "
+            "via ownership-epoch gossip"
+        )
+        self.egress_window_drops = Counter(
+            "antidote_interdc_egress_window_drops_total",
+            "Egress frames dropped for lagging subscribers (bounded "
+            "outbox overflow; the subscriber heals via opid-gap catch-up)"
+        )
+        self.ingress_shed = Counter(
+            "antidote_interdc_ingress_shed_total",
+            "Ingress txn messages shed past the gate/pending high-water "
+            "mark (chain position NOT advanced; catch-up refills)"
+        )
+
+    def all_metrics(self):
+        return (self.reconnects, self.reconnect_attempts,
+                self.corrupt_frames, self.catchup_failures,
+                self.rpc_retries, self.rpc_deadline_exceeded,
+                self.faults_injected, self.pump_fallback,
+                self.frontend_fallback, self.shard_moves,
+                self.route_updates, self.egress_window_drops,
+                self.ingress_shed)
+
+    def attach(self, registry: "MetricsRegistry") -> None:
+        """Register the shared counter objects into a node registry so
+        they appear in that node's exposition (idempotent per registry)."""
+        for m in self.all_metrics():
+            try:
+                registry.register(m)
+            except ValueError:
+                pass  # already attached to this registry
+
+    def snapshot(self) -> Dict[str, float]:
+        """Label-summed counter values (the console's status command)."""
+        out: Dict[str, float] = {}
+        for m in self.all_metrics():
+            out[m.name] = sum(m._values.values()) if m._values else 0.0
+        return out
+
+
+_NET: Optional[NetMetrics] = None
+_NET_LOCK = threading.Lock()
+
+
+def net_metrics() -> NetMetrics:
+    global _NET
+    if _NET is None:
+        with _NET_LOCK:
+            if _NET is None:
+                _NET = NetMetrics()
+    return _NET
+
+
+class NodeMetrics:
+    """The per-replica metric set, named as in AntidoteDB."""
+
+    def __init__(self, registry: Optional[MetricsRegistry] = None):
+        r = registry or MetricsRegistry()
+        self.registry = r
+        self.error_count = r.counter(
+            "antidote_error_count", "Number of error messages logged"
+        )
+        self.staleness = r.histogram(
+            "antidote_staleness", "Staleness of the stable snapshot (ms)"
+        )
+        self.open_transactions = r.gauge(
+            "antidote_open_transactions", "Number of open interactive transactions"
+        )
+        self.aborted_transactions = r.counter(
+            "antidote_aborted_transactions_total", "Aborted transactions"
+        )
+        self.operations = r.counter(
+            "antidote_operations_total", "Operations by type", ("type",)
+        )
+        # framework-native extras
+        self.device_launch_seconds = r.histogram(
+            "antidote_device_launch_seconds",
+            "Wall time of device kernel launches (s)",
+            buckets=(0.0001, 0.0005, 0.001, 0.005, 0.01, 0.05, 0.1, 0.5, 1, 5),
+        )
+        self.commit_batch_size = r.histogram(
+            "antidote_commit_batch_size", "Effects per commit batch",
+            buckets=(1, 2, 4, 8, 16, 64, 256, 1024, 4096, 16384),
+        )
+        # overload/backpressure plane: every bound, shed, and
+        # degraded-mode flip is observable
+        self.shed = r.counter(
+            "antidote_shed_total",
+            "Requests shed by overload protection, by plane "
+            "(server | server_queue | txn | deadline | read_only | "
+            "tenant — tenant-scoped quota refusals, distinguishable "
+            "from global busy)",
+            ("plane",),
+        )
+        self.in_flight = r.gauge(
+            "antidote_server_in_flight",
+            "Wire-server requests currently admitted (AdmissionGate)",
+        )
+        # multi-tenant QoS plane: per-tenant interference
+        # observability.  The `tenant` label is BOUNDED: every call
+        # site MUST clamp the value through TenantRegistry.label()
+        # (tools/lint.py tenant-label rule) — tenant names come from
+        # operator config, never from the wire.
+        self.tenant_shed = r.counter(
+            "antidote_tenant_shed_total",
+            "Tenant-scoped refusals by lane/stage "
+            "(admission | batch_gate | locked | txn)",
+            ("tenant", "plane"),
+        )
+        self.tenant_in_flight = r.gauge(
+            "antidote_tenant_in_flight",
+            "Requests currently admitted per tenant (AdmissionGate "
+            "tenant accounting)",
+            ("tenant",),
+        )
+        self.tenant_request_seconds = r.histogram(
+            "antidote_tenant_request_seconds",
+            "Wire-server request latency per tenant, submit to reply (s)",
+            buckets=(0.0005, 0.001, 0.005, 0.01, 0.05, 0.1, 0.5, 1, 5, 30),
+            label_names=("tenant",),
+        )
+        self.commit_gate_depth = r.gauge(
+            "antidote_commit_gate_depth",
+            "Static batch-gate queue depth (requests parked for the "
+            "next group launch)",
+        )
+        self.interdc_gate_depth = r.gauge(
+            "antidote_interdc_gate_depth",
+            "Remote txns queued in the causal dependency gates",
+        )
+        self.degraded_read_only = r.gauge(
+            "antidote_degraded_read_only",
+            "1 while the node is in degraded read-only mode (WAL "
+            "appends failing), else 0",
+        )
+        self.server_request_seconds = r.histogram(
+            "antidote_server_request_seconds",
+            "Wire-server request latency, admission to reply (s)",
+            buckets=(0.0005, 0.001, 0.005, 0.01, 0.05, 0.1, 0.5, 1, 5, 30),
+        )
+        self.commit_seconds = r.histogram(
+            "antidote_commit_seconds",
+            "Commit-group latency inside the commit lock (s)",
+            buckets=(0.0005, 0.001, 0.005, 0.01, 0.05, 0.1, 0.5, 1, 5, 30),
+        )
+        # serving pipeline: per-stage wire-server timings plus
+        # the serving-epoch / hot-key snapshot-cache planes.  Stage
+        # histograms use µs-resolution buckets — the whole point of the
+        # staged pipeline is that each stage is far below a millisecond.
+        stage_buckets = (2e-5, 5e-5, 1e-4, 2.5e-4, 5e-4, 1e-3, 2.5e-3,
+                         5e-3, 1e-2, 2.5e-2, 5e-2, 0.1, 0.5, 1)
+        self.stage_decode_seconds = r.histogram(
+            "antidote_stage_decode_seconds",
+            "Pipeline stage: frame decode + admit, per request (s)",
+            buckets=stage_buckets,
+        )
+        self.stage_parked_seconds = r.histogram(
+            "antidote_stage_parked_seconds",
+            "Pipeline stage: time parked in a bounded queue before its "
+            "stage dequeued it, per request (s)",
+            buckets=stage_buckets,
+        )
+        self.stage_launch_seconds = r.histogram(
+            "antidote_stage_launch_seconds",
+            "Pipeline stage: epoch-read classify + device launch, per "
+            "batch — async dispatch only, never a device sync (s)",
+            buckets=stage_buckets,
+        )
+        self.stage_writeback_seconds = r.histogram(
+            "antidote_stage_writeback_seconds",
+            "Pipeline stage: device materialize + decode + reply "
+            "serialization, per batch (s)",
+            buckets=stage_buckets,
+        )
+        self.snapshot_cache = r.counter(
+            "antidote_snapshot_cache_total",
+            "Hot-key snapshot cache events (hit | miss | evict)",
+            ("event",),
+        )
+        self.serving_reads = r.counter(
+            "antidote_serving_reads_total",
+            "Static reads by serving path (cache | gather | locked)",
+            ("path",),
+        )
+        self.epoch_publish = r.counter(
+            "antidote_epoch_publish_total",
+            "Serving-epoch publications by mode (scatter | copy | defer)",
+            ("mode",),
+        )
+        self.epoch_rows = r.counter(
+            "antidote_epoch_rows_total",
+            "Rows re-frozen by serving-epoch publications, by mode — "
+            "scatter rows scale with the write working set, copy rows "
+            "with table size (the publish-cost cap's observable)",
+            ("mode",),
+        )
+        self.serving_epoch_id = r.gauge(
+            "antidote_serving_epoch_id",
+            "Monotone id of the last published serving epoch",
+        )
+        # mesh serving plane: device count, per-shard
+        # incremental publish rows, and the stable-time pmin collective
+        self.mesh_devices = r.gauge(
+            "antidote_mesh_devices",
+            "Devices in the serving mesh (0 / absent = single-chip "
+            "serving plane)",
+        )
+        self.mesh_publish = r.counter(
+            "antidote_mesh_publish_total",
+            "Rows re-frozen into each shard's device slice by serving-"
+            "epoch publications on the mesh plane — an incremental "
+            "publish advances only the dirty shards' labels; a full "
+            "copy advances every shard by its table rows",
+            ("shard",),
+        )
+        self.mesh_stable_seconds = r.histogram(
+            "antidote_mesh_stable_seconds",
+            "Stable-time pmin collective latency, launch to host "
+            "readback (s); launched only when a commit advanced an "
+            "applied clock (cached otherwise)",
+            buckets=stage_buckets,
+        )
+        # materializer fold plane: which fold strategy served
+        # each read / replay, and how long the over-ring replay folds take
+        self.fold_dispatch = r.counter(
+            "antidote_fold_dispatch_total",
+            "Materializer fold dispatches by strategy (serial | assoc | "
+            "long | mesh_assoc | pallas_counter | pallas_set_aw)",
+            ("strategy",),
+        )
+        self.fold_seconds = r.histogram(
+            "antidote_fold_seconds",
+            "Over-ring replay fold latency, dispatch to host "
+            "materialize (s)",
+            buckets=(1e-4, 5e-4, 1e-3, 5e-3, 0.01, 0.05, 0.1, 0.5, 1, 5, 30),
+            label_names=("strategy", "type"),
+        )
+        # write plane: cross-connection group commit, parallel
+        # WAL group fsync, and the commutative-update cert bypass
+        self.commit_merge_width = r.histogram(
+            "antidote_commit_merge_width",
+            "Write-bearing transactions fused per merged commit batch "
+            "(one lock take / certification pass / WAL append / device "
+            "scatter each)",
+            buckets=(1, 2, 4, 8, 16, 32, 64, 128, 256, 1024),
+        )
+        self.wal_fsync_batch = r.histogram(
+            "antidote_wal_fsync_batch",
+            "Commit barriers covered per group-fsync pass (sync_log="
+            "true; >1 means barriers coalesced into one fsync)",
+            buckets=(1, 2, 4, 8, 16, 32, 64),
+        )
+        self.wal_segment_depth = r.gauge(
+            "antidote_wal_segment_depth",
+            "Bytes appended since the segment's last commit barrier/"
+            "fsync, per WAL segment index (in-flight durability debt)",
+            label_names=("segment",),
+        )
+        self.cert_bypass = r.counter(
+            "antidote_cert_bypass_total",
+            "Transactions that skipped certification via the blind-"
+            "commutative bypass (no reads, commutative-type blind "
+            "updates only, no explicit certify=true)",
+        )
+        # checkpointed fast restart: recovery phase timings,
+        # replayed-record counts, image age, and WAL bytes reclaimed by
+        # the guarded truncation below the checkpoint floor
+        self.recovery_seconds = r.gauge(
+            "antidote_recovery_seconds",
+            "Wall time of the last recovery, by phase (checkpoint = "
+            "image load + install; tail = WAL tail replay)",
+            ("phase",),
+        )
+        self.recovery_records = r.counter(
+            "antidote_recovery_records_total",
+            "WAL records replayed by recovery (tail-only when a "
+            "checkpoint image was installed)",
+        )
+        self.checkpoint_age = r.gauge(
+            "antidote_checkpoint_age_seconds",
+            "Age of the newest published checkpoint image (how much "
+            "tail a crash-now restart would replay)",
+        )
+        self.wal_reclaimed = r.counter(
+            "antidote_wal_bytes_reclaimed_total",
+            "WAL bytes reclaimed by checkpoint truncation (files wholly "
+            "below a published floor)",
+        )
+        self.checkpoint_total = r.counter(
+            "antidote_checkpoint_total",
+            "Checkpoint attempts by outcome (ok | error); an error "
+            "publishes and truncates nothing",
+            ("status",),
+        )
+        # incremental checkpoint chains + scrub + cold tier
+        self.checkpoint_stamp = r.counter(
+            "antidote_checkpoint_stamp_total",
+            "Published checkpoint stamps by kind (full = rebase image "
+            "with cold sidecar; delta = parent-linked incremental link "
+            "whose cost scales with the dirty set)",
+            ("kind",),
+        )
+        self.checkpoint_stamp_rows = r.counter(
+            "antidote_checkpoint_stamp_rows_total",
+            "Table rows written per checkpoint stamp by kind — delta "
+            "rows track the write working set, full rows the resident "
+            "extent (the incremental-cost observable)",
+            ("kind",),
+        )
+        self.checkpoint_scrub = r.counter(
+            "antidote_checkpoint_scrub_total",
+            "Background bit-rot scrub verifications of retained "
+            "images/links (ok | corrupt — a corrupt delta link is "
+            "retired and a rebase forced)",
+            ("result",),
+        )
+        self.coldtier_events = r.counter(
+            "antidote_coldtier_events_total",
+            "Cold-tier transitions (evict = device row dropped to the "
+            "sidecar; fault = row faulted back in; refused = typed "
+            "ColdMiss past the rate cap or an I/O fault; crc_fail = "
+            "fault-in caught on-disk corruption; lost = key tombstoned "
+            "after bit rot on every retained image)",
+            ("event",),
+        )
+        self.coldtier_resident_rows = r.gauge(
+            "antidote_coldtier_resident_rows",
+            "Device rows currently holding key state (bounded by "
+            "--resident-rows when the cold tier is armed)",
+        )
+        self.coldtier_cold_keys = r.gauge(
+            "antidote_coldtier_cold_keys",
+            "Keys whose state lives only in the checkpoint sidecar",
+        )
+        # follower read replicas & session tier: owner-side
+        # lag per follower, session redirects (park-then-redirect +
+        # not-owner write refusals), bootstrap/repair cycles by mode,
+        # and the divergence-detection comparisons
+        self.follower_lag = r.gauge(
+            "antidote_follower_applied_vc_lag",
+            "Owner-side commits the named follower's applied own-lane "
+            "clock trails the owner's commit counter by (from its last "
+            "liveness report)",
+            label_names=("follower",),
+        )
+        self.session_redirects = r.counter(
+            "antidote_session_redirects_total",
+            "Session requests a replica refused with a typed redirect "
+            "(lagging = applied clock behind the token after the park "
+            "window; not_owner = write/txn sent to a follower), by wire "
+            "dialect (native msgpack | apb protobuf)",
+            ("kind", "dialect"),
+        )
+        self.fleet_followers = r.gauge(
+            "antidote_fleet_followers",
+            "Followers currently registered with this owner's replica "
+            "registry (the fleet the hash ring routes over)",
+        )
+        # symmetric serving fabric: server-side proxying /
+        # forwarding volume by kind (read | write | txn) and outcome
+        # (ok | failover = served after >=1 dead hop | error), the
+        # per-hop proxy latency, and the node's local fleet-health view
+        self.proxy_total = r.counter(
+            "antidote_proxy_total",
+            "Requests this node proxied/forwarded to another fleet "
+            "member (kind: read | write | txn; outcome: ok | failover "
+            "| error)",
+            ("kind", "outcome"),
+        )
+        self.proxy_hop_seconds = r.histogram(
+            "antidote_proxy_hop_seconds",
+            "Wall time of one server-side proxy/forward hop, dial to "
+            "decoded reply (s)",
+            buckets=(1e-4, 2.5e-4, 5e-4, 1e-3, 2.5e-3, 5e-3, 1e-2,
+                     2.5e-2, 5e-2, 0.1, 0.5, 1, 5),
+        )
+        self.fleet_health = r.gauge(
+            "antidote_fleet_health",
+            "This node's live view of each fleet endpoint (1 = "
+            "serving, 0 = dead/down — registry state merged with local "
+            "connect/timeout observations)",
+            label_names=("endpoint",),
+        )
+        self.follower_bootstrap = r.counter(
+            "antidote_follower_bootstrap_total",
+            "Follower bootstrap/repair cycles by mode (image = full "
+            "checkpoint-image install; delta = re-install because the "
+            "chain position fell below the owner's compaction floor or "
+            "divergence was detected; tail = WAL catch-up only)",
+            ("mode",),
+        )
+        self.divergence_checks = r.counter(
+            "antidote_divergence_checks_total",
+            "Follower-vs-owner per-shard digest comparisons (ok | "
+            "skipped = applied clocks unequal, nothing comparable | "
+            "unsubscribed = the lag is on a peer lane this follower was "
+            "never given a descriptor for (--follower-peers) | "
+            "mismatch = divergence detected and healed)",
+            ("result",),
+        )
+        # Merkle-split divergence repair
+        self.merkle_probe_hashes = r.counter(
+            "antidote_merkle_probe_hashes_total",
+            "Hash comparisons spent walking the divergence Merkle tree "
+            "(O(fanout·log n) per localized mismatch — the flat digest "
+            "compared O(1) hashes but healed O(shard))",
+        )
+        self.divergence_heals = r.counter(
+            "antidote_divergence_heals_total",
+            "Divergence repairs by mode (range = Merkle-localized "
+            "leaf fetch, quarantine without re-install; image = full "
+            "re-bootstrap fallback)",
+            ("mode",),
+        )
+        # escrow economy: bounded-counter refusals, rights
+        # grants by role, transfer round-trip latency, and the queued
+        # shortfall the background rights-transfer loop is working off
+        self.escrow_refusals = r.counter(
+            "antidote_escrow_refusals_total",
+            "counter_b decrements/transfers refused typed by the "
+            "group-commit escrow certification (insufficient locally-"
+            "held rights; zero oversell is the invariant this buys)",
+        )
+        self.escrow_grants = r.counter(
+            "antidote_escrow_grants_total",
+            "Escrow rights-transfer grants by role (granter = this node "
+            "committed a transfer out of its lane; requester = a grant "
+            "this node asked for landed; failed = a request refused, "
+            "lost, or surfaced typed on the at-most-once channel — "
+            "never blind-resent)",
+            ("role",),
+        )
+        self.escrow_transfer_seconds = r.histogram(
+            "antidote_escrow_transfer_seconds",
+            "Rights-transfer request round trip on the inter-DC query "
+            "channel, send to decoded grant (s)",
+            buckets=(1e-4, 5e-4, 1e-3, 5e-3, 0.01, 0.05, 0.1, 0.5, 1, 5),
+        )
+        self.escrow_shortfall = r.gauge(
+            "antidote_escrow_shortfall",
+            "Rights currently queued for by refused decrements (the "
+            "background transfer loop's pending demand; 0 = every "
+            "refusal has been covered or retired)",
+        )
+        # process-wide fabric/RPC resilience counters ride along in this
+        # node's exposition (shared objects — see NetMetrics)
+        net_metrics().attach(r)
+
+    # -- staleness observer (every 10 s in AntidoteDB); here it is called
+    #    by whoever owns a clock source, typically the node.
+    def observe_staleness(self, ms: float) -> None:
+        self.staleness.observe(ms)
+
+
+class _ErrorCountHandler(logging.Handler):
+    def __init__(self, metrics: NodeMetrics):
+        super().__init__(level=logging.ERROR)
+        self.metrics = metrics
+
+    def emit(self, record):
+        self.metrics.error_count.inc()
+
+
+def install_error_monitor(metrics: NodeMetrics,
+                          logger: Optional[logging.Logger] = None):
+    """Hook the logging tree so every ERROR-level record bumps
+    ``antidote_error_count`` (AntidoteDB's antidote_error_monitor).
+    Returns the handler so callers can remove it."""
+    h = _ErrorCountHandler(metrics)
+    (logger or logging.getLogger()).addHandler(h)
+    return h
+
+
+def staleness_ms(wallclock_of_stable_entry: float) -> float:
+    """now − min stable-snapshot entry, in ms (AntidoteDB computes this
+    from its physical-clock VCs; our logical clocks need a wallclock map)."""
+    return max(0.0, (time.time() - wallclock_of_stable_entry) * 1e3)

@@ -7,21 +7,38 @@ their element slots to wider tier tables, applies commit batches to the
 tables, serves batched reads, and keeps the per-shard applied clocks whose
 min is the DC's stable snapshot.
 
-This slice keeps everything in memory: the durable log (and with it the
-replay fallback for reads below retained coverage), serving epochs, the
-value caches and the cold tier are later slices.
+Reads run on two planes beside the locked one:
+
+  * the decoded-value cache: a LATEST read's decoded value per key, valid
+    for any read VC that dominates the store's applied max at fill time;
+    every applied write invalidates its key (and the parent maps of a
+    field or membership key);
+  * serving epochs: ``publish_serving_epoch`` freezes every table's head
+    into its serving double buffer at a snapshot clock E; readers pin an
+    epoch and gather from its frozen slots with no lock while commits
+    advance the live heads (``epoch_read_launch`` never syncs the device,
+    ``epoch_read_finish`` materializes); a hot-key snapshot cache keeps
+    decoded values per epoch and revalidates them across publishes that
+    did not touch their rows.
+
+Everything stays in memory: the durable log (and with it the replay
+fallback for reads below retained coverage) and the cold tier are later
+slices.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Sequence, Tuple
+import threading
+from collections import OrderedDict
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from antidote_tpu_torch.config import AntidoteConfig, resolve_device
-from antidote_tpu_torch.crdt import get_type
+from antidote_tpu_torch.crdt import get_type, is_type
+from antidote_tpu_torch.crdt.base import RESOLVE_OVERFLOW
 from antidote_tpu_torch.crdt.blob import BlobStore
 from antidote_tpu_torch.materializer import cuda_kernels
 from antidote_tpu_torch.store.router import shard_batch, shard_of
@@ -193,6 +210,70 @@ def _move_row(src: TypedTable, dst: TypedTable, shard: int, row: int,
     seq[seq > 0] += seq_shift
 
 
+#: distinct miss marker (None is a legitimate cached value)
+_CACHE_MISS = object()
+
+#: composite-key namespaces (``crdt/maps.py`` field_key/member_key): an
+#: effect on a derived key also invalidates the PARENT map's cached value
+_DERIVED_NS = ("\x00mapfield", "\x00mapmember")
+
+
+def _copy_out(v):
+    """Deep-copy a cached value's containers on the way out — clients may
+    mutate what they are handed at any nesting level (nested maps hand out
+    inner dicts), and a shared container would poison the cache."""
+    if type(v) is list:
+        return [_copy_out(x) for x in v]
+    if type(v) is dict:
+        return {k: _copy_out(x) for k, x in v.items()}
+    return v
+
+
+class ServingEpoch:
+    """One published store-wide serving snapshot.
+
+    ``vc`` is the snapshot clock E: every applied op is ≤ E entry-wise,
+    and every op applied after publication is invisible at E (local
+    commits mint own-lane counters above E).  ``tables`` maps tiered
+    table names to frozen serving slots (head, head_vc, cap) exact at E;
+    ``used_rows`` snapshots row allocation, so rows born after publication
+    read as bottom; ``promoted`` collects keys moved to another tier after
+    publication (their frozen location went stale: readers fall back).
+    ``touched`` maps table names to the rows re-frozen at THIS publish
+    (None = full copy or unknown) — the snapshot cache's revalidation
+    evidence.
+
+    Readers pin the epoch (under the store's epoch lock) for the lifetime
+    of a launch + finish, so a later publish never rewrites slots a
+    lock-free gather still reads."""
+
+    __slots__ = ("id", "vc", "mut_epoch", "tables", "used_rows", "touched",
+                 "promoted", "pins")
+
+    def __init__(self, id_, vc, mut_epoch, tables, used_rows, touched):
+        self.id = id_
+        self.vc = vc
+        self.mut_epoch = mut_epoch
+        self.tables = tables
+        self.used_rows = used_rows
+        self.touched = touched
+        self.promoted: set = set()
+        self.pins = 0
+
+
+class _EpochReadPending:
+    """A launched epoch read batch: decoded values filled so far and the
+    device handles of its per-table gathers (nothing materialized)."""
+
+    __slots__ = ("ep", "objects", "vals", "launches")
+
+    def __init__(self, ep, objects, vals, launches):
+        self.ep = ep
+        self.objects = objects
+        self.vals = vals
+        self.launches = launches
+
+
 class KVStore:
     def __init__(self, cfg: AntidoteConfig, device="cuda"):
         self.cfg = cfg
@@ -210,6 +291,72 @@ class KVStore:
         self.promotions = 0
         #: type_name -> whether the type has slot accounting
         self._slotted: Dict[str, bool] = {}
+        #: per-strategy replay-path fold tallies (the replay ladder comes
+        #: with the durable log); ``materializer_status`` reads them
+        self.replay_fold_dispatches: Dict[str, int] = {}
+        #: NodeMetrics (attached by AntidoteNode) or None
+        self.metrics = None
+        #: decoded-value cache: (key, bucket) -> (value, fill_vc tuple).
+        #: An entry is valid for any read VC that dominates the store's
+        #: applied max at fill time (then latest == cached); every write
+        #: to the key invalidates it.  LRU-bounded.
+        self._value_cache: "OrderedDict[Tuple[Any, str], tuple]" = (
+            OrderedDict())
+        self._value_cache_cap = 65536
+        self._value_cache_lock = threading.Lock()
+        #: bumped at BOTH ends of every apply batch (with ``_mutating``
+        #: covering the window between): a fill racing a commit is dropped
+        #: whether it captured its epoch before the apply or mid-apply
+        self.mutation_epoch = 0
+        self._mutating = False
+        # --- serving epochs + hot-key snapshot cache --------------------
+        #: the last published store-wide serving snapshot
+        self.serving_epoch: Optional[ServingEpoch] = None
+        self._serving_seq = 0
+        #: retired epochs whose reader pins have not drained: a publish
+        #: may rewrite spare slots only once this is pin-free (pruned to
+        #: pinned entries at every publish)
+        self._epoch_graveyard: List[ServingEpoch] = []
+        self._epoch_lock = threading.Lock()
+        #: hot-key snapshot cache: (key, bucket) -> (epoch id, location,
+        #: decoded value); an entry from an older epoch revalidates iff
+        #: its row was re-frozen by no publish since.  LRU-bounded.
+        self.snapshot_cache: "OrderedDict[Tuple[Any, str], tuple]" = (
+            OrderedDict())
+        self.snapshot_cache_cap = 65536
+        self._snapshot_cache_lock = threading.Lock()
+        #: publish history: epoch id -> {tname: frozenset of re-frozen
+        #: (shard, row) | None = full copy}; ``_EPOCH_HISTORY`` entries
+        self._epoch_touch_log: "OrderedDict[int, dict]" = OrderedDict()
+        #: decoded bottom (never-written) value per type
+        self._bottom_values: Dict[str, Any] = {}
+
+    def mark_epoch_fallback(self, dk) -> None:
+        """Make every live serving epoch fall back to the locked path for
+        one key (a frozen slot may hold the row's previous tenant)."""
+        with self._epoch_lock:
+            eps = list(self._epoch_graveyard)
+            if self.serving_epoch is not None:
+                eps.append(self.serving_epoch)
+        for e in eps:
+            e.promoted.add(dk)
+
+    def drop_cached_value(self, dk) -> None:
+        """Invalidate both decoded-value caches for one key."""
+        with self._value_cache_lock:
+            self._value_cache.pop(dk, None)
+        with self._snapshot_cache_lock:
+            self.snapshot_cache.pop(dk, None)
+
+    def materializer_status(self) -> dict:
+        """Which fold strategies the serving and replay paths dispatched
+        (per-strategy totals over every table)."""
+        per_table: Dict[str, int] = {}
+        for t in self.tables.values():
+            for k, n in t.fold_dispatches.items():
+                per_table[k] = per_table.get(k, 0) + n
+        return {"serving_folds": per_table,
+                "replay_folds": dict(self.replay_fold_dispatches)}
 
     def _is_slotted(self, type_name: str) -> bool:
         hit = self._slotted.get(type_name)
@@ -229,8 +376,15 @@ class KVStore:
                 self.cfg.keys_per_table // (_TIER_SCALE ** tier), 16
             )
             t = TypedTable(get_type(base), scaled_cfg(self.cfg, tier),
-                           n_rows=n_rows, device=self.device)
+                           n_rows=n_rows, device=self.device,
+                           metrics=self.metrics)
+            # out-of-band mutations (row growth) invalidate the table's
+            # frozen slots; the store-wide epoch that references them
+            # must die with them
+            t.on_serving_invalidate = self.drop_serving_epoch
             self.tables[tname] = t
+        if t.metrics is None and self.metrics is not None:
+            t.metrics = self.metrics  # metrics attach after construction
         return t
 
     def locate(self, key, type_name: str, bucket: str, create: bool = True):
@@ -284,7 +438,18 @@ class KVStore:
     def apply_effect_groups(self, groups) -> None:
         """Apply a merged commit batch — several sub-groups ``(effects,
         commit_vcs, origins)``, one per source transaction, in commit
-        order — as ONE grouped append per touched table."""
+        order — as ONE grouped append per touched table.  The mutation
+        epoch is bumped on both sides of it (value-cache fills racing it
+        are dropped)."""
+        self._mutating = True
+        self.mutation_epoch += 1
+        try:
+            self._apply_effect_groups_inner(groups)
+        finally:
+            self.mutation_epoch += 1
+            self._mutating = False
+
+    def _apply_effect_groups_inner(self, groups) -> None:
         effects = [e for g in groups for e in g[0]]
         self.locate_many([(e.key, e.type_name, e.bucket) for e in effects])
         # ---- overflow escape hatch: promote BEFORE anything can drop.
@@ -308,15 +473,29 @@ class KVStore:
                 self._promote_key(dk, extra_demand=d)
         by_table: Dict[str, list] = {}
         touched = []
+        inval: List[Tuple[Any, str]] = []
         for effs, vcs, orgs in groups:
             for eff, vc_, org in zip(effs, vcs, orgs):
                 tname_t, shard, row = self.locate(eff.key, eff.type_name,
                                                   eff.bucket)
                 for h, data in eff.blob_refs:
                     self.blobs.intern_bytes(h, data)
+                inval.append((eff.key, eff.bucket))
+                # a field or membership write kills the parent map's
+                # assembled value (recursively for nested maps)
+                k = eff.key
+                while (type(k) is tuple and len(k) >= 2
+                       and k[0] in _DERIVED_NS):
+                    k = k[1]
+                    inval.append((k, eff.bucket))
                 by_table.setdefault(tname_t, []).append(
                     (shard, row, eff.eff_a, eff.eff_b, vc_, org))
                 touched.append((shard, np.asarray(vc_, np.int32)))
+        if inval:
+            # one locked sweep per batch, not one acquisition per effect
+            with self._value_cache_lock:
+                for dk in inval:
+                    self._value_cache.pop(dk, None)
         for tname_t, items in by_table.items():
             t = self.table(tname_t)
             aw = t.ty.eff_a_width(t.cfg)
@@ -335,6 +514,386 @@ class KVStore:
         for shard, vc_ in touched:
             np.maximum(self.applied_vc[shard], vc_,
                        out=self.applied_vc[shard])
+
+    # ------------------------------------------------------------------
+    # serving epochs (lock-split reads)
+    # ------------------------------------------------------------------
+    def pin_serving_epoch(self) -> Optional[ServingEpoch]:
+        """Grab and pin the current serving epoch (None when none is
+        published).  The pin keeps a later publish from rewriting frozen
+        slots a lock-free gather still reads; release it with
+        :meth:`unpin_serving_epoch` once the batch is materialized."""
+        with self._epoch_lock:
+            ep = self.serving_epoch
+            if ep is not None:
+                ep.pins += 1
+            return ep
+
+    def unpin_serving_epoch(self, ep: ServingEpoch) -> None:
+        with self._epoch_lock:
+            ep.pins -= 1
+
+    def drop_serving_epoch(self) -> None:
+        """Retire the current epoch without a successor (out-of-band table
+        mutation): lock-free reads fall back to the locked path until the
+        next publish."""
+        with self._epoch_lock:
+            ep = self.serving_epoch
+            if ep is not None:
+                self.serving_epoch = None
+                self._epoch_graveyard.append(ep)
+
+    def publish_serving_epoch(self, vc: np.ndarray) -> str:
+        """Publish a new store-wide serving snapshot at clock ``vc``.
+
+        Caller must hold the commit lock (``vc`` and the frozen heads must
+        be captured with no concurrent apply).  Dirty tables are re-frozen
+        — by an in-place scatter of the rows written since their spare
+        slot's freeze where that slot may be rewritten (cost ∝ rows
+        written, not table size), by a copy on the first two freezes or
+        after invalidation.  Returns "published", "noop" (the epoch is
+        already current) or "deferred" (a reader still pins a retired
+        epoch whose slot the freeze would rewrite; retried on the next
+        publish)."""
+        cur = self.serving_epoch
+        if cur is not None and cur.mut_epoch == self.mutation_epoch:
+            return "noop"  # no data applied since
+        m = self.metrics
+        with self._epoch_lock:
+            can_donate = all(e.pins == 0 for e in self._epoch_graveyard)
+            if can_donate:
+                # unpinned retired epochs are unreachable (readers only
+                # ever pin the current one): their slots may be rewritten
+                self._epoch_graveyard.clear()
+        slots: Dict[str, dict] = {}
+        used: Dict[str, np.ndarray] = {}
+        touched: Dict[str, Any] = {}
+        for tname, t in self.tables.items():
+            # write windows frozen by EARLIER attempts that then deferred
+            # stay in this epoch's touched set, or cache entries would
+            # revalidate across those writes
+            pend = t._pending_touched
+            if t.serving_slot() is None or t.serving_dirty():
+                # a PARTIAL earlier publish (a defer mid-loop) can leave
+                # the LIVE epoch on this table's spare slot: rewriting it
+                # would change what lock-free gathers read, and waiting
+                # can never free it — rebuild by copy
+                spare_live = (cur is not None
+                              and cur.tables.get(tname) is t.serving_spare())
+                res = t.freeze_serving(can_donate and not spare_live,
+                                       force_copy=spare_live)
+                if res is None:
+                    if m is not None:
+                        m.epoch_publish.inc(mode="defer")
+                    return "deferred"
+                _slot, mode, tch, rows = res
+                tch = None if (tch is None or pend is None) else tch | pend
+                t._pending_touched = tch
+                touched[tname] = tch
+                if m is not None:
+                    m.epoch_publish.inc(mode=mode)
+                    m.epoch_rows.inc(rows, mode=mode)
+            else:
+                touched[tname] = pend  # clean since the last success
+            slots[tname] = t.serving_slot()
+            used[tname] = t.used_rows.copy()
+        self._serving_seq += 1
+        ep = ServingEpoch(self._serving_seq, np.asarray(vc, np.int32),
+                          self.mutation_epoch, slots, used, touched)
+        with self._epoch_lock:
+            old = self.serving_epoch
+            self.serving_epoch = ep
+            self._epoch_graveyard = [e for e in self._epoch_graveyard
+                                     if e.pins > 0]
+            if old is not None:
+                self._epoch_graveyard.append(old)
+        with self._snapshot_cache_lock:
+            self._epoch_touch_log[ep.id] = touched
+            while len(self._epoch_touch_log) > self._EPOCH_HISTORY:
+                self._epoch_touch_log.popitem(last=False)
+        for t in self.tables.values():
+            t._pending_touched = frozenset()  # this epoch carries them
+        if m is not None:
+            m.serving_epoch_id.set(ep.id)
+        return "published"
+
+    # ------------------------------------------------------------------
+    # hot-key snapshot cache
+    # ------------------------------------------------------------------
+    #: publish-history retention (epochs): an entry older than this many
+    #: publishes can no longer prove itself untouched and misses
+    _EPOCH_HISTORY = 256
+
+    def epoch_cache_read(self, objects: Sequence[BoundObject],
+                         ep: ServingEpoch):
+        """Whole-batch fast path: decoded values for every object from the
+        snapshot cache and per-type bottoms alone — no device work, no
+        lock.  Returns None as soon as any object needs a gather or the
+        locked path (only a whole-batch success counts its hits)."""
+        vals: List[Any] = []
+        n_hits = 0
+        for key, type_name, bucket in objects:
+            if not is_type(type_name):
+                return None
+            if getattr(get_type(type_name), "composite", False):
+                return None
+            dk = (key, bucket)
+            hit = self.snapshot_cache_get(dk, ep, type_name, count=False)
+            if hit is not _CACHE_MISS:
+                vals.append(hit)
+                n_hits += 1
+                continue
+            # the directory BEFORE the promoted check: a promotion marks
+            # ep.promoted and THEN flips the directory, so a reader that
+            # sees the flipped entry also sees the mark
+            ent = self.directory.get(dk)
+            if dk in ep.promoted:
+                return None
+            if ent is None:
+                vals.append(self._bottom_value(type_name))
+                continue
+            tname_t, shard, row = ent
+            ur = ep.used_rows.get(tname_t)
+            if (split_tier(tname_t)[0] == type_name and ur is not None
+                    and row >= ur[shard]):
+                vals.append(self._bottom_value(type_name))  # born after E
+                continue
+            return None  # needs a frozen-head gather or the locked path
+        if self.metrics is not None:
+            if n_hits:
+                self.metrics.snapshot_cache.inc(n_hits, event="hit")
+            self.metrics.serving_reads.inc(len(vals), path="cache")
+        return vals
+
+    def snapshot_cache_get(self, dk, ep: ServingEpoch,
+                           type_name: Optional[str] = None,
+                           count: bool = True):
+        """Cached decoded value for ``dk`` at epoch ``ep``, or the miss
+        marker.  An entry stamped with an older epoch revalidates (and is
+        re-stamped) when the publish history proves its row untouched by
+        EVERY publish since; a written key's entry misses, and so does one
+        older than the history or spanning a full-copy publish.
+        ``type_name``, when given, must match the entry's bound type: a
+        wrong-type read takes the miss path so the locked plane raises
+        its TypeError.  ``count=False`` suppresses the hit/miss
+        counters."""
+        m = self.metrics if count else None
+        with self._snapshot_cache_lock:
+            ent = self.snapshot_cache.get(dk)
+            if ent is not None:
+                eid, loc, value = ent
+                if (type_name is not None and loc is not None
+                        and split_tier(loc[0])[0] != type_name):
+                    ent = None
+            if ent is not None:
+                ok = eid == ep.id
+                if (not ok and eid < ep.id and loc is not None
+                        and dk not in ep.promoted):
+                    tname, shard, row = loc
+                    log_ = self._epoch_touch_log
+                    for e in range(eid + 1, ep.id + 1):
+                        tl = log_.get(e)
+                        tch = None if tl is None else tl.get(tname)
+                        if tch is None or (shard, row) in tch:
+                            break  # gap / full copy / row re-frozen
+                    else:
+                        self.snapshot_cache[dk] = (ep.id, loc, value)
+                        ok = True
+                if ok:
+                    self.snapshot_cache.move_to_end(dk)
+                    if m is not None:
+                        m.snapshot_cache.inc(event="hit")
+                    return _copy_out(value)
+        if m is not None:
+            m.snapshot_cache.inc(event="miss")
+        return _CACHE_MISS
+
+    def snapshot_cache_fill(self, dk, ep: ServingEpoch, loc, value) -> None:
+        with self._snapshot_cache_lock:
+            self.snapshot_cache[dk] = (ep.id, loc, _copy_out(value))
+            while len(self.snapshot_cache) > self.snapshot_cache_cap:
+                self.snapshot_cache.popitem(last=False)
+                if self.metrics is not None:
+                    self.metrics.snapshot_cache.inc(event="evict")
+
+    def _bottom_value(self, type_name: str):
+        """Decoded client-visible value of a never-written key."""
+        hit = self._bottom_values.get(type_name)
+        if hit is None:
+            ty = get_type(type_name)
+            hit = ty.value(ty.bottom(self.cfg), self.blobs, self.cfg)
+            self._bottom_values[type_name] = hit
+        return _copy_out(hit)
+
+    # ------------------------------------------------------------------
+    # epoch reads: launch (never syncs the device) + finish (materializes
+    # and decodes)
+    # ------------------------------------------------------------------
+    def _to_device(self, x: np.ndarray) -> torch.Tensor:
+        """A host array on the store's device without a stream sync: on
+        a card through pinned memory and an asynchronous copy."""
+        t = torch.from_numpy(np.ascontiguousarray(x))
+        if self.device.type != "cuda":
+            return t
+        return t.pin_memory().to(self.device, non_blocking=True)
+
+    def epoch_read_launch(self, objects: Sequence[BoundObject],
+                          ep: ServingEpoch):
+        """Resolve a batch of bound objects at epoch ``ep`` with no lock
+        and no device sync: snapshot-cache hits and bottom values fill
+        immediately; the misses are grouped per table into frozen-slot
+        gather + resolve launches whose device handles ride in the
+        returned pending object.  Returns (pending, fallback_idx): objects
+        that cannot be served at the epoch (composite maps, promoted keys,
+        type clashes, tables with no frozen slot) are listed for the
+        caller's locked path."""
+        n = len(objects)
+        vals: List[Any] = [None] * n
+        fallback: List[int] = []
+        need: Dict[str, list] = {}
+        m = self.metrics
+        n_cached = 0
+        for i, (key, type_name, bucket) in enumerate(objects):
+            ty = get_type(type_name) if is_type(type_name) else None
+            if ty is None or getattr(ty, "composite", False):
+                fallback.append(i)
+                continue
+            dk = (key, bucket)
+            hit = self.snapshot_cache_get(dk, ep, type_name)
+            if hit is not _CACHE_MISS:
+                vals[i] = hit
+                n_cached += 1
+                continue
+            ent = self.directory.get(dk)
+            if ent is None:
+                vals[i] = self._bottom_value(type_name)
+                continue
+            if dk in ep.promoted:
+                fallback.append(i)
+                continue
+            tname_t, shard, row = ent
+            if split_tier(tname_t)[0] != type_name:
+                fallback.append(i)  # type clash: the locked path raises
+                continue
+            slot = ep.tables.get(tname_t)
+            ur = ep.used_rows.get(tname_t)
+            if slot is None or ur is None:
+                fallback.append(i)
+                continue
+            if row >= ur[shard]:
+                vals[i] = self._bottom_value(type_name)  # born after E
+                continue
+            need.setdefault(tname_t, []).append((i, shard, row))
+        if m is not None and n_cached:
+            m.serving_reads.inc(n_cached, path="cache")
+        launches = []
+        for tname_t, items in need.items():
+            t = self.table(tname_t)
+            slot = ep.tables[tname_t]
+            idx = self._to_device(
+                np.asarray([(s, r) for _i, s, r in items], np.int64).T)
+            # every frozen row is fresh at E by construction (frozen
+            # head_vc ≤ cap ≤ E): no freshness check
+            resolved = t.latest_resolved_flat(slot["head"], slot["head_vc"],
+                                              idx[0], idx[1])
+            launches.append((tname_t, items, resolved))
+            if m is not None:
+                m.serving_reads.inc(len(items), path="gather")
+        return _EpochReadPending(ep, objects, vals, launches), fallback
+
+    def epoch_read_finish(self, pending: _EpochReadPending) -> List[Any]:
+        """Materialize and decode a launched epoch read batch (the ONLY
+        stage that may block on the device) and back-fill the snapshot
+        cache.  Returns the decoded values in object order (entries of
+        objects the launch rerouted stay None)."""
+        ep = pending.ep
+        vals = pending.vals
+        for tname_t, items, resolved in pending.launches:
+            t = self.table(tname_t)
+            ty = t.ty
+            host = {f: x.cpu().numpy() for f, x in resolved.items()}
+            has_resolve = ty.resolve_spec(t.cfg) is not None
+            slot = ep.tables[tname_t]
+            for j, (i, shard, row) in enumerate(items):
+                view = {f: x[j] for f, x in host.items()}
+                if has_resolve:
+                    v = ty.value_from_resolved(view, self.blobs, t.cfg)
+                    if v is RESOLVE_OVERFLOW:
+                        # a truncated top-count view: re-gather this one
+                        # key's full frozen state (rare)
+                        full = {f: x[shard, row].cpu().numpy()
+                                for f, x in slot["head"].items()}
+                        v = ty.value(full, self.blobs, t.cfg)
+                else:
+                    v = ty.value(view, self.blobs, t.cfg)
+                vals[i] = v
+                key, _tn, bucket = pending.objects[i]
+                self.snapshot_cache_fill((key, bucket), ep,
+                                         (tname_t, shard, row), v)
+        return vals
+
+    # ------------------------------------------------------------------
+    # decoded-value cache
+    # ------------------------------------------------------------------
+    def value_cache_get(self, key, bucket, read_vc_tuple):
+        """Cached decoded value, or the miss marker.  Valid iff the read
+        VC dominates the fill clock (then the unchanged key's latest state
+        IS the cached one)."""
+        with self._value_cache_lock:
+            ent = self._value_cache.get((key, bucket))
+            if ent is None:
+                return _CACHE_MISS
+            value, fill_vc = ent
+            if all(r >= f for r, f in zip(read_vc_tuple, fill_vc)):
+                self._value_cache.move_to_end((key, bucket))
+                return _copy_out(value)
+        return _CACHE_MISS
+
+    def value_cache_bulk_get(self, objects, read_vc_tuple):
+        """One-pass cache probe for a batch: (values, miss_idx).  When the
+        read VC covers the store's current applied max, every present
+        entry is valid (entries always hold their key's latest value): one
+        comparison for the whole batch instead of one per entry."""
+        cache = self._value_cache
+        out: List[Any] = [None] * len(objects)
+        miss: List[int] = []
+        if all(r >= f for r, f in zip(read_vc_tuple,
+                                      self.applied_vc.max(axis=0))):
+            with self._value_cache_lock:
+                for j, (key, _t, bucket) in enumerate(objects):
+                    ent = cache.get((key, bucket))
+                    if ent is None:
+                        miss.append(j)
+                    else:
+                        cache.move_to_end((key, bucket))
+                        out[j] = _copy_out(ent[0])
+            return out, miss
+        for j, (key, _t, bucket) in enumerate(objects):
+            hit = self.value_cache_get(key, bucket, read_vc_tuple)
+            if hit is _CACHE_MISS:
+                miss.append(j)
+            else:
+                out[j] = hit
+        return out, miss
+
+    def value_cache_fill(self, key, bucket, value, fill_vc_tuple,
+                         epoch: int) -> None:
+        """Record a LATEST-read decode.  ``fill_vc_tuple`` must be the
+        store's applied max captured BEFORE the read and ``epoch`` the
+        mutation epoch at the same point: a commit in between drops the
+        fill instead of caching a value that claims coverage it lacks."""
+        if epoch != self.mutation_epoch or self._mutating:
+            return
+        # own a copy: the caller's value goes to the client, who may
+        # mutate it
+        with self._value_cache_lock:
+            self._value_cache[(key, bucket)] = (_copy_out(value),
+                                                fill_vc_tuple)
+            while len(self._value_cache) > self._value_cache_cap:
+                self._value_cache.popitem(last=False)
+
+    def applied_max_tuple(self) -> tuple:
+        return tuple(int(x) for x in self.applied_vc.max(axis=0))
 
     # ------------------------------------------------------------------
     def _promote_key(self, dk, extra_demand: int = 0) -> None:
@@ -372,6 +931,20 @@ class KVStore:
                    out=t_new.max_commit_vc)
         t_old.n_ops[shard, row] = 0
         t_old.slots_ub[shard, row] = 0
+        # both tables mutated outside the append path: their table epochs
+        # would serve the pre-promotion (old table) or bottom (new table)
+        # row — drop them.  The serving double buffer survives: the move
+        # touches exactly two rows, both marked dirty (re-frozen at the
+        # next publish), and the promoted mark makes epoch readers fall
+        # back for this key meanwhile
+        t_old.epochs.clear()
+        t_new.epochs.clear()
+        t_old.note_serving_touch(np.asarray([shard]), np.asarray([row]))
+        t_new.note_serving_touch(np.asarray([shard]), np.asarray([new_row]))
+        # mark the key on every live epoch BEFORE the directory flips: a
+        # lock-free epoch reader that sees the new entry also sees the
+        # mark and falls back
+        self.mark_epoch_fallback(dk)
         self.directory[dk] = (dst_name, shard, new_row)
         self.promotions += 1
 

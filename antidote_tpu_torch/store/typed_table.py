@@ -25,6 +25,15 @@ overflow is GC'd first: the head is copied into a new snapshot version
 ring over the newest snapshot version the read VC dominates; reads below
 the retained coverage are flagged *incomplete* for the caller's log replay.
 
+Two kinds of frozen (head, head_vc) copies let reads run beside writes:
+
+  * ``epochs`` — whole-head copies (``publish_epoch``, at most
+    ``_EPOCH_CAP``), rung 2 of the serving read's ladder: a read pinned
+    at an epoch's cap is a pure gather from it;
+  * the serving double buffer (``freeze_serving``) — two alternating
+    copies the store's serving epochs gather from, refreshed by scattering
+    only the rows appended since the spare slot's freeze.
+
 Updates are in place (the JAX package donates buffers to the same effect).
 """
 
@@ -41,6 +50,7 @@ from antidote_tpu_torch.config import AntidoteConfig, resolve_device
 from antidote_tpu_torch.crdt.base import CRDTType
 from antidote_tpu_torch.materializer import cuda_kernels
 from antidote_tpu_torch.materializer import fold as fold_mod
+from antidote_tpu_torch.materializer import longlog
 
 
 class TypedTable:
@@ -48,10 +58,12 @@ class TypedTable:
 
     def __init__(self, ty: CRDTType, cfg: AntidoteConfig,
                  n_rows: int | None = None, n_shards: int | None = None,
-                 device="cuda"):
+                 device="cuda", metrics=None):
         self.ty = ty
         self.cfg = cfg
         self.device = resolve_device(device)
+        #: NodeMetrics (or None): fold dispatches land in its counter
+        self.metrics = metrics
         #: per-strategy serving-fold dispatch counts
         self.fold_dispatches: Dict[str, int] = {}
         self.n_rows = n_rows or cfg.keys_per_table
@@ -82,6 +94,176 @@ class TypedTable:
         #: host-side conservative bound on per-key used element slots —
         #: drives tier promotion (KVStore._promote_key); only over-counts
         self.slots_ub = np.zeros((p, n), np.int32)
+        #: published table epochs: frozen (head, head_vc) copies with the
+        #: max commit VC at publish time (``cap``); see publish_epoch
+        self.epochs: list = []
+        self._epoch_uses = 0
+        #: serves that missed both gather rungs of the read ladder
+        self.slow_serves = 0
+        # --- the serving double buffer: two alternating frozen (head,
+        # head_vc) slots for the store's serving epochs
+        self._serving = [None, None]
+        self._serving_cur = 0
+        #: (shard, row) pairs appended since the current / spare slot's
+        #: freeze; None = unbounded (past the cap, or invalidated): the
+        #: next freeze of that slot must copy
+        self._serving_dirty: "set | None" = set()
+        self._serving_spare_dirty: "set | None" = None
+        #: called (no args) when an out-of-band mutation invalidates the
+        #: frozen slots — the KVStore points it at its serving-epoch drop
+        self.on_serving_invalidate = None
+        self._serving_conservative = False
+        #: write windows of freezes whose store-wide publish deferred:
+        #: the next successful epoch's touched set must carry them
+        self._pending_touched: "frozenset | None" = frozenset()
+
+    # ------------------------------------------------------------------
+    # the serving double buffer (the store's lock-split epoch reads)
+    # ------------------------------------------------------------------
+    #: dirty sets past this size stop tracking rows; the next freeze
+    #: copies.  The JAX package's cap, kept so that publish modes and
+    #: touched sets match it; on an NVIDIA H100 80GB HBM3 at 700 W and 1M
+    #: keys a scatter of ~7,800 rows is host-bound and already slower than
+    #: the whole copy (``PERF.md``, the serving phase)
+    _SERVING_DIRTY_CAP = 8192
+
+    def note_serving_touch(self, shards, rows) -> None:
+        """Record appended rows for the incremental serving freeze."""
+        if self._serving_dirty is None and self._serving_spare_dirty is None:
+            return  # both windows untracked until the next freezes
+        pairs = list(zip(np.asarray(shards).tolist(),
+                         np.asarray(rows).tolist()))
+        for attr in ("_serving_dirty", "_serving_spare_dirty"):
+            s = getattr(self, attr)
+            if s is None:
+                continue
+            s.update(pairs)
+            if len(s) > self._SERVING_DIRTY_CAP:
+                setattr(self, attr, None)
+
+    def serving_slot(self):
+        """The current frozen serving slot (None before any freeze)."""
+        return self._serving[self._serving_cur]
+
+    def serving_spare(self):
+        """The slot the NEXT freeze would overwrite — publishers check it
+        against the live epoch's slots (scattering into a slot the current
+        epoch still gathers from would change it under a reader)."""
+        return self._serving[1 - self._serving_cur]
+
+    def serving_dirty(self) -> bool:
+        cur = self._serving[self._serving_cur]
+        return cur is None or self._serving_dirty is None or bool(
+            self._serving_dirty)
+
+    def invalidate_serving(self) -> None:
+        """Drop both frozen slots after an out-of-band table mutation (row
+        growth).  The next freeze reports its write set as unknown
+        (touched=None), so no cache entry revalidates across it."""
+        self._serving = [None, None]
+        self._serving_dirty = set()
+        self._serving_spare_dirty = None
+        self._serving_conservative = True
+        cb = self.on_serving_invalidate
+        if cb is not None:
+            cb()
+
+    def _frozen_copy(self):
+        return ({f: x.clone() for f, x in self.head.items()},
+                self.head_vc.clone())
+
+    def freeze_serving(self, can_donate: bool, force_copy: bool = False):
+        """Freeze the live head into the spare serving slot and make it
+        current.  Returns (slot, mode, touched, rows): mode "scatter" (the
+        ``rows`` rows appended since the spare's freeze are written into it
+        in place) or "copy" (the whole head cloned).  ``touched`` is the
+        frozenset of rows appended since the previous freeze (the snapshot
+        cache's validity window; the scatter set spans two windows, one per
+        slot), or None when unknown.
+
+        Returns None when the freeze must be DEFERRED: the spare may still
+        be read by a pinned epoch (``can_donate`` false).  ``force_copy``
+        builds fresh tensors instead — required when the spare is the LIVE
+        epoch's slot (waiting would never free it).
+
+        Caller must hold the commit lock (no concurrent appends)."""
+        spare_i = 1 - self._serving_cur
+        spare = self._serving[spare_i]
+        dirty = self._serving_spare_dirty
+        if force_copy or spare is None or dirty is None:
+            head, head_vc = self._frozen_copy()
+            mode, rows = "copy", self.n_shards * self.n_rows
+        elif not can_donate:
+            return None
+        else:
+            # the spare's tensors are rewritten in place: index_put_ of
+            # the dirty rows' live state (the JAX package donates them)
+            pairs = sorted(dirty)
+            ss = self._idx([p[0] for p in pairs])
+            rr = self._idx([p[1] for p in pairs])
+            head, head_vc = spare["head"], spare["head_vc"]
+            for f, x in head.items():
+                x[ss, rr] = self.head[f][ss, rr]
+            head_vc[ss, rr] = self.head_vc[ss, rr]
+            mode, rows = "scatter", len(pairs)
+        slot = {"head": head, "head_vc": head_vc,
+                "cap": self.max_commit_vc.copy()}
+        if self._serving_conservative or self._serving_dirty is None:
+            touched = None
+            self._serving_conservative = False
+        else:
+            touched = frozenset(self._serving_dirty)
+        self._serving[spare_i] = slot
+        self._serving_cur = spare_i
+        self._serving_spare_dirty = self._serving_dirty
+        self._serving_dirty = set()
+        return slot, mode, touched, rows
+
+    # ------------------------------------------------------------------
+    # table epochs (rung 2 of the serving read's ladder)
+    # ------------------------------------------------------------------
+    _EPOCH_CAP = 2
+
+    def publish_epoch(self) -> None:
+        """Freeze the current head as a table epoch.
+
+        An epoch gather is an exact snapshot read: ``cap`` is the
+        entry-wise max commit VC this table has absorbed at publish time,
+        and appends are causally gated (an op from origin ``o`` carries a
+        lane-``o`` stamp above every lane-``o`` value appended before), so
+        an op appended AFTER publish is invisible at any read VC ``R ≤
+        cap``, and a row whose frozen ``head_vc ≤ R`` serves exactly."""
+        head, head_vc = self._frozen_copy()
+        self._epoch_uses += 1
+        self.epochs.append({
+            "head": head,
+            "head_vc": head_vc,
+            "cap": self.max_commit_vc.copy(),
+            "seq": self._epoch_uses,   # publish order (age)
+            "used": self._epoch_uses,  # recency (eviction only)
+        })
+        if len(self.epochs) > self._EPOCH_CAP:
+            victim = min(self.epochs, key=lambda e: e["used"])
+            self.epochs = [e for e in self.epochs if e is not victim]
+
+    def invalidate_epochs(self) -> None:
+        """Drop every table epoch and the serving slots — after any
+        out-of-band table mutation (row growth)."""
+        self.epochs.clear()
+        self.invalidate_serving()
+
+    def _epoch_for(self, read_vcs: np.ndarray):
+        """Oldest epoch whose cap dominates every read VC in the batch
+        (oldest = closest above the pin = most rows frozen-fresh)."""
+        best = None
+        for e in self.epochs:
+            if (read_vcs <= e["cap"]).all():
+                if best is None or e["seq"] < best["seq"]:
+                    best = e
+        if best is not None:
+            self._epoch_uses += 1
+            best["used"] = self._epoch_uses
+        return best
 
     # ------------------------------------------------------------------
     # row allocation / growth
@@ -108,6 +290,8 @@ class TypedTable:
         self.n_ops = np.pad(self.n_ops, ((0, 0), (0, add)))
         self.slots_ub = np.pad(self.slots_ub, ((0, 0), (0, add)))
         self.n_rows += add
+        # frozen copies keep the old row extent: drop them
+        self.invalidate_epochs()
 
     # ------------------------------------------------------------------
     # commit side
@@ -173,6 +357,7 @@ class TypedTable:
         starts = self.n_ops[us, ur].astype(np.int64)
         self._head_update(us, ur, starts, starts + counts)
         np.add.at(self.n_ops, (shards, rows), 1)
+        self.note_serving_touch(us, ur)
 
     def _head_update(self, shards, rows, starts, ends):
         """Apply ring slots [start, end) of each key onto its head state —
@@ -220,18 +405,26 @@ class TypedTable:
     def _fold_strategy(self) -> str:
         """The ring fold for a read's stale rows: the hand-written kernel
         of the type where there is one (the plain version of the same
-        function on a CPU table), the generic serial fold otherwise.
-        ``counter_pn`` needs no delta-magnitude gate: ``counter_fold``
-        sums in int64 (the TPU kernel's int32 sum needed one)."""
+        function on a CPU table), then the monoid reduction for types
+        whose delta is exact from an ARBITRARY base (the flags; sets are
+        bottom-only, ``CRDTType.assoc_bottom_only``), else the generic
+        serial fold.  ``counter_pn`` needs no delta-magnitude gate:
+        ``counter_fold`` sums in int64 (the TPU kernel's int32 sum needed
+        one)."""
         if self.ty.name == "set_aw":
             return "kernel_set_aw"
         if self.ty.name == "counter_pn":
             return "kernel_counter"
+        if self.ty.supports_assoc and not self.ty.assoc_bottom_only:
+            return "assoc"
         return "serial"
 
-    def _count_dispatch(self, strategy: str) -> None:
+    def _count_dispatch(self, strategy: str, n: int = 1) -> None:
         self.fold_dispatches[strategy] = (
-            self.fold_dispatches.get(strategy, 0) + 1)
+            self.fold_dispatches.get(strategy, 0) + n)
+        m = getattr(self.metrics, "fold_dispatch", None)
+        if m is not None:
+            m.inc(n, strategy=strategy)
 
     def _fold_rows(self, shards, rows, read_vcs: torch.Tensor):
         """Versioned read of M rows: the newest retained snapshot version
@@ -267,8 +460,12 @@ class TypedTable:
         else:
             opb = self.ops_b[ss, rr, :kmax]
             opo = self.ops_origin[ss, rr, :kmax]
-            fold = (cuda_kernels.set_aw_fold if strategy == "kernel_set_aw"
-                    else lambda *a: fold_mod.fold_batch(self.ty, self.cfg, *a))
+            if strategy == "kernel_set_aw":
+                fold = cuda_kernels.set_aw_fold
+            else:
+                generic = (longlog.assoc_fold if strategy == "assoc"
+                           else fold_mod.fold_batch)
+                fold = lambda *a: generic(self.ty, self.cfg, *a)  # noqa: E731
             state, applied = fold(base, opa, opb, opv, opo, n_ops, base_vc,
                                   read_vcs)
         return state, applied, complete
@@ -298,36 +495,73 @@ class TypedTable:
         return ({f: x.cpu().numpy() for f, x in state.items()},
                 applied.cpu().numpy(), complete.cpu().numpy())
 
+    def _gather(self, head, head_vc, ss, rr, vcs_t=None):
+        """Gather M rows from one (head, head_vc) source — the live head, a
+        table epoch or a serving slot — as device tensors, with no host
+        sync: (state fields [M, ...], fresh bool[M] or None).  Freshness
+        (the source head VC ≤ the read VC: then the gathered state IS the
+        row's exact snapshot) is computed only when ``vcs_t`` is given."""
+        state = {f: x[ss, rr] for f, x in head.items()}
+        fresh = None if vcs_t is None else vc.le(head_vc[ss, rr], vcs_t)
+        return state, fresh
+
+    def _resolve(self, state):
+        if self.ty.resolve_spec(self.cfg) is None:
+            return state
+        return self.ty.resolve(self.cfg, state)
+
+    def latest_resolved_flat(self, head, head_vc, ss, rr):
+        """Gather + resolve M rows that are fresh by construction (a read
+        VC dominating the source's commits) from one (head, head_vc)
+        source: resolved fields [M, ...] on the device, no host sync.
+        Types without a ``resolve_spec`` return the full state."""
+        return self._resolve(self._gather(head, head_vc, ss, rr)[0])
+
     def read_resolved_flat(self, shards, rows, read_vcs):
-        """The serving read: head gather, freshness check, versioned ring
-        fold of the stale rows only, device value resolution.  Returns
-        (resolved fields [M, ...] on the table's device, fresh [M],
-        complete [M] as host arrays), in input order.  For types without a
-        ``resolve_spec`` the fields are the full state."""
+        """The serving read.  Returns (resolved fields [M, ...] on the
+        table's device, fresh [M], complete [M] as host arrays), in input
+        order.  For types without a ``resolve_spec`` the fields are the
+        full state.  The ladder:
+
+        1. the read VC dominates every commit → live head gather;
+        2. the read VC is pinned exactly at a table epoch's cap → frozen
+           head gather (writers advance the live head; pinned readers
+           never see them);
+        3. otherwise two-phase: gather (from the frozen epoch when one
+           covers the VC, else the live head), check freshness on the
+           host, and fold the ring ONLY for the stale remainder, merged
+           over the gathered batch before the one resolve."""
         shards = np.asarray(shards, np.int64)
         rows = np.asarray(rows, np.int64)
         read_vcs, vcs_t = self._vcs(read_vcs)
         ss, rr = self._idx(shards), self._idx(rows)
-        state = {f: x[ss, rr] for f, x in self.head.items()}
+        all_fresh = np.ones(len(rows), bool)
         if (read_vcs >= self.max_commit_vc).all():
-            # the read VC dominates every commit: every row is fresh
-            fresh = np.ones(len(rows), bool)
-            complete = fresh
-        else:
-            fresh = vc.le(self.head_vc[ss, rr], vcs_t).cpu().numpy()
-            complete = fresh.copy()
-            stale = np.nonzero(~fresh)[0]
-            if len(stale):
-                self._count_dispatch(self._fold_strategy())
-                st = self._idx(stale)
-                folded, _, comp = self._fold_rows(shards[stale], rows[stale],
-                                                  vcs_t[st])
-                for f, x in state.items():
-                    x[st] = folded[f]
-                complete[stale] = comp.cpu().numpy()
-        if self.ty.resolve_spec(self.cfg) is not None:
-            state = self.ty.resolve(self.cfg, state)
-        return state, fresh, complete
+            resolved = self.latest_resolved_flat(self.head, self.head_vc,
+                                                 ss, rr)
+            return resolved, all_fresh, all_fresh
+        epoch = self._epoch_for(read_vcs)
+        if epoch is not None and (read_vcs >= epoch["cap"]).all():
+            # pinned at the cap: every frozen row has head_vc ≤ cap = R
+            resolved = self.latest_resolved_flat(
+                epoch["head"], epoch["head_vc"], ss, rr)
+            return resolved, all_fresh, all_fresh
+        self.slow_serves += 1
+        src = (self.head, self.head_vc) if epoch is None else (
+            epoch["head"], epoch["head_vc"])
+        state, fresh_t = self._gather(*src, ss, rr, vcs_t)
+        fresh = fresh_t.cpu().numpy()
+        complete = fresh.copy()
+        stale = np.nonzero(~fresh)[0]
+        if len(stale):
+            self._count_dispatch(self._fold_strategy())
+            st = self._idx(stale)
+            folded, _, comp = self._fold_rows(shards[stale], rows[stale],
+                                              vcs_t[st])
+            for f, x in state.items():
+                x[st] = folded[f]
+            complete[stale] = comp.cpu().numpy()
+        return self._resolve(state), fresh, complete
 
     def read_resolved(self, shards, rows, read_vcs):
         """:meth:`read_resolved_flat` with the resolved fields copied to

@@ -5,6 +5,8 @@
   * reads: batched device reads at the snapshot VC, with the
     transaction's own pending writes overlaid on top; maps assemble from
     one membership read per batch and one field read per nesting level.
+    Reads without a write set go through the store's decoded-value cache
+    (plain values, and maps assembled whole).
   * updates: type-check against the CRDT registry, run pre-commit hooks,
     expand map ops into membership and field updates, generate downstream
     effects (reading current state when the type requires it), number
@@ -14,16 +16,22 @@
     rights once per key for the whole group; then one commit-counter bump
     per txn mints its commit VC and the effects reach the store in commit
     order.
+  * serving epochs (``enable_serving_epochs``): a write-bearing commit
+    round publishes a store-wide serving snapshot before it returns, so a
+    lock-free epoch read admitted after the commit sees it; with the
+    epoch plane idle, publishes are rate-limited and the lag floor
+    ``epoch_lag_counter`` rises instead.
 
-This slice is single-tenant and in memory: tenancy rounds, the GentleRain
-protocol, the durable log, value caches and the serving epochs are later
-slices.
+The manager is single-tenant and in memory: tenancy rounds, the
+GentleRain protocol and the durable log are later slices.
 """
 
 from __future__ import annotations
 
 import itertools
+import logging
 import threading
+import time
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -33,13 +41,16 @@ from antidote_tpu_torch.config import AntidoteConfig
 from antidote_tpu_torch.crdt import COMPOSITE_NAMES, get_type, is_type
 from antidote_tpu_torch.crdt import maps as maps_mod
 from antidote_tpu_torch.crdt.base import RESOLVE_OVERFLOW
-from antidote_tpu_torch.overload import (BusyError, InsufficientRightsError,
+from antidote_tpu_torch.overload import (BusyError, DeadlineExceeded,
+                                         InsufficientRightsError,
                                          check_deadline)
 from antidote_tpu_torch.store.kv import BoundObject, Effect, KVStore, _pad_lane
 from antidote_tpu_torch.txn.bcounter import BCounterManager
 from antidote_tpu_torch.txn.hooks import HookRegistry
 
 Update = Tuple[Any, str, str, Tuple[str, Any]]  # (key, type_name, bucket, op)
+
+log = logging.getLogger(__name__)
 
 
 class AbortError(Exception):
@@ -104,6 +115,55 @@ class TransactionManager:
         self._next_cert_gc = self._cert_gc_every
         self.hooks = HookRegistry()
         self.bcounters = BCounterManager(my_dc)
+        #: NodeMetrics (attached by AntidoteNode) or None
+        self.metrics = None
+        #: serving-epoch publication: when enabled, every write-bearing
+        #: commit round publishes a fresh store-wide serving snapshot
+        #: before it returns
+        self.serving_epochs = False
+        #: highest own-lane commit counter returned while its publish was
+        #: deferred, skipped or failed: clockless epoch reads may serve
+        #: from an epoch only when it covers this floor (0 = every commit
+        #: so far returned under a covering epoch)
+        self.epoch_lag_counter = 0
+        #: monotonic time of the last INLINE (commit-path) publish and the
+        #: epoch-plane read count seen then — see EPOCH_INLINE_PUBLISH_S
+        self._last_inline_publish = 0.0
+        self._reads_at_last_publish = -1.0
+
+    #: with the epoch plane idle (no cache or gather read since the last
+    #: inline publish), a write round skips its publish when the last one
+    #: is younger than this; the lag floor rises instead, and the next
+    #: round after the window (or after any epoch read) publishes again.
+    #: With epoch reads flowing, every write round publishes before it
+    #: returns
+    EPOCH_INLINE_PUBLISH_S = 0.025
+
+    # ------------------------------------------------------------------
+    # serving-epoch publication (lock-split reads)
+    # ------------------------------------------------------------------
+    def enable_serving_epochs(self) -> None:
+        # clocksi only: a GentleRain client holds scalarized clocks, and
+        # an epoch's full vector handed back as one could stall forever
+        if self.protocol == "clocksi":
+            self.serving_epochs = True
+
+    def serving_epoch_vc(self) -> np.ndarray:
+        """The publishable snapshot clock E: the freshest applied lanes
+        with the own lane raised to the commit counter.  Caller must hold
+        the commit lock (E must be captured with no apply in flight)."""
+        vc = self.store.dc_max_vc().copy()
+        vc[self.my_dc] = max(int(vc[self.my_dc]), self.commit_counter)
+        return vc
+
+    def publish_serving_epoch(self) -> str:
+        """Publish under the commit lock (a no-op when the current epoch
+        already covers the store)."""
+        with self.commit_lock:
+            return self._publish_serving_epoch_locked()
+
+    def _publish_serving_epoch_locked(self) -> str:
+        return self.store.publish_serving_epoch(self.serving_epoch_vc())
 
     # ------------------------------------------------------------------
     # transaction lifecycle
@@ -128,6 +188,8 @@ class TransactionManager:
                     f"stable snapshot {snap} never reached client clock "
                     f"{clock}")
             snap = np.maximum(snap, clock)
+        if self.metrics is not None:
+            self.metrics.open_transactions.inc()
         txn = Transaction(snap, props)
         self._open_snaps[txn.txid] = int(snap[self.my_dc])
         return txn
@@ -140,6 +202,8 @@ class TransactionManager:
             # commutativity bypass is off for it (internal reads — map
             # fields, downstream state — mark cert_required at the update)
             txn.did_read = True
+            if self.metrics is not None:
+                self.metrics.operations.inc(len(objects), type="read")
         out: List[Any] = [None] * len(objects)
         plain = [i for i, o in enumerate(objects)
                  if o[1] not in COMPOSITE_NAMES]
@@ -156,17 +220,56 @@ class TransactionManager:
             for i, v in zip(plain, vals):
                 out[i] = v
         if comp:
-            vals = maps_mod.assemble(
-                [objects[i] for i in comp],
-                lambda objs: self.read_objects(objs, txn, _internal=True))
+            vals = self._read_maps([objects[i] for i in comp], txn)
             for i, v in zip(comp, vals):
                 out[i] = v
         return out
 
+    def _read_maps(self, objects, txn: Transaction) -> List[dict]:
+        """Map values, assembled per nesting level (``maps.assemble``).
+        Without a write set they are value-cached whole: a write to any
+        field or to the membership invalidates the parent's entry (the
+        derived-key walk of ``KVStore.apply_effect_groups``)."""
+        def assemble(objs):
+            return maps_mod.assemble(
+                objs, lambda o: self.read_objects(o, txn, _internal=True))
+
+        if not txn.writeset:
+            return self._cached_values(objects, txn, assemble)
+        return assemble(objects)
+
     def _read_values_resolved(self, objs, txn: Transaction) -> List[Any]:
-        """Values via the serving read: the compact resolved view decodes
-        on the host; a truncated view (count > resolve_top) re-fetches the
-        full state."""
+        """Values via the serving read, through the decoded-value cache:
+        a hit skips the device gather and the decode; misses fall through
+        and latest reads back-fill the cache."""
+        return self._cached_values(
+            objs, txn, lambda miss: self._values_resolved_uncached(miss, txn))
+
+    def _cached_values(self, objs, txn: Transaction, compute) -> List[Any]:
+        """The decoded-value-cache protocol of plain and composite reads:
+        bulk probe, ``compute`` the misses, back-fill latest reads under
+        the mutation-epoch guard (a commit between capture and fill drops
+        the fill)."""
+        read_tup = tuple(int(x) for x in txn.snapshot_vc)
+        allv, miss_idx = self.store.value_cache_bulk_get(objs, read_tup)
+        if not miss_idx:
+            return allv
+        fill_vc = self.store.applied_max_tuple()
+        fill_epoch = self.store.mutation_epoch
+        is_latest = all(r >= f for r, f in zip(read_tup, fill_vc))
+        miss_objs = [objs[j] for j in miss_idx]
+        vals = compute(miss_objs)
+        if is_latest:
+            for (key, _t, bucket), v in zip(miss_objs, vals):
+                self.store.value_cache_fill(key, bucket, v, fill_vc,
+                                            fill_epoch)
+        for j, gi in enumerate(miss_idx):
+            allv[gi] = vals[j]
+        return allv
+
+    def _values_resolved_uncached(self, objs, txn: Transaction) -> List[Any]:
+        """The compact resolved view decodes on the host; a truncated view
+        (count > resolve_top) re-fetches the full state."""
         resolved = self.store.read_resolved(objs, txn.snapshot_vc)
         vals: List[Any] = [None] * len(objs)
         refetch = []
@@ -192,6 +295,8 @@ class TransactionManager:
     def update_objects(self, updates: Sequence[Update],
                        txn: Transaction) -> None:
         assert txn.active
+        if self.metrics is not None:
+            self.metrics.operations.inc(len(updates), type="update")
         for u in updates:
             self._apply_update(u, txn, run_hooks=True)
 
@@ -288,14 +393,21 @@ class TransactionManager:
         once the lock is held."""
         with self._backlog_lock:
             if self._commit_backlog >= self.max_commit_backlog:
+                if self.metrics is not None:
+                    self.metrics.shed.inc(plane="txn")
                 raise BusyError(
                     f"commit backlog at max_commit_backlog="
                     f"{self.max_commit_backlog}")
             self._commit_backlog += 1
         try:
             with self.commit_lock:
-                check_deadline(deadline, "commit dequeue")
-                return self._commit_group_locked(txns)
+                try:
+                    check_deadline(deadline, "commit dequeue")
+                except DeadlineExceeded:
+                    if self.metrics is not None:
+                        self.metrics.shed.inc(plane="deadline")
+                    raise
+                return self._commit_round_locked(txns)
         except BaseException:
             # a failed group must not leak open transactions: they pin the
             # certification-GC floor forever
@@ -306,6 +418,51 @@ class TransactionManager:
         finally:
             with self._backlog_lock:
                 self._commit_backlog -= 1
+
+    def _commit_round_locked(self, txns: Sequence[Transaction]):
+        """One merged commit round under the lock, then — for a
+        write-bearing round with serving epochs on — the inline publish
+        before the round returns (a clockless epoch read admitted after
+        this commit must find an epoch that covers it).  A deferred,
+        skipped or failed publish raises the lag floor instead: epoch
+        reads below it go to the (always fresh) locked path."""
+        round_writes = any(t.writeset for t in txns)
+        t0 = time.monotonic()
+        try:
+            out = self._commit_group_locked(txns)
+            if round_writes and self.serving_epochs:
+                self._publish_inline()
+        finally:
+            if self.metrics is not None and round_writes:
+                self.metrics.commit_seconds.observe(time.monotonic() - t0)
+                self.metrics.commit_merge_width.observe(
+                    sum(1 for t in txns if t.writeset))
+        return out
+
+    def _publish_inline(self) -> None:
+        """The write round's publish, skipped while the epoch plane is
+        idle and the last inline publish is younger than
+        ``EPOCH_INLINE_PUBLISH_S`` (a write storm with no epoch reader
+        would otherwise pay a publish per round serving nobody)."""
+        now = time.monotonic()
+        reads_now = -1.0
+        if self.metrics is not None:
+            sr = self.metrics.serving_reads
+            reads_now = sr.value(path="cache") + sr.value(path="gather")
+        idle = reads_now == self._reads_at_last_publish
+        if idle and now - self._last_inline_publish \
+                < self.EPOCH_INLINE_PUBLISH_S:
+            self.epoch_lag_counter = self.commit_counter
+            return
+        self._last_inline_publish = now
+        self._reads_at_last_publish = reads_now
+        try:
+            st = self._publish_serving_epoch_locked()
+        except Exception:
+            st = "error"
+            log.exception("serving-epoch publish failed")
+        if st not in ("published", "noop"):
+            self.epoch_lag_counter = self.commit_counter
 
     def _commit_group_locked(self, txns: Sequence[Transaction]):
         out: List[Any] = []
@@ -324,6 +481,8 @@ class TransactionManager:
             assert txn.active
             txn.active = False
             self._open_snaps.pop(txn.txid, None)
+            if self.metrics is not None:
+                self.metrics.open_transactions.dec()
             if not txn.writeset:
                 out.append(txn.snapshot_vc.copy())
                 continue
@@ -337,17 +496,26 @@ class TransactionManager:
                       and not txn.cert_required)
             if bypass:
                 cert = False
+                if self.metrics is not None:
+                    self.metrics.cert_bypass.inc()
             snap_here = int(txn.snapshot_vc[self.my_dc])
             conflict = next((eff.key for eff, _ in txn.writeset
                              if last_seen[(eff.key, eff.bucket)] > snap_here),
                             None) if cert else None
             if conflict is not None:
+                if self.metrics is not None:
+                    self.metrics.aborted_transactions.inc()
                 out.append(AbortError(
                     f"certification conflict on key {conflict!r}"))
                 continue
             refusal = self._escrow_reserve(esc_spends.get(txn.txid),
                                            esc_avail)
             if refusal is not None:
+                if self.metrics is not None:
+                    self.metrics.aborted_transactions.inc()
+                    self.metrics.escrow_refusals.inc()
+                    self.metrics.escrow_shortfall.set(
+                        self.bcounters.shortfall())
                 out.append(refusal)
                 continue
             self.commit_counter += 1
@@ -364,6 +532,8 @@ class TransactionManager:
                             eff.type_name).restamp_own_dots(
                                 self.cfg, eff.eff_a, eff.eff_b, self.my_dc,
                                 tent_own, self.commit_counter)
+            if self.metrics is not None:
+                self.metrics.commit_batch_size.observe(len(txn.writeset))
             # mark BEFORE later group members certify; bypassed members
             # never touch the stamp table (a blind write invalidates nobody)
             stamped: Dict[tuple, Optional[int]] = {}
@@ -492,7 +662,12 @@ class TransactionManager:
         }
 
     def _mark_aborted(self, txn: Transaction) -> None:
+        """Close an active txn as aborted, keeping the gauge and the
+        counter exact."""
         self._open_snaps.pop(txn.txid, None)
+        if txn.active and self.metrics is not None:
+            self.metrics.open_transactions.dec()
+            self.metrics.aborted_transactions.inc()
         txn.active = False
 
     def abort_transaction(self, txn: Transaction) -> None:

@@ -26,7 +26,17 @@ Run from the root of a checkout on a machine with a CUDA card (one card;
    (every fifth at the VC 60% through the add stream), check a sample
    against a host oracle built from the op stream, then run an
    ``AntidoteNode`` workload on ``set_aw`` and ``counter_pn`` against a
-   host model, historical reads included;
+   host model, historical reads included; then the serving read plane
+   (``serving``) on a second 1M-key ``set_aw`` store populated through
+   ``KVStore.apply_effect_groups``: two copy publishes and ten scatters of
+   serving epochs, 60 Zipf batches read through the epoch plane (pin,
+   launch — one of them under the CUDA sync debug mode — finish, unpin)
+   while a second thread commits through the manager, which publishes
+   inline, every value held to the locked read at the epoch's clock (or,
+   for a row since GC'd below the device's coverage there, to the host
+   oracle); whole-batch snapshot-cache reads of the hot set; the table's
+   rung 2 (no fold) and rung 3 (``set_aw_fold``); a node's Zipf-hot
+   reads through the value cache, warm and cold;
 4. drive a 4-member DC (``ClusterMember``/``ClusterNode`` over localhost
    RPC, 2048 shards, all on the card): populate 200,000 ``set_aw`` keys
    from every member's coordinator, remove on 2,000 keys through the
@@ -41,14 +51,16 @@ Run from the root of a checkout on a machine with a CUDA card (one card;
    the same table built on the CPU; then a node session over them and the
    maps against a host model (``bench_suite.py``'s map and rga workloads,
    counter_b refusals, concurrent writers, slot promotion, maps read at an
-   older snapshot);
+   older snapshot); and 1,024 keys' 4,096-op logs of the five
+   assoc-capable types, ``assoc_fold`` and ``fold_long`` equal to
+   ``fold_batch`` on the card;
 6. print one JSON line per kernel record, the card line, and last the
    ``{"ok": true, ...}`` line.
 
 The launch counts are reset just before the serve, the node workload, the
-cluster and the types phase, and read just after each; each must show the
-kernels that ``PATH_KERNELS`` names for it, and a kernel record's
-``launches`` is the sum over the four.  The serve must launch ``orset_presence`` exactly
+serving plane, the cluster and the types phase, and read just after each;
+each must show the kernels that ``PATH_KERNELS`` names for it, and a
+kernel record's ``launches`` is the sum over the five.  The serve must launch ``orset_presence`` exactly
 once per ``SetAW.resolve``, and a resolve on a CUDA state must call no
 torch sort.  Exits non-zero without a CUDA device, and outside a
 checkout of the repository.
@@ -56,6 +68,7 @@ checkout of the repository.
 
 from __future__ import annotations
 
+import functools
 import json
 import subprocess
 import sys
@@ -103,14 +116,22 @@ COUNTER_CASES = [(1, 4), (16, 4), (33, 4), (16, 1), (16, 3), (33, 8)]
 # reads at the cut after TY_CUT rounds
 TY_KEYS, TY_ROUNDS, TY_CUT, TY_SHARDS = 100_000, 20, 18, 8
 MV_SLOTS, RGA_SLOTS = 4, 64
+# the serving phase: element pool, publish rounds of SV_ROUND_KEYS keys x 4
+# effects, epoch-read batches, the concurrent writer's round size, the
+# hot set; long logs of LL_OPS ops for LL_KEYS keys
+SV_POOL, SV_ROUNDS, SV_ROUND_KEYS, SV_BATCHES = 4096, 10, 4096, 60
+SV_WRITE_KEYS, SV_HOT = 256, 1024
+LL_KEYS, LL_OPS = 1024, 4096
 # the kernels each path must launch: the serve resolves sets (presence)
 # and folds the historical batches; the node session folds a set and a
 # counter at older snapshots; every cluster transaction start merges the
 # members' clock rows; the types session resolves map_rr memberships
 # (sets) and reads maps at an older snapshot (membership sets and
-# counter_pn fields)
+# counter_pn fields); the serving plane resolves every epoch and rung-2
+# gather (sets) and folds rung 3's stale rows
 PATH_KERNELS = {"serve": ("orset_presence", "set_aw_fold"),
                 "node": ("counter_fold", "set_aw_fold"),
+                "serving": ("orset_presence", "set_aw_fold"),
                 "cluster": ("stable_min",),
                 "types": ("orset_presence", "set_aw_fold", "counter_fold")}
 
@@ -594,6 +615,50 @@ def profile_window(torch, step, steps) -> dict:
 # ---------------------------------------------------------------------------
 # phase 3a: the 1M-key OR-set populate + serve
 # ---------------------------------------------------------------------------
+@functools.lru_cache(maxsize=4)
+def _zipf_cdf(n_keys):
+    w = 1.0 / np.arange(1, n_keys + 1, dtype=np.float64)
+    return np.cumsum(w / w.sum())
+
+
+def zipf_keys(rng, n_keys, n):
+    """``n`` Zipf(1.0) draws over ``n_keys`` keys (rank 0 the hottest)."""
+    return np.minimum(np.searchsorted(_zipf_cdf(n_keys), rng.random(n)),
+                      n_keys - 1)
+
+
+def zipf_distinct(rng, n_keys, n):
+    """``n`` distinct keys drawn by Zipf(1.0): a hot working set."""
+    out = np.unique(zipf_keys(rng, n_keys, 4 * n))
+    while len(out) < n:
+        out = np.union1d(out, zipf_keys(rng, n_keys, 4 * n))
+    return rng.permutation(out)[:n]
+
+
+def orset_stream(rng, n_keys=N_KEYS) -> dict:
+    """BASELINE's OR-set op stream: ADDS_PER_KEY adds per key in a
+    shuffled order (random 62-bit elements), committed on lane 0 at
+    stamps 1..total, then removes on a tenth of the keys at stamps past
+    the adds, each observing the key's first add's dot.  Returns the keys
+    and elements of the adds, their stamps (``lane0``), each key's first
+    add (``first_idx``), the removed keys and each key's remove stamp
+    (``rm_t``, 0 = none)."""
+    keys = np.repeat(np.arange(n_keys, dtype=np.int64), ADDS_PER_KEY)
+    rng.shuffle(keys)
+    total = keys.shape[0]
+    elems = rng.integers(1, 1 << 62, size=total, dtype=np.int64)
+    lane0 = np.arange(1, total + 1, dtype=np.int32)  # commit order on lane 0
+    first_idx = np.full(n_keys, -1, np.int64)
+    rev = np.arange(total - 1, -1, -1)
+    first_idx[keys[rev]] = rev
+    rm_keys = rng.choice(n_keys, size=n_keys // 10,
+                         replace=False).astype(np.int64)
+    rm_t = np.zeros(n_keys, np.int64)
+    rm_t[rm_keys] = total + 1 + np.arange(len(rm_keys))
+    return {"keys": keys, "elems": elems, "lane0": lane0,
+            "first_idx": first_idx, "rm_keys": rm_keys, "rm_t": rm_t}
+
+
 def serve_main_path(torch, dev) -> dict:
     from antidote_tpu_torch.config import AntidoteConfig
     from antidote_tpu_torch.crdt import get_type
@@ -612,14 +677,10 @@ def serve_main_path(torch, dev) -> dict:
     def srows(keys):
         return keys % n_shards, keys // n_shards
 
-    keys = np.repeat(np.arange(N_KEYS, dtype=np.int64), ADDS_PER_KEY)
-    rng.shuffle(keys)
+    st = orset_stream(rng)
+    keys, elems, lane0 = st["keys"], st["elems"], st["lane0"]
+    first_idx, rm_keys, rm_t = st["first_idx"], st["rm_keys"], st["rm_t"]
     total = keys.shape[0]
-    elems = rng.integers(1, 1 << 62, size=total, dtype=np.int64)
-    lane0 = np.arange(1, total + 1, dtype=np.int32)  # commit order on lane 0
-    first_idx = np.full(N_KEYS, -1, np.int64)
-    rev = np.arange(total - 1, -1, -1)
-    first_idx[keys[rev]] = rev
     t0 = time.perf_counter()
     for lo in range(0, total, POP_BATCH):
         hi = min(lo + POP_BATCH, total)
@@ -629,9 +690,6 @@ def serve_main_path(torch, dev) -> dict:
         ss, rr = srows(keys[lo:hi])
         table.append(ss, rr, elems[lo:hi, None], np.zeros((m, bw), np.int32),
                      vcs, np.zeros(m, np.int32))
-    rm_keys = rng.choice(N_KEYS, size=N_KEYS // 10,
-                         replace=False).astype(np.int64)
-    rm_t = np.zeros(N_KEYS, np.int64)
     for lo in range(0, len(rm_keys), POP_BATCH):
         kk = rm_keys[lo:lo + POP_BATCH]
         m = len(kk)
@@ -639,8 +697,7 @@ def serve_main_path(torch, dev) -> dict:
         eff_b[:, 0] = 1
         eff_b[:, 1] = lane0[first_idx[kk]]  # observes the first add's dot
         vcs = np.zeros((m, D), np.int32)
-        vcs[:, 0] = total + 1 + lo + np.arange(m)
-        rm_t[kk] = vcs[:, 0]
+        vcs[:, 0] = rm_t[kk]
         ss, rr = srows(kk)
         table.append(ss, rr, elems[first_idx[kk], None], eff_b, vcs,
                      np.zeros(m, np.int32))
@@ -650,10 +707,7 @@ def serve_main_path(torch, dev) -> dict:
     log(f"populate: {total + len(rm_keys)} ops in {populate_s:.2f} s")
 
     # ---- serve: Zipf(1.0) batches, every fifth at the historical VC ----
-    w = 1.0 / np.arange(1, N_KEYS + 1, dtype=np.float64)
-    cdf = np.cumsum(w / w.sum())
-    streams = [np.searchsorted(cdf, rng.random(B)).astype(np.int64)
-               for _ in range(37)]
+    streams = [zipf_keys(rng, N_KEYS, B) for _ in range(37)]
     vc_final = np.zeros((B, D), np.int32)
     vc_final[:, 0] = final_t
     vc_mid = np.zeros((B, D), np.int32)
@@ -842,6 +896,455 @@ def node_workload(dev) -> dict:
             "promotions": node.store.promotions,
             "fold_dispatches": {n: dict(t.fold_dispatches)
                                 for n, t in node.store.tables.items()}}
+
+
+# ---------------------------------------------------------------------------
+# phase 3c: the serving read plane at BASELINE's size
+# ---------------------------------------------------------------------------
+def serving_phase(torch, dev, n_keys=N_KEYS, batches=SV_BATCHES,
+                  rounds=SV_ROUNDS, batch=B) -> dict:
+    """The serving read plane on a 1M-key ``set_aw`` store, all on the
+    card: populate through ``KVStore.apply_effect_groups`` (BASELINE's
+    stream, elements from an interned pool of SV_POOL values); publish
+    serving epochs (two copies, then ``rounds`` scatters after commit
+    rounds of SV_ROUND_KEYS x 4 effects); epoch reads of Zipf batches
+    (pin, launch, finish, unpin) while a second thread commits 256-key
+    rounds through the manager, which publishes inline — every batch
+    equal to the locked read at its epoch's clock, a sample equal to the
+    host oracle; whole-batch snapshot-cache reads of the hot set; the
+    table's ladder (rung 2 at a table epoch's cap, rung 3 below it from
+    the frozen source, launching ``set_aw_fold``); and a node whose
+    Zipf-hot reads go through the value cache, warm against cold.  On a
+    CPU device (a rehearsal at a small ``n_keys``) the card-only checks —
+    the sync debug mode, peak memory — are skipped."""
+    import threading
+
+    from antidote_tpu_torch.config import AntidoteConfig
+    from antidote_tpu_torch.crdt import get_type
+    from antidote_tpu_torch.materializer import cuda_kernels as ck
+    from antidote_tpu_torch.obs import NodeMetrics
+    from antidote_tpu_torch.store.kv import Effect, KVStore
+    from antidote_tpu_torch.txn.manager import TransactionManager
+
+    n_shards = 8
+    cfg = AntidoteConfig(n_shards=n_shards, max_dcs=D, ops_per_key=K,
+                         snap_versions=2, set_slots=E,
+                         keys_per_table=n_keys // n_shards)
+    ty = get_type("set_aw")
+    on_card = torch.device(dev).type == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    if on_card:
+        torch.cuda.synchronize(dev)  # the context exists before the reset
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    store = KVStore(cfg, device=dev)
+    m = store.metrics = NodeMetrics()
+    rng = np.random.default_rng(29)
+    st = orset_stream(rng, n_keys)
+    keys, lane0, first_idx = st["keys"], st["lane0"], st["first_idx"]
+    rm_keys, rm_t = st["rm_keys"], st["rm_t"]
+    total = len(keys)
+    # elements: values 0..SV_POOL-1, interned, so reads decode
+    pool_h = np.asarray([store.blobs.intern(v) for v in range(SV_POOL)],
+                        np.int64)
+    vals = (st["elems"] % SV_POOL).astype(np.int64)
+    key_vals = np.zeros((n_keys, ADDS_PER_KEY), np.int64)
+    occ = np.zeros(n_keys, np.int64)
+    for i, k in enumerate(keys.tolist()):  # each key's values, in order
+        key_vals[k, occ[k]] = vals[i]
+        occ[k] += 1
+    eff_a = pool_h[vals][:, None]
+    add_b = np.zeros((1 + D,), np.int32)
+
+    # ---- populate through the store's commit path ----------------------
+    t0 = time.perf_counter()
+    for lo in range(0, total, POP_BATCH):
+        hi = min(lo + POP_BATCH, total)
+        vcs = np.zeros((hi - lo, D), np.int32)
+        vcs[:, 0] = lane0[lo:hi]
+        effs = [Effect(k, "set_aw", "b", eff_a[lo + j], add_b)
+                for j, k in enumerate(keys[lo:hi].tolist())]
+        store.apply_effect_groups([(effs, list(vcs), [0] * (hi - lo))])
+    for lo in range(0, len(rm_keys), POP_BATCH):
+        kk = rm_keys[lo:lo + POP_BATCH]
+        rb = np.zeros((len(kk), 1 + D), np.int32)
+        rb[:, 0] = 1
+        rb[:, 1] = lane0[first_idx[kk]]  # observes the first add's dot
+        vcs = np.zeros((len(kk), D), np.int32)
+        vcs[:, 0] = rm_t[kk]
+        effs = [Effect(k, "set_aw", "b", eff_a[first_idx[k]], rb[j])
+                for j, k in enumerate(kk.tolist())]
+        store.apply_effect_groups([(effs, list(vcs), [0] * len(kk))])
+    sync()
+    populate_s = time.perf_counter() - t0
+    table = store.tables["set_aw"]
+    tbytes = table_bytes(table)
+    slot_bytes = sum(x.numel() * x.element_size()
+                     for x in list(table.head.values()) + [table.head_vc])
+    log(f"serving: populated {total + len(rm_keys)} effects through the "
+        f"store in {populate_s:.2f} s")
+    txm = TransactionManager(store)
+    txm.metrics = m
+    # an adopted store: own-lane commits continue above every stamp
+    txm.commit_counter = int(store.dc_max_vc()[0])
+    # each key's first re-add stamp (lane 0), recorded under the commit
+    # lock with the commit: the host oracle at any clock
+    no_write = np.iinfo(np.int64).max
+    write_t = np.full(n_keys, no_write, np.int64)
+    gone = np.zeros(n_keys, bool)  # the remove took the first value away
+    v0 = key_vals[:, 0]
+    gone[rm_keys] = (key_vals[rm_keys, 1:] != v0[rm_keys, None]).all(-1)
+
+    def oracle(k, t):
+        """Key ``k``'s value at lane-0 clock ``t`` ≥ the populate's end."""
+        want = set(key_vals[k].tolist())
+        if gone[k] and write_t[k] > t:
+            want.discard(int(v0[k]))
+        return sorted(want, key=repr)
+
+    def commit_round(kk, per_key):
+        """One merged commit group of ``per_key`` re-adds of each key's own
+        populate values (a removed element comes back; no key passes
+        ADDS_PER_KEY elements), 256 updates a transaction."""
+        ups = [(k, "set_aw", "b", ("add", int(key_vals[k, j % ADDS_PER_KEY])))
+               for k in kk.tolist() for j in range(per_key)]
+        txns, spans = [], []
+        for lo in range(0, len(ups), 256):
+            t = txm.start_transaction()
+            txm.update_objects(ups[lo:lo + 256], t)
+            txns.append(t)
+            spans.append(np.asarray([u[0] for u in ups[lo:lo + 256]]))
+        with txm.commit_lock:
+            for r, ks in zip(txm.commit_transactions_group(txns), spans):
+                if isinstance(r, Exception):
+                    raise r
+                np.minimum.at(write_t, ks, int(r[0]))
+
+    def timed_publish():
+        before = {md: m.epoch_publish.value(mode=md)
+                  for md in ("copy", "scatter", "defer")}
+        rows0 = {md: m.epoch_rows.value(mode=md) for md in ("copy",
+                                                            "scatter")}
+        sync()
+        t1 = time.perf_counter()
+        res = txm.publish_serving_epoch()
+        sync()
+        ms = (time.perf_counter() - t1) * 1e3
+        mode = [md for md, v in before.items()
+                if m.epoch_publish.value(mode=md) > v]
+        rows = sum(m.epoch_rows.value(mode=md) - rows0[md] for md in rows0)
+        return {"result": res, "mode": mode[0] if mode else None,
+                "rows": int(rows), "ms": ms}
+
+    # ---- publishes: two copies, then scatters after commit rounds ------
+    copy_bound = bound_ms(2 * slot_bytes, 0)[0]
+    publishes = [timed_publish()]
+    commit_round(zipf_distinct(rng, n_keys, SV_ROUND_KEYS), 4)
+    publishes.append(timed_publish())
+    for _ in range(rounds):
+        t1 = time.perf_counter()
+        commit_round(zipf_distinct(rng, n_keys, SV_ROUND_KEYS), 4)
+        commit_s = time.perf_counter() - t1
+        publishes.append(dict(timed_publish(), commit_s=commit_s))
+    if [p["mode"] for p in publishes[:2]] != ["copy", "copy"] or any(
+            p["mode"] != "scatter" for p in publishes[2:]):
+        raise AssertionError(f"publish modes: {publishes}")
+    row_bytes = slot_bytes / (n_shards * table.n_rows)
+    for p in publishes:
+        p["bound_ms"] = (copy_bound if p["mode"] == "copy"
+                         else bound_ms(2 * p["rows"] * row_bytes, 0)[0])
+    log(f"serving: publishes {json.dumps(publishes)}")
+
+    # ---- epoch reads under writes ---------------------------------------
+    dir_ = store.directory
+    loc = np.asarray([dir_[(k, "b")][1:] for k in range(n_keys)], np.int64)
+    batch_keys = [zipf_keys(rng, n_keys, batch) for _ in range(batches)]
+
+    def objs_of(kk):
+        return [(k, "set_aw", "b") for k in kk.tolist()]
+
+    # one launch under the CUDA sync debug mode: any stream sync raises
+    ep = store.pin_serving_epoch()
+    sync()
+    if on_card:
+        torch.cuda.set_sync_debug_mode("error")
+    try:
+        pend, fb = store.epoch_read_launch(objs_of(batch_keys[0]), ep)
+    finally:
+        if on_card:
+            torch.cuda.set_sync_debug_mode("default")
+    store.epoch_read_finish(pend)
+    store.unpin_serving_epoch(ep)
+    txm.enable_serving_epochs()
+    stop = threading.Event()
+    errors: list = []
+    w_rounds = [0]
+    wrng = np.random.default_rng(31)
+
+    def writer():
+        try:
+            while not stop.is_set():
+                commit_round(zipf_distinct(wrng, n_keys, SV_WRITE_KEYS), 1)
+                w_rounds[0] += 1
+        except Exception as e:  # noqa: BLE001 — fatal, raised below
+            errors.append(e)
+
+    hit0 = m.snapshot_cache.value(event="hit")
+    miss0 = m.snapshot_cache.value(event="miss")
+    gather0 = m.serving_reads.value(path="gather")
+    lat, fallbacks, epochs_seen = [], 0, set()
+    checked = {"locked": 0, "oracle": 0}
+    wt = threading.Thread(target=writer, name="serving-writer")
+    wt.start()
+    try:
+        t0 = time.perf_counter()
+        for i, kk in enumerate(batch_keys):
+            objs = objs_of(kk)
+            t1 = time.perf_counter()
+            ep = store.pin_serving_epoch()
+            try:
+                pend, fb = store.epoch_read_launch(objs, ep)
+                got = store.epoch_read_finish(pend)
+            finally:
+                store.unpin_serving_epoch(ep)
+            lat.append((time.perf_counter() - t1) * 1e3)
+            fallbacks += len(fb)
+            epochs_seen.add(ep.id)
+            # every value against the locked read at the epoch's clock;
+            # a row the writer GC'd since the epoch is below the device's
+            # retained coverage there (the durable log's replay serves it),
+            # so it is held to the host oracle instead
+            with txm.commit_lock:
+                res, _, complete = table.read_resolved(
+                    loc[kk, 0], loc[kk, 1], np.broadcast_to(ep.vc,
+                                                            (len(kk), D)))
+                for j, k in enumerate(kk.tolist()):
+                    if complete[j]:
+                        want = ty.value_from_resolved(
+                            {f: x[j] for f, x in res.items()}, store.blobs,
+                            cfg)
+                        checked["locked"] += 1
+                    else:
+                        want = oracle(k, int(ep.vc[0]))
+                        checked["oracle"] += 1
+                    if got[j] != want:
+                        raise AssertionError(
+                            f"epoch read batch {i}: key {k} = {got[j]!r}, "
+                            f"want {want!r} at {ep.vc}")
+            if fb:
+                raise AssertionError(f"epoch read batch {i}: fallbacks {fb}")
+        read_s = sum(lat) / 1e3
+    finally:
+        stop.set()
+        wt.join(120)
+    if errors:
+        raise errors[0]
+    hits = m.snapshot_cache.value(event="hit") - hit0
+    misses = m.snapshot_cache.value(event="miss") - miss0
+    # a sample of the final state against the host oracle
+    sample = rng.choice(n_keys, size=2000, replace=False)
+    vals_now, snap = txm.read_objects_static(objs_of(sample))
+    for k, v in zip(sample.tolist(), vals_now):
+        if v != oracle(k, int(snap[0])):
+            raise AssertionError(f"key {k}: {v!r}, oracle "
+                                 f"{oracle(k, int(snap[0]))}")
+    log(f"serving: {batches} epoch-read batches under {w_rounds[0]} "
+        f"concurrent write rounds; every value checked: {checked}")
+
+    # ---- whole-batch snapshot-cache reads of the hot set ----------------
+    hot = objs_of(np.arange(SV_HOT))
+    ep = store.pin_serving_epoch()
+    try:
+        first = store.epoch_cache_read(hot, ep)
+        if first is None:  # fill the hot set at this epoch
+            pend, _ = store.epoch_read_launch(hot, ep)
+            store.epoch_read_finish(pend)
+        t1 = time.perf_counter()
+        whole = [store.epoch_cache_read(hot, ep) for _ in range(10)]
+        cache_ms = (time.perf_counter() - t1) * 1e3 / 10
+    finally:
+        store.unpin_serving_epoch(ep)
+    if any(w is None for w in whole):
+        raise AssertionError("the hot set missed the snapshot cache")
+
+    # ---- the table's ladder: rung 2 at a table epoch's cap, rung 3 below
+    table.publish_epoch()
+    cap = table.epochs[-1]["cap"].copy()
+    commit_round(zipf_distinct(rng, n_keys, SV_WRITE_KEYS), 1)  # head moves
+    disp0, slow0 = dict(table.fold_dispatches), table.slow_serves
+    rung2_ms = []
+    for kk in batch_keys[:10]:
+        sync()
+        t1 = time.perf_counter()
+        res, fresh, complete = table.read_resolved_flat(
+            loc[kk, 0], loc[kk, 1], np.broadcast_to(cap, (len(kk), D)))
+        sync()
+        rung2_ms.append((time.perf_counter() - t1) * 1e3)
+    if table.fold_dispatches != disp0 or table.slow_serves != slow0:
+        raise AssertionError("rung 2 reads dispatched a fold")
+    mid_t = int(total * 0.6)
+    mid = np.zeros(D, np.int32)
+    mid[0] = mid_t
+    cold = np.nonzero(write_t == no_write)[0]
+    kk = rng.choice(cold, size=min(batch, len(cold)), replace=False)
+    before = ck.LAUNCHES["set_aw_fold"]
+    folds0 = table.fold_dispatches.get("kernel_set_aw", 0)
+    sync()
+    t1 = time.perf_counter()
+    res, fresh, complete = table.read_resolved_flat(
+        loc[kk, 0], loc[kk, 1], np.broadcast_to(mid, (len(kk), D)))
+    sync()
+    rung3_ms = (time.perf_counter() - t1) * 1e3
+    if (fresh.all() or table.fold_dispatches["kernel_set_aw"] == folds0
+            or (on_card and ck.LAUNCHES["set_aw_fold"] == before)):
+        raise AssertionError("the rung-3 batch launched no set_aw_fold")
+    if not complete.all():
+        raise AssertionError("rung 3: incomplete rows")
+    top = res["top"].cpu().numpy()
+    pos = {}
+    for i, k in enumerate(keys.tolist()):
+        if lane0[i] <= mid_t:
+            pos.setdefault(k, []).append(i)
+    for j, k in enumerate(kk.tolist()):
+        want = {int(pool_h[vals[i]]) for i in pos.get(k, [])}
+        got = {int(h) for h in top[j] if h != 0}
+        if got != want:
+            raise AssertionError(f"rung 3 key {k}: {got} != {want}")
+
+    # ---- a node's Zipf-hot reads through the value cache ----------------
+    node_rec = node_value_cache(torch, dev, cfg)
+    out = {
+        "populate_s": populate_s, "table_bytes": tbytes,
+        "slot_bytes": slot_bytes,
+        "max_memory_allocated": (torch.cuda.max_memory_allocated(dev)
+                                 if on_card else None),
+        "copy_bound_ms": copy_bound, "publishes": publishes,
+        "epoch_reads": {
+            "keys_per_s": batches * batch / read_s,
+            "batch_p50_ms": float(np.percentile(lat, 50)),
+            "batch_p99_ms": float(np.percentile(lat, 99)),
+            "snapshot_cache_hit_share": hits / max(hits + misses, 1),
+            "gathers": m.serving_reads.value(path="gather") - gather0,
+            "fallbacks": fallbacks, "epochs_seen": len(epochs_seen),
+            "write_rounds": w_rounds[0], "values_checked": checked},
+        "hot_set": {"keys": SV_HOT, "whole_batch_hits": len(whole),
+                    "ms": cache_ms},
+        "rung2_ms_p50": float(np.percentile(rung2_ms, 50)),
+        "rung3_ms": rung3_ms, "rung3_stale_rows": int((~fresh).sum()),
+        "node": node_rec,
+        "materializer": store.materializer_status(),
+    }
+    return out
+
+
+def node_value_cache(torch, dev, cfg) -> dict:
+    """An AntidoteNode whose Zipf-hot static reads go through the decoded
+    value cache: 4,096 keys (sets and counters) written against a host
+    model, then 20 Zipf batches of 1,024 keys read twice; the hit share
+    of the second pass, and its ms against the same batches read cold
+    (``drop_cached_value`` first).  Every value equals the host model."""
+    import dataclasses
+
+    from antidote_tpu_torch.api import AntidoteNode
+
+    node = AntidoteNode(dataclasses.replace(cfg, keys_per_table=1024),
+                        device=dev)
+    rng = np.random.default_rng(37)
+    n, model = 4096, {}
+    for lo in range(0, n, 256):
+        ups = []
+        for k in range(lo, lo + 256):
+            if k % 2:
+                model[k] = int(rng.integers(1, 1000))
+                ups.append((k, "counter_pn", "b", ("increment", model[k])))
+            else:
+                model[k] = sorted({int(x) for x in rng.integers(0, 50, 3)},
+                                  key=repr)
+                ups.append((k, "set_aw", "b", ("add_all", model[k])))
+        node.update_objects(ups)
+    def objs(kk):
+        return [(k, "counter_pn" if k % 2 else "set_aw", "b")
+                for k in kk.tolist()]
+
+    batches = [zipf_keys(rng, n, 1024) for _ in range(20)]
+    computed = [0]
+    orig = node.txm._values_resolved_uncached
+
+    def counting(miss, txn):
+        computed[0] += len(miss)
+        return orig(miss, txn)
+
+    node.txm._values_resolved_uncached = counting
+    passes = {}
+    for label in ("first", "warm", "cold"):
+        if label == "cold":
+            for k in range(n):
+                node.store.drop_cached_value((k, "b"))
+        computed[0] = 0
+        ms = []
+        for kk in batches:
+            if torch.device(dev).type == "cuda":
+                torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            got, _ = node.read_objects(objs(kk))
+            ms.append((time.perf_counter() - t1) * 1e3)
+            for k, v in zip(kk.tolist(), got):
+                if v != model[k]:
+                    raise AssertionError(f"node key {k}: {v!r}, model "
+                                         f"{model[k]!r}")
+            if label == "cold":
+                for k in kk.tolist():
+                    node.store.drop_cached_value((k, "b"))
+        passes[label] = {"ms_p50": float(np.percentile(ms, 50)),
+                         "hit_share": 1 - computed[0] / (20 * 1024)}
+    return passes
+
+
+def long_log_folds(torch, dev) -> dict:
+    """``assoc_fold`` and ``fold_long`` on the card against ``fold_batch``
+    on the card, for LL_KEYS keys' logs of LL_OPS ops of each
+    assoc-capable type (sets from a bottom base, set_aw adds only); the
+    three must be equal.  Returns each fold's ms per type."""
+    from antidote_tpu_torch.config import AntidoteConfig
+    from antidote_tpu_torch.crdt import get_type
+    from antidote_tpu_torch.materializer import fold, longlog
+    from antidote_tpu_torch.materializer.longlog_cases import (ASSOC_TYPES,
+                                                               long_log)
+
+    cfg = AntidoteConfig(n_shards=8, max_dcs=D, ops_per_key=K, set_slots=E)
+    out = {}
+    for i, name in enumerate(ASSOC_TYPES):
+        ty = get_type(name)
+        state, ops = long_log(name, np.random.default_rng(40 + i), LL_KEYS,
+                              LL_OPS, cfg)
+        st = {f: torch.as_tensor(x, device=dev) for f, x in state.items()}
+        args = [torch.as_tensor(x, device=dev) for x in ops]
+        res, ms = {}, {}
+        for label, fn in (
+                ("assoc", lambda: longlog.assoc_fold(ty, cfg, st, *args)),
+                ("long", lambda: longlog.fold_long(ty, cfg, st, *args,
+                                                   chunk=1024)),
+                ("serial", lambda: fold.fold_batch(ty, cfg, st, *args))):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res[label] = fn()
+            torch.cuda.synchronize()
+            ms[label] = (time.perf_counter() - t0) * 1e3
+        for label in ("assoc", "long"):
+            got, want = res[label], res["serial"]
+            same = torch.equal(got[1], want[1]) and all(
+                torch.equal(got[0][f], want[0][f]) for f in want[0])
+            if not same:
+                raise AssertionError(f"{name}: {label} fold != fold_batch")
+        out[name] = {f"{k}_ms": v for k, v in ms.items()}
+        out[name]["applied"] = int(res["serial"][1].sum())
+    log(f"long logs: {LL_KEYS} x {LL_OPS}-op logs, assoc and fold_long "
+        f"equal fold_batch on the card; {json.dumps(out)}")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1150,6 +1653,7 @@ def types_tables(torch, dev, n_keys=TY_KEYS) -> dict:
             sync()
             run = {"populate_s": time.perf_counter() - t0,
                    "bytes": table_bytes(t)}
+            disp0 = dict(t.fold_dispatches)
             for kind, vc in cuts.items():
                 vcs = np.broadcast_to(vc, (B, D))
                 secs, parts, stale = 0.0, [], 0
@@ -1169,6 +1673,8 @@ def types_tables(torch, dev, n_keys=TY_KEYS) -> dict:
                              for f in parts[0]}
                 run[f"{kind}_keys_per_s"] = n_keys / secs
                 run[f"{kind}_stale_rows"] = stale
+            run["fold_dispatches"] = {
+                k: n - disp0.get(k, 0) for k, n in t.fold_dispatches.items()}
             if d.type == "cuda":
                 # where a historical batch's time goes (serial fold, plain
                 # resolve): device busy share and the top device kernels
@@ -1556,14 +2062,18 @@ def main() -> int:
     node = node_workload(dev)
     node["launches"] = dict(ck.LAUNCHES)
     ck.reset_launches()
+    serving = serving_phase(torch, dev)
+    serving["launches"] = dict(ck.LAUNCHES)
+    ck.reset_launches()
     cluster = cluster_workload(torch, dev)
     cluster["launches"] = dict(ck.LAUNCHES)
     ck.reset_launches()
     types = {"tables": types_tables(torch, dev),
-             "session": types_node_session(dev)}
+             "session": types_node_session(dev),
+             "long_logs": long_log_folds(torch, dev)}
     types["launches"] = dict(ck.LAUNCHES)
-    paths = {"serve": serve, "node": node, "cluster": cluster,
-             "types": types}
+    paths = {"serve": serve, "node": node, "serving": serving,
+             "cluster": cluster, "types": types}
     for path, res in paths.items():
         log(f"{path}: {json.dumps(res)}")
         missing = [n for n in PATH_KERNELS[path] if res["launches"][n] == 0]

@@ -370,3 +370,91 @@ def test_type_table_on_the_card_reads_like_a_cpu_table(dev, name):
         assert outs[0][2].all() and outs[1][2].all()
         for f in outs[0][0]:
             np.testing.assert_array_equal(outs[0][0][f], outs[1][0][f])
+    if name in ("flag_ew", "flag_dw"):
+        # the historical read folded the ring with the monoid reduction
+        assert tabs[1].fold_dispatches == tabs[0].fold_dispatches \
+            == {"assoc": 1}
+
+
+# ---------------------------------------------------------------------------
+# the serving read plane: long-log folds, serving epochs and caches
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("name", ["counter_pn", "flag_ew", "flag_dw",
+                                  "set_go", "set_aw"])
+def test_long_log_folds_on_the_card_equal_cpu(dev, name):
+    """``assoc_fold`` and ``fold_long`` on the card equal the same calls on
+    the CPU and the card's own ``fold_batch`` (1,024-op logs)."""
+    from antidote_tpu_torch.materializer import fold, longlog
+    from antidote_tpu_torch.materializer.longlog_cases import long_log
+
+    ty, cfg = get_type(name), TYPES_CFG
+    state, ops = long_log(name, np.random.default_rng(23), 512, 1024, cfg)
+    outs = {}
+    for d in ("cpu", dev):
+        st = _on(state, d)
+        args = [torch.as_tensor(x, device=d) for x in ops]
+        outs[d] = [longlog.assoc_fold(ty, cfg, st, *args),
+                   longlog.fold_long(ty, cfg, st, *args, chunk=256),
+                   fold.fold_batch(ty, cfg, st, *args)]
+    assert _same(outs["cpu"], outs[dev])
+    for got in outs[dev][:2]:
+        assert _same(got, outs[dev][2])
+
+
+def _serving_script(node):
+    """Writes, publishes and epoch reads through a node's store and
+    manager; returns what a caller sees."""
+    store, txm = node.store, node.txm
+    txm.enable_serving_epochs()
+    out = []
+    keys = [("s%d" % i, "set_aw", "b") for i in range(40)] + [
+        ("c%d" % i, "counter_pn", "b") for i in range(10)]
+    for r in range(6):
+        node.update_objects(
+            [(k, t, b, ("add", r) if t == "set_aw" else ("increment", r))
+             for k, t, b in keys[r::3]])
+        txm.publish_serving_epoch()
+        ep = store.pin_serving_epoch()
+        try:
+            pend, fb = store.epoch_read_launch(keys, ep)
+            out.append((store.epoch_read_finish(pend), fb, ep.id))
+        finally:
+            store.unpin_serving_epoch(ep)
+    m = node.metrics
+    out.append({k: m.epoch_publish.value(mode=k) for k in ("copy",
+                                                           "scatter")})
+    out.append(m.snapshot_cache.value(event="hit"))
+    out.append(node.read_objects(keys)[0])
+    return out
+
+
+def test_serving_epochs_on_the_card_equal_cpu(dev):
+    cfg = AntidoteConfig(n_shards=4, max_dcs=D, keys_per_table=64)
+    got = [_serving_script(AntidoteNode(cfg, device=d))
+           for d in ("cpu", dev)]
+    assert got[0] == got[1]
+    assert got[1][-3]["scatter"] > 0
+
+
+def test_epoch_read_launch_never_syncs_the_card(dev):
+    """The launch stage runs with the CUDA sync debug mode at "error": any
+    synchronizing call in it (a host copy, ``.item()``, a blocking H2D
+    copy) would raise."""
+    node = AntidoteNode(AntidoteConfig(n_shards=4, max_dcs=D), device=dev)
+    node.update_objects([(i, "set_aw", "b", ("add", i)) for i in range(64)]
+                        + [(i, "counter_pn", "b", ("increment", i))
+                           for i in range(64, 96)])
+    node.txm.publish_serving_epoch()
+    store = node.store
+    objs = ([(i, "set_aw", "b") for i in range(64)]
+            + [(i, "counter_pn", "b") for i in range(64, 96)])
+    ep = store.pin_serving_epoch()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        pend, fb = store.epoch_read_launch(objs, ep)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    vals = store.epoch_read_finish(pend)
+    store.unpin_serving_epoch(ep)
+    assert fb == [] and vals == [[i] for i in range(64)] + list(range(64, 96))

@@ -140,7 +140,7 @@ def test_unported_node_options_raise(nodes):
     with pytest.raises(NotImplementedError):
         AntidoteNode(AntidoteConfig(**KW), log_dir="x", device="cpu")
     with pytest.raises(NotImplementedError):
-        tn.metrics
+        AntidoteNode(AntidoteConfig(**KW), meta=object(), device="cpu")
     with pytest.raises(NotImplementedError):
         tn.txm.__class__(tn.store, protocol="gr")
     assert tn.is_type("rga") and not tn.is_type("nope")
