@@ -38,6 +38,23 @@ class AntidoteConfig:
     #: number of key slots per (shard, type) table; grows by doubling
     keys_per_table: int = 1024
 
+    # --- durability (reference: antidote.app.src:44-48) ---------------
+    enable_logging: bool = True
+    sync_log: bool = False
+    #: parallel append segments per shard WAL: a commit group's records
+    #: land on one segment while the group-fsync coordinator syncs the
+    #: previous one in the background, so the serial append+fsync floor
+    #: splits across segments.  1 = the classic single-file-per-shard
+    #: layout (and byte-identical file contents); recovery merges
+    #: segments by the per-shard append sequence either way.
+    wal_segments: int = 1
+
+    # --- replay folds ---------------------------------------------------
+    #: over-ring fold routing threshold (``KVStore._replay_read_many``):
+    #: a replayed key whose op-log extent exceeds this folds with the
+    #: chunked ``fold_long`` instead of one serial scan
+    fold_chunk: int = 4096
+
     def __post_init__(self):
         assert self.n_shards >= 1
         assert self.max_dcs >= 1

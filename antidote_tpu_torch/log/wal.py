@@ -1,0 +1,457 @@
+"""Write-ahead log: ctypes bindings to the C++ WAL + Python read side.
+
+The durable per-shard op log (the reference's ``logging_vnode`` over
+disk_log): every committed transaction's effects are framed and appended
+before the device tables observe them; recovery and the replay fallback
+for reads below the device's coverage read it back.
+
+Frames are ``<III`` (magic, payload length, crc32) + a msgpack payload —
+the JAX package's frames exactly, so either package replays the other's
+files.  The native writer is the port's own ``log/cpp/wal.cc``, built with
+g++ at first use into ``antidote_tpu_torch/_build/`` (named by the
+source's hash, so an edited source rebuilds).  Where no compiler exists a
+pure-Python writer keeps the API working and writes the same frames;
+``ShardWAL.native`` says which one runs.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import errno
+import hashlib
+import heapq
+import os
+import shutil
+import struct
+import subprocess
+import threading
+import time
+import zlib
+from pathlib import Path
+from typing import Iterator, List, Optional, Sequence, Tuple
+
+import msgpack
+
+from antidote_tpu_torch import faults
+
+_MAGIC = 0xA17D07E1
+_HDR = struct.Struct("<III")
+
+_PKG = Path(__file__).resolve().parent.parent
+SOURCE = _PKG / "log" / "cpp" / "wal.cc"
+BUILD_DIR = _PKG / "_build"
+
+_lib = None
+_lib_tried = False
+_lib_lock = threading.Lock()
+
+
+def build() -> Path:
+    """Compile ``wal.cc`` (once per source version) and return the
+    library's path."""
+    src = SOURCE.read_bytes()
+    lib = BUILD_DIR / f"libwal_{hashlib.sha256(src).hexdigest()[:16]}.so"
+    if lib.exists():
+        return lib
+    cxx = os.environ.get("CXX") or shutil.which("g++")
+    if cxx is None:
+        raise RuntimeError("g++ not found: the native WAL cannot be built")
+    BUILD_DIR.mkdir(exist_ok=True)
+    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+    subprocess.run([cxx, "-O2", "-shared", "-fPIC", "-std=c++17",
+                    "-pthread", str(SOURCE), "-o", str(tmp)],
+                   check=True, capture_output=True)
+    os.replace(tmp, lib)  # atomic: a concurrent build sees all or nothing
+    return lib
+
+
+def _load_lib():
+    """The native WAL library, or None where it cannot be built."""
+    global _lib, _lib_tried
+    with _lib_lock:
+        if _lib_tried:
+            return _lib
+        _lib_tried = True
+        try:
+            # use_errno: a failed append/commit must surface WHICH OS
+            # error (ENOSPC vs EIO) — the read-only mode keys off it
+            lib = ctypes.CDLL(str(build()), use_errno=True)
+        except (OSError, RuntimeError, subprocess.CalledProcessError):
+            return None
+        lib.wal_open.restype = ctypes.c_void_p
+        lib.wal_open.argtypes = [ctypes.c_char_p, ctypes.c_int, ctypes.c_int]
+        lib.wal_append_raw.restype = ctypes.c_int64
+        lib.wal_append_raw.argtypes = [ctypes.c_void_p, ctypes.c_char_p,
+                                       ctypes.c_uint64]
+        lib.wal_commit.restype = ctypes.c_int
+        lib.wal_commit.argtypes = [ctypes.c_void_p]
+        lib.wal_sync.restype = ctypes.c_int
+        lib.wal_sync.argtypes = [ctypes.c_void_p]
+        lib.wal_set_sync.restype = None
+        lib.wal_set_sync.argtypes = [ctypes.c_void_p, ctypes.c_int]
+        lib.wal_tell.restype = ctypes.c_int64
+        lib.wal_tell.argtypes = [ctypes.c_void_p]
+        lib.wal_truncate.restype = ctypes.c_int
+        lib.wal_truncate.argtypes = [ctypes.c_void_p, ctypes.c_int64]
+        lib.wal_close.restype = None
+        lib.wal_close.argtypes = [ctypes.c_void_p]
+        _lib = lib
+        return _lib
+
+
+def pack_frames(payloads: Sequence[bytes]) -> bytes:
+    """Frame several record payloads into one append buffer (the framing
+    :func:`replay` reads): a whole commit group reaches a file in ONE
+    write."""
+    parts = []
+    for p in payloads:
+        parts.append(_HDR.pack(_MAGIC, len(p), zlib.crc32(p) & 0xFFFFFFFF))
+        parts.append(p)
+    return b"".join(parts)
+
+
+class ShardWAL:
+    """Single-writer append log for one shard (or one shard segment)."""
+
+    def __init__(self, path: str, sync_on_commit: bool = False,
+                 sync_interval_ms: int = 100):
+        self.path = path
+        self.sync_on_commit = sync_on_commit
+        #: bytes appended but not yet covered by an fsync (the
+        #: per-segment WAL depth gauge's source)
+        self.pending_bytes = 0
+        lib = _load_lib()
+        self._lib = lib
+        self._h = None
+        self._f = None
+        if lib is not None:
+            self._h = lib.wal_open(path.encode(), int(sync_on_commit),
+                                   sync_interval_ms)
+        if self._h is None:
+            self._f = open(path, "ab")
+        # end-of-file offset, tracked host-side after one open-time probe
+        # (the fd is append-only and single-writer, so arithmetic is exact)
+        self._end = self._tell_fs()
+
+    @property
+    def native(self) -> bool:
+        return self._h is not None
+
+    def _faulted_append(self) -> None:
+        """Fault site "wal.append" (key = file basename): enospc/io_error/
+        error raise before anything hits the file; delay sleeps."""
+        d = faults.hit("wal.append", key=os.path.basename(self.path))
+        if d is None:
+            return
+        if d.action == "enospc":
+            raise OSError(errno.ENOSPC,
+                          f"injected fault: wal.append {self.path}: "
+                          "No space left on device")
+        if d.action == "io_error":
+            raise OSError(errno.EIO,
+                          f"injected fault: wal.append {self.path}: "
+                          "Input/output error")
+        if d.action == "error":
+            raise IOError(f"injected fault: wal.append {self.path}: {d.arg}")
+        if d.action == "delay" and d.arg:
+            time.sleep(float(d.arg))
+
+    def append(self, record: dict) -> None:
+        """Append one framed record (see :meth:`append_packed`)."""
+        self.append_packed(pack_frames(
+            [msgpack.packb(record, use_bin_type=True)]))
+
+    def append_packed(self, buf: bytes) -> None:
+        """Append a :func:`pack_frames` buffer (1..N records) in one
+        write.  On failure the torn tail is truncated away: replay stops
+        at the first torn record, so torn bytes followed by later
+        successful appends would hide those appends from recovery."""
+        if faults.get_injector() is not None:
+            self._faulted_append()
+        start = self._end
+        try:
+            if self._h is not None:
+                ctypes.set_errno(0)
+                if self._lib.wal_append_raw(self._h, buf, len(buf)) < 0:
+                    raise self._native_oserror("wal_append_raw")
+            else:
+                self._f.write(buf)
+        except BaseException:
+            try:
+                self.rollback_to(start)  # shrinking needs no blocks
+            except OSError:
+                pass
+            raise
+        self._end = start + len(buf)
+        self.pending_bytes += len(buf)
+
+    def _tell_fs(self) -> int:
+        """Real end-of-file offset (includes any torn tail a crash left,
+        so the first rollback point is valid)."""
+        if self._h is not None:
+            n = self._lib.wal_tell(self._h)
+            if n < 0:
+                raise self._native_oserror("wal_tell")
+            return int(n)
+        self._f.flush()
+        return os.fstat(self._f.fileno()).st_size
+
+    def tell(self) -> int:
+        """Current end-of-file offset (a rollback point)."""
+        return self._end
+
+    def rollback_to(self, off: int) -> None:
+        """Discard everything appended past ``off`` (works on a full
+        disk: truncation frees, never allocates)."""
+        if self._h is not None:
+            ctypes.set_errno(0)
+            if self._lib.wal_truncate(self._h, int(off)) != 0:
+                raise self._native_oserror("wal_truncate")
+        else:
+            self._f.flush()
+            self._f.truncate(off)
+        self.pending_bytes = max(0, self.pending_bytes - (self._end - off))
+        self._end = off
+
+    def set_sync(self, sync: bool) -> None:
+        """Runtime fsync-on-commit toggle, honored by both writers."""
+        self.sync_on_commit = sync
+        if self._h is not None:
+            self._lib.wal_set_sync(self._h, int(sync))
+
+    def _native_oserror(self, fn: str) -> OSError:
+        """OSError carrying the native call's errno (0 — a lost errno —
+        degrades to EIO so the commit still fails typed)."""
+        err = ctypes.get_errno() or errno.EIO
+        return OSError(err, f"{fn} failed for {self.path}: "
+                            f"{os.strerror(err)}")
+
+    def _faulted_fsync(self) -> None:
+        """Fault site "wal.fsync" (key = file basename): delay stretches
+        the fsync window; error/io_error/enospc fail the covering
+        group-fsync ticket."""
+        d = faults.hit("wal.fsync", key=os.path.basename(self.path))
+        if d is None:
+            return
+        if d.action == "delay" and d.arg:
+            time.sleep(float(d.arg))
+        elif d.action in ("error", "io_error", "enospc"):
+            err = errno.ENOSPC if d.action == "enospc" else errno.EIO
+            raise OSError(err, f"injected fault: wal.fsync {self.path}")
+
+    def commit(self) -> None:
+        covered = self.pending_bytes
+        if self._h is None and self._f is None:
+            return  # retired segment (generation rotation)
+        if self._h is not None:
+            ctypes.set_errno(0)
+            if self._lib.wal_commit(self._h) != 0:
+                raise self._native_oserror("wal_commit")
+        else:
+            self._f.flush()
+            if self.sync_on_commit:
+                os.fsync(self._f.fileno())
+        # subtract the covered delta rather than zeroing: a racing append
+        # after the snapshot keeps its bytes in the gauge
+        self.pending_bytes -= covered
+
+    def sync(self) -> None:
+        covered = self.pending_bytes
+        if self._h is None and self._f is None:
+            # retired segment: its records are covered by the checkpoint
+            # image by then, so a no-op is the right durability answer
+            return
+        if faults.get_injector() is not None:
+            self._faulted_fsync()
+        if self._h is not None:
+            ctypes.set_errno(0)
+            if self._lib.wal_sync(self._h) != 0:
+                raise self._native_oserror("wal_sync")
+        else:
+            self._f.flush()
+            os.fsync(self._f.fileno())
+        self.pending_bytes -= covered
+
+    def probe(self) -> None:
+        """Raise while appends would still fail; no-op once they can
+        succeed (the read-only mode's recovery probe).  Consults the same
+        fault site as :meth:`append`, then proves the volume with a real,
+        fsynced sidecar write — never an append to the log itself."""
+        if faults.get_injector() is not None:
+            self._faulted_append()
+        p = self.path + ".probe"
+        try:
+            with open(p, "wb") as f:
+                f.write(b"\0" * 4096)
+                f.flush()
+                os.fsync(f.fileno())
+        finally:
+            try:
+                os.remove(p)
+            except OSError:
+                pass
+
+    def close(self) -> None:
+        if self._h is not None:
+            self._lib.wal_close(self._h)
+            self._h = None
+        if self._f is not None:
+            self._f.close()
+            self._f = None
+
+    def __del__(self):  # best-effort
+        try:
+            self.close()
+        except Exception:
+            pass
+
+
+class FsyncTicket:
+    """A commit barrier's handle on the group-fsync coordinator: the ack
+    holding it may release once :meth:`wait` returns."""
+
+    __slots__ = ("_ev", "_err")
+
+    def __init__(self, done: bool = False):
+        self._ev = threading.Event()
+        self._err: Optional[BaseException] = None
+        if done:
+            self._ev.set()
+
+    def done(self, err: Optional[BaseException] = None) -> None:
+        self._err = err
+        self._ev.set()
+
+    def wait(self, timeout: Optional[float] = 60.0) -> None:
+        if not self._ev.wait(timeout):
+            raise TimeoutError("WAL group fsync stalled")
+        if self._err is not None:
+            raise self._err
+
+
+def ready_ticket() -> FsyncTicket:
+    return FsyncTicket(done=True)
+
+
+class GroupFsyncCoordinator:
+    """Batches fsync requests across WAL segments (group commit).
+
+    Commit barriers submit the segments they dirtied and get a ticket; the
+    coordinator thread drains every pending request at once, fsyncs each
+    distinct segment ONCE, and completes all covered tickets.  A segment
+    whose fsync fails fails exactly the tickets that cover it."""
+
+    def __init__(self, on_batch=None):
+        #: called with the number of barriers covered per fsync pass
+        self.on_batch = on_batch
+        self._lock = threading.Lock()
+        self._cv = threading.Condition(self._lock)
+        # bounded-by: commit admission (each entry is a parked barrier)
+        self._pending: List[Tuple[FsyncTicket, list]] = []
+        self._thread: Optional[threading.Thread] = None
+        self._stop = False
+
+    def submit(self, segments: list) -> FsyncTicket:
+        """``segments``: objects with a ``sync()`` to make durable up to
+        their current end.  Returns the covering ticket."""
+        if not segments:
+            return ready_ticket()
+        t = FsyncTicket()
+        with self._cv:
+            if self._stop:
+                raise RuntimeError("fsync coordinator closed")
+            self._pending.append((t, list(segments)))
+            if self._thread is None:  # lazy: most logs never sync
+                self._thread = threading.Thread(
+                    target=self._loop, daemon=True, name="antidote-wal-fsync")
+                self._thread.start()
+            self._cv.notify()
+        return t
+
+    def _loop(self) -> None:
+        while True:
+            with self._cv:
+                while not self._pending and not self._stop:
+                    self._cv.wait()
+                batch, self._pending = self._pending, []
+                if not batch and self._stop:
+                    return
+            self._run_batch(batch)
+
+    def _run_batch(self, batch) -> None:
+        failed: dict = {}
+        synced: set = set()
+        for _t, segs in batch:
+            for s in segs:
+                if id(s) in synced or id(s) in failed:
+                    continue
+                try:
+                    s.sync()
+                except OSError as e:
+                    failed[id(s)] = e
+                else:
+                    synced.add(id(s))
+        for t, segs in batch:
+            t.done(next((failed[id(s)] for s in segs if id(s) in failed),
+                        None))
+        if self.on_batch is not None:
+            try:
+                self.on_batch(len(batch))
+            except Exception:
+                pass
+
+    def close(self) -> None:
+        with self._cv:
+            self._stop = True
+            self._cv.notify_all()
+            th = self._thread
+        if th is not None:
+            th.join(timeout=10)
+        with self._cv:  # fail anything that raced in behind the stop
+            pending, self._pending = self._pending, []
+        for t, _segs in pending:
+            t.done(RuntimeError("fsync coordinator closed"))
+
+
+def replay_segments(paths: Sequence[str]) -> Iterator[dict]:
+    """Merge several WAL segment files of ONE shard back into commit
+    order: sequenced records (``"q"``) by sequence, legacy records (no
+    ``"q"``, segment 0 only) first in file order."""
+
+    def keyed(path):
+        for pos, rec in enumerate(replay(path)):
+            q = rec.get("q")
+            yield ((0, pos) if q is None else (1, int(q))), rec
+
+    for _k, rec in heapq.merge(*[keyed(p) for p in paths],
+                               key=lambda item: item[0]):
+        yield rec
+
+
+def wholly_below(path: str, floor: int) -> bool:
+    """True iff every decodable record in ``path`` is covered by a
+    checkpoint floor (``"q"`` ≤ ``floor``, or a legacy record): the
+    reclaim guard — a WAL file may be deleted only when this holds."""
+    for rec in replay(path):
+        q = rec.get("q")
+        if q is not None and int(q) > floor:
+            return False
+    return True
+
+
+def replay(path: str) -> Iterator[dict]:
+    """Yield records from a WAL file; stops cleanly at a torn tail."""
+    if not os.path.exists(path):
+        return
+    with open(path, "rb") as f:
+        while True:
+            hdr = f.read(_HDR.size)
+            if len(hdr) < _HDR.size:
+                return
+            magic, ln, crc = _HDR.unpack(hdr)
+            if magic != _MAGIC:
+                return  # torn/corrupt tail
+            payload = f.read(ln)
+            if len(payload) < ln or (zlib.crc32(payload) & 0xFFFFFFFF) != crc:
+                return
+            yield msgpack.unpackb(payload, raw=False, strict_map_key=False)

@@ -21,15 +21,20 @@ Reads run on two planes beside the locked one:
     decoded values per epoch and revalidates them across publishes that
     did not touch their rows.
 
-Everything stays in memory: the durable log (and with it the replay
-fallback for reads below retained coverage) and the cold tier are later
-slices.
+With a durable log attached (``log=``, a ``log.LogManager``), every
+commit group is logged before any table observes it, failure-atomically
+per sub-group, and ``apply_effect_groups`` hands back the group-fsync
+ticket the acknowledgement waits on; ``recover`` rebuilds the tables from
+the log, and reads below the device's retained coverage replay it
+(``_replay_read_many``, with its fold ladder).  The cold tier is a later
+slice.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import threading
+import time
 from collections import OrderedDict
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
@@ -41,6 +46,8 @@ from antidote_tpu_torch.crdt import get_type, is_type
 from antidote_tpu_torch.crdt.base import RESOLVE_OVERFLOW
 from antidote_tpu_torch.crdt.blob import BlobStore
 from antidote_tpu_torch.materializer import cuda_kernels
+from antidote_tpu_torch.materializer import fold as fold_mod
+from antidote_tpu_torch.materializer import longlog
 from antidote_tpu_torch.store.router import shard_batch, shard_of
 from antidote_tpu_torch.store.typed_table import TypedTable
 
@@ -96,8 +103,8 @@ def stable_min_of(clock_rows: np.ndarray, device) -> np.ndarray:
 
 
 def freeze_key(key: Any) -> Any:
-    """Normalize a key after wire deserialization: msgpack returns tuples
-    as lists, but directory keys must be hashable."""
+    """Normalize a key after wire or log deserialization: msgpack returns
+    tuples as lists, but directory keys must be hashable."""
     if isinstance(key, list):
         return tuple(freeze_key(k) for k in key)
     return key
@@ -169,8 +176,20 @@ def _pad_lane(x, width: int, dtype) -> np.ndarray:
     return out
 
 
+def effect_from_rec(rec: dict) -> "Effect":
+    """Decode one WAL record (``LogManager``'s record dict) back into an
+    Effect — the single place that knows the record's lane encoding."""
+    return Effect(
+        freeze_key(rec["k"]), rec["t"], rec["b"],
+        np.frombuffer(rec["a"], np.int64),
+        np.frombuffer(rec["eb"], np.int32),
+        [(h, d) for h, d in rec.get("bl", [])],
+    )
+
+
 class Effect:
-    """One downstream effect bound to a key — the unit the op rings hold."""
+    """One downstream effect bound to a key — the unit the op rings hold
+    and the log stores."""
 
     __slots__ = ("key", "type_name", "bucket", "eff_a", "eff_b", "blob_refs")
 
@@ -275,9 +294,15 @@ class _EpochReadPending:
 
 
 class KVStore:
-    def __init__(self, cfg: AntidoteConfig, device="cuda"):
+    def __init__(self, cfg: AntidoteConfig, device="cuda", log=None):
         self.cfg = cfg
         self.device = resolve_device(device)
+        #: the durable log (``log.LogManager``) or None: when set, effects
+        #: are logged (with blob payloads) before the tables observe them
+        self.log = log
+        #: records replayed by the last ``recover`` (tail-only under a
+        #: checkpoint floor)
+        self.last_recovery_records = 0
         self.tables: Dict[str, TypedTable] = {}
         self.directory: Dict[Tuple[Any, str], Tuple[str, int, int]] = (
             ShardDirectory())
@@ -291,8 +316,8 @@ class KVStore:
         self.promotions = 0
         #: type_name -> whether the type has slot accounting
         self._slotted: Dict[str, bool] = {}
-        #: per-strategy replay-path fold tallies (the replay ladder comes
-        #: with the durable log); ``materializer_status`` reads them
+        #: per-strategy replay-path fold tallies (``_fold_over_ring``);
+        #: ``materializer_status`` reads them
         self.replay_fold_dispatches: Dict[str, int] = {}
         #: NodeMetrics (attached by AntidoteNode) or None
         self.metrics = None
@@ -330,6 +355,37 @@ class KVStore:
         self._epoch_touch_log: "OrderedDict[int, dict]" = OrderedDict()
         #: decoded bottom (never-written) value per type
         self._bottom_values: Dict[str, Any] = {}
+        #: (key, bucket) pairs written, born or promoted since the last
+        #: checkpoint capture — the delta link's dirty-key window.  None =
+        #: overflow past the cap: the next stamp must rebase
+        self.ckpt_dirty_keys: "set | None" = set()
+        #: blob hashes interned in the same window (their WAL records fall
+        #: below the link's floor, so the link must carry them); None =
+        #: overflow
+        self._ckpt_dirty_blobs: "set | None" = set()
+        #: (type name, eff_a length, eff_b length) -> the smallest slot
+        #: tier whose effect lanes fit (``_tier_for_lanes``, memoized: the
+        #: commit path asks once per effect)
+        self._lane_tier: Dict[Tuple[str, int, int], int] = {}
+
+    #: dirty-key windows past this size stop tracking (rebase instead)
+    _CKPT_KEYS_CAP = 262144
+
+    def note_ckpt_dirty(self, dk) -> None:
+        ks = self.ckpt_dirty_keys
+        if ks is not None:
+            ks.add(dk)
+            if len(ks) > self._CKPT_KEYS_CAP:
+                self.ckpt_dirty_keys = None
+
+    def note_ckpt_dirty_many(self, dks) -> None:
+        """``note_ckpt_dirty`` of a batch (the window only grows, so one
+        cap check after the update decides as one per key would)."""
+        ks = self.ckpt_dirty_keys
+        if ks is not None:
+            ks.update(dks)
+            if len(ks) > self._CKPT_KEYS_CAP:
+                self.ckpt_dirty_keys = None
 
     def mark_epoch_fallback(self, dk) -> None:
         """Make every live serving epoch fall back to the locked path for
@@ -355,7 +411,8 @@ class KVStore:
         for t in self.tables.values():
             for k, n in t.fold_dispatches.items():
                 per_table[k] = per_table.get(k, 0) + n
-        return {"serving_folds": per_table,
+        return {"fold_chunk": int(self.cfg.fold_chunk),
+                "serving_folds": per_table,
                 "replay_folds": dict(self.replay_fold_dispatches)}
 
     def _is_slotted(self, type_name: str) -> bool:
@@ -405,6 +462,7 @@ class KVStore:
         row = self.table(type_name).alloc_row(shard)
         ent = (type_name, shard, row)
         self.directory[dk] = ent
+        self.note_ckpt_dirty(dk)
         return ent
 
     def locate_many(self, objects: Sequence[BoundObject]) -> None:
@@ -425,95 +483,189 @@ class KVStore:
                 continue
             row = self.table(type_name).alloc_row(int(shard))
             self.directory[dk] = (type_name, int(shard), int(row))
+            self.note_ckpt_dirty(dk)
 
     # ------------------------------------------------------------------
     def apply_effects(self, effects: Sequence[Effect],
                       commit_vcs: Sequence[np.ndarray],
                       origins: Sequence[int]) -> None:
         """Apply a commit-ordered batch of effects: ``effects[i]`` committed
-        with clock ``commit_vcs[i]`` from DC ``origins[i]``."""
-        self.apply_effect_groups(
-            [(list(effects), list(commit_vcs), list(origins))])
+        with clock ``commit_vcs[i]`` from DC ``origins[i]``.
 
-    def apply_effect_groups(self, groups) -> None:
+        Blocking form: ONE failure-atomic group — a WAL refusal raises
+        before any table mutates, and the commit barrier (fsync under
+        sync_log=true) completes before the device apply."""
+        errors, _ = self.apply_effect_groups(
+            [(list(effects), list(commit_vcs), list(origins))],
+            defer_sync=False)
+        if errors[0] is not None:
+            raise errors[0]
+
+    def apply_effect_groups(self, groups, defer_sync: bool = True):
         """Apply a merged commit batch — several sub-groups ``(effects,
         commit_vcs, origins)``, one per source transaction, in commit
-        order — as ONE grouped append per touched table.  The mutation
-        epoch is bumped on both sides of it (value-cache fills racing it
-        are dropped)."""
+        order — as ONE grouped append per touched table.  Each sub-group
+        is failure-atomic on its own: one whose WAL append is refused is
+        rolled back alone, and its siblings still log and apply.  The
+        mutation epoch is bumped on both sides (value-cache fills racing
+        it are dropped).
+
+        Returns ``(errors, ticket)``: one ``None`` or ``Exception`` per
+        sub-group, and — with ``defer_sync`` and a log — the group-fsync
+        ticket acknowledgements must wait on (None when nothing was
+        logged; the fsync runs concurrently with the device apply)."""
         self._mutating = True
         self.mutation_epoch += 1
         try:
-            self._apply_effect_groups_inner(groups)
+            return self._apply_effect_groups_inner(groups, defer_sync)
         finally:
             self.mutation_epoch += 1
             self._mutating = False
 
-    def _apply_effect_groups_inner(self, groups) -> None:
+    def _tier_for_lanes(self, ty, len_a: int, len_b: int) -> int:
+        """Smallest tier whose effect-lane widths fit the given lanes
+        (register_mv observed-id lanes scale with the origin's tier)."""
+        for tier in range(_MAX_TIER):
+            cfg_t = scaled_cfg(self.cfg, tier)
+            if (len_a <= ty.eff_a_width(cfg_t)
+                    and len_b <= ty.eff_b_width(cfg_t)):
+                return tier
+        raise OverflowError(
+            f"{ty.name}: effect lanes ({len_a}, {len_b}) exceed every slot "
+            f"tier up to {_MAX_TIER}")
+
+    def _apply_effect_groups_inner(self, groups, defer_sync):
         effects = [e for g in groups for e in g[0]]
         self.locate_many([(e.key, e.type_name, e.bucket) for e in effects])
         # ---- overflow escape hatch: promote BEFORE anything can drop.
-        # Aggregate each key's worst-case fresh-slot demand; keys whose
-        # conservative bound would exceed capacity migrate to a wider tier
-        # now, so the fold below never meets a full slot table.
+        # Aggregate each key's worst-case fresh-slot demand (and the tier
+        # its effect lanes need: a replayed or remote effect of a promoted
+        # key is wider); keys whose conservative bound would exceed
+        # capacity migrate to a wider tier now, so the fold below never
+        # meets a full slot table.
         demand: Dict[Tuple[Any, str], int] = {}
+        need: Dict[Tuple[Any, str], int] = {}
+        lane_tier = self._lane_tier
         for eff in effects:
             if not self._is_slotted(eff.type_name):
                 continue
             d = get_type(eff.type_name).slot_demand(eff.eff_a, eff.eff_b)
-            if d:
-                dk = (eff.key, eff.bucket)
-                demand[dk] = demand.get(dk, 0) + d
+            lk = (eff.type_name, len(eff.eff_a), len(eff.eff_b))
+            need_t = lane_tier.get(lk)
+            if need_t is None:
+                need_t = lane_tier[lk] = self._tier_for_lanes(
+                    get_type(eff.type_name), lk[1], lk[2])
+            dk = (eff.key, eff.bucket)
+            # the key's current tier matters only for lanes past tier 0
+            if need_t and need_t > split_tier(self.directory[dk][0])[1]:
+                need[dk] = max(need.get(dk, 0), need_t)
+            elif not d:
+                continue
+            demand[dk] = demand.get(dk, 0) + d
         for dk, d in demand.items():
             tname_t, shard, row = self.directory[dk]
             t = self.table(tname_t)
-            if t.slots_ub[shard, row] + d <= t.ty.slot_capacity(t.cfg):
+            need_t = need.get(dk, 0)
+            if ((not need_t or need_t <= split_tier(tname_t)[1])
+                    and t.slots_ub[shard, row] + d
+                    <= t.ty.slot_capacity(t.cfg)):
                 t.slots_ub[shard, row] += d
             else:
-                self._promote_key(dk, extra_demand=d)
-        by_table: Dict[str, list] = {}
-        touched = []
-        inval: List[Tuple[Any, str]] = []
+                self._promote_key(dk, extra_demand=d, min_tier=need_t)
+        # per-sub-group record build; blob interning rides along, and each
+        # sub-group's rows are staged per table (and its keys, with the
+        # parent maps a field write invalidates) for the survivors' apply
+        logging = self.log is not None
+        to_log: List[List[tuple]] = []
+        staged: List[tuple] = []
         for effs, vcs, orgs in groups:
+            entries: List[tuple] = []
+            rows_by_table: Dict[str, list] = {}
+            dks: List[Tuple[Any, str]] = []
+            parents: List[Tuple[Any, str]] = []
             for eff, vc_, org in zip(effs, vcs, orgs):
                 tname_t, shard, row = self.locate(eff.key, eff.type_name,
                                                   eff.bucket)
                 for h, data in eff.blob_refs:
                     self.blobs.intern_bytes(h, data)
-                inval.append((eff.key, eff.bucket))
+                    bl = self._ckpt_dirty_blobs
+                    if bl is not None:
+                        bl.add(h)
+                        if len(bl) > self._CKPT_KEYS_CAP:
+                            self._ckpt_dirty_blobs = None
+                if logging:
+                    entries.append((shard, eff.key, eff.type_name,
+                                    eff.bucket, eff.eff_a, eff.eff_b, vc_,
+                                    org, eff.blob_refs))
+                dks.append((eff.key, eff.bucket))
                 # a field or membership write kills the parent map's
                 # assembled value (recursively for nested maps)
                 k = eff.key
                 while (type(k) is tuple and len(k) >= 2
                        and k[0] in _DERIVED_NS):
                     k = k[1]
-                    inval.append((k, eff.bucket))
-                by_table.setdefault(tname_t, []).append(
+                    parents.append((k, eff.bucket))
+                rows_by_table.setdefault(tname_t, []).append(
                     (shard, row, eff.eff_a, eff.eff_b, vc_, org))
-                touched.append((shard, np.asarray(vc_, np.int32)))
-        if inval:
+            to_log.append(entries)
+            staged.append((rows_by_table, dks, parents))
+        # durability first: log (with blob payloads) before any table
+        # observes the batch, failure-atomically per sub-group
+        errors: List[Optional[Exception]] = [None] * len(groups)
+        if logging and any(to_log):
+            errors = self.log.log_effect_groups(to_log)
+        # survivors only: cache invalidation, device apply, clocks
+        by_table: Dict[str, list] = {}
+        written: List[Tuple[Any, str]] = []
+        inval: List[Tuple[Any, str]] = []
+        for (rows_by_table, dks, parents), err in zip(staged, errors):
+            if err is not None:
+                continue
+            for tname_t, items in rows_by_table.items():
+                by_table.setdefault(tname_t, []).extend(items)
+            written.extend(dks)
+            inval.extend(parents)
+        self.note_ckpt_dirty_many(written)
+        ticket = None
+        if logging and written:
+            # group fsync: deferred acks wait on the ticket after the
+            # commit lock releases, so the fsync overlaps the device apply
+            # below; the blocking form (recovery, ``apply_effects``) keeps
+            # the barrier before the apply
+            ticket = self.log.barrier_async(
+                {x[0] for items in by_table.values() for x in items})
+            if not defer_sync:
+                ticket.wait()
+                ticket = None
+        if written:
             # one locked sweep per batch, not one acquisition per effect
             with self._value_cache_lock:
+                for dk in written:
+                    self._value_cache.pop(dk, None)
                 for dk in inval:
                     self._value_cache.pop(dk, None)
+        clocks = []
         for tname_t, items in by_table.items():
             t = self.table(tname_t)
             aw = t.ty.eff_a_width(t.cfg)
             bw = t.ty.eff_b_width(t.cfg)
+            shards = np.asarray([x[0] for x in items], np.int64)
+            vcs_ = np.stack([np.asarray(x[4], np.int32) for x in items])
             t.append(
-                np.asarray([x[0] for x in items], np.int64),
+                shards,
                 np.asarray([x[1] for x in items], np.int64),
                 np.stack([_pad_lane(x[2], aw, np.int64) for x in items]),
                 np.stack([_pad_lane(x[3], bw, np.int32) for x in items]),
-                np.stack([np.asarray(x[4], np.int32) for x in items]),
+                vcs_,
                 np.asarray([x[5] for x in items], np.int32),
             )
+            clocks.append((shards, vcs_))
         # only after every append succeeded may the partition clocks claim
         # these commits (the stable snapshot must never dominate unapplied
         # ops)
-        for shard, vc_ in touched:
-            np.maximum(self.applied_vc[shard], vc_,
-                       out=self.applied_vc[shard])
+        for shards, vcs_ in clocks:
+            np.maximum.at(self.applied_vc, shards, vcs_)
+        return errors, ticket
 
     # ------------------------------------------------------------------
     # serving epochs (lock-split reads)
@@ -896,9 +1048,11 @@ class KVStore:
         return tuple(int(x) for x in self.applied_vc.max(axis=0))
 
     # ------------------------------------------------------------------
-    def _promote_key(self, dk, extra_demand: int = 0) -> None:
-        """Migrate one key to a wider-slot tier table, exactly — before the
-        batch that would overflow applies, so no op is ever dropped."""
+    def _promote_key(self, dk, extra_demand: int = 0,
+                     min_tier: int = 0) -> None:
+        """Migrate one key to a wider-slot tier table (at least
+        ``min_tier``), exactly — before the batch that would overflow
+        applies, so no op is ever dropped."""
         tname_t, shard, row = self.directory[dk]
         base, tier = split_tier(tname_t)
         ty = get_type(base)
@@ -906,12 +1060,13 @@ class KVStore:
         head_state = {f: x[shard, row].cpu().numpy()
                       for f, x in t_old.head.items()}
         used = ty.used_slots(head_state)
-        if used + extra_demand <= ty.slot_capacity(t_old.cfg):
+        if (min_tier <= tier
+                and used + extra_demand <= ty.slot_capacity(t_old.cfg)):
             # the conservative bound went stale (add/remove churn): the key
             # fits its current tier — re-tighten the bound in place
             t_old.slots_ub[shard, row] = used + extra_demand
             return
-        new_tier = tier + 1
+        new_tier = max(tier + 1, min_tier)
         while ty.slot_capacity(scaled_cfg(self.cfg, new_tier)) < (
                 used + extra_demand):
             new_tier += 1
@@ -927,6 +1082,7 @@ class KVStore:
         t_new.next_seq += int(t_old.next_seq)
         t_new.n_ops[shard, new_row] = t_old.n_ops[shard, row]
         t_new.slots_ub[shard, new_row] = used + extra_demand
+        t_new.max_abs_delta = max(t_new.max_abs_delta, t_old.max_abs_delta)
         np.maximum(t_new.max_commit_vc, t_old.max_commit_vc,
                    out=t_new.max_commit_vc)
         t_old.n_ops[shard, row] = 0
@@ -946,6 +1102,7 @@ class KVStore:
         # mark and falls back
         self.mark_epoch_fallback(dk)
         self.directory[dk] = (dst_name, shard, new_row)
+        self.note_ckpt_dirty(dk)
         self.promotions += 1
 
     # ------------------------------------------------------------------
@@ -985,8 +1142,15 @@ class KVStore:
                 for f in state:
                     state[f][stale] = s2[f]
                 if not complete.all():
-                    self._replay_read_many([objects[items[j][0]]
-                                            for j in stale[~complete]])
+                    # below the retained device coverage: replay the log,
+                    # one scan per shard
+                    for shard, wants in self._wants_by_shard(
+                            objects, items, tname_t,
+                            stale[~complete]).items():
+                        reps = self._replay_read_many(shard, wants, read_vc)
+                        for j, rep_ in reps.items():
+                            for f in state:
+                                state[f][j] = rep_[f]
             for j, (i, _, _) in enumerate(items):
                 out[i] = {f: x[j] for f, x in state.items()}
         return out
@@ -1005,12 +1169,17 @@ class KVStore:
         return {f: x.copy() for f, x in hit.items()}
 
     def read_resolved(self, objects: Sequence[BoundObject],
-                      read_vc: np.ndarray) -> List[Dict[str, np.ndarray]]:
+                      read_vc: np.ndarray,
+                      full_out: Optional[Dict[int, dict]] = None
+                      ) -> List[Dict[str, np.ndarray]]:
         """Serving path: batched reads with DEVICE value resolution — one
         freshness check + versioned fold of the stale rows + resolve per
         touched table (``TypedTable.read_resolved``); only the compact view
         crosses to the host.  Types without a ``resolve_spec`` return their
-        full state."""
+        full state.  Rows below the device's coverage are rebuilt by a log
+        replay; with ``full_out``, their full states are recorded there by
+        object index (and returned unresolved), so a caller that may need
+        the full state never pays a second log scan."""
         read_vc = np.asarray(read_vc, np.int32)
         out: List[Any] = [None] * len(objects)
         by_table = self._group_by_table(objects, out, self._bottom_resolved)
@@ -1020,11 +1189,28 @@ class KVStore:
             rows = np.asarray([x[2] for x in items], np.int64)
             vcs = np.broadcast_to(read_vc, (len(items), read_vc.shape[-1]))
             resolved, _, complete = t.read_resolved(shards, rows, vcs)
-            if not complete.all():
-                self._replay_read_many([objects[items[j][0]] for j in
-                                        np.nonzero(~complete)[0]])
             for j, (i, _, _) in enumerate(items):
                 out[i] = {f: x[j] for f, x in resolved.items()}
+            if not complete.all():
+                # below the retained device coverage: replay the log, one
+                # scan per shard, and resolve the rebuilt states
+                for shard, wants in self._wants_by_shard(
+                        objects, items, tname_t,
+                        np.nonzero(~complete)[0]).items():
+                    reps = self._replay_read_many(shard, wants, read_vc)
+                    if full_out is not None:
+                        for j, rep_ in reps.items():
+                            full_out[items[j][0]] = rep_
+                            out[items[j][0]] = rep_
+                        continue
+                    js = list(reps)
+                    states = {f: torch.as_tensor(
+                        np.stack([reps[j][f] for j in js]),
+                        device=self.device) for f in reps[js[0]]}
+                    view = t._resolve(states)
+                    view = {f: x.cpu().numpy() for f, x in view.items()}
+                    for n, j in enumerate(js):
+                        out[items[j][0]] = {f: x[n] for f, x in view.items()}
         return out
 
     def read_values(self, objects: Sequence[BoundObject],
@@ -1036,13 +1222,198 @@ class KVStore:
             for i, (_, type_name, _) in enumerate(objects)
         ]
 
-    def _replay_read_many(self, objects) -> None:
-        """Rows read below the retained device coverage need a replay of
-        the durable log, which this slice does not port."""
-        raise RuntimeError(
-            f"incomplete read for {[o[0] for o in objects]!r} and no log "
-            "attached: read VC below retained snapshot coverage"
-        )
+    @staticmethod
+    def _wants_by_shard(objects, items, tname_t, idxs) -> Dict[int, list]:
+        """The replay requests of a table batch's incomplete rows, grouped
+        by shard: shard -> [(batch index, key, tiered name, bucket)]."""
+        by_shard: Dict[int, list] = {}
+        for j in idxs:
+            i, shard, _row = items[int(j)]
+            key, _t, bucket = objects[i]
+            by_shard.setdefault(int(shard), []).append(
+                (int(j), key, tname_t, bucket))
+        return by_shard
+
+    def _replay_read_many(self, shard: int, wants, read_vc):
+        """Rebuild several keys' states at ``read_vc`` from one scan of the
+        shard's durable log.  ``wants`` = [(result index, key, tiered name,
+        bucket)]; each state is rebuilt at the key's CURRENT tier width
+        (wide enough for every logged effect: the live store promoted
+        before any wide effect applied).  Returns result index -> host
+        state."""
+        if self.log is None:
+            raise RuntimeError(
+                f"incomplete read for {[w[1] for w in wants]!r} and no log "
+                "attached: read VC below retained snapshot coverage")
+        if (int(self.log.floor_seqs[shard]) > 0
+                or self.log.chain_floor[shard].any()):
+            # the shard's log was compacted below a checkpoint floor: the
+            # prefix this rebuild needs is in the image (heads, not per-op
+            # history), so a tail-only replay would silently miss the
+            # pre-checkpoint ops.  Surface the horizon instead.
+            raise RuntimeError(
+                f"read below the compaction horizon for "
+                f"{[w[1] for w in wants]!r}: shard {shard}'s log is "
+                "checkpoint-truncated and no longer holds history below "
+                "the checkpoint stamp")
+        read_vc = np.asarray(read_vc, np.int32)
+        index = {}
+        ops: Dict[int, list] = {}
+        for j, key, tname_t, bucket in wants:
+            base, tier = split_tier(tname_t)
+            index[(key, bucket)] = (j, get_type(base),
+                                    scaled_cfg(self.cfg, tier))
+            ops[j] = []
+        # one host pass over the shard's log: each wanted key's visible
+        # effects in commit order
+        for rec in self.log.replay_shard(shard):
+            hit = index.get((freeze_key(rec["k"]), rec["b"]))
+            if hit is None:
+                continue
+            j, ty, cfg_t = hit
+            vc_ = np.asarray(rec["vc"], np.int32)
+            if not (vc_ <= read_vc).all():
+                continue
+            ops[j].append((
+                _pad_lane(np.frombuffer(rec["a"], np.int64),
+                          ty.eff_a_width(cfg_t), np.int64),
+                _pad_lane(np.frombuffer(rec["eb"], np.int32),
+                          ty.eff_b_width(cfg_t), np.int32),
+                vc_, rec["o"]))
+        out = {}
+        for (key, bucket), (j, ty, cfg_t) in index.items():
+            recs = ops[j]
+            if not recs:
+                out[j] = ty.bottom(cfg_t)
+                continue
+            t0 = time.monotonic()
+            state, strategy = self._fold_over_ring(
+                ty, cfg_t, np.stack([r[0] for r in recs]),
+                np.stack([r[1] for r in recs]),
+                np.stack([r[2] for r in recs]),
+                np.asarray([r[3] for r in recs], np.int32), read_vc)
+            out[j] = {f: x.cpu().numpy() for f, x in state.items()}
+            self._observe_fold(strategy, ty.name, time.monotonic() - t0)
+        return out
+
+    def _fold_over_ring(self, ty, cfg_t, ops_a, ops_b, ops_vc, ops_origin,
+                        read_vc):
+        """Fold one host-assembled op log (leading axis L, from the bottom
+        state) with the strategy its shape earns; returns (device state of
+        one key, strategy name).  Each array reaches the device in ONE
+        copy.  The ladder:
+
+        * ``assoc`` — an assoc-safe log (``ty.supports_assoc``, and for
+          ``set_aw`` an all-adds log; the bottom base satisfies
+          ``assoc_bottom_only``): one masked reduction over the op axis;
+        * ``long`` — an order-sensitive log over ``fold_chunk`` ops: the
+          chunked serial fold, zero-padded to a chunk multiple (pad slots
+          sit at index ≥ n_ops, so the inclusion mask drops them);
+        * ``serial`` — a short order-sensitive log: the plain masked fold.
+
+        The ``mesh_assoc`` rung comes with the multi-card slice."""
+        dev = self.device
+        length = ops_vc.shape[0]
+        chunk = max(int(self.cfg.fold_chunk), 2)
+        assoc_ok = ty.supports_assoc and (
+            not ty.assoc_add_only or not (ops_b[:, 0] == 1).any())
+        if not assoc_ok and length > chunk:
+            pad = (-length) % chunk
+
+            def padl(x):
+                return np.concatenate(
+                    [x, np.zeros((pad,) + x.shape[1:], x.dtype)])
+
+            ops_a, ops_b = padl(ops_a), padl(ops_b)
+            ops_vc, ops_origin = padl(ops_vc), padl(ops_origin)
+
+        def batch(x):
+            return torch.as_tensor(np.ascontiguousarray(x), device=dev)[None]
+
+        state0 = {f: torch.as_tensor(x, device=dev)[None]
+                  for f, x in ty.bottom(cfg_t).items()}
+        args = (state0, batch(ops_a), batch(ops_b), batch(ops_vc),
+                batch(ops_origin),
+                torch.full((1,), length, dtype=torch.int32, device=dev),
+                torch.zeros((1, self.cfg.max_dcs), dtype=torch.int32,
+                            device=dev),
+                batch(read_vc))
+        if assoc_ok:
+            state, _ = longlog.assoc_fold(ty, cfg_t, *args)
+            strategy = "assoc"
+        elif length > chunk:
+            state, _ = longlog.fold_long(ty, cfg_t, *args, chunk=chunk)
+            strategy = "long"
+        else:
+            state, _ = fold_mod.fold_batch(ty, cfg_t, *args)
+            strategy = "serial"
+        return {f: x[0] for f, x in state.items()}, strategy
+
+    def _observe_fold(self, strategy: str, tname: str,
+                      seconds: float) -> None:
+        """Tally a replay-path fold dispatch (host dict + metrics)."""
+        self.replay_fold_dispatches[strategy] = (
+            self.replay_fold_dispatches.get(strategy, 0) + 1)
+        m = self.metrics
+        if m is not None:
+            m.fold_dispatch.inc(strategy=strategy)
+            m.fold_seconds.observe(seconds, strategy=strategy, type=tname)
+
+    # ------------------------------------------------------------------
+    # recovery
+    # ------------------------------------------------------------------
+    #: records applied per recovery batch
+    RECOVERY_BATCH = 4096
+
+    def recover(self, track_origin: Optional[int] = None) -> Dict:
+        """Rebuild tables, clocks, blobs and op-id chains from the log (the
+        tail above the checkpoint floor once an image is installed).  With
+        ``track_origin``, returns {(key, bucket): last commit counter at
+        that origin}, the certification table's rebuild."""
+        assert self.log is not None
+        last_commit: Dict = {}
+        self.last_recovery_records = 0
+        for shard in range(self.cfg.n_shards):
+            batch: List[Effect] = []
+            vcs: List[np.ndarray] = []
+            orgs: List[int] = []
+            for rec in self.log.replay_shard(shard):
+                self.last_recovery_records += 1
+                eff = effect_from_rec(rec)
+                for h, data in eff.blob_refs:
+                    self.blobs.intern_bytes(h, data)
+                    # already durable: never re-log these payloads
+                    self.log._blob_seen[shard].add(h)
+                    # ... but a delta link stamped before any fresh write
+                    # covers this record with its floor, so it must carry
+                    # the payload (the JAX package loses it there)
+                    bl = self._ckpt_dirty_blobs
+                    if bl is not None:
+                        bl.add(h)
+                        if len(bl) > self._CKPT_KEYS_CAP:
+                            self._ckpt_dirty_blobs = None
+                eff.blob_refs = []
+                batch.append(eff)
+                vcs.append(np.asarray(rec["vc"], np.int32))
+                orgs.append(int(rec["o"]))
+                self.log.op_ids[shard, rec["o"]] = max(
+                    self.log.op_ids[shard, rec["o"]], rec["id"])
+                if track_origin is not None and rec["o"] == track_origin:
+                    last_commit[(freeze_key(rec["k"]), rec["b"])] = int(
+                        rec["vc"][track_origin])
+                if len(batch) >= self.RECOVERY_BATCH:
+                    self._apply_recovered(batch, vcs, orgs)
+                    batch, vcs, orgs = [], [], []
+            if batch:
+                self._apply_recovered(batch, vcs, orgs)
+        return last_commit
+
+    def _apply_recovered(self, batch, vcs, orgs) -> None:
+        log, self.log = self.log, None  # never re-log during replay
+        try:
+            self.apply_effects(batch, vcs, orgs)
+        finally:
+            self.log = log
 
     # ------------------------------------------------------------------
     def stable_vc(self) -> np.ndarray:

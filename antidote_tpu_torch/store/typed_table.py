@@ -70,6 +70,11 @@ class TypedTable:
         self.n_shards = n_shards or cfg.n_shards
         self.used_rows = np.zeros((self.n_shards,), np.int64)
         self.next_seq = 1
+        #: host-tracked bound on |eff_a lane 0| over every appended effect.
+        #: The port's ``counter_fold`` sums in int64 and needs no gate; the
+        #: value rides in checkpoint images, where the JAX package gates
+        #: its int32 Pallas counter fold on it after a restore
+        self.max_abs_delta = 0
         #: host-tracked entry-wise max over all appended commit VCs: a read
         #: VC dominating it makes EVERY row fresh (no fold, no device sync)
         self.max_commit_vc = np.zeros((cfg.max_dcs,), np.int32)
@@ -116,6 +121,24 @@ class TypedTable:
         #: write windows of freezes whose store-wide publish deferred:
         #: the next successful epoch's touched set must carry them
         self._pending_touched: "frozenset | None" = frozenset()
+        #: (shard, row) pairs written since the last CHECKPOINT capture —
+        #: the delta link's dirty window (independent of the serving
+        #: windows above).  None = untracked (past the cap, or an
+        #: out-of-band mutation): the next stamp must be a full rebase
+        self._ckpt_dirty: "set | None" = set()
+
+    #: checkpoint dirty windows larger than this stop tracking: a delta
+    #: link carrying most of the table costs what a rebase costs
+    _CKPT_DIRTY_CAP = 262144
+
+    def take_ckpt_dirty(self) -> "set | None":
+        """Consume the checkpoint dirty window (under the commit lock, by
+        the stamp capture): the (shard, row) set written since the last
+        capture, or None when a rebase is required; the window restarts
+        empty either way."""
+        out = self._ckpt_dirty
+        self._ckpt_dirty = set()
+        return out
 
     # ------------------------------------------------------------------
     # the serving double buffer (the store's lock-split epoch reads)
@@ -128,17 +151,22 @@ class TypedTable:
     _SERVING_DIRTY_CAP = 8192
 
     def note_serving_touch(self, shards, rows) -> None:
-        """Record appended rows for the incremental serving freeze."""
-        if self._serving_dirty is None and self._serving_spare_dirty is None:
-            return  # both windows untracked until the next freezes
+        """Record appended rows for the incremental serving freeze and the
+        incremental checkpoint stamp (separate windows, separate
+        consumers)."""
+        if (self._serving_dirty is None and self._serving_spare_dirty is None
+                and self._ckpt_dirty is None):
+            return  # every window untracked until its next consumer
         pairs = list(zip(np.asarray(shards).tolist(),
                          np.asarray(rows).tolist()))
-        for attr in ("_serving_dirty", "_serving_spare_dirty"):
+        for attr, cap in (("_serving_dirty", self._SERVING_DIRTY_CAP),
+                          ("_serving_spare_dirty", self._SERVING_DIRTY_CAP),
+                          ("_ckpt_dirty", self._CKPT_DIRTY_CAP)):
             s = getattr(self, attr)
             if s is None:
                 continue
             s.update(pairs)
-            if len(s) > self._SERVING_DIRTY_CAP:
+            if len(s) > cap:
                 setattr(self, attr, None)
 
     def serving_slot(self):
@@ -164,6 +192,9 @@ class TypedTable:
         self._serving_dirty = set()
         self._serving_spare_dirty = None
         self._serving_conservative = True
+        # the checkpoint window did not see the out-of-band mutation
+        # either: the next stamp must rebase
+        self._ckpt_dirty = None
         cb = self.on_serving_invalidate
         if cb is not None:
             cb()
@@ -290,8 +321,11 @@ class TypedTable:
         self.n_ops = np.pad(self.n_ops, ((0, 0), (0, add)))
         self.slots_ub = np.pad(self.slots_ub, ((0, 0), (0, add)))
         self.n_rows += add
-        # frozen copies keep the old row extent: drop them
+        # frozen copies keep the old row extent: drop them.  The checkpoint
+        # window survives: growth moves no row and changes no content
+        ck = self._ckpt_dirty
         self.invalidate_epochs()
+        self._ckpt_dirty = ck
 
     # ------------------------------------------------------------------
     # commit side
@@ -341,6 +375,9 @@ class TypedTable:
                     self.append(shards[sel], rows[sel], eff_a[sel],
                                 eff_b[sel], vcs[sel], origins[sel])
                 return
+        if eff_a.shape[1] > 0:
+            self.max_abs_delta = max(self.max_abs_delta,
+                                     int(np.abs(eff_a[:, 0]).max()))
         np.maximum(self.max_commit_vc, vcs.max(axis=0),
                    out=self.max_commit_vc)
         ss, rr, sl = self._idx(shards), self._idx(rows), self._idx(slots)
@@ -398,6 +435,64 @@ class TypedTable:
         self.snap_vc[ss, rr, slot] = self.head_vc[ss, rr]
         self.snap_seq[ss, rr, slot] = seqs
         self.n_ops[shards, rows] = 0
+
+    # ------------------------------------------------------------------
+    # checkpoint capture and install
+    # ------------------------------------------------------------------
+    def _idx_async(self, x) -> torch.Tensor:
+        """An int64 index tensor on the table's device with no host sync:
+        on a card through pinned memory and an asynchronous copy."""
+        t = torch.from_numpy(np.ascontiguousarray(x, np.int64))
+        if self.device.type != "cuda":
+            return t
+        return t.pin_memory().to(self.device, non_blocking=True)
+
+    def copy_head(self, n_rows: int):
+        """Device copies of ``head`` and ``head_vc`` over the first
+        ``n_rows`` rows of every shard: (fields, head_vc).  Issued on the
+        table's stream with no host sync, so a checkpoint stamp can take
+        them under the commit lock: a later in-place commit is queued
+        behind the copies, and the host copy runs outside the lock."""
+        return ({f: x[:, :n_rows].clone() for f, x in self.head.items()},
+                self.head_vc[:, :n_rows].clone())
+
+    def gather_rows(self, shards, rows):
+        """Device copies of (head fields, head_vc) at the given (shard,
+        row) pairs, with no host sync (the delta stamp's capture)."""
+        ss = self._idx_async(shards)
+        rr = self._idx_async(rows)
+        return ({f: x[ss, rr] for f, x in self.head.items()},
+                self.head_vc[ss, rr])
+
+    def install_rows(self, shards, rows, head_rows, head_vc_rows) -> None:
+        """Install per-row head states (a delta checkpoint link's rows):
+        set the head and seed ONE snapshot version from it, so versioned
+        reads at clocks ≥ the row's head_vc fold the empty ring on this
+        base exactly and reads below surface the compaction horizon.
+        ``head_rows`` maps field -> [M, ...] host arrays."""
+        shards = np.asarray(shards, np.int64)
+        rows = np.asarray(rows, np.int64)
+        m = len(rows)
+        if m == 0:
+            return
+        ss, rr = self._idx(shards), self._idx(rows)
+        dev = self.device
+        for f, x in self.head.items():
+            v = torch.as_tensor(np.asarray(head_rows[f]), device=dev)
+            x[ss, rr] = v
+            self.snap[f][ss, rr, 0] = v
+        hvc = torch.as_tensor(np.asarray(head_vc_rows, np.int32), device=dev)
+        self.head_vc[ss, rr] = hvc
+        self.snap_vc[ss, rr, 0] = hvc
+        self.snap_seq[ss, rr, 0] = torch.arange(
+            self.next_seq, self.next_seq + m, dtype=torch.int64, device=dev)
+        self.next_seq += m
+        self.n_ops[shards, rows] = 0
+        np.maximum(self.max_commit_vc,
+                   np.asarray(head_vc_rows, np.int32).max(axis=0),
+                   out=self.max_commit_vc)
+        self.note_serving_touch(shards, rows)
+        self.epochs.clear()
 
     # ------------------------------------------------------------------
     # reads

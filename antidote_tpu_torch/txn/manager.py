@@ -21,13 +21,20 @@
     lock-free epoch read admitted after the commit sees it; with the
     epoch plane idle, publishes are rate-limited and the lag floor
     ``epoch_lag_counter`` rises instead.
+  * durability (a store with a log): each member of a commit group is
+    logged failure-atomically on its own — a member whose WAL append is
+    refused is NACKed alone — and no commit is acknowledged before the
+    group fsync that covers it completed.  A refused append (ENOSPC, EIO)
+    puts the node in degraded read-only mode: writes are refused typed,
+    reads keep serving, and the mode exits once an append probe succeeds.
 
-The manager is single-tenant and in memory: tenancy rounds, the
-GentleRain protocol and the durable log are later slices.
+The manager is single-tenant: tenancy rounds and the GentleRain protocol
+are later slices.
 """
 
 from __future__ import annotations
 
+import errno
 import itertools
 import logging
 import threading
@@ -43,7 +50,7 @@ from antidote_tpu_torch.crdt import maps as maps_mod
 from antidote_tpu_torch.crdt.base import RESOLVE_OVERFLOW
 from antidote_tpu_torch.overload import (BusyError, DeadlineExceeded,
                                          InsufficientRightsError,
-                                         check_deadline)
+                                         ReadOnlyError, check_deadline)
 from antidote_tpu_torch.store.kv import BoundObject, Effect, KVStore, _pad_lane
 from antidote_tpu_torch.txn.bcounter import BCounterManager
 from antidote_tpu_torch.txn.hooks import HookRegistry
@@ -109,6 +116,16 @@ class TransactionManager:
         #: (key, bucket) -> own-lane counter of its last certified commit;
         #: entries at or below every open txn's snapshot are GC'd
         self.committed_keys: Dict[Tuple[Any, str], int] = {}
+        #: certification stamps touched since the last checkpoint capture
+        #: (the delta link's committed-keys window); None = overflow past
+        #: the cap: the next stamp rebases
+        self.ckpt_dirty_committed: "set | None" = set()
+        #: non-None while the node is in degraded READ-ONLY mode: the WAL
+        #: refused an append.  Writes are refused with ReadOnlyError, reads
+        #: keep serving; the mode exits once an append probe succeeds
+        self.read_only_reason: Optional[str] = None
+        #: earliest monotonic time of the next recovery probe
+        self._ro_probe_at = 0.0
         #: open txid -> its own-lane snapshot (the GC floor)
         self._open_snaps: Dict[int, int] = {}
         self._cert_gc_every = 1024
@@ -138,6 +155,70 @@ class TransactionManager:
     #: With epoch reads flowing, every write round publishes before it
     #: returns
     EPOCH_INLINE_PUBLISH_S = 0.025
+
+    #: recovery probes while read-only are spaced at least this far apart
+    RO_PROBE_INTERVAL_S = 0.25
+    #: the errnos of a refused WAL append that flip read-only mode
+    _DISK_ERRNOS = (errno.ENOSPC, errno.EIO, errno.EROFS, errno.EDQUOT)
+    #: checkpoint windows of certification stamps past this size stop
+    #: tracking (the next stamp rebases)
+    _CKPT_COMMITTED_CAP = 262144
+
+    @property
+    def checkpoint_barrier(self):
+        """The lock a checkpoint stamp holds: under it no commit, WAL
+        append or apply is in flight, so (applied VC, commit counter,
+        certification stamps, directory, WAL append sequences) form one
+        consistent cut.  A checkpoint failing (ENOSPC while streaming its
+        image) never flips read-only mode — that is the WAL append path's
+        contract — and a read-only node can still checkpoint."""
+        return self.commit_lock
+
+    def check_writable(self) -> None:
+        """Raise :class:`ReadOnlyError` while in degraded read-only mode.
+        A call past the probe interval re-probes the WAL first, so the mode
+        exits (on the next write attempt) once appends succeed again."""
+        if self.read_only_reason is None:
+            return
+        now = time.monotonic()
+        if now >= self._ro_probe_at and self.store.log is not None:
+            self._ro_probe_at = now + self.RO_PROBE_INTERVAL_S
+            try:
+                self.store.log.probe_append()
+            except OSError:
+                pass
+            else:
+                log.warning("WAL appends succeed again; leaving degraded "
+                            "read-only mode (was: %s)", self.read_only_reason)
+                self.read_only_reason = None
+                if self.metrics is not None:
+                    self.metrics.degraded_read_only.set(0)
+                return
+        if self.metrics is not None:
+            self.metrics.shed.inc(plane="read_only")
+        raise ReadOnlyError(self.read_only_reason)
+
+    def _enter_read_only(self, exc: OSError) -> None:
+        self.read_only_reason = (
+            f"WAL append failed ({errno.errorcode.get(exc.errno, exc.errno)}"
+            f"): {exc}")
+        self._ro_probe_at = time.monotonic() + self.RO_PROBE_INTERVAL_S
+        if self.metrics is not None:
+            self.metrics.degraded_read_only.set(1)
+        log.error("entering degraded READ-ONLY mode: %s",
+                  self.read_only_reason)
+
+    def _wal_refusal(self, e: Exception) -> Exception:
+        """A member's WAL refusal as the client sees it: a disk-class errno
+        flips read-only mode (once) and surfaces typed; anything else
+        passes through."""
+        if isinstance(e, OSError) and e.errno in self._DISK_ERRNOS:
+            if self.read_only_reason is None:
+                self._enter_read_only(e)
+            out = ReadOnlyError(self.read_only_reason)
+            out.__cause__ = e
+            return out
+        return e
 
     # ------------------------------------------------------------------
     # serving-epoch publication (lock-split reads)
@@ -269,12 +350,18 @@ class TransactionManager:
 
     def _values_resolved_uncached(self, objs, txn: Transaction) -> List[Any]:
         """The compact resolved view decodes on the host; a truncated view
-        (count > resolve_top) re-fetches the full state."""
-        resolved = self.store.read_resolved(objs, txn.snapshot_vc)
+        (count > resolve_top) re-fetches the full state.  A state the log
+        replay rebuilt decodes directly (no second log scan)."""
+        replayed: Dict[int, Dict[str, Any]] = {}
+        resolved = self.store.read_resolved(objs, txn.snapshot_vc,
+                                            full_out=replayed)
         vals: List[Any] = [None] * len(objs)
         refetch = []
         for j, (_key, t, _bucket) in enumerate(objs):
             ty = get_type(t)
+            if j in replayed:
+                vals[j] = ty.value(replayed[j], self.store.blobs, self.cfg)
+                continue
             if ty.resolve_spec(self.cfg) is None:
                 vals[j] = ty.value(resolved[j], self.store.blobs, self.cfg)
                 continue
@@ -390,7 +477,10 @@ class TransactionManager:
         Admission is bounded: past ``max_commit_backlog`` parked callers
         the group is refused with :class:`BusyError` (the txns stay open
         for a retry).  ``deadline`` (absolute monotonic) is re-checked
-        once the lock is held."""
+        once the lock is held.  A write-bearing group is refused with
+        :class:`ReadOnlyError` in degraded read-only mode (the check also
+        runs the recovery probe)."""
+        has_writes = any(t.writeset for t in txns)
         with self._backlog_lock:
             if self._commit_backlog >= self.max_commit_backlog:
                 if self.metrics is not None:
@@ -407,7 +497,14 @@ class TransactionManager:
                     if self.metrics is not None:
                         self.metrics.shed.inc(plane="deadline")
                     raise
-                return self._commit_round_locked(txns)
+                if has_writes:
+                    self.check_writable()
+                out = self._commit_round_locked(txns)
+            if has_writes and self.store.log is not None \
+                    and self.metrics is not None:
+                for i, d in enumerate(self.store.log.segment_depths()):
+                    self.metrics.wal_segment_depth.set(d, segment=str(i))
+            return out
         except BaseException:
             # a failed group must not leak open transactions: they pin the
             # certification-GC floor forever
@@ -432,6 +529,13 @@ class TransactionManager:
             out = self._commit_group_locked(txns)
             if round_writes and self.serving_epochs:
                 self._publish_inline()
+        except OSError as e:
+            if round_writes and e.errno in self._DISK_ERRNOS:
+                # the WAL refused the append before any table mutated
+                # (durability first): fail the round, go read-only
+                self._enter_read_only(e)
+                raise ReadOnlyError(self.read_only_reason) from e
+            raise
         finally:
             if self.metrics is not None and round_writes:
                 self.metrics.commit_seconds.observe(time.monotonic() - t0)
@@ -543,30 +647,60 @@ class TransactionManager:
                     if ck not in stamped:
                         stamped[ck] = self.committed_keys.get(ck)
                     self.committed_keys[ck] = self.commit_counter
+                    ckd = self.ckpt_dirty_committed
+                    if ckd is not None:
+                        ckd.add(ck)
+                        if len(ckd) > self._CKPT_COMMITTED_CAP:
+                            self.ckpt_dirty_committed = None
                     last_seen[ck] = self.commit_counter
-            pend.append((txn, commit_vc, [e for e, _ in txn.writeset],
-                         stamped, self.commit_counter))
+            pend.append((len(out), txn, commit_vc,
+                         [e for e, _ in txn.writeset], stamped,
+                         self.commit_counter))
             out.append(commit_vc)
         if pend:
             try:
-                self.store.apply_effect_groups([
+                errors, ticket = self.store.apply_effect_groups([
                     (effs, [vc] * len(effs), [self.my_dc] * len(effs))
-                    for _t, vc, effs, _s, _c in pend
+                    for _i, _t, vc, effs, _s, _c in pend
                 ])
             except BaseException:
                 # nothing reached the store: un-stamp every member's marks
                 # and counters, or later txns would first-committer-abort
                 # against writes that never existed
-                for _t, _vc, _e, stamped, ctr in reversed(pend):
-                    for ck, old in stamped.items():
-                        if self.committed_keys.get(ck) == ctr:
-                            if old is None:
-                                self.committed_keys.pop(ck, None)
-                            else:
-                                self.committed_keys[ck] = old
-                self.commit_counter = pend[0][4] - 1
+                for _i, _t, _vc, _e, stamped, ctr in reversed(pend):
+                    self._unstamp(stamped, ctr)
+                self.commit_counter = pend[0][5] - 1
                 raise
-            for txn, _vc, _e, _s, _c in pend:
+            # failure-atomic PER MEMBER: a NACKed member rolls back only
+            # its own stamps (reverse order unwinds same-key overwrites)
+            # and keeps its counter hole — certification compares
+            # magnitudes, so holes are safe
+            ok = []
+            for (i, txn, _vc, _e, stamped, ctr), err in zip(
+                    reversed(pend), reversed(errors)):
+                if err is None:
+                    ok.append((i, txn))
+                    continue
+                self._unstamp(stamped, ctr)
+                out[i] = self._wal_refusal(err)
+            ok.reverse()
+            # the acknowledgement gate: the group fsync, submitted before
+            # the device apply and run beside it, must complete before any
+            # member is acknowledged.  A failed or stalled fsync fails
+            # every acknowledgement of the group typed (read-only mode)
+            if ticket is not None:
+                try:
+                    try:
+                        ticket.wait()
+                    except TimeoutError as e:
+                        raise OSError(errno.EIO,
+                                      f"WAL group fsync stalled: {e}") from e
+                except OSError as e:
+                    err = self._wal_refusal(e)
+                    for i, _txn in ok:
+                        out[i] = err
+                    ok = []
+            for _i, txn in ok:
                 for eff, op in txn.writeset:
                     self.hooks.execute_post_commit_hook(
                         eff.key, eff.type_name, eff.bucket, op)
@@ -574,6 +708,15 @@ class TransactionManager:
             self._gc_committed_keys()
             self._next_cert_gc = self.commit_counter + self._cert_gc_every
         return out
+
+    def _unstamp(self, stamped: Dict[tuple, Optional[int]], ctr: int) -> None:
+        """Undo one member's certification stamps (those still its own)."""
+        for ck, old in stamped.items():
+            if self.committed_keys.get(ck) == ctr:
+                if old is None:
+                    self.committed_keys.pop(ck, None)
+                else:
+                    self.committed_keys[ck] = old
 
     def _escrow_ledger(self, txns):
         """The escrow pass's batch-local view: per txn, its net counter_b

@@ -54,15 +54,32 @@ Run from the root of a checkout on a machine with a CUDA card (one card;
    older snapshot); and 1,024 keys' 4,096-op logs of the five
    assoc-capable types, ``assoc_fold`` and ``fold_long`` equal to
    ``fold_batch`` on the card;
-6. print one JSON line per kernel record, the card line, and last the
+6. durability (``durable``): an ``AntidoteNode`` with a log directory on
+   the local disk (``tempfile``), at BASELINE's configuration with half its
+   keys: 500,000 ``set_aw`` keys
+   (2 adds each, removes on 10%) and 100,000 ``counter_pn`` keys (2
+   increments) committed through the manager in groups; a full
+   checkpoint (its stamp's time under the commit lock against its copy
+   bound); 32 rounds of 4,096 Zipf-distinct keys, then a delta link taken
+   while a second thread commits; a WAL tail of 16 rounds; ``recover=True``
+   on the card, equal to the live node in the recovery digest, every fresh
+   value, every tail key at the clock inside the tail (which folds the
+   recovered rings: ``set_aw_fold``, ``counter_fold``) and the heads at
+   every row the directory references; a read below the image's stamp
+   raises the compaction-horizon error; the replay-read ladder (``assoc``,
+   ``serial``, ``long``) against a host model; commit latency under
+   ``sync_log`` false and true.  Its figures print on a ``durable:`` line
+   beside the card;
+7. print one JSON line per kernel record, the card line, and last the
    ``{"ok": true, ...}`` line.
 
 The launch counts are reset just before the serve, the node workload, the
-serving plane, the cluster and the types phase, and read just after each;
-each must show the kernels that ``PATH_KERNELS`` names for it, and a
-kernel record's ``launches`` is the sum over the five.  The serve must launch ``orset_presence`` exactly
-once per ``SetAW.resolve``, and a resolve on a CUDA state must call no
-torch sort.  Exits non-zero without a CUDA device, and outside a
+serving plane, the cluster, the types phase and the durable phase, and
+read just after each; each must show the kernels that ``PATH_KERNELS``
+names for it, and a kernel record's ``launches`` is the sum over the six.
+The serve must launch ``orset_presence`` exactly once per
+``SetAW.resolve``, and a resolve on a CUDA state must call no torch sort.
+Exits non-zero without a CUDA device, and outside a
 checkout of the repository.
 """
 
@@ -70,6 +87,7 @@ from __future__ import annotations
 
 import functools
 import json
+import os
 import subprocess
 import sys
 import time
@@ -122,18 +140,31 @@ MV_SLOTS, RGA_SLOTS = 4, 64
 SV_POOL, SV_ROUNDS, SV_ROUND_KEYS, SV_BATCHES = 4096, 10, 4096, 60
 SV_WRITE_KEYS, SV_HOT = 256, 1024
 LL_KEYS, LL_OPS = 1024, 4096
+# the durable phase: set_aw and counter_pn keys, transactions per commit
+# group, delta rounds before the link and tail rounds after it (each of
+# SV_ROUND_KEYS keys), the ladder's long logs.  The set keys are half of
+# BASELINE's 1M: at 500,000 the phase takes 137-146 s on the card and the
+# whole script 417-519 s (hosts differ); its populate, full image and
+# whole-store reads grow with the keys and would add ~80-100 s at 1M,
+# taking the script to or past its 600 s budget on the slower host
+DU_SET_KEYS, DU_CTR_KEYS, DU_GROUP = 500_000, 100_000, 4096
+DU_ROUNDS, DU_TAIL_ROUNDS, DU_LADDER_LONG = 32, 16, 5000
 # the kernels each path must launch: the serve resolves sets (presence)
 # and folds the historical batches; the node session folds a set and a
 # counter at older snapshots; every cluster transaction start merges the
 # members' clock rows; the types session resolves map_rr memberships
 # (sets) and reads maps at an older snapshot (membership sets and
 # counter_pn fields); the serving plane resolves every epoch and rung-2
-# gather (sets) and folds rung 3's stale rows
+# gather (sets) and folds rung 3's stale rows; the durable node resolves
+# every set read, and its reads at the clock inside the WAL tail fold the
+# recovered rings (sets and counters)
 PATH_KERNELS = {"serve": ("orset_presence", "set_aw_fold"),
                 "node": ("counter_fold", "set_aw_fold"),
                 "serving": ("orset_presence", "set_aw_fold"),
                 "cluster": ("stable_min",),
-                "types": ("orset_presence", "set_aw_fold", "counter_fold")}
+                "types": ("orset_presence", "set_aw_fold", "counter_fold"),
+                "durable": ("orset_presence", "set_aw_fold",
+                            "counter_fold")}
 
 
 def log(msg: str) -> None:
@@ -2006,6 +2037,459 @@ def cluster_types_segment(coords, start, commit, static, check_stable,
             "segment_s": time.perf_counter() - t0}
 
 
+# ---------------------------------------------------------------------------
+# phase 6: durability — WAL, checkpoints with a delta link, recovery
+# ---------------------------------------------------------------------------
+def _ms_pcts(ms) -> dict:
+    return {"p50": float(np.percentile(ms, 50)),
+            "p99": float(np.percentile(ms, 99))}
+
+
+def _commit_group(node, updates_per_txn) -> list:
+    """One commit group through the manager: one transaction per update
+    list, one WAL append per touched shard, one barrier.  Raises on any
+    refused member; returns the members' commit VCs."""
+    txm = node.txm
+    txns = []
+    for ups in updates_per_txn:
+        t = txm.start_transaction()
+        txm.update_objects(ups, t)
+        txns.append(t)
+    out = txm.commit_transactions_group(txns)
+    bad = [r for r in out if isinstance(r, Exception)]
+    if bad:
+        raise AssertionError(f"{len(bad)} commits refused: {bad[0]!r}")
+    return out
+
+
+def _recovery_digest(node) -> dict:
+    """``tests/test_checkpoint.py``'s recovery digest."""
+    return {"op_ids": node.store.log.op_ids.tolist(),
+            "seqs": node.store.log.seqs.tolist(),
+            "stable": [int(x) for x in node.stable_vc()],
+            "commit_counter": int(node.txm.commit_counter),
+            "keys": len(node.store.directory)}
+
+
+def _read_all(node, objs, vc=None, batch=B) -> list:
+    """Values of ``objs`` in batches: latest (``vc`` None) or at ``vc``."""
+    out = []
+    for lo in range(0, len(objs), batch):
+        part = objs[lo:lo + batch]
+        if vc is None:
+            out.extend(node.read_objects(part)[0])
+            continue
+        txn = node.start_transaction()
+        txn.snapshot_vc = np.asarray(vc, np.int32)
+        try:
+            out.extend(node.read_objects(part, txn))
+        finally:
+            node.abort_transaction(txn)
+    return out
+
+
+def _heads_equal(torch, live, rec) -> dict:
+    """Each table's head fields and head_vc at every row the directory
+    references, live against recovered (``torch.equal``); returns the rows
+    compared per table and the keys the recovery placed elsewhere.  Rows a
+    promotion vacated after the full image keep its bytes in the recovered
+    table (the JAX package's install does the same), and no key references
+    them.  A replay that applies several commits of a slotted key in one
+    batch may promote it where the live node did not (both packages do):
+    such a key is counted, and the fresh value check covers it."""
+    by_table, moved = {}, 0
+    for dk, loc in live.store.directory.items():
+        if rec.store.directory.get(dk) != loc:
+            moved += 1
+            continue
+        by_table.setdefault(loc[0], []).append(loc[1:])
+    rows = {}
+    for tname, pairs in by_table.items():
+        lt, rt = live.store.tables[tname], rec.store.tables[tname]
+        idx = torch.as_tensor(np.asarray(pairs, np.int64).T,
+                              device=lt.device)
+        for f in lt.head:
+            if not torch.equal(lt.head[f][idx[0], idx[1]],
+                               rt.head[f][idx[0], idx[1]]):
+                raise AssertionError(f"{tname}.head[{f}] differs")
+        if not torch.equal(lt.head_vc[idx[0], idx[1]],
+                           rt.head_vc[idx[0], idx[1]]):
+            raise AssertionError(f"{tname}.head_vc differs")
+        rows[tname] = len(pairs)
+    return {"rows": rows, "relocated_keys": moved}
+
+
+def durable_phase(torch, dev, n_set=DU_SET_KEYS, n_ctr=DU_CTR_KEYS,
+                  rounds=DU_ROUNDS, tail_rounds=DU_TAIL_ROUNDS,
+                  round_keys=SV_ROUND_KEYS, group=DU_GROUP,
+                  ladder_long=DU_LADDER_LONG, fold_chunk=4096) -> dict:
+    """A durable ``AntidoteNode`` at BASELINE's configuration, all on the
+    card: populate ``n_set`` ``set_aw`` keys (2 adds each, elements from a
+    4,096-value pool, removes on 10%) and ``n_ctr`` ``counter_pn`` keys (2
+    increments) through the manager in commit groups; a full checkpoint;
+    ``rounds`` rounds of ``round_keys`` Zipf-distinct keys then a delta
+    link, taken while a second thread commits 256-key rounds; a WAL tail of
+    ``tail_rounds`` rounds over keys no round touched before; reference
+    reads from the live node (every key fresh, every tail key at the clock
+    after half the tail, the recovery digest); then ``recover=True`` on the
+    card, which must equal the live node in digest, values and heads, raise
+    the compaction-horizon error below the full image's stamp and mint a
+    clock above the old ones.  Then the replay-read ladder on a small node
+    in its own directory (long logs read at old clocks: ``assoc``,
+    ``serial``, ``long``, held to a host model, and a whole-log recovery of
+    that directory), and commit latency under ``sync_log`` false and
+    true."""
+    import dataclasses
+    import shutil
+    import tempfile
+    import threading
+
+    from antidote_tpu_torch.api import AntidoteNode
+    from antidote_tpu_torch.config import AntidoteConfig
+
+    cfg = AntidoteConfig(n_shards=8, max_dcs=D, ops_per_key=K,
+                         snap_versions=2, set_slots=E,
+                         keys_per_table=max(n_set // 8, 1024),
+                         sync_log=False, wal_segments=1)
+    on_card = torch.device(dev).type == "cuda"
+    root = tempfile.mkdtemp(prefix="antidote_durable_")
+    out = {"filesystem": " ".join(subprocess.run(
+        ["df", "-T", root], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()[-1].split())}
+    log(f"durable: log directory on {out['filesystem']}")
+    try:
+        d = os.path.join(root, "main")
+        node = AntidoteNode(cfg, log_dir=d, device=dev)
+        if not all(seg.native for w in node.store.log.wals
+                   for seg in w.segs):
+            raise AssertionError("the WAL runs the Python writer, not the "
+                                 "native one")
+        rng = np.random.default_rng(41)
+        pool = rng.permutation(SV_POOL)
+        S, C = "s", "c"
+
+        def sk(k):
+            return (int(k), "set_aw", S)
+
+        def ck(k):
+            return (int(k), "counter_pn", C)
+
+        # ---- populate ---------------------------------------------------
+        # transactions of 16 set keys (32 adds), 64 removes, 32 counter
+        # keys (64 increments)
+        t0 = time.perf_counter()
+        elems = rng.integers(0, SV_POOL, (n_set, 2))
+        for lo in range(0, n_set, group * 16):
+            ups = [(k, "set_aw", S, ("add_all", [int(elems[k, 0]),
+                                                  int(elems[k, 1])]))
+                   for k in range(lo, min(lo + group * 16, n_set))]
+            _commit_group(node, [ups[j:j + 16]
+                                 for j in range(0, len(ups), 16)])
+        # each remove's downstream reads its key's state at the snapshot
+        rm = rng.choice(n_set, n_set // 10, replace=False)
+        rm_ups = [(int(k), "set_aw", S, ("remove", int(elems[k, 0])))
+                  for k in rm]
+        for lo in range(0, len(rm_ups), group * 64):
+            part = rm_ups[lo:lo + group * 64]
+            _commit_group(node, [part[j:j + 64]
+                                 for j in range(0, len(part), 64)])
+        incs = rng.integers(1, 100, (n_ctr, 2))
+        ctr_ups = [(k, "counter_pn", C, ("increment", int(incs[k, i])))
+                   for k in range(n_ctr) for i in (0, 1)]
+        for lo in range(0, len(ctr_ups), group * 64):
+            part = ctr_ups[lo:lo + group * 64]
+            _commit_group(node, [part[j:j + 64]
+                                 for j in range(0, len(part), 64)])
+        if on_card:
+            torch.cuda.synchronize()
+        out["populate_s"] = time.perf_counter() - t0
+        out["wal_records"] = int(node.store.log.seqs.sum())
+        log(f"durable: populated {out['wal_records']} records in "
+            f"{out['populate_s']:.1f} s")
+        # ---- full checkpoint -------------------------------------------
+        node.start_checkpointer(interval_s=0.0, rebase_every=64)
+        full = node.checkpoint_now(full=True)
+        # the bytes the stamp's clones move: each table's heads up to its
+        # own used rows (the extent ``copy_head`` copies), read and written
+        head_bytes = sum(
+            x[:, :int(t.used_rows.max())].numel() * x.element_size()
+            for t in node.store.tables.values()
+            for x in list(t.head.values()) + [t.head_vc])
+        clone_ms = None
+        if on_card:
+            # the device work the stamp issues (every table's head copy),
+            # timed alone by CUDA events, L2 flushed
+            flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+            clone_ms = time_ms(torch, lambda: [
+                t.copy_head(int(t.used_rows.max()))
+                for t in node.store.tables.values()], 5, flush)
+            del flush
+        out["full"] = {"stamp_ms": full["held_ms"],
+                       "barrier_ms": full["barrier_ms"],
+                       "clone_ms": clone_ms,
+                       "stamp_bound_ms": 2 * head_bytes / HBM_BYTES_PER_S
+                       * 1e3,
+                       "total_s": full["total_s"],
+                       "image_bytes": full["image_bytes"],
+                       "image_mb_s": full["image_bytes"] / 1e6
+                       / full["total_s"],
+                       "reclaimed_bytes": full["reclaimed_bytes"],
+                       "rows": full["n_rows"]}
+        full_stamp = np.asarray(node.store.applied_vc.max(axis=0))
+        log(f"durable: full checkpoint {json.dumps(out['full'])}")
+        # ---- delta rounds, then a delta link beside a writer thread ----
+        # the tail's keys are set aside first: no round touches them, so
+        # each holds at most 3 + 1 ops and every tail read at the mid clock
+        # stays inside the device's coverage on both nodes
+        n_tail = min(tail_rounds * round_keys, n_set // 4)
+        tail_keys = rng.choice(n_set, n_tail, replace=False)
+        tail_ctrs = rng.choice(n_ctr, min(tail_rounds * 256, n_ctr // 4),
+                               replace=False)
+        hot = np.setdiff1d(np.arange(n_set), tail_keys)
+        hot_c = np.setdiff1d(np.arange(n_ctr), tail_ctrs)
+        rng.shuffle(hot)
+        rng.shuffle(hot_c)
+
+        def round_ups(keys, ctrs):
+            """One op a key: an add (16 a transaction), or on 10% a remove
+            (64 a transaction); one increment a counter (64 a
+            transaction)."""
+            adds, rms = [], []
+            for k in keys.tolist():
+                if rng.random() < 0.1:
+                    rms.append((k, "set_aw", S, ("remove",
+                                                 int(elems[k, 1]))))
+                else:
+                    adds.append((k, "set_aw", S, ("add", int(
+                        pool[rng.integers(0, SV_POOL)]))))
+            incs = [(k, "counter_pn", C, ("increment", 1))
+                    for k in ctrs.tolist()]
+            return ([adds[j:j + 16] for j in range(0, len(adds), 16)]
+                    + [rms[j:j + 64] for j in range(0, len(rms), 64)]
+                    + [incs[j:j + 64] for j in range(0, len(incs), 64)])
+
+        for _ in range(rounds):
+            _commit_group(node, round_ups(
+                hot[zipf_distinct(rng, len(hot), round_keys)],
+                hot_c[zipf_distinct(rng, len(hot_c), 256)]))
+        stop = threading.Event()
+        writer = {"rounds": 0, "error": None}
+
+        def write_beside():
+            wr = np.random.default_rng(43)
+            try:
+                while not stop.is_set():
+                    kk = hot[wr.choice(len(hot), 256, replace=False)]
+                    _commit_group(node, [[(int(k), "set_aw", S, (
+                        "add", int(pool[wr.integers(0, SV_POOL)])))]
+                        for k in kk])
+                    writer["rounds"] += 1
+            except Exception as e:  # surfaced below
+                writer["error"] = e
+
+        th = threading.Thread(target=write_beside, daemon=True)
+        th.start()
+        time.sleep(0.2)
+        delta = node.checkpoint_now(full=False)
+        stop.set()
+        th.join(timeout=120)
+        if th.is_alive() or writer["error"] is not None:
+            raise AssertionError(f"the writer beside the checkpoint: "
+                                 f"{writer['error']!r}")
+        if delta["kind"] != "delta":
+            raise AssertionError(f"the link is a {delta['kind']} image")
+        out["delta"] = {"stamp_ms": delta["held_ms"],
+                        "barrier_ms": delta["barrier_ms"],
+                        "total_s": delta["total_s"],
+                        "ms": delta["total_s"] * 1e3,
+                        "image_bytes": delta["image_bytes"],
+                        "rows": delta["n_rows"], "keys": delta["n_keys"],
+                        "writer_rounds": writer["rounds"]}
+        log(f"durable: delta link {json.dumps(out['delta'])}")
+        # ---- the WAL tail ----------------------------------------------
+        per = max(len(tail_keys) // tail_rounds, 1)
+        per_c = max(len(tail_ctrs) // tail_rounds, 1)
+        vc_mid = None
+        for i in range(tail_rounds):
+            vcs = _commit_group(node, round_ups(
+                tail_keys[i * per:(i + 1) * per],
+                tail_ctrs[i * per_c:(i + 1) * per_c]))
+            if i == tail_rounds // 2 - 1:
+                vc_mid = np.asarray(vcs[-1]).copy()
+        # ---- reference reads from the live node ------------------------
+        all_objs = ([sk(k) for k in range(n_set)]
+                    + [ck(k) for k in range(n_ctr)])
+        tail_objs = ([sk(k) for k in tail_keys]
+                     + [ck(k) for k in tail_ctrs])
+        t1 = time.perf_counter()
+        want_fresh = _read_all(node, all_objs)
+        out["live_read_keys_s"] = len(all_objs) / (time.perf_counter() - t1)
+        want_mid = _read_all(node, tail_objs, vc_mid)
+        want_digest = _recovery_digest(node)
+        live_counter = node.txm.commit_counter
+        node.store.log.close()
+        # ---- recover on the card ---------------------------------------
+        from antidote_tpu_torch.materializer import cuda_kernels as ck_mod
+
+        t2 = time.perf_counter()
+        rec = AntidoteNode(cfg, log_dir=d, recover=True, device=dev)
+        if on_card:
+            torch.cuda.synchronize()
+        rec_s = time.perf_counter() - t2
+        m = rec.metrics
+        tail_s = m.recovery_seconds.value(phase="tail")
+        out["recovery"] = {
+            "total_s": rec_s,
+            "checkpoint_s": m.recovery_seconds.value(phase="checkpoint"),
+            "tail_s": tail_s,
+            "records": rec.store.last_recovery_records,
+            "tail_records_s": rec.store.last_recovery_records / tail_s}
+        log(f"durable: recovery {json.dumps(out['recovery'])}")
+        if _recovery_digest(rec) != want_digest:
+            raise AssertionError(f"recovery digest {_recovery_digest(rec)} "
+                                 f"!= live {want_digest}")
+        if _read_all(rec, all_objs) != want_fresh:
+            raise AssertionError("a fresh value differs after recovery")
+        before = dict(ck_mod.LAUNCHES)
+        got_mid = _read_all(rec, tail_objs, vc_mid)
+        mid_launches = {n: ck_mod.LAUNCHES[n] - before[n] for n in before}
+        if got_mid != want_mid:
+            bad = next(i for i, (a, b) in enumerate(zip(got_mid, want_mid))
+                       if a != b)
+            raise AssertionError(f"{tail_objs[bad]} at the mid clock: "
+                                 f"{got_mid[bad]!r}, live {want_mid[bad]!r}")
+        if on_card and not (mid_launches["set_aw_fold"]
+                            and mid_launches["counter_fold"]):
+            raise AssertionError(f"the mid-clock reads launched "
+                                 f"{mid_launches}")
+        out["heads"] = _heads_equal(torch, node, rec)
+        below = full_stamp.copy()
+        below[0] = 1
+        try:
+            _read_all(rec, [sk(n_set - 1)], below)
+        except RuntimeError as e:
+            if "compaction horizon" not in str(e):
+                raise
+        else:
+            raise AssertionError("a read below the image's stamp did not "
+                                 "raise the compaction-horizon error")
+        vc_new = rec.update_objects([(0, "counter_pn", C, ("increment", 1))])
+        if int(vc_new[0]) <= live_counter:
+            raise AssertionError(f"a commit after recovery minted "
+                                 f"{vc_new}, not above {live_counter}")
+        out["checked"] = {"fresh": len(all_objs), "mid": len(tail_objs),
+                          "mid_launches": mid_launches}
+        rec.close()
+        del node, rec
+        # ---- the replay-read ladder ------------------------------------
+        out["ladder"] = _replay_ladder(
+            torch, dataclasses.replace(cfg, keys_per_table=64,
+                                       fold_chunk=fold_chunk),
+            os.path.join(root, "ladder"), dev, ladder_long)
+        # ---- commit latency by durability ------------------------------
+        lat = AntidoteNode(dataclasses.replace(cfg, keys_per_table=1024),
+                           log_dir=os.path.join(root, "latency"), device=dev)
+        for sync in (False, True):
+            lat.set_sync_log(sync)
+            ms = []
+            for i in range(256):
+                t3 = time.perf_counter()
+                lat.update_objects([(i % 64, "counter_pn", C,
+                                     ("increment", 1))])
+                ms.append((time.perf_counter() - t3) * 1e3)
+            out[f"commit_ms_sync_{str(sync).lower()}"] = _ms_pcts(ms)
+        lat.close()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+def _replay_ladder(torch, cfg, d, dev, n_long) -> dict:
+    """Keys whose logs overrun the 16-op ring, each read at an old clock
+    through the node (below the device's coverage: a replay of the log):
+    a counter of ``n_long`` increments and a 64-add set (``assoc``), a
+    64-op set with removes (``serial``), an ``n_long``-op set with removes
+    (``long``, past ``fold_chunk``), a 64-op flag (``assoc``).  Each value
+    equals a host model; a whole-log recovery of the directory gives the
+    same digest."""
+    from antidote_tpu_torch.api import AntidoteNode
+    from antidote_tpu_torch.crdt import get_type
+
+    node = AntidoteNode(cfg, log_dir=d, device=dev)
+    rng = np.random.default_rng(47)
+    plan = {"lc": ("counter_pn", [("increment", int(x))
+                                  for x in rng.integers(-50, 100, n_long)]),
+            "ladd": ("set_aw", [("add", int(x))
+                                for x in rng.integers(0, 12, 64)]),
+            "lser": ("set_aw", [("remove", int(x)) if i % 4 == 3 else
+                                ("add", int(x)) for i, x in
+                                enumerate(rng.integers(0, 12, 64))]),
+            "llong": ("set_aw", [("remove", int(x)) if i % 8 == 7 else
+                                 ("add", int(x)) for i, x in
+                                 enumerate(rng.integers(0, 12, n_long))]),
+            "lflag": ("flag_ew", [("enable", ()) if x else ("disable", ())
+                                  for x in rng.integers(0, 2, 64)])}
+    t0 = time.perf_counter()
+    want, at = {}, {}
+    for key, (ty, ops) in plan.items():
+        cut = len(ops) * 7 // 8 if len(ops) > 64 else 24
+        model = 0 if ty == "counter_pn" else (set() if ty == "set_aw"
+                                              else False)
+        # one transaction an op; a run of blind ops (increments, adds,
+        # enables) commits as one group, an op whose downstream reads the
+        # key's state commits alone, after everything before it
+        vcs, run = [], []
+        for op in ops + [None]:
+            if op is not None and not get_type(ty).require_state_downstream(
+                    op):
+                run.append(op)
+                continue
+            for lo in range(0, len(run), 256):
+                vcs += _commit_group(node, [[(key, ty, "b", o)]
+                                            for o in run[lo:lo + 256]])
+            run = []
+            if op is not None:
+                vcs.append(node.update_objects([(key, ty, "b", op)]))
+        for i, op in enumerate(ops):
+            vc = vcs[i]
+            if ty == "counter_pn":
+                model += op[1]
+            elif ty == "set_aw":
+                (model.add if op[0] == "add" else model.discard)(op[1])
+            else:
+                model = op[0] == "enable"
+            if i + 1 == cut:
+                at[key] = np.asarray(vc).copy()
+                want[key] = (sorted(model, key=repr)
+                             if isinstance(model, set) else model)
+    write_s = time.perf_counter() - t0
+    out = {"write_s": write_s, "read_ms": {}}
+    for key, (ty, _ops) in plan.items():
+        txn = node.start_transaction()
+        txn.snapshot_vc = at[key]
+        t1 = time.perf_counter()
+        got = node.read_objects([(key, ty, "b")], txn)[0]
+        out["read_ms"][key] = (time.perf_counter() - t1) * 1e3
+        node.abort_transaction(txn)
+        if got != want[key]:
+            raise AssertionError(f"ladder {key}: {got!r}, model "
+                                 f"{want[key]!r}")
+    folds = node.store.materializer_status()["replay_folds"]
+    if folds != {"assoc": 3, "serial": 1, "long": 1}:
+        raise AssertionError(f"replay folds {folds}")
+    out["replay_folds"] = folds
+    digest = _recovery_digest(node)
+    node.close()
+    t2 = time.perf_counter()
+    rec = AntidoteNode(cfg, log_dir=d, recover=True, device=dev)
+    out["whole_log_recovery_s"] = time.perf_counter() - t2
+    out["whole_log_records"] = rec.store.last_recovery_records
+    if _recovery_digest(rec) != digest:
+        raise AssertionError("whole-log recovery digest differs")
+    rec.close()
+    return out
+
+
 def count_resolves(fn):
     """``fn()`` with every ``SetAW.resolve`` call counted: (its result,
     the count)."""
@@ -2033,6 +2517,7 @@ def main() -> int:
         return 2
     from antidote_tpu_torch.materializer import cuda_kernels as ck
 
+    t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     card = card_line()
     kind = torch.cuda.get_device_name(0)
@@ -2048,32 +2533,38 @@ def main() -> int:
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     floor_ms = time_ms(torch, lambda: ck.launch_floor(dev), 50, flush)
     log(f"launch floor (empty kernel, same path and timing): {floor_ms} ms")
-    # each path's launches, counted from 0 just before it
-    ck.reset_launches()
-    serve, resolves = count_resolves(lambda: serve_main_path(torch, dev))
-    serve["launches"] = dict(ck.LAUNCHES)
-    serve["set_aw_resolves"] = resolves
-    if serve["launches"]["orset_presence"] != resolves:
+    # each path's launches, counted from 0 just before it, and its seconds
+    def run_path(fn):
+        ck.reset_launches()
+        t = time.perf_counter()
+        res = fn()
+        res["launches"] = dict(ck.LAUNCHES)
+        res["seconds"] = time.perf_counter() - t
+        return res
+
+    resolves = [0]
+
+    def serve_counted():
+        res, resolves[0] = count_resolves(lambda: serve_main_path(torch, dev))
+        return res
+
+    serve = run_path(serve_counted)
+    serve["set_aw_resolves"] = resolves[0]
+    if serve["launches"]["orset_presence"] != resolves[0]:
         raise AssertionError(
             f"the serve launched orset_presence "
-            f"{serve['launches']['orset_presence']} times in {resolves} "
+            f"{serve['launches']['orset_presence']} times in {resolves[0]} "
             "resolves (want one launch per resolve)")
-    ck.reset_launches()
-    node = node_workload(dev)
-    node["launches"] = dict(ck.LAUNCHES)
-    ck.reset_launches()
-    serving = serving_phase(torch, dev)
-    serving["launches"] = dict(ck.LAUNCHES)
-    ck.reset_launches()
-    cluster = cluster_workload(torch, dev)
-    cluster["launches"] = dict(ck.LAUNCHES)
-    ck.reset_launches()
-    types = {"tables": types_tables(torch, dev),
-             "session": types_node_session(dev),
-             "long_logs": long_log_folds(torch, dev)}
-    types["launches"] = dict(ck.LAUNCHES)
+    node = run_path(lambda: node_workload(dev))
+    serving = run_path(lambda: serving_phase(torch, dev))
+    cluster = run_path(lambda: cluster_workload(torch, dev))
+    types = run_path(lambda: {"tables": types_tables(torch, dev),
+                              "session": types_node_session(dev),
+                              "long_logs": long_log_folds(torch, dev)})
+    durable = run_path(lambda: durable_phase(torch, dev))
+    print(f"durable: {json.dumps(durable)} | card: {card}", flush=True)
     paths = {"serve": serve, "node": node, "serving": serving,
-             "cluster": cluster, "types": types}
+             "cluster": cluster, "types": types, "durable": durable}
     for path, res in paths.items():
         log(f"{path}: {json.dumps(res)}")
         missing = [n for n in PATH_KERNELS[path] if res["launches"][n] == 0]
@@ -2086,6 +2577,7 @@ def main() -> int:
         kernels.append({"name": name, "route": "cuda", "source": SOURCE,
                         "replaces": REPLACES[name],
                         "launches": launches[name], **rec})
+    log(f"all phases done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(paths))
     print(json.dumps({"kernels": kernels, "floor_ms": floor_ms}))
     print(card)

@@ -458,3 +458,152 @@ def test_epoch_read_launch_never_syncs_the_card(dev):
     vals = store.epoch_read_finish(pend)
     store.unpin_serving_epoch(ep)
     assert fb == [] and vals == [[i] for i in range(64)] + list(range(64, 96))
+
+
+# ---------------------------------------------------------------------------
+# durability on the card
+# ---------------------------------------------------------------------------
+def _durable_cfg():
+    return AntidoteConfig(n_shards=4, max_dcs=D, ops_per_key=8,
+                          snap_versions=2, set_slots=8, keys_per_table=64,
+                          wal_segments=2)
+
+
+def _durable_script(node, rng):
+    """Writes, a full image, more writes, a delta link, a tail; returns
+    the commit clocks."""
+    vcs = []
+
+    def w(ups):
+        vcs.append(np.asarray(node.update_objects(ups)).copy())
+
+    for i in range(40):
+        w([(int(k), "set_aw", "b", ("add", int(rng.integers(0, 20))))
+           for k in rng.integers(0, 48, 3)]
+          + [(int(k), "counter_pn", "b", ("increment", int(rng.integers(
+              -9, 9)))) for k in rng.integers(100, 140, 2)])
+        if i == 15:
+            node.start_checkpointer(interval_s=0.0, rebase_every=64)
+            node.checkpoint_now(full=True)
+        if i == 30:
+            assert node.checkpoint_now()["kind"] == "delta"
+    return vcs
+
+
+def _durable_objs():
+    return ([(k, "set_aw", "b") for k in range(48)]
+            + [(k, "counter_pn", "b") for k in range(100, 140)])
+
+
+def _reads_at(node, vcs):
+    out = []
+    for vc in vcs:
+        txn = node.start_transaction()
+        txn.snapshot_vc = vc
+        try:
+            out.append(node.read_objects(_durable_objs(), txn))
+        except RuntimeError as e:
+            assert "compaction horizon" in str(e)
+            out.append("horizon")
+        node.abort_transaction(txn)
+    return out
+
+
+def test_recovery_onto_the_card_equals_cpu(dev, tmp_path):
+    """One directory, recovered on the card and on the CPU: the same
+    digest, values at every clock of the script and table arrays."""
+    from antidote_tpu_torch.carry import table_arrays
+
+    cfg = _durable_cfg()
+    d = str(tmp_path / "wal")
+    live = AntidoteNode(cfg, log_dir=d, device="cpu")
+    vcs = _durable_script(live, np.random.default_rng(5))
+    live.close()
+    nodes = [AntidoteNode(cfg, log_dir=d, recover=True, device=x)
+             for x in ("cpu", dev)]
+    reads = [_reads_at(n, vcs) for n in nodes]
+    assert reads[0] == reads[1] and "horizon" in reads[0]
+    digests = [(n.store.log.op_ids.tolist(), n.store.log.seqs.tolist(),
+                n.txm.commit_counter, sorted(map(repr, n.store.directory)))
+               for n in nodes]
+    assert digests[0] == digests[1]
+    for name, t in nodes[0].store.tables.items():
+        a, b = table_arrays(t), table_arrays(nodes[1].store.tables[name])
+        for f, x in a.items():
+            if isinstance(x, dict):
+                assert all(np.array_equal(x[g], b[f][g]) for g in x), f
+            else:
+                assert np.array_equal(np.asarray(x), np.asarray(b[f])), f
+    for n in nodes:
+        n.close()
+
+
+def test_checkpoint_beside_a_committing_thread_equals_replay(dev, tmp_path):
+    """A second thread commits while the card's heads are stamped: no
+    commit fails, and recovery (image + tail) equals the live node."""
+    import threading
+
+    cfg = _durable_cfg()
+    d = str(tmp_path / "wal")
+    node = AntidoteNode(cfg, log_dir=d, device=dev)
+    rng = np.random.default_rng(9)
+    _durable_script(node, rng)
+    stop, errors = threading.Event(), []
+
+    def writer():
+        wr = np.random.default_rng(10)
+        try:
+            while not stop.is_set():
+                node.update_objects(
+                    [(int(k), "set_aw", "b", ("add", int(wr.integers(0, 20))))
+                     for k in wr.integers(0, 48, 4)]
+                    + [(int(wr.integers(100, 140)), "counter_pn", "b",
+                        ("increment", 1))])
+        except Exception as e:
+            errors.append(e)
+
+    th = threading.Thread(target=writer)
+    th.start()
+    for full in (True, False, False):
+        node.checkpoint_now(full=full)
+    stop.set()
+    th.join(timeout=60)
+    assert not th.is_alive() and errors == []
+    want = node.read_objects(_durable_objs())[0]
+    counter = node.txm.commit_counter
+    node.close()
+    rec = AntidoteNode(cfg, log_dir=d, recover=True, device=dev)
+    assert rec.read_objects(_durable_objs())[0] == want
+    assert rec.txm.commit_counter == counter
+    rec.close()
+
+
+def test_checkpoint_stamp_never_syncs_the_card(dev, tmp_path):
+    """The stamp's capture (under the commit lock) runs with the CUDA sync
+    debug mode at "error", full and delta: the head copies are issued on
+    the table's stream and no host copy or ``.item()`` runs there."""
+    node = AntidoteNode(_durable_cfg(), log_dir=str(tmp_path / "w"),
+                        device=dev)
+    _durable_script(node, np.random.default_rng(12))
+    cp = node.checkpointer
+    for name in ("_capture_locked", "_capture_delta_locked"):
+        orig = getattr(cp, name)
+
+        def guarded(orig=orig):
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return orig()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+
+        setattr(cp, name, guarded)
+    assert node.checkpoint_now(full=True)["kind"] == "full"
+    node.update_objects([(1, "set_aw", "b", ("add", 99))])
+    assert node.checkpoint_now(full=False)["kind"] == "delta"
+    want = node.read_objects(_durable_objs())[0]
+    node.close()
+    rec = AntidoteNode(_durable_cfg(), log_dir=str(tmp_path / "w"),
+                       recover=True, device=dev)
+    assert rec.read_objects(_durable_objs())[0] == want
+    rec.close()

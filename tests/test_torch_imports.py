@@ -50,9 +50,9 @@ def test_importing_every_module_loads_no_jax():
 
 def test_sources_cover_every_subpackage():
     """The walk above reaches every subpackage of the port, the cluster
-    slice's and the metrics registry's included."""
+    slice's, the metrics registry's and the durable log's included."""
     pkgs = {p.parent.name for p in SOURCES if p.parent != ROOT}
-    assert {"api", "clock", "cluster", "crdt", "materializer", "obs",
-            "store", "txn"} <= pkgs
+    assert {"api", "clock", "cluster", "crdt", "faults", "log",
+            "materializer", "obs", "store", "txn"} <= pkgs
     assert {p.name for p in SOURCES if p.parent.name == "cluster"} >= {
         "__init__.py", "rpc.py", "member.py", "coordinator.py"}

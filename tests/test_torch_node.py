@@ -137,8 +137,12 @@ def test_carried_store_reads_like_jax(nodes):
 
 def test_unported_node_options_raise(nodes):
     tn = nodes[1]
-    with pytest.raises(NotImplementedError):
-        AntidoteNode(AntidoteConfig(**KW), log_dir="x", device="cpu")
+    # the durable log is ported (tests/test_torch_log.py); adopting a
+    # store and the cold tier's residency bound are not
+    with pytest.raises(NotImplementedError, match="handoff"):
+        AntidoteNode(AntidoteConfig(**KW), store=object(), device="cpu")
+    with pytest.raises(NotImplementedError, match="cold tier"):
+        AntidoteNode(AntidoteConfig(**KW), resident_rows=10, device="cpu")
     with pytest.raises(NotImplementedError):
         AntidoteNode(AntidoteConfig(**KW), meta=object(), device="cpu")
     with pytest.raises(NotImplementedError):
@@ -147,3 +151,4 @@ def test_unported_node_options_raise(nodes):
     # the escrow rights-transfer loop rides the inter-DC channel
     with pytest.raises(NotImplementedError, match="inter-DC"):
         tn.txm.bcounters.transfer_periodic(None, None)
+
