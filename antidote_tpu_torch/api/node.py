@@ -7,8 +7,12 @@ tables observe it (and, under ``sync_log``, fsynced before it is
 acknowledged), ``recover=True`` rebuilds the node from the newest
 checkpoint image, its delta chain and the WAL tail (or from the whole log),
 ``checkpoint_now`` / ``start_checkpointer`` write images, and a refused
-WAL append puts the node in degraded read-only mode.  The metadata store
-(``meta=``), shard handoff and the cold tier are later slices.
+WAL append puts the node in degraded read-only mode.  ``resident_rows``
+bounds the rows on the device: the cold tier evicts image-covered rows to
+the checkpoint sidecar and faults them back in on demand.  ``store=``
+adopts a populated store (a reshard's output) and ``receive_handoff``
+installs an exported shard.  The metadata store (``meta=``) is a later
+slice.
 """
 
 from __future__ import annotations
@@ -43,25 +47,33 @@ class AntidoteNode:
 
     ``log_dir`` makes the node durable; a directory that already holds
     data (WAL records or a published checkpoint) must be opened with
-    ``recover=True``, never booted fresh over."""
+    ``recover=True``, never booted fresh over.  ``store`` adopts an
+    existing KVStore (a reshard's output) with its own log and device;
+    ``log_dir`` must be None then.  ``resident_rows`` > 0 attaches the cold
+    tier with that resident budget (it needs ``log_dir``), and
+    ``cold_fault_rate_cap`` caps its fault-ins a second."""
 
     def __init__(self, cfg: Optional[AntidoteConfig] = None, dc_id: int = 0,
                  cert: bool = True, log_dir: Optional[str] = None,
-                 recover: bool = False, meta=None, store=None,
-                 resident_rows: int = 0, device="cuda"):
+                 recover: bool = False, meta=None,
+                 store: Optional[KVStore] = None, resident_rows: int = 0,
+                 cold_fault_rate_cap: float = 0.0, device="cuda"):
         if meta is not None:
             raise NotImplementedError("meta: the metadata store is not "
                                       "ported yet")
-        if store is not None:
-            raise NotImplementedError("store=: adopting a store (a reshard "
-                                      "output) comes with shard handoff")
-        if resident_rows:
-            raise NotImplementedError("resident_rows: the cold tier is not "
-                                      "ported yet")
+        if store is not None and cfg is None:
+            cfg = store.cfg
         self.cfg = cfg or AntidoteConfig()
         self.dc_id = dc_id
         log = None
-        if log_dir is not None and self.cfg.enable_logging:
+        if store is not None:
+            assert log_dir is None, "store= and log_dir= are exclusive"
+            if recover:
+                raise RuntimeError(
+                    "store= adopts already-populated tables; recover=True "
+                    "would replay its log on top of them (double-apply)")
+            log = store.log
+        elif log_dir is not None and self.cfg.enable_logging:
             from antidote_tpu_torch.log import LogManager
             from antidote_tpu_torch.log.checkpoint import has_checkpoints
 
@@ -81,7 +93,8 @@ class AntidoteNode:
         elif recover:
             raise RuntimeError(
                 "recover=True requires log_dir and cfg.enable_logging")
-        self.store = KVStore(self.cfg, device=device, log=log)
+        self.store = store if store is not None else KVStore(
+            self.cfg, device=device, log=log)
         self.txm = TransactionManager(self.store, my_dc=dc_id, cert=cert)
         #: the prometheus metric set; the manager's and the store's
         #: counters land in it
@@ -95,6 +108,10 @@ class AntidoteNode:
         self._error_handler = install_error_monitor(
             self.metrics, logging.getLogger("antidote_tpu_torch"))
         self._metrics_server: Optional[MetricsServer] = None
+        if store is not None:
+            # an adopted store: continue the commit counter above every
+            # applied clock, so new commits never mint duplicate dots
+            self.txm.commit_counter = int(self.store.dc_max_vc()[dc_id])
         #: background checkpoint writer; started by start_checkpointer or
         #: lazily by checkpoint_now
         self.checkpointer = None
@@ -104,34 +121,56 @@ class AntidoteNode:
         #: name -> provider of extra state embedded in checkpoint images
         #: (shared with the Checkpointer, so late registrations are seen)
         self.checkpoint_extras_providers: dict = {}
+        # the cold tier attaches BEFORE recovery, so that a chain image's
+        # cold_directory registers fault-in refs and the tail replay stays
+        # under the resident budget
+        if resident_rows > 0 and self.store.cold is None:
+            # enable_cold_tier raises without a durable log: an explicitly
+            # asked residency bound must never be a silent no-op
+            self.enable_cold_tier(resident_rows, cold_fault_rate_cap)
         if recover and log is not None:
-            self._recover(log_dir)
+            self._recover(log_dir, cold_fault_rate_cap)
 
-    def _recover(self, log_dir: str) -> None:
+    def _recover(self, log_dir: str, cold_fault_rate_cap: float) -> None:
         """Node restart: compose the newest verifiable full image with its
         delta chain, then replay only the WAL tail above the last link's
         floor; without a checkpoint, replay the whole log.  Both rebuild
-        the certification table and the commit counter."""
+        the certification table and the commit counter.  An image's cold
+        keys get no device row: they register with the cold tier (attached
+        here if the node has none) and fault in on demand; with a resident
+        budget, the rows past it go back cold before the node serves."""
         from antidote_tpu_torch.log import checkpoint as ckpt
 
         rlog = logging.getLogger("antidote_tpu_torch.recovery")
         t0 = time.monotonic()
         loaded = ckpt.load_chain(log_dir)
         if loaded is not None:
-            image, _manifest, deltas = loaded
+            image, manifest, deltas = loaded
             summary = ckpt.install_image(self.store, self.txm, image)
             self.checkpoint_extras = image.get("extras", {}) or {}
+            if summary["cold_directory"]:
+                if self.store.cold is None:
+                    self.enable_cold_tier(0, cold_fault_rate_cap)
+                self.store.cold.seed(summary["cold_directory"],
+                                     int(manifest["id"]))
+            if (self.store.cold is not None
+                    and manifest.get("cold") is not None):
+                # the resident keys' image coordinates double as evict
+                # hints (their rows ARE the sidecar rows)
+                self.store.cold.seed_hints(int(manifest["id"]))
             for delta, _dman in deltas:
                 ds = ckpt.install_delta(self.store, self.txm, delta)
                 self.checkpoint_extras.update(delta.get("extras", {}) or {})
-                rlog.info("recovery chain link %d: %d rows, %d keys",
-                          ds["id"], ds["rows"], ds["keys"])
+                rlog.info("recovery chain link %d: %d rows, %d keys, %d "
+                          "evicted", ds["id"], ds["rows"], ds["keys"],
+                          ds["evicted"])
             ckpt_s = time.monotonic() - t0
             self.metrics.recovery_seconds.set(ckpt_s, phase="checkpoint")
             rlog.info("recovery phase checkpoint: image %d + %d chain "
-                      "link(s) (%d keys, %d rows, %d tables) installed in "
-                      "%.2f s", summary["id"], len(deltas), summary["keys"],
-                      summary["rows"], summary["tables"], ckpt_s)
+                      "link(s) (%d keys, %d rows, %d tables, %d cold) "
+                      "installed in %.2f s", summary["id"], len(deltas),
+                      summary["keys"], summary["rows"], summary["tables"],
+                      len(summary["cold_directory"]), ckpt_s)
         t1 = time.monotonic()
         last = self.store.recover(track_origin=self.dc_id)
         self.txm.committed_keys.update(last)
@@ -145,6 +184,41 @@ class AntidoteNode:
                   time.monotonic() - t0,
                   "checkpoint + tail" if loaded is not None
                   else "full replay, no checkpoint found")
+        cold = self.store.cold
+        if cold is not None and cold.budget > 0:
+            # a restart larger than the card enforces the resident budget
+            # BEFORE serving: rows the image covers (and the tail left
+            # untouched) go straight back cold
+            n_ev = cold.enforce_budget()
+            if n_ev:
+                rlog.info("recovery cold tier: %d row(s) evicted to the "
+                          "resident budget (%d)", n_ev, cold.budget)
+
+    # --- cold tier --------------------------------------------------------
+    def enable_cold_tier(self, resident_rows: int = 0,
+                         fault_rate_cap: float = 0.0):
+        """Attach the cold tier: device residency bounded by
+        ``resident_rows`` (0 = unbounded; fault-in only), fault-ins past
+        ``fault_rate_cap`` a second refused with a typed ColdMiss.  Needs a
+        durable log (cold state lives in checkpoint sidecars).  On an
+        attached tier it resets the budget and the cap."""
+        if self.store.log is None:
+            raise RuntimeError("the cold tier requires log_dir (cold rows "
+                               "live in checkpoint sidecars)")
+        if self.store.cold is None:
+            from antidote_tpu_torch.store.coldtier import ColdTier
+
+            self.store.cold = ColdTier(
+                self.store, budget=resident_rows,
+                fault_rate_cap=fault_rate_cap, lock=self.txm.commit_lock)
+            cp = self.checkpointer
+            if cp is not None:
+                self.store.cold.on_pressure = cp.request
+                self.store.cold.on_corrupt = cp._on_cold_corrupt
+        else:
+            self.store.cold.budget = int(resident_rows)
+            self.store.cold.fault_rate_cap = float(fault_rate_cap)
+        return self.store.cold
 
     def serve_metrics(self, port: Optional[int] = None) -> MetricsServer:
         """Serve ``/metrics`` over HTTP on ``port`` (default 3001; 0 picks
@@ -161,7 +235,39 @@ class AntidoteNode:
         return self._metrics_server
 
     def receive_handoff(self, pkg, shard: Optional[int] = None) -> None:
-        raise NotImplementedError("shard handoff is not ported yet")
+        """Install an exported shard package (``store/handoff.py``) and
+        raise the commit counter above every imported clock, so this
+        node's own-lane snapshots cover the moved commits.  A package from
+        a checkpoint-compacted source carries only its log's tail, so a
+        durable node takes a local checkpoint before returning: the import
+        is not done until an image covers the moved rows."""
+        from antidote_tpu_torch.store import handoff
+
+        handoff.import_shard(self.store, pkg, shard)
+        if pkg.get("compacted"):
+            if self.store.log is not None:
+                summary = self.checkpoint_now()
+                logging.getLogger("antidote_tpu_torch").info(
+                    "compacted-source shard import sealed by local "
+                    "checkpoint %s", summary.get("id"))
+            else:
+                logging.getLogger("antidote_tpu_torch").warning(
+                    "imported a shard from a checkpoint-compacted source "
+                    "into a node without a log: the moved rows have no "
+                    "durable history at all")
+        self.txm.commit_counter = max(
+            self.txm.commit_counter,
+            int(self.store.dc_max_vc()[self.dc_id]))
+        # the certification table for the moved keys: their last own-lane
+        # commit is the head clock's own lane, or a transaction whose
+        # snapshot predates the import could overwrite a moved commit
+        # unchecked
+        for key, bucket, tname, row in pkg["directory"]:
+            lane = int(pkg["tables"][tname]["head_vc"][row][self.dc_id])
+            if lane:
+                dk = (freeze_key(key), bucket)
+                self.txm.committed_keys[dk] = max(
+                    self.txm.committed_keys.get(dk, 0), lane)
 
     # --- checkpointing ----------------------------------------------------
     def start_checkpointer(self, interval_s: float = 300.0, retain: int = 2,

@@ -30,9 +30,14 @@ never-checkpointed replay.
     mid-image) aborts before the floor moves and never flips the store
     read-only.
 
+With a cold tier attached (``store/coldtier.py``), every full image also
+writes the cold sidecar ``cold.bin`` (the heads as fixed-stride columns
+with a per-row CRC), carrying the still-cold keys' rows forward from their
+old sidecars as an appendix; delta links record the keys evicted in their
+window, so a composed recovery registers them cold again.
+
 Fault sites: ``ckpt.write``, ``ckpt.fsync``, ``ckpt.rename`` here,
-``wal.truncate_below`` in the reclaim.  The cold tier's sidecars come with
-their slice.
+``wal.truncate_below`` in the reclaim.
 """
 
 from __future__ import annotations
@@ -205,6 +210,14 @@ def image_path(log_dir: str, ckpt_id: int) -> str:
                         _IMAGE)
 
 
+def cold_path(log_dir: str, ckpt_id: int) -> str:
+    """Path of a published cold sidecar by id."""
+    from antidote_tpu_torch.store.coldtier import COLD_BIN
+
+    return os.path.join(checkpoint_root(log_dir), f"ckpt_{int(ckpt_id)}",
+                        COLD_BIN)
+
+
 def discard_all(log_dir: str) -> int:
     """Delete EVERY published image under a log dir (and orphaned temp
     dirs); returns the number of images discarded."""
@@ -248,7 +261,9 @@ def install_image(store, txm, image: dict) -> dict:
     snapshot version is seeded from the head, so versioned reads at
     clocks ≥ a row's head_vc fold the (empty) ring on it exactly and reads
     below surface the compaction horizon.  Shards truncated after the
-    stamp are dropped.  Returns a summary dict."""
+    stamp are dropped.  The image's ``cold_directory`` keys get NO device
+    row: they come back in the summary for the caller's cold tier, which
+    faults them in on demand.  Returns a summary dict."""
     from antidote_tpu_torch.store.kv import freeze_key
 
     logm = store.log
@@ -334,6 +349,8 @@ def install_image(store, txm, image: dict) -> dict:
     np.maximum(store.applied_vc, stamp, out=store.applied_vc)
     np.maximum(logm.op_ids, op_ids, out=logm.op_ids)
     logm.set_floor(floors, chains)
+    cold_entries = [e for e in image.get("cold_directory", []) or []
+                    if int(e[3]) not in stale]
     committed = image.get("committed_keys", [])
     if committed and not stale and not txm.committed_keys:
         # fresh manager, nothing dropped: bulk build
@@ -349,12 +366,13 @@ def install_image(store, txm, image: dict) -> dict:
                     txm.committed_keys.get(dk, 0), int(counter))
     return {"id": int(image["id"]), "keys": len(directory),
             "rows": n_rows_installed, "tables": len(image["tables"]),
-            "dropped_shards": sl}
+            "dropped_shards": sl, "cold_directory": cold_entries}
 
 
 def install_delta(store, txm, delta: dict) -> dict:
-    """Overlay one delta link onto an installed parent: the link's dirty
-    rows' heads go into the tables (seeding one snapshot version each, as
+    """Overlay one delta link onto an installed parent: the keys the link
+    records as EVICTED are registered cold again, the link's dirty rows'
+    heads go into the tables (seeding one snapshot version each, as
     :func:`install_image` does), then the directory, certification and
     blob deltas apply, and floors, op-id chains and clocks advance to the
     link's stamp.  Returns a summary dict."""
@@ -367,6 +385,37 @@ def install_delta(store, txm, delta: dict) -> dict:
             f"chain link shape (n_shards={delta['n_shards']}) does not "
             f"match the deployment ({cfg.n_shards})")
     stale = _stale_shards(logm, delta.get("shard_resets"), cfg.n_shards)
+    # evictions FIRST: the rows the link records as evicted were freed and
+    # may be reused by the link's own row overlays below — clearing them
+    # after the overlay would wipe the new tenants' state
+    evicted = _freeze_entries([e for e in delta.get("cold_delta", [])
+                               if int(e[3]) not in stale])
+    if evicted and store.cold is None:
+        # the chain recorded evictions but this boot has no cold tier
+        # (restarted without a resident budget): attach one anyway —
+        # dropping the keys' directory entries without registering their
+        # sidecar refs would turn their reads into silent bottoms
+        from antidote_tpu_torch.store.coldtier import ColdTier
+
+        store.cold = ColdTier(store, budget=0,
+                              lock=getattr(txm, "commit_lock", None))
+    by_table: Dict[str, list] = {}
+    for key, bucket, _tname, _shard, _srow in evicted:
+        ent = store.directory.pop((key, bucket), None)
+        if ent is not None:
+            by_table.setdefault(ent[0], []).append(ent[1:])
+    for tname, pairs in by_table.items():
+        # one clear a table for the link's recorded evictions (in the
+        # link's order, so the free lists come out as key-by-key clears
+        # leave them); their sidecar coordinates ride in the same entries
+        # and are registered just below
+        store.table(tname).evict_rows(  # evict-ok: composing a recorded
+            np.asarray([p[0] for p in pairs]),  # cold-tier eviction
+            np.asarray([p[1] for p in pairs]))
+    if store.cold is not None and evicted:
+        src = delta.get("cold_src")
+        store.cold.seed([list(e) for e in evicted],
+                        src if src is not None else delta.get("parent"))
     n_rows = 0
     for tname, tb in delta["tables"].items():
         t = store.table(tname)
@@ -381,6 +430,16 @@ def install_delta(store, txm, delta: dict) -> dict:
         t.install_rows(ss, rr,
                        {f: np.asarray(x)[keep] for f, x in tb["head"].items()},
                        np.asarray(tb["head_vc"], np.int32)[keep])
+        # overlaid rows are OCCUPIED now: pull them off the free lists the
+        # eviction pass may have pushed them onto (a later alloc_row
+        # handing one out again would double-bind the row)
+        occupied: Dict[int, set] = {}
+        for s_, r_ in zip(ss.tolist(), rr.tolist()):
+            occupied.setdefault(s_, set()).add(r_)
+        for s_, rows_set in occupied.items():
+            free = t.free_rows.get(s_)
+            if free:
+                t.free_rows[s_] = [r for r in free if r not in rows_set]
         t.slots_ub[ss, rr] = np.asarray(tb["slots_ub"], np.int32)[keep]
         used = np.asarray(tb["used_rows"], np.int64).copy()
         used[sorted(stale)] = 0
@@ -391,9 +450,19 @@ def install_delta(store, txm, delta: dict) -> dict:
                    out=t.max_commit_vc)
         n_rows += len(ss)
     entries = _freeze_entries(delta.get("directory_delta", []))
+    cold = store.cold
     for key, bucket, tname, shard, row in entries:
-        if int(shard) not in stale:
-            store.directory[(key, bucket)] = (tname, int(shard), int(row))
+        if int(shard) in stale:
+            continue
+        dk = (key, bucket)
+        store.directory[dk] = (tname, int(shard), int(row))
+        if cold is not None and cold.is_cold(dk):
+            # the link proves the key resident at its stamp: undo the cold
+            # registration an earlier install seeded
+            cold.cold_set.discard(dk)
+            by_shard = cold.by_shard.get(int(shard))
+            if by_shard is not None:
+                by_shard.discard(dk)
     for key, bucket, counter in _freeze_entries(
             delta.get("committed_delta", [])):
         dk = (key, bucket)
@@ -417,7 +486,7 @@ def install_delta(store, txm, delta: dict) -> dict:
     np.maximum(logm.op_ids, op_ids, out=logm.op_ids)
     logm.set_floor(floors, chains)
     return {"id": int(delta["id"]), "parent": int(delta["parent"]),
-            "rows": n_rows, "keys": len(entries),
+            "rows": n_rows, "keys": len(entries), "evicted": len(evicted),
             "dropped_shards": sorted(stale)}
 
 
@@ -533,6 +602,16 @@ class Checkpointer:
                 if m is not None:
                     self.chain_len = (0 if manifest_kind(m) == "full"
                                       else self.chain_len + 1)
+        if store.cold is not None:
+            # budget pressure nudges a stamp; a fault-in's CRC failure
+            # forces a rebase (it re-reads every row and tombstones the
+            # truly lost ones)
+            store.cold.on_pressure = self.request
+            store.cold.on_corrupt = self._on_cold_corrupt
+
+    def _on_cold_corrupt(self) -> None:
+        self.force_rebase = True
+        self._wake.set()
 
     # -- lifecycle ------------------------------------------------------
     def start(self) -> "Checkpointer":
@@ -612,8 +691,9 @@ class Checkpointer:
     # -- the cycle ------------------------------------------------------
     def _decide_full(self, full: Optional[bool]) -> bool:
         """Full rebase or delta link?  Forced rebases win; a delta needs a
-        published parent, unbroken dirty windows and a chain shorter than
-        ``rebase_every``."""
+        published parent, unbroken dirty windows, a chain shorter than
+        ``rebase_every`` and no staged cold source waiting to be persisted
+        locally."""
         if full is not None:
             return bool(full)
         if self.force_rebase or self.last is None:
@@ -624,15 +704,19 @@ class Checkpointer:
                 or self.store._ckpt_dirty_blobs is None
                 or self.txm.ckpt_dirty_committed is None):
             return True
-        return any(t._ckpt_dirty is None for t in self.store.tables.values())
+        if any(t._ckpt_dirty is None for t in self.store.tables.values()):
+            return True
+        cold = self.store.cold
+        return cold is not None and bool(cold._extra_sources)
 
     def _consume_windows_locked(self):
         """Consume every incremental window under the commit-lock barrier
         (both capture kinds reset them: the next window starts at this
-        stamp).  Returns (dirty keys | None, blob hashes, committed
-        delta)."""
+        stamp).  Returns (dirty keys | None, evicted keys, blob hashes,
+        committed delta)."""
         store, txm = self.store, self.txm
         dirty, store.ckpt_dirty_keys = store.ckpt_dirty_keys, set()
+        evicted, store._ckpt_evicted = store._ckpt_evicted, {}
         blob_hashes, store._ckpt_dirty_blobs = store._ckpt_dirty_blobs, set()
         committed_dirty = txm.ckpt_dirty_committed
         txm.ckpt_dirty_committed = set()
@@ -647,7 +731,7 @@ class Checkpointer:
                 committed[dk] = int(v)
         for t in store.tables.values():
             t.take_ckpt_dirty()
-        return dirty, blob_hashes, committed
+        return dirty, evicted, blob_hashes, committed
 
     def checkpoint_now(self, full: Optional[bool] = None) -> dict:
         with self._lock:
@@ -689,6 +773,15 @@ class Checkpointer:
             if want_full:
                 self.chain_len = 0
                 self.force_rebase = False
+                cold = self.store.cold
+                if cold is not None:
+                    # re-anchor every cold and evict ref onto the fresh
+                    # image
+                    cold.rebind(cap["id"], cap.get("resident_map") or {},
+                                cap.get("cold_rebinds") or {},
+                                cap.get("cold_lost") or set())
+                    for token in list(cold._extra_sources):
+                        cold.drop_source(token)  # staged import persisted
                 reclaimed = self._retire_and_reclaim(cap)
             else:
                 self.chain_len += 1
@@ -759,6 +852,11 @@ class Checkpointer:
         cap["directory"] = dict(store.directory)
         cap["blobs"] = dict(store.blobs._by_handle)
         self._consume_windows_locked()  # a full image covers them
+        if store.cold is not None:
+            # the still-cold keys this image carries forward into its
+            # sidecar appendix (their rows are read off the lock: a cold
+            # row's sidecar bytes never change)
+            cap["cold_manifest"] = store.cold.cold_manifest()
         frozen: Dict[str, dict] = {}
         for tname, t in store.tables.items():
             used = t.used_rows.copy()
@@ -781,11 +879,20 @@ class Checkpointer:
         host outside it).  Returns (None, None) when the windows are
         unusable — the caller falls back to a full rebase."""
         store = self.store
-        dirty, blob_hashes, committed = self._consume_windows_locked()
+        dirty, evicted, blob_hashes, committed = (
+            self._consume_windows_locked())
         if dirty is None:
             return None, None
+        anchor = store.cold.anchor if store.cold is not None else None
+        cold_delta = []
+        for dk, (tname, shard, srow, src) in evicted.items():
+            if src != anchor or isinstance(src, str):
+                return None, None  # an unanchored eviction: rebase
+            cold_delta.append([dk[0], dk[1], tname, int(shard), int(srow)])
         cap = self._base_cap()
         cap["parent"] = int(self.last["id"])
+        cap["cold_delta"] = cold_delta
+        cap["cold_src"] = anchor
         cap["committed_delta"] = [[k, b, v]
                                   for (k, b), v in committed.items()]
         cap["blobs_delta"] = [[int(h), bytes(store.blobs._by_handle[h])]
@@ -796,7 +903,7 @@ class Checkpointer:
         for dk in dirty:
             ent = store.directory.get(dk)
             if ent is None:
-                continue
+                continue  # evicted after the write (rides cold_delta)
             by_table.setdefault(ent[0], []).append((ent[1], ent[2]))
             directory_delta.append([dk[0], dk[1], ent[0], int(ent[1]),
                                     int(ent[2])])
@@ -880,6 +987,114 @@ class Checkpointer:
             "floor_seqs": [int(x) for x in cap["floor_seqs"]],
         }
 
+    def _carry_cold(self, cap: dict, tables: Dict[str, dict]):
+        """Build the sidecar's cold appendix: every still-cold key's row is
+        read (in bulk, a column at a time) from its source sidecar,
+        CRC-verified, and re-addressed after the new image's resident
+        extent.  Unreadable rows are ``lost``: logged loudly, and
+        tombstoned so their reads fail typed instead of serving bottom.
+        Extends ``tables`` in place; returns (cold_directory entries,
+        rebind map, lost set)."""
+        cold_man = cap.get("cold_manifest") or {}
+        cold_dir: list = []
+        rebinds: Dict[Any, tuple] = {}
+        lost: set = set()
+        if not cold_man:
+            return cold_dir, rebinds, lost
+        cold = self.store.cold
+        cfg = self.store.cfg
+        for tname, by_shard in cold_man.items():
+            # one bulk column load per (source, table)
+            srcs = {src for items in by_shard.values()
+                    for _dk, _sr, src in items}
+            cols: Dict[Any, dict] = {}
+            for src in srcs:
+                sc = cold._sidecar(src)
+                tman = sc.man["tables"][tname]
+                cols[src] = {
+                    "fields": {f: sc.read_column(tname, f)
+                               for f in sorted(tman["fields"])},
+                    "head_vc": sc.read_column(tname, "head_vc"),
+                    "slots_ub": sc.read_column(tname, "slots_ub"),
+                    "row_crc": sc.read_column(tname, "row_crc"),
+                }
+            tb = tables.get(tname)
+            if tb is None:
+                # every key of this table is cold: an empty resident block
+                # with the source's shapes
+                any_src = next(iter(cols.values()))
+                p = cfg.n_shards
+                tb = tables[tname] = {
+                    "used_rows": np.zeros(p, np.int64),
+                    "head": {f: np.zeros((p, 0) + x.shape[2:], x.dtype)
+                             for f, x in any_src["fields"].items()},
+                    "head_vc": np.zeros((p, 0, cfg.max_dcs), np.int32),
+                    "slots_ub": np.zeros((p, 0), np.int32),
+                    "max_abs_delta": 0,
+                    "max_commit_vc": np.zeros(cfg.max_dcs, np.int32),
+                }
+            u_cap = tb["head_vc"].shape[1]
+            c_max = max(len(items) for items in by_shard.values())
+            p = tb["head_vc"].shape[0]
+            ext = {
+                "head": {f: np.zeros((p, u_cap + c_max) + x.shape[2:],
+                                     x.dtype)
+                         for f, x in tb["head"].items()},
+                "head_vc": np.zeros((p, u_cap + c_max,
+                                     tb["head_vc"].shape[2]), np.int32),
+                "slots_ub": np.zeros((p, u_cap + c_max), np.int32),
+            }
+            for f, x in tb["head"].items():
+                ext["head"][f][:, :u_cap] = x
+            ext["head_vc"][:, :u_cap] = tb["head_vc"]
+            ext["slots_ub"][:, :u_cap] = tb["slots_ub"]
+            fields = sorted(ext["head"])
+            for shard, items in by_shard.items():
+                for src in {src for _dk, _sr, src in items}:
+                    pos = [i for i, x in enumerate(items) if x[2] == src]
+                    c = cols[src]
+                    srows = np.asarray([items[i][1] for i in pos], np.int64)
+                    got = {f: c["fields"][f][shard, srows] for f in fields}
+                    hvc = np.ascontiguousarray(c["head_vc"][shard, srows],
+                                               np.int32)
+                    sub = np.ascontiguousarray(c["slots_ub"][shard, srows],
+                                               np.int32)
+                    # each row's bytes in the sidecar's CRC order: sorted
+                    # fields, then head_vc, then slots_ub
+                    rowmat = np.concatenate(
+                        [np.ascontiguousarray(got[f]).reshape(len(pos), -1)
+                         .view(np.uint8) for f in fields]
+                        + [hvc.reshape(len(pos), -1).view(np.uint8),
+                           sub.reshape(len(pos), -1).view(np.uint8)], axis=1)
+                    want = c["row_crc"][shard, srows]
+                    good = np.asarray(
+                        [(zlib.crc32(rowmat[j].tobytes()) & 0xFFFFFFFF)
+                         == int(want[j]) for j in range(len(pos))], bool)
+                    new_rows = u_cap + np.asarray(pos, np.int64)
+                    for f in fields:
+                        ext["head"][f][shard, new_rows[good]] = got[f][good]
+                    ext["head_vc"][shard, new_rows[good]] = hvc[good]
+                    ext["slots_ub"][shard, new_rows[good]] = sub[good]
+                    for j, i in enumerate(pos):
+                        dk, srow, _src = items[i]
+                        if not good[j]:
+                            lost.add(dk)
+                            log.error(
+                                "cold carry-forward: row CRC mismatch for "
+                                "%r (%s[%d,%d] of source %r): the key's "
+                                "state is LOST to bit rot", dk, tname, shard,
+                                srow, src)
+                for i, (dk, _srow, _src) in enumerate(items):
+                    if dk in lost:
+                        continue
+                    cold_dir.append([dk[0], dk[1], tname, int(shard),
+                                     int(u_cap + i)])
+                    rebinds[dk] = (tname, int(shard), int(u_cap + i))
+            tb["head"] = ext["head"]
+            tb["head_vc"] = ext["head_vc"]
+            tb["slots_ub"] = ext["slots_ub"]
+        return cold_dir, rebinds, lost
+
     def _write_atomic(self, cap: dict, frozen: dict) -> Tuple[str, dict]:
         tables: Dict[str, dict] = {}
         for tname, fz in frozen.items():
@@ -893,6 +1108,31 @@ class Checkpointer:
                 "max_commit_vc": fz["max_commit_vc"],
             }
         frozen.clear()  # release the device copies
+        # the sidecar extends each table past its resident extent with the
+        # carried-forward cold rows; the IMAGE keeps the resident slices
+        # (recovery installs exactly those on the device)
+        resident_caps = {tname: tb["head_vc"].shape[1]
+                         for tname, tb in tables.items()}
+        cold_dir, rebinds, lost = self._carry_cold(cap, tables)
+        sidecar_tables = {
+            tname: {"head": tb["head"], "head_vc": tb["head_vc"],
+                    "slots_ub": tb["slots_ub"]}
+            for tname, tb in tables.items()
+        } if (self.store.cold is not None or cold_dir) else None
+        if cold_dir:
+            tables = {
+                tname: dict(
+                    tb,
+                    head={f: x[:, :resident_caps.get(tname, 0)]
+                          for f, x in tb["head"].items()},
+                    head_vc=tb["head_vc"][:, :resident_caps.get(tname, 0)],
+                    slots_ub=tb["slots_ub"][:, :resident_caps.get(tname, 0)],
+                )
+                for tname, tb in tables.items()
+            }
+        cap["resident_map"] = cap["directory"]
+        cap["cold_rebinds"] = rebinds
+        cap["cold_lost"] = lost
         image = self._header(cap)
         image.update({
             # opaque(): the big flat per-key lists cross msgpack in one
@@ -906,17 +1146,17 @@ class Checkpointer:
             "blobs": opaque([[int(h), bytes(d)]
                              for h, d in cap["blobs"].items()]),
             "blob_seen": opaque(cap["blob_seen"]),
-            "cold_directory": opaque([]),
+            "cold_directory": opaque(cold_dir),
             "tables": tables,
             "extras": cap["extras"],
         })
         data = pack(image)
         manifest = self._manifest(
-            cap, data, "full", len(cap["directory"]),
+            cap, data, "full", len(cap["directory"]) + len(cold_dir),
             int(sum(int(t["used_rows"].sum()) for t in tables.values())),
             tables)
-        manifest["cold_keys"] = 0
-        return self._publish_dir(cap["id"], data, manifest)
+        manifest["cold_keys"] = len(cold_dir)
+        return self._publish_dir(cap["id"], data, manifest, sidecar_tables)
 
     def _write_atomic_delta(self, cap: dict,
                             frozen: dict) -> Tuple[str, dict]:
@@ -942,8 +1182,8 @@ class Checkpointer:
             "committed_delta": opaque(cap["committed_delta"]),
             "blobs_delta": opaque(cap["blobs_delta"]),
             "blob_seen": opaque(cap["blob_seen"]),
-            "cold_delta": opaque([]),
-            "cold_src": None,
+            "cold_delta": opaque(cap["cold_delta"]),
+            "cold_src": cap["cold_src"],
             "tables": tables,
             "extras": cap["extras"],
         })
@@ -954,11 +1194,14 @@ class Checkpointer:
         manifest["parent"] = int(cap["parent"])
         return self._publish_dir(cap["id"], data, manifest)
 
-    def _publish_dir(self, cap_id: int, data: bytes,
-                     manifest: dict) -> Tuple[str, dict]:
-        """Atomic publish: stream the image and the manifest into a temp
-        dir, fsync through the group coordinator, one rename.  A failure
-        at ANY point leaves the published set untouched."""
+    def _publish_dir(self, cap_id: int, data: bytes, manifest: dict,
+                     sidecar_tables=None) -> Tuple[str, dict]:
+        """Atomic publish: stream the image, the cold sidecar (when
+        ``sidecar_tables`` is given) and the manifest into a temp dir,
+        fsync through the group coordinator, one rename.  A failure at ANY
+        point leaves the published set untouched."""
+        from antidote_tpu_torch.store.coldtier import COLD_BIN, write_sidecar
+
         os.makedirs(self.root, exist_ok=True)
         tmp = os.path.join(self.root, f"tmp.{os.getpid()}.{cap_id}")
         final = os.path.join(self.root, f"ckpt_{cap_id}")
@@ -971,6 +1214,23 @@ class Checkpointer:
                 _faulted_write(f, data, name)
                 f.flush()
                 self.log._fsync.submit([_ImageFsync(f.fileno(), name)]).wait()
+            if sidecar_tables is not None:
+                d = faults.hit("ckpt.write", key=name)
+                if d is not None:
+                    if d.action == "delay" and d.arg:
+                        time.sleep(float(d.arg))
+                    elif d.action in ("error", "io_error", "enospc"):
+                        raise OSError(
+                            errno.ENOSPC if d.action == "enospc"
+                            else errno.EIO,
+                            f"injected fault: ckpt.write cold {name}")
+                with open(os.path.join(tmp, COLD_BIN), "wb") as f:
+                    cman = write_sidecar(f, sidecar_tables)
+                    f.flush()
+                    self.log._fsync.submit(
+                        [_ImageFsync(f.fileno(), name)]).wait()
+                cman["n_shards"] = self.store.cfg.n_shards
+                manifest["cold"] = cman
             with open(os.path.join(tmp, _MANIFEST), "w") as f:
                 json.dump(manifest, f)
                 f.flush()
@@ -1051,9 +1311,13 @@ class Checkpointer:
 
     def scrub(self) -> Dict[str, int]:
         """One bit-rot pass over every retained image and link: re-read
-        and CRC-verify ``image.bin``.  A corrupt DELTA link is retired on
-        the spot (the chain re-anchors on the prefix) and a rebase forced;
-        a corrupt FULL image forces a rebase but stays published."""
+        and CRC-verify ``image.bin`` (and the cold sidecar where there is
+        one).  A corrupt DELTA link is retired on the spot (the chain
+        re-anchors on the prefix) and a rebase forced; a corrupt FULL image
+        forces a rebase but stays published (its per-row CRCs still guard
+        cold fault-ins)."""
+        from antidote_tpu_torch.store.coldtier import COLD_BIN
+
         out = {"ok": 0, "corrupt": 0}
         for id_, path in list_checkpoints(self.root):
             m = load_manifest(path)
@@ -1062,6 +1326,11 @@ class Checkpointer:
             ok = self._scrub_file(os.path.join(path, _IMAGE),
                                   m.get("image_bytes", -1),
                                   m.get("image_crc32", -1))
+            cold = m.get("cold")
+            if ok and cold is not None:
+                ok = self._scrub_file(os.path.join(path, COLD_BIN),
+                                      cold.get("bytes", -1),
+                                      cold.get("crc32", -1))
             result = "ok" if ok else "corrupt"
             out[result] += 1
             self.scrub_counts[result] = self.scrub_counts.get(result, 0) + 1

@@ -26,8 +26,11 @@ commit group is logged before any table observes it, failure-atomically
 per sub-group, and ``apply_effect_groups`` hands back the group-fsync
 ticket the acknowledgement waits on; ``recover`` rebuilds the tables from
 the log, and reads below the device's retained coverage replay it
-(``_replay_read_many``, with its fold ladder).  The cold tier is a later
-slice.
+(``_replay_read_many``, with its fold ladder).  With a cold tier attached
+(``self.cold``, ``store/coldtier.py``) the device holds a bounded resident
+set: a key evicted to its checkpoint sidecar has no directory entry, the
+locked path faults it back in, and the lock-free planes hand it to the
+locked path.
 """
 
 from __future__ import annotations
@@ -367,6 +370,15 @@ class KVStore:
         #: tier whose effect lanes fit (``_tier_for_lanes``, memoized: the
         #: commit path asks once per effect)
         self._lane_tier: Dict[Tuple[str, int, int], int] = {}
+        #: the cold tier (``store/coldtier.ColdTier``) when the store may
+        #: hold more keys than its resident budget (AntidoteNode attaches
+        #: it); None = every key stays on the device
+        self.cold = None
+        #: keys EVICTED to the cold tier since the last checkpoint capture:
+        #: dk -> sidecar coordinates (the delta link records the transition
+        #: so that a composed recovery re-registers them cold instead of
+        #: resurrecting a row that was since reused)
+        self._ckpt_evicted: Dict[Tuple[Any, str], tuple] = {}
 
     #: dirty-key windows past this size stop tracking (rebase instead)
     _CKPT_KEYS_CAP = 262144
@@ -389,20 +401,34 @@ class KVStore:
 
     def mark_epoch_fallback(self, dk) -> None:
         """Make every live serving epoch fall back to the locked path for
-        one key (a frozen slot may hold the row's previous tenant)."""
+        one key (a frozen slot may hold the row's previous tenant): the
+        row-reuse discipline of tier promotion, cold eviction and cold
+        fault-in."""
+        self.mark_epoch_fallback_many((dk,))
+
+    def mark_epoch_fallback_many(self, dks) -> None:
+        """``mark_epoch_fallback`` of a batch (one lock acquisition)."""
         with self._epoch_lock:
             eps = list(self._epoch_graveyard)
             if self.serving_epoch is not None:
                 eps.append(self.serving_epoch)
         for e in eps:
-            e.promoted.add(dk)
+            e.promoted.update(dks)
 
     def drop_cached_value(self, dk) -> None:
-        """Invalidate both decoded-value caches for one key."""
+        """Invalidate both decoded-value caches for one key (an eviction:
+        the cached decode may outlive the device row)."""
+        self.drop_cached_values((dk,))
+
+    def drop_cached_values(self, dks) -> None:
+        """``drop_cached_value`` of a batch (one acquisition of each
+        cache's lock)."""
         with self._value_cache_lock:
-            self._value_cache.pop(dk, None)
+            for dk in dks:
+                self._value_cache.pop(dk, None)
         with self._snapshot_cache_lock:
-            self.snapshot_cache.pop(dk, None)
+            for dk in dks:
+                self.snapshot_cache.pop(dk, None)
 
     def materializer_status(self) -> dict:
         """Which fold strategies the serving and replay paths dispatched
@@ -456,14 +482,36 @@ class KVStore:
                     f"not {type_name}"
                 )
             return hit
+        if self.cold is not None and self.cold.is_cold(dk):
+            # a cold key: fault its row back in through the locked path (a
+            # typed ColdMiss past the rate cap, never bottom)
+            hit = self.cold.fault_in(dk)
+            if split_tier(hit[0])[0] != type_name:
+                raise TypeError(
+                    f"key {key!r} bucket {bucket!r} already bound to "
+                    f"{hit[0]}, not {type_name}")
+            return hit
         if not create:
             return None
         shard = key_to_shard(key, bucket, self.cfg.n_shards)
-        row = self.table(type_name).alloc_row(shard)
+        row = self._alloc_row(self.table(type_name), shard, dk)
         ent = (type_name, shard, row)
         self.directory[dk] = ent
         self.note_ckpt_dirty(dk)
+        if self.cold is not None:
+            self.cold.note_birth(dk)
         return ent
+
+    def _alloc_row(self, t: TypedTable, shard: int, dk) -> int:
+        """A row of ``t`` for a key born into it.  A row the cold tier
+        freed still holds its previous tenant's bytes in the frozen slot
+        of any live serving epoch, so a key born on one is marked for the
+        locked path on every live epoch before the directory binds it."""
+        reused = bool(t.free_rows.get(shard))
+        row = t.alloc_row(shard)
+        if reused:
+            self.mark_epoch_fallback(dk)
+        return row
 
     def locate_many(self, objects: Sequence[BoundObject]) -> None:
         """Pre-bind a batch of objects (one routing pass for the unseen
@@ -475,15 +523,27 @@ class KVStore:
         ]
         if not missing:
             return
+        if self.cold is not None:
+            still = []
+            for key, type_name, bucket in missing:
+                if self.cold.is_cold((key, bucket)):
+                    self.cold.fault_in((key, bucket))
+                else:
+                    still.append((key, type_name, bucket))
+            missing = still
+            if not missing:
+                return
         shards = shard_batch([m[0] for m in missing], [m[2] for m in missing],
                              self.cfg.n_shards)
         for (key, type_name, bucket), shard in zip(missing, shards):
             dk = (key, bucket)
             if dk in self.directory:  # duplicate within the batch
                 continue
-            row = self.table(type_name).alloc_row(int(shard))
+            row = self._alloc_row(self.table(type_name), int(shard), dk)
             self.directory[dk] = (type_name, int(shard), int(row))
             self.note_ckpt_dirty(dk)
+            if self.cold is not None:
+                self.cold.note_birth(dk)
 
     # ------------------------------------------------------------------
     def apply_effects(self, effects: Sequence[Effect],
@@ -583,6 +643,7 @@ class KVStore:
             rows_by_table: Dict[str, list] = {}
             dks: List[Tuple[Any, str]] = []
             parents: List[Tuple[Any, str]] = []
+            touched: List[Tuple[Any, str]] = []
             for eff, vc_, org in zip(effs, vcs, orgs):
                 tname_t, shard, row = self.locate(eff.key, eff.type_name,
                                                   eff.bucket)
@@ -598,6 +659,7 @@ class KVStore:
                                     eff.bucket, eff.eff_a, eff.eff_b, vc_,
                                     org, eff.blob_refs))
                 dks.append((eff.key, eff.bucket))
+                touched.append((eff.key, eff.bucket))
                 # a field or membership write kills the parent map's
                 # assembled value (recursively for nested maps)
                 k = eff.key
@@ -605,10 +667,11 @@ class KVStore:
                        and k[0] in _DERIVED_NS):
                     k = k[1]
                     parents.append((k, eff.bucket))
+                    touched.append((k, eff.bucket))
                 rows_by_table.setdefault(tname_t, []).append(
                     (shard, row, eff.eff_a, eff.eff_b, vc_, org))
             to_log.append(entries)
-            staged.append((rows_by_table, dks, parents))
+            staged.append((rows_by_table, dks, parents, touched))
         # durability first: log (with blob payloads) before any table
         # observes the batch, failure-atomically per sub-group
         errors: List[Optional[Exception]] = [None] * len(groups)
@@ -618,13 +681,16 @@ class KVStore:
         by_table: Dict[str, list] = {}
         written: List[Tuple[Any, str]] = []
         inval: List[Tuple[Any, str]] = []
-        for (rows_by_table, dks, parents), err in zip(staged, errors):
+        lru: List[Tuple[Any, str]] = []
+        for (rows_by_table, dks, parents, touched), err in zip(staged,
+                                                               errors):
             if err is not None:
                 continue
             for tname_t, items in rows_by_table.items():
                 by_table.setdefault(tname_t, []).extend(items)
             written.extend(dks)
             inval.extend(parents)
+            lru.extend(touched)
         self.note_ckpt_dirty_many(written)
         ticket = None
         if logging and written:
@@ -665,6 +731,12 @@ class KVStore:
         # ops)
         for shards, vcs_ in clocks:
             np.maximum.at(self.applied_vc, shards, vcs_)
+        if self.cold is not None and lru:
+            # the write-LRU touch (each key and the parent maps it
+            # invalidates, in commit order), then bounded budget
+            # enforcement, both under the caller's commit lock
+            self.cold.note_writes(lru)
+            self.cold.maybe_evict()
         return errors, ticket
 
     # ------------------------------------------------------------------
@@ -802,6 +874,8 @@ class KVStore:
             if dk in ep.promoted:
                 return None
             if ent is None:
+                if self.cold is not None and self.cold.is_cold(dk):
+                    return None  # a cold key: the locked path faults it in
                 vals.append(self._bottom_value(type_name))
                 continue
             tname_t, shard, row = ent
@@ -918,6 +992,9 @@ class KVStore:
                 continue
             ent = self.directory.get(dk)
             if ent is None:
+                if self.cold is not None and self.cold.is_cold(dk):
+                    fallback.append(i)  # faulted in by the locked path
+                    continue
                 vals[i] = self._bottom_value(type_name)
                 continue
             if dk in ep.promoted:
@@ -1153,6 +1230,12 @@ class KVStore:
                                 state[f][j] = rep_[f]
             for j, (i, _, _) in enumerate(items):
                 out[i] = {f: x[j] for f, x in state.items()}
+        if self.cold is not None:
+            # a read batch that faulted cold rows in can overshoot the
+            # resident budget; reads never evict mid-batch (a row located
+            # earlier in the batch must survive its gather), so here,
+            # with everything on the host, the budget is enforced again
+            self.cold.maybe_evict()
         return out
 
     def _bottom_resolved(self, type_name: str) -> Dict[str, np.ndarray]:
@@ -1211,6 +1294,8 @@ class KVStore:
                     view = {f: x.cpu().numpy() for f, x in view.items()}
                     for n, j in enumerate(js):
                         out[items[j][0]] = {f: x[n] for f, x in view.items()}
+        if self.cold is not None:
+            self.cold.maybe_evict()  # post-batch only, as in read_states
         return out
 
     def read_values(self, objects: Sequence[BoundObject],
@@ -1373,6 +1458,21 @@ class KVStore:
         assert self.log is not None
         last_commit: Dict = {}
         self.last_recovery_records = 0
+        saved_cap = None
+        if self.cold is not None:
+            # the replay is operator-paced: a fault-rate cap sized for
+            # client traffic must not refuse the tail's own fault-ins (the
+            # node would fail to boot at the same record forever)
+            saved_cap, self.cold.fault_rate_cap = (
+                self.cold.fault_rate_cap, 0.0)
+        try:
+            self._recover_inner(track_origin, last_commit)
+        finally:
+            if saved_cap is not None:
+                self.cold.fault_rate_cap = saved_cap
+        return last_commit
+
+    def _recover_inner(self, track_origin, last_commit) -> None:
         for shard in range(self.cfg.n_shards):
             batch: List[Effect] = []
             vcs: List[np.ndarray] = []
@@ -1406,7 +1506,6 @@ class KVStore:
                     batch, vcs, orgs = [], [], []
             if batch:
                 self._apply_recovered(batch, vcs, orgs)
-        return last_commit
 
     def _apply_recovered(self, batch, vcs, orgs) -> None:
         log, self.log = self.log, None  # never re-log during replay

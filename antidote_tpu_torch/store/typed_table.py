@@ -69,6 +69,13 @@ class TypedTable:
         self.n_rows = n_rows or cfg.keys_per_table
         self.n_shards = n_shards or cfg.n_shards
         self.used_rows = np.zeros((self.n_shards,), np.int64)
+        #: per-shard reusable rows freed by the cold tier's guarded evict
+        #: (``store/coldtier.py``): ``alloc_row`` pops here before it
+        #: advances the high-water mark, which keeps device residency
+        #: bounded under a keyspace larger than the card.  ``used_rows``
+        #: stays the row extent's high-water mark (freed rows below it
+        #: hold zeros)
+        self.free_rows: Dict[int, list] = {}
         self.next_seq = 1
         #: host-tracked bound on |eff_a lane 0| over every appended effect.
         #: The port's ``counter_fold`` sums in int64 and needs no gate; the
@@ -121,6 +128,8 @@ class TypedTable:
         #: write windows of freezes whose store-wide publish deferred:
         #: the next successful epoch's touched set must carry them
         self._pending_touched: "frozenset | None" = frozenset()
+        #: the staging buffers of a one-row install (``_row_stage``)
+        self._stage = None
         #: (shard, row) pairs written since the last CHECKPOINT capture —
         #: the delta link's dirty window (independent of the serving
         #: windows above).  None = untracked (past the cap, or an
@@ -300,11 +309,56 @@ class TypedTable:
     # row allocation / growth
     # ------------------------------------------------------------------
     def alloc_row(self, shard: int) -> int:
+        free = self.free_rows.get(shard)
+        if free:
+            # an evicted row: the guarded evict zeroed its whole device
+            # state, so the new tenant starts from bottom like a fresh
+            # row (and the evictor marked it touched, so no frozen buffer
+            # serves the previous tenant's bytes)
+            return free.pop()
         if self.used_rows[shard] == self.n_rows:
             self._grow()
         r = int(self.used_rows[shard])
         self.used_rows[shard] += 1
         return r
+
+    def resident_rows(self) -> int:
+        """Device rows holding key state: the allocation high-water mark
+        minus the freed (evicted, reusable) rows — what the cold tier's
+        resident budget bounds."""
+        return int(self.used_rows.sum()) - sum(
+            len(v) for v in self.free_rows.values())
+
+    def evict_rows(self, shards, rows) -> None:
+        """The GUARDED device-row drop of the cold tier (nothing outside
+        ``store/coldtier.py`` calls it without an ``# evict-ok:`` note):
+        zero the rows' whole device state — head, snapshot versions, op
+        ring — in place on the table's stream, and push them onto the
+        per-shard free lists.  The caller owns the correctness obligations:
+        a retained checkpoint sidecar covers the rows' state, the keys are
+        unbound from the directory, and every live serving epoch falls
+        back for them.  A head copy issued earlier on the same stream (a
+        checkpoint stamp's clone) keeps the rows' bytes from before."""
+        shards = np.asarray(shards, np.int64)
+        rows = np.asarray(rows, np.int64)
+        if len(rows) == 0:
+            return
+        ss, rr = self._idx_async(shards), self._idx_async(rows)
+        for grp in (self.snap, self.head):
+            for x in grp.values():
+                x[ss, rr] = 0
+        for name in ("snap_vc", "snap_seq", "ops_a", "ops_b", "ops_vc",
+                     "ops_origin", "head_vc"):
+            getattr(self, name)[ss, rr] = 0
+        self.n_ops[shards, rows] = 0
+        self.slots_ub[shards, rows] = 0
+        for s, r in zip(shards.tolist(), rows.tolist()):
+            self.free_rows.setdefault(s, []).append(r)
+        # the cleared rows must not serve from a frozen serving slot (the
+        # next publish re-freezes them), nor from a table epoch, which
+        # would serve them for the row's next tenant
+        self.note_serving_touch(shards, rows)
+        self.epochs.clear()
 
     def _grow(self):
         add = self.n_rows
@@ -465,34 +519,104 @@ class TypedTable:
                 self.head_vc[ss, rr])
 
     def install_rows(self, shards, rows, head_rows, head_vc_rows) -> None:
-        """Install per-row head states (a delta checkpoint link's rows):
-        set the head and seed ONE snapshot version from it, so versioned
-        reads at clocks ≥ the row's head_vc fold the empty ring on this
-        base exactly and reads below surface the compaction horizon.
+        """Install per-row head states (a delta link's rows, a cold
+        fault-in): set the head and seed ONE snapshot version from it, so
+        versioned reads at clocks ≥ the row's head_vc fold the empty ring
+        on this base exactly and reads below surface the compaction
+        horizon.  The rows must be fresh or evict-cleared (empty ring).
         ``head_rows`` maps field -> [M, ...] host arrays."""
         shards = np.asarray(shards, np.int64)
         rows = np.asarray(rows, np.int64)
         m = len(rows)
         if m == 0:
             return
+        hvc_rows = np.asarray(head_vc_rows, np.int32)
+        if m == 1:
+            self._install_one(int(shards[0]), int(rows[0]), head_rows,
+                              hvc_rows[0])
+        else:
+            self._install_many(shards, rows, head_rows, hvc_rows)
+        self.n_ops[shards, rows] = 0
+        np.maximum(self.max_commit_vc, hvc_rows.max(axis=0),
+                   out=self.max_commit_vc)
+        self.note_serving_touch(shards, rows)
+        self.epochs.clear()
+
+    def _row_stage(self) -> dict:
+        """Staging buffers for one row's install, built once: a host
+        buffer (pinned on a card) laid out as the row's head fields, its
+        head_vc and its sequence id at 8-byte aligned offsets, the device
+        buffer it is copied to, and views of both."""
+        st = self._stage
+        if st is None:
+            specs = [(f, x.dtype, tuple(x.shape[2:]))
+                     for f, x in self.head.items()]
+            specs += [("\0vc", torch.int32, (self.head_vc.shape[-1],)),
+                      ("\0seq", torch.int64, ())]
+            off, lay = 0, {}
+            for name, dt, shape in specs:
+                off = (off + 7) // 8 * 8
+                one = torch.empty((), dtype=dt)
+                n = int(np.prod(shape, dtype=np.int64)) * one.element_size()
+                lay[name] = (off, n, dt, one.numpy().dtype, shape)
+                off += n
+            host = torch.zeros(max(off, 8), dtype=torch.uint8)
+            on_card = self.device.type == "cuda"
+            if on_card:
+                host = host.pin_memory()
+            dev = (torch.empty_like(host, device=self.device) if on_card
+                   else host)
+            hnp = host.numpy()
+            st = self._stage = {
+                "host": host, "dev": dev, "on_card": on_card,
+                "event": torch.cuda.Event() if on_card else None,
+                "np": {k: hnp[o:o + n].view(ndt).reshape(shape)
+                       for k, (o, n, _dt, ndt, shape) in lay.items()},
+                "view": {k: dev[o:o + n].view(dt).view(shape)
+                         for k, (o, n, dt, _ndt, shape) in lay.items()}}
+        return st
+
+    def _install_one(self, s: int, r: int, head_rows, hvc) -> None:
+        """One row (a cold fault-in): the row reaches the device in one
+        copy through the staging buffers, and one multi-tensor copy writes
+        every destination."""
+        st = self._row_stage()
+        if st["on_card"]:
+            st["event"].synchronize()  # the last row's copy has read it
+        hnp = st["np"]
+        for f in self.head:
+            hnp[f][...] = np.asarray(head_rows[f])[0]
+        hnp["\0vc"][...] = hvc
+        hnp["\0seq"][...] = self.next_seq
+        self.next_seq += 1
+        if st["on_card"]:
+            st["dev"].copy_(st["host"], non_blocking=True)
+            st["event"].record()
+        v = st["view"]
+        dst, src = [], []
+        for f, x in self.head.items():
+            dst += [x[s, r], self.snap[f][s, r, 0]]
+            src += [v[f], v[f]]
+        dst += [self.head_vc[s, r], self.snap_vc[s, r, 0],
+                self.snap_seq[s, r, 0]]
+        src += [v["\0vc"], v["\0vc"], v["\0seq"]]
+        torch._foreach_copy_(dst, src)
+
+    def _install_many(self, shards, rows, head_rows, hvc_rows) -> None:
+        """Several rows (a delta link)."""
+        m = len(rows)
         ss, rr = self._idx(shards), self._idx(rows)
         dev = self.device
         for f, x in self.head.items():
             v = torch.as_tensor(np.asarray(head_rows[f]), device=dev)
             x[ss, rr] = v
             self.snap[f][ss, rr, 0] = v
-        hvc = torch.as_tensor(np.asarray(head_vc_rows, np.int32), device=dev)
+        hvc = torch.as_tensor(hvc_rows, device=dev)
         self.head_vc[ss, rr] = hvc
         self.snap_vc[ss, rr, 0] = hvc
         self.snap_seq[ss, rr, 0] = torch.arange(
             self.next_seq, self.next_seq + m, dtype=torch.int64, device=dev)
         self.next_seq += m
-        self.n_ops[shards, rows] = 0
-        np.maximum(self.max_commit_vc,
-                   np.asarray(head_vc_rows, np.int32).max(axis=0),
-                   out=self.max_commit_vc)
-        self.note_serving_touch(shards, rows)
-        self.epochs.clear()
 
     # ------------------------------------------------------------------
     # reads

@@ -27,7 +27,7 @@ Run from the root of a checkout on a machine with a CUDA card (one card;
    against a host oracle built from the op stream, then run an
    ``AntidoteNode`` workload on ``set_aw`` and ``counter_pn`` against a
    host model, historical reads included; then the serving read plane
-   (``serving``) on a second 1M-key ``set_aw`` store populated through
+   (``serving``) on a 500,000-key ``set_aw`` store populated through
    ``KVStore.apply_effect_groups``: two copy publishes and ten scatters of
    serving epochs, 60 Zipf batches read through the epoch plane (pin,
    launch — one of them under the CUDA sync debug mode — finish, unpin)
@@ -38,7 +38,7 @@ Run from the root of a checkout on a machine with a CUDA card (one card;
    rung 2 (no fold) and rung 3 (``set_aw_fold``); a node's Zipf-hot
    reads through the value cache, warm and cold;
 4. drive a 4-member DC (``ClusterMember``/``ClusterNode`` over localhost
-   RPC, 2048 shards, all on the card): populate 200,000 ``set_aw`` keys
+   RPC, 2048 shards, all on the card): populate 100,000 ``set_aw`` keys
    from every member's coordinator, remove on 2,000 keys through the
    owners' downstream, run mixed transactions from every coordinator
    (every start launches ``stable_min`` on the 2048 x 4 clock matrix),
@@ -46,7 +46,7 @@ Run from the root of a checkout on a machine with a CUDA card (one card;
    every key against a host model, at the stable snapshot and at an
    older one;
 5. the other types (``types``): the nine device types other than set_aw
-   and counter_pn, one 100,000-key table each at BASELINE widths, filled
+   and counter_pn, one 25,000-key table each at BASELINE widths, filled
    by a seeded three-lane stream and read fresh and historical, equal to
    the same table built on the CPU; then a node session over them and the
    maps against a host model (``bench_suite.py``'s map and rga workloads,
@@ -69,14 +69,30 @@ Run from the root of a checkout on a machine with a CUDA card (one card;
    raises the compaction-horizon error; the replay-read ladder (``assoc``,
    ``serial``, ``long``) against a host model; commit latency under
    ``sync_log`` false and true.  Its figures print on a ``durable:`` line
-   beside the card;
-7. print one JSON line per kernel record, the card line, and last the
+   beside the card.  The node carries a cold tier with no budget, so its
+   full image writes the cold sidecar, and the directory is kept for:
+7. the cold tier and shard handoff (``cold``) on that directory: a
+   recovery with 150,000 of its 600,000 rows resident (the rest evicted
+   to the sidecar), 20 Zipf(1.0) batches of 16,384 keys over every key
+   faulting cold keys in (every value equal to the durable phase's, beside
+   the same batches on its all-resident node), writes to faulted-in keys
+   and reads between them (``set_aw_fold``, ``counter_fold``), a burst of
+   cold reads under a fault-rate cap and an injected ``coldtier.fault``
+   (typed ``ColdMiss``, never a wrong value), a full image carrying the
+   cold rows forward, a delta link after more evictions, a recovery with
+   the cold keys registered, one shard exported (its cold keys faulted
+   in), imported into a fresh durable node and dropped at the source (no
+   key resurrects at the source's restart), and the destination, restarted,
+   resharded from 8 to 16 shards (every value and route equal).  Its
+   figures print on a ``cold:`` line beside the card;
+8. print one JSON line per kernel record, the card line, and last the
    ``{"ok": true, ...}`` line.
 
 The launch counts are reset just before the serve, the node workload, the
-serving plane, the cluster, the types phase and the durable phase, and
-read just after each; each must show the kernels that ``PATH_KERNELS``
-names for it, and a kernel record's ``launches`` is the sum over the six.
+serving plane, the cluster, the types phase, the durable phase and the
+cold phase, and read just after each; each must show the kernels that
+``PATH_KERNELS`` names for it, and a kernel record's ``launches`` is the
+sum over the seven.
 The serve must launch ``orset_presence`` exactly once per
 ``SetAW.resolve``, and a resolve on a CUDA state must call no torch sort.
 Exits non-zero without a CUDA device, and outside a
@@ -108,8 +124,10 @@ B, K, D, E = 16384, 16, 4, 16
 N_KEYS, ADDS_PER_KEY, POP_BATCH = 1_000_000, 3, 16384
 SERVE_BATCHES, HIST_EVERY = 60, 5
 # the cluster: members, shards, keys, adds per key, updates per populate
-# txn, removed keys, mixed txns per coordinator
-CL_MEMBERS, CL_SHARDS, CL_KEYS, CL_ADDS = 4, 2048, 200_000, 3
+# txn, removed keys, mixed txns per coordinator.  The keys are half of
+# the repo benchmark's 200,000 (cut with the cold phase's arrival: the
+# script's 600 s budget; the populate scales with them)
+CL_MEMBERS, CL_SHARDS, CL_KEYS, CL_ADDS = 4, 2048, 100_000, 3
 CL_TXN, CL_REMOVES, CL_MIXED = 1024, 2000, 256
 # set_aw_fold's edge cases (K, E, D) at an odd B: the tier widths, widths
 # that fill no whole segment of lanes, 1 to 12 clock lanes, rings of one
@@ -131,24 +149,40 @@ ORSET_CASES = [(8, 4), (16, 4), (17, 4), (40, 4), (64, 4), (256, 4),
 COUNTER_CASES = [(1, 4), (16, 4), (33, 4), (16, 1), (16, 3), (33, 8)]
 # the types phase: the nine device types at BASELINE widths, one table of
 # TY_KEYS keys each, TY_ROUNDS ops a key (every ring GCs once), historical
-# reads at the cut after TY_CUT rounds
-TY_KEYS, TY_ROUNDS, TY_CUT, TY_SHARDS = 100_000, 20, 18, 8
+# reads at the cut after TY_CUT rounds.  25,000 keys a type, a quarter of
+# the 100,000 of earlier runs (cut with the cold phase's arrival: the
+# populate and its CPU twin scale with the keys)
+TY_KEYS, TY_ROUNDS, TY_CUT, TY_SHARDS = 25_000, 20, 18, 8
 MV_SLOTS, RGA_SLOTS = 4, 64
-# the serving phase: element pool, publish rounds of SV_ROUND_KEYS keys x 4
-# effects, epoch-read batches, the concurrent writer's round size, the
-# hot set; long logs of LL_OPS ops for LL_KEYS keys
+# the serving phase: keys (half of BASELINE's 1M, cut with the cold
+# phase's arrival: the populate through the store scales with them),
+# element pool, publish rounds of SV_ROUND_KEYS keys x 4 effects,
+# epoch-read batches, the concurrent writer's round size, the hot set;
+# long logs of LL_OPS ops for LL_KEYS keys
+SV_KEYS = 500_000
 SV_POOL, SV_ROUNDS, SV_ROUND_KEYS, SV_BATCHES = 4096, 10, 4096, 60
 SV_WRITE_KEYS, SV_HOT = 256, 1024
 LL_KEYS, LL_OPS = 1024, 4096
 # the durable phase: set_aw and counter_pn keys, transactions per commit
 # group, delta rounds before the link and tail rounds after it (each of
-# SV_ROUND_KEYS keys), the ladder's long logs.  The set keys are half of
+# SV_ROUND_KEYS keys), the ladder's long logs (past its fold chunk of
+# 1,024 ops; 5,000 past 4,096 before the cold phase came).  The set keys
+# are half of
 # BASELINE's 1M: at 500,000 the phase takes 137-146 s on the card and the
 # whole script 417-519 s (hosts differ); its populate, full image and
 # whole-store reads grow with the keys and would add ~80-100 s at 1M,
 # taking the script to or past its 600 s budget on the slower host
 DU_SET_KEYS, DU_CTR_KEYS, DU_GROUP = 500_000, 100_000, 4096
-DU_ROUNDS, DU_TAIL_ROUNDS, DU_LADDER_LONG = 32, 16, 5000
+DU_ROUNDS, DU_TAIL_ROUNDS, DU_LADDER_LONG = 32, 16, 1500
+# the cold phase, on the durable phase's directory: the resident budget (a
+# quarter of its 600,000 rows), Zipf read batches, the faulted-in keys of
+# the write rounds, the rate cap's fault-ins a second and its burst, the
+# sample of keys checked after the second recovery, the budget the delta
+# link's evictions go down to, the shard moved by handoff and the
+# reshard's shard count
+CO_RESIDENT, CO_BATCHES, CO_ROUND_KEYS = 150_000, 20, 2048
+CO_CAP, CO_BURST, CO_SAMPLE, CO_EVICT_TO = 10.0, 256, 2048, 100_000
+CO_SHARD, CO_NEW_SHARDS = 3, 16
 # the kernels each path must launch: the serve resolves sets (presence)
 # and folds the historical batches; the node session folds a set and a
 # counter at older snapshots; every cluster transaction start merges the
@@ -157,14 +191,17 @@ DU_ROUNDS, DU_TAIL_ROUNDS, DU_LADDER_LONG = 32, 16, 5000
 # counter_pn fields); the serving plane resolves every epoch and rung-2
 # gather (sets) and folds rung 3's stale rows; the durable node resolves
 # every set read, and its reads at the clock inside the WAL tail fold the
-# recovered rings (sets and counters)
+# recovered rings (sets and counters); the cold phase resolves every set
+# read, faulted-in keys included, and its reads between two writes to
+# faulted-in keys fold the installed base (sets and counters)
 PATH_KERNELS = {"serve": ("orset_presence", "set_aw_fold"),
                 "node": ("counter_fold", "set_aw_fold"),
                 "serving": ("orset_presence", "set_aw_fold"),
                 "cluster": ("stable_min",),
                 "types": ("orset_presence", "set_aw_fold", "counter_fold"),
                 "durable": ("orset_presence", "set_aw_fold",
-                            "counter_fold")}
+                            "counter_fold"),
+                "cold": ("orset_presence", "set_aw_fold", "counter_fold")}
 
 
 def log(msg: str) -> None:
@@ -932,9 +969,9 @@ def node_workload(dev) -> dict:
 # ---------------------------------------------------------------------------
 # phase 3c: the serving read plane at BASELINE's size
 # ---------------------------------------------------------------------------
-def serving_phase(torch, dev, n_keys=N_KEYS, batches=SV_BATCHES,
+def serving_phase(torch, dev, n_keys=SV_KEYS, batches=SV_BATCHES,
                   rounds=SV_ROUNDS, batch=B) -> dict:
-    """The serving read plane on a 1M-key ``set_aw`` store, all on the
+    """The serving read plane on a ``set_aw`` store of ``n_keys``, all on the
     card: populate through ``KVStore.apply_effect_groups`` (BASELINE's
     stream, elements from an interned pool of SV_POOL values); publish
     serving epochs (two copies, then ``rounds`` scatters after commit
@@ -1710,10 +1747,14 @@ def types_tables(torch, dev, n_keys=TY_KEYS) -> dict:
                 # where a historical batch's time goes (serial fold, plain
                 # resolve): device busy share and the top device kernels
                 hv = np.broadcast_to(cuts["historical"], (B, D))
+
+                def hist_batch(j):
+                    kk = keys[j * B:(j + 1) * B]
+                    return t.read_resolved_flat(kk % p, kk // p,
+                                                hv[:len(kk)])
+
                 run["historical_profile"] = profile_window(
-                    torch, lambda j: t.read_resolved_flat(
-                        keys[j * B:(j + 1) * B] % p,
-                        keys[j * B:(j + 1) * B] // p, hv), range(2))
+                    torch, hist_batch, range(2))
             runs[where] = run
             del t
             if d.type == "cuda":
@@ -2122,7 +2163,9 @@ def _heads_equal(torch, live, rec) -> dict:
 def durable_phase(torch, dev, n_set=DU_SET_KEYS, n_ctr=DU_CTR_KEYS,
                   rounds=DU_ROUNDS, tail_rounds=DU_TAIL_ROUNDS,
                   round_keys=SV_ROUND_KEYS, group=DU_GROUP,
-                  ladder_long=DU_LADDER_LONG, fold_chunk=4096) -> dict:
+                  ladder_long=DU_LADDER_LONG, fold_chunk=1024,
+                  keep=None, zipf_batches=CO_BATCHES,
+                  zipf_batch=B) -> dict:
     """A durable ``AntidoteNode`` at BASELINE's configuration, all on the
     card: populate ``n_set`` ``set_aw`` keys (2 adds each, elements from a
     4,096-value pool, removes on 10%) and ``n_ctr`` ``counter_pn`` keys (2
@@ -2138,7 +2181,15 @@ def durable_phase(torch, dev, n_set=DU_SET_KEYS, n_ctr=DU_CTR_KEYS,
     in its own directory (long logs read at old clocks: ``assoc``,
     ``serial``, ``long``, held to a host model, and a whole-log recovery of
     that directory), and commit latency under ``sync_log`` false and
-    true."""
+    true.
+
+    The node carries a cold tier without a budget, so its full image
+    writes the cold sidecar beside the image.  With ``keep`` (a dict) the
+    log directory outlives the phase for the cold phase, which deletes it:
+    ``keep`` receives the directory, the configuration, every object and
+    its value after the phase's last write, and the batch times of the
+    cold phase's Zipf reads on the recovered node, all of whose rows are
+    resident."""
     import dataclasses
     import shutil
     import tempfile
@@ -2207,6 +2258,7 @@ def durable_phase(torch, dev, n_set=DU_SET_KEYS, n_ctr=DU_CTR_KEYS,
         log(f"durable: populated {out['wal_records']} records in "
             f"{out['populate_s']:.1f} s")
         # ---- full checkpoint -------------------------------------------
+        node.enable_cold_tier(0)  # no budget: the image writes a sidecar
         node.start_checkpointer(interval_s=0.0, rebase_every=64)
         full = node.checkpoint_now(full=True)
         # the bytes the stamp's clones move: each table's heads up to its
@@ -2234,6 +2286,7 @@ def durable_phase(torch, dev, n_set=DU_SET_KEYS, n_ctr=DU_CTR_KEYS,
                        "image_mb_s": full["image_bytes"] / 1e6
                        / full["total_s"],
                        "reclaimed_bytes": full["reclaimed_bytes"],
+                       "sidecar_bytes": full["cold"]["bytes"],
                        "rows": full["n_rows"]}
         full_stamp = np.asarray(node.store.applied_vc.max(axis=0))
         log(f"durable: full checkpoint {json.dumps(out['full'])}")
@@ -2379,6 +2432,21 @@ def durable_phase(torch, dev, n_set=DU_SET_KEYS, n_ctr=DU_CTR_KEYS,
                                  f"{vc_new}, not above {live_counter}")
         out["checked"] = {"fresh": len(all_objs), "mid": len(tail_objs),
                           "mid_launches": mid_launches}
+        if keep is not None:
+            want_fresh[n_set] = rec.read_objects([ck(0)])[0][0]
+            # the cold phase's Zipf batches on this node, every row
+            # resident, its value cache emptied first; their popularity is
+            # the rounds' (the writer thread's and the tail's keys after)
+            ranking = np.concatenate([
+                _ranking(hot, n_set + hot_c),
+                rng.permutation(np.concatenate([tail_keys,
+                                                n_set + tail_ctrs]))])
+            rec.store._value_cache.clear()
+            keep.update(root=root, dir=d, cfg=cfg, objs=all_objs,
+                        want=want_fresh, n_set=n_set, ranking=ranking,
+                        resident_ms=_zipf_reads(
+                            torch, rec, all_objs, want_fresh, ranking,
+                            zipf_batches, zipf_batch)[0])
         rec.close()
         del node, rec
         # ---- the replay-read ladder ------------------------------------
@@ -2400,7 +2468,8 @@ def durable_phase(torch, dev, n_set=DU_SET_KEYS, n_ctr=DU_CTR_KEYS,
             out[f"commit_ms_sync_{str(sync).lower()}"] = _ms_pcts(ms)
         lat.close()
     finally:
-        shutil.rmtree(root, ignore_errors=True)
+        if keep is None or "dir" not in keep:
+            shutil.rmtree(root, ignore_errors=True)
     return out
 
 
@@ -2490,6 +2559,472 @@ def _replay_ladder(torch, cfg, d, dev, n_long) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the cold tier and shard handoff
+# ---------------------------------------------------------------------------
+def _ranking(*ranked):
+    """One popularity order over several ranked index arrays, each spread
+    over the whole order in proportion to its length (rank r of a list of
+    n lands at r / n)."""
+    idx = np.concatenate(ranked)
+    pos = np.concatenate([np.arange(len(x)) / max(len(x), 1)
+                          for x in ranked])
+    return idx[np.argsort(pos, kind="stable")]
+
+
+def _zipf_plan(ranking, batches, batch):
+    """The cold phase's read batches: Zipf(1.0) draws over ``ranking``,
+    the durable phase's write popularity (its Zipf rounds' order), so the
+    reads' hot keys are the writes' hot keys."""
+    rng = np.random.default_rng(53)
+    n = len(ranking)
+    return [ranking[zipf_keys(rng, n, batch)] for _ in range(batches)]
+
+
+def _zipf_reads(torch, node, objs, want, ranking, batches, batch):
+    """The cold phase's Zipf batches through ``node.read_objects``, every
+    value held to ``want``.  Returns (each batch's ms, each batch's share
+    of cold keys among its distinct keys at its start)."""
+    cold = node.store.cold
+    on_card = node.store.device.type == "cuda"
+    ms, shares = [], []
+    for idx in _zipf_plan(ranking, batches, batch):
+        if cold is not None:
+            uniq = np.unique(idx)
+            shares.append(sum(cold.is_cold((objs[i][0], objs[i][2]))
+                              for i in uniq.tolist()) / len(uniq))
+        t = time.perf_counter()
+        vals = node.read_objects([objs[i] for i in idx])[0]
+        if on_card:
+            torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t) * 1e3)
+        bad = [i for i, v in zip(idx.tolist(), vals) if v != want[i]]
+        if bad:
+            raise AssertionError(f"{len(bad)} Zipf reads differ, first "
+                                 f"{objs[bad[0]]}")
+    return ms, shares
+
+
+def _stats(xs) -> dict:
+    if not len(xs):
+        return {"n": 0}
+    xs = np.asarray(xs, np.float64)
+    return {"n": int(len(xs)), "p50": float(np.percentile(xs, 50)),
+            "p99": float(np.percentile(xs, 99)), "mean": float(xs.mean()),
+            "max": float(xs.max())}
+
+
+class _ColdTimers:
+    """Host-clock timers patched around the cold tier while the phase
+    runs: each eviction batch (rows, ms with the card synchronized after
+    it, resident rows at its start), each fault-in (µs) with its sidecar
+    read and its row install apart, the sidecar write and the rebase's
+    carry-forward."""
+
+    def __init__(self, torch, on_card):
+        from antidote_tpu_torch.log.checkpoint import Checkpointer
+        from antidote_tpu_torch.store import coldtier
+        from antidote_tpu_torch.store.typed_table import TypedTable
+
+        self.evicts, self.faults, self.reads, self.installs = [], [], [], []
+        self.faulted, self.spans = [], {}
+        self._undo = []
+
+        def patch(owner, name, make):
+            orig = getattr(owner, name)
+            setattr(owner, name, make(orig))
+            self._undo.append((owner, name, orig))
+
+        def timed_evict(orig):
+            def evict_now(tier, max_rows=coldtier.ColdTier.EVICT_BATCH):
+                before = tier.resident_rows()
+                t = time.perf_counter()
+                n = orig(tier, max_rows)
+                if on_card:
+                    torch.cuda.synchronize()
+                if n:
+                    self.evicts.append(
+                        (n, (time.perf_counter() - t) * 1e3, before))
+                return n
+            return evict_now
+
+        def timed_fault(orig):
+            def fault_in(tier, dk, admit=True):
+                n0 = tier.faults
+                t = time.perf_counter()
+                ent = orig(tier, dk, admit)
+                if tier.faults > n0:
+                    self.faults.append((time.perf_counter() - t) * 1e6)
+                    self.faulted.append(dk)
+                return ent
+            return fault_in
+
+        def timed_read(orig):
+            def read_row(sc, tname, shard, row):
+                t = time.perf_counter()
+                out = orig(sc, tname, shard, row)
+                self.reads.append((time.perf_counter() - t) * 1e6)
+                return out
+            return read_row
+
+        def timed_install(orig):
+            def install_rows(t_, shards, rows, head_rows, head_vc_rows):
+                t = time.perf_counter()
+                orig(t_, shards, rows, head_rows, head_vc_rows)
+                if len(rows) == 1:
+                    self.installs.append((time.perf_counter() - t) * 1e6)
+            return install_rows
+
+        def span(name):
+            def make(orig):
+                def run(*a, **kw):
+                    t = time.perf_counter()
+                    try:
+                        return orig(*a, **kw)
+                    finally:
+                        self.spans.setdefault(name, []).append(
+                            time.perf_counter() - t)
+                return run
+            return make
+
+        patch(coldtier.ColdTier, "evict_now", timed_evict)
+        patch(coldtier.ColdTier, "fault_in", timed_fault)
+        patch(coldtier.Sidecar, "read_row", timed_read)
+        patch(TypedTable, "install_rows", timed_install)
+        patch(coldtier, "write_sidecar", span("write_sidecar"))
+        patch(Checkpointer, "_carry_cold", span("carry_cold"))
+
+    def fault_summary(self) -> dict:
+        """Fault-in µs a key since the last call, split into the sidecar's
+        read and the row's install, and the eviction batches."""
+        out = {"faults": len(self.faults), "fault_us": _stats(self.faults),
+               "pread_us": _stats(self.reads),
+               "install_us": _stats(self.installs),
+               "evict_batches": len(self.evicts),
+               "evict_rows": int(sum(e[0] for e in self.evicts)),
+               "evict_batch_ms": _stats([e[1] for e in self.evicts])}
+        self.faults, self.reads, self.installs, self.evicts = [], [], [], []
+        return out
+
+    def close(self) -> None:
+        for owner, name, orig in reversed(self._undo):
+            setattr(owner, name, orig)
+
+
+def cold_phase(torch, dev, keep, budget=CO_RESIDENT, batches=CO_BATCHES,
+               batch=B, round_keys=CO_ROUND_KEYS, cap=CO_CAP,
+               burst=CO_BURST, sample=CO_SAMPLE, evict_to=CO_EVICT_TO,
+               shard=CO_SHARD, new_shards=CO_NEW_SHARDS) -> dict:
+    """The cold tier and shard handoff on the durable phase's directory
+    (``keep``, which this phase deletes), all on the card:
+
+    1. ``recover=True`` with ``resident_rows=budget``: the image's sidecar
+       anchors every key, and the rows past the budget go cold;
+    2. ``batches`` Zipf(1.0) batches of ``batch`` keys over every key
+       (ranked by the durable phase's write popularity) with no fault-rate
+       cap, every value equal to the durable phase's, beside the same
+       batches on its all-resident node;
+    3. two write rounds to ``round_keys`` faulted-in set keys and 256
+       counters, then reads at the clock between them (the installed base
+       folded with ``set_aw_fold`` and ``counter_fold``);
+    4. a burst of cold reads under a fault-rate cap of ``cap`` a second,
+       and an injected ``coldtier.fault``: typed ColdMiss, never a wrong
+       value;
+    5. a full image carrying the cold rows forward in its sidecar, more
+       evictions (to ``evict_to``) recorded by a delta link, and a second
+       recovery without a budget: the same keys come back cold and a
+       sample of cold and resident keys reads equal;
+    6. shard ``shard`` exported (its cold keys fault in), imported into a
+       fresh durable node and dropped at the source; the moved values
+       equal at the destination and none resurrects at the source's
+       restart;
+    7. the destination, restarted, resharded to ``new_shards`` shards:
+       every value and every route equal.
+    """
+    import dataclasses
+    import shutil
+
+    from antidote_tpu_torch import faults
+    from antidote_tpu_torch.api import AntidoteNode
+    from antidote_tpu_torch.materializer import cuda_kernels as ck_mod
+    from antidote_tpu_torch.overload import ColdMiss
+    from antidote_tpu_torch.store import handoff
+    from antidote_tpu_torch.store.kv import key_to_shard
+
+    cfg, d, objs = keep["cfg"], keep["dir"], keep["objs"]
+    want, n_set = list(keep["want"]), keep["n_set"]
+    n_keys = len(objs)
+    index = {(o[0], o[2]): i for i, o in enumerate(objs)}
+    on_card = torch.device(dev).type == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def recover(**kw):
+        t = time.perf_counter()
+        n = AntidoteNode(cfg, log_dir=d, recover=True, device=dev, **kw)
+        sync()
+        m = n.metrics
+        return n, {"total_s": time.perf_counter() - t,
+                   "checkpoint_s": m.recovery_seconds.value(
+                       phase="checkpoint"),
+                   "tail_s": m.recovery_seconds.value(phase="tail"),
+                   "tail_records": n.store.last_recovery_records}
+
+    def check(node, idx, what):
+        got = _read_all(node, [objs[i] for i in idx])
+        bad = [i for i, v in zip(idx, got) if v != want[i]]
+        if bad:
+            raise AssertionError(f"{what}: {len(bad)} values differ, first "
+                                 f"{objs[bad[0]]}: {got[idx.index(bad[0])]!r}"
+                                 f" != {want[bad[0]]!r}")
+
+    timers = _ColdTimers(torch, on_card)
+    out = {"keys": n_keys, "budget": budget}
+    try:
+        # ---- 1. recover with a resident budget ---------------------------
+        node, out["recovery"] = recover(resident_rows=budget)
+        cold = node.store.cold
+        resident = cold.resident_rows()
+        if not cold.cold_set or (resident > budget
+                                 and cold.evict_now() != 0):
+            raise AssertionError(f"the budget did not hold at recovery: "
+                                 f"{resident} rows, {len(cold.cold_set)} "
+                                 "cold")
+        ev = timers.fault_summary()
+        out["recovery"].update(
+            resident_rows=resident, cold_keys=len(cold.cold_set),
+            resident_before=max([e[2] for e in timers.evicts] or [resident]),
+            evicted=ev["evict_rows"], evict_batches=ev["evict_batches"],
+            evict_batch_ms=ev["evict_batch_ms"])
+        log(f"cold: recovery {json.dumps(out['recovery'])}")
+        # ---- 2. Zipf reads faulting cold keys in -----------------------
+        timers.faulted = []
+        ms, shares = _zipf_reads(torch, node, objs, want, keep["ranking"],
+                                 batches, batch)
+        out["zipf"] = {"batch_ms": _stats(ms),
+                       "resident_batch_ms": _stats(keep["resident_ms"]),
+                       "cold_share": [round(x, 4) for x in shares],
+                       "resident_rows": cold.resident_rows(),
+                       **timers.fault_summary()}
+        log(f"cold: zipf {json.dumps(out['zipf'])}")
+        # ---- 3. writes to faulted-in keys, reads inside them -----------
+        # keys the Zipf reads faulted in; with a budget below the dirty
+        # rows, later batches may have evicted them again, and a write
+        # then faults them back in first
+        faulted = [index[dk] for dk in dict.fromkeys(timers.faulted)]
+        sets = [i for i in faulted if i < n_set][:round_keys]
+        ctrs = [i for i in faulted if i >= n_set][:256]
+        if len(sets) < 16 or len(ctrs) < 16:
+            raise AssertionError(f"too few faulted-in keys: {len(sets)} "
+                                 f"sets, {len(ctrs)} counters")
+        round_objs = [objs[i] for i in sets + ctrs]
+
+        def write_round(tag):
+            adds = [(objs[i][0], "set_aw", objs[i][2],
+                     ("add", tag + i)) for i in sets]
+            incs = [(objs[i][0], "counter_pn", objs[i][2],
+                     ("increment", 1)) for i in ctrs]
+            vcs = _commit_group(node, [adds[j:j + 16]
+                                       for j in range(0, len(adds), 16)]
+                                + [incs[j:j + 64]
+                                   for j in range(0, len(incs), 64)])
+            return np.max(np.stack([np.asarray(v) for v in vcs]), axis=0)
+
+        def model(rounds):
+            return ([sorted(set(map(repr, want[i]))
+                            | {repr(t + i) for t in rounds}) for i in sets]
+                    + [want[i] + len(rounds) for i in ctrs])
+
+        def as_model(vals):
+            return ([sorted(map(repr, v)) for v in vals[:len(sets)]]
+                    + vals[len(sets):])
+
+        vc_a = write_round(1 << 20)
+        vals_a = _read_all(node, round_objs)
+        if as_model(vals_a) != model([1 << 20]):
+            raise AssertionError("a faulted-in key's first write differs")
+        write_round(2 << 20)
+        before = dict(ck_mod.LAUNCHES)
+        got = _read_all(node, round_objs, vc_a)
+        inside = {n: ck_mod.LAUNCHES[n] - before[n] for n in before}
+        if got != vals_a:
+            raise AssertionError("a read inside the writes differs")
+        if on_card and not (inside["set_aw_fold"]
+                            and inside["counter_fold"]):
+            raise AssertionError(f"the reads inside the writes launched "
+                                 f"{inside}")
+        latest = _read_all(node, round_objs)
+        if as_model(latest) != model([1 << 20, 2 << 20]):
+            raise AssertionError("a faulted-in key's second write differs")
+        for i, v in zip(sets + ctrs, latest):
+            want[i] = v
+        out["writes"] = {"sets": len(sets), "counters": len(ctrs),
+                         "inside_launches": inside}
+        # ---- 4. the rate cap and an injected fault ---------------------
+        node.enable_cold_tier(budget, cap)
+        picks = sorted(index[dk] for dk in cold.cold_set)[:burst]
+        ok, refused, hints = 0, [], []
+        t = time.perf_counter()
+        for i in picks:
+            try:
+                v = node.read_objects([objs[i]])[0][0]
+            except ColdMiss as e:
+                refused.append(i)
+                hints.append(e.retry_after_ms)
+                if e.permanent:
+                    raise
+                continue
+            if v != want[i]:
+                raise AssertionError(f"{objs[i]} under the cap: {v!r}")
+            ok += 1
+        burst_s = time.perf_counter() - t
+        if not (ok and refused):
+            raise AssertionError(f"the cap admitted {ok}, refused "
+                                 f"{refused}")
+        node.enable_cold_tier(budget, 0.0)
+        # a refused key: still cold, and never in the value cache (a key
+        # evicted by its own read's budget pass keeps its cached value,
+        # which no write has invalidated)
+        victim = refused[0]
+        faults.install(faults.FaultPlan(seed=61).io_error("coldtier.fault",
+                                                          times=1))
+        try:
+            node.read_objects([objs[victim]])
+        except ColdMiss:
+            pass
+        else:
+            raise AssertionError("an injected coldtier.fault served a read")
+        finally:
+            faults.uninstall()
+        if node.read_objects([objs[victim]])[0][0] != want[victim]:
+            raise AssertionError("the read after the injected fault differs")
+        out["cap"] = {"cap_per_s": cap, "burst": len(picks), "admitted": ok,
+                      "refused": len(refused), "seconds": burst_s,
+                      "hint_ms": _stats(hints),
+                      "refused_metric": node.metrics.coldtier_events.value(
+                          event="refused")}
+        timers.fault_summary()
+        # ---- 5. a full image with the cold rows, a link, a recovery ----
+        node.start_checkpointer(interval_s=0.0, rebase_every=64)
+        full = node.checkpoint_now(full=True)
+        side = full["cold"]["bytes"]
+        write_s = timers.spans["write_sidecar"][-1]
+        out["full"] = {"total_s": full["total_s"],
+                       "stamp_ms": full["held_ms"],
+                       "image_bytes": full["image_bytes"],
+                       "sidecar_bytes": side, "cold_keys": full["cold_keys"],
+                       "sidecar_write_s": write_s,
+                       "sidecar_mb_s": side / 1e6 / write_s,
+                       "carry_s": timers.spans["carry_cold"][-1],
+                       "mb_s": (full["image_bytes"] + side) / 1e6
+                       / full["total_s"]}
+        log(f"cold: full image {json.dumps(out['full'])}")
+        cold.budget = evict_to
+        t = time.perf_counter()
+        n_ev = cold.enforce_budget()
+        sync()
+        evict_s = time.perf_counter() - t
+        delta = node.checkpoint_now(full=False)
+        if delta["kind"] != "delta":
+            raise AssertionError(f"the link is a {delta['kind']} image")
+        out["delta"] = {"evicted": n_ev, "evict_s": evict_s,
+                        "total_s": delta["total_s"],
+                        "image_bytes": delta["image_bytes"],
+                        "rows": delta["n_rows"],
+                        **timers.fault_summary()}
+        cold_keys = set(cold.cold_set)
+        node.close()
+        del node, cold
+        n2, out["recovery_cold"] = recover()
+        if n2.store.cold is None or set(n2.store.cold.cold_set) != cold_keys:
+            raise AssertionError("the cold keys did not come back cold")
+        rng = np.random.default_rng(59)
+        cold_idx = sorted(index[dk] for dk in cold_keys)
+        res_idx = sorted(set(range(n_keys)) - set(cold_idx))
+        pick = sorted(rng.choice(cold_idx, min(sample, len(cold_idx)),
+                                 replace=False).tolist()
+                      + rng.choice(res_idx, min(sample, len(res_idx)),
+                                   replace=False).tolist())
+        check(n2, pick, "after the recovery with cold keys")
+        out["recovery_cold"].update(cold_keys=len(cold_keys),
+                                    checked=len(pick),
+                                    **timers.fault_summary())
+        log(f"cold: second recovery {json.dumps(out['recovery_cold'])}")
+        # ---- 6. shard handoff ------------------------------------------
+        moved = [i for i in range(n_keys)
+                 if key_to_shard(objs[i][0], objs[i][2], cfg.n_shards)
+                 == shard]
+        t = time.perf_counter()
+        pkg = handoff.export_shard(n2.store, shard)
+        export_s = time.perf_counter() - t
+        ex = timers.fault_summary()
+        data = handoff.pack(pkg)
+        del pkg
+        dst = AntidoteNode(cfg, log_dir=os.path.join(keep["root"], "dst"),
+                           device=dev)
+        t = time.perf_counter()
+        dst.receive_handoff(handoff.unpack(data))
+        sync()
+        import_s = time.perf_counter() - t
+        t = time.perf_counter()
+        handoff.drop_shard(n2.store, shard)
+        sync()
+        drop_s = time.perf_counter() - t
+        check(dst, moved, "at the handoff's destination")
+        dst.close()
+        n2.close()
+        del n2, dst
+        n3, rec3 = recover()
+        back = [i for i in moved
+                if (objs[i][0], objs[i][2]) in n3.store.directory
+                or n3.store.cold.is_cold((objs[i][0], objs[i][2]))]
+        if back or len(n3.store.directory) + len(
+                n3.store.cold.cold_set) != n_keys - len(moved):
+            raise AssertionError(f"{len(back)} moved keys resurrected")
+        out["handoff"] = {"shard": shard, "keys": len(moved),
+                          "export_s": export_s, "export_faults":
+                          ex["faults"], "package_mb": len(data) / 1e6,
+                          "import_s": import_s, "drop_s": drop_s,
+                          "restart_s": rec3["total_s"]}
+        del data
+        log(f"cold: handoff {json.dumps(out['handoff'])}")
+        n3.close()
+        del n3
+        # ---- 7. reshard the restarted destination ----------------------
+        t = time.perf_counter()
+        dst = AntidoteNode(cfg, log_dir=os.path.join(keep["root"], "dst"),
+                           recover=True, device=dev)
+        sync()
+        dst_recover_s = time.perf_counter() - t
+        new_cfg = dataclasses.replace(cfg, n_shards=new_shards)
+        t = time.perf_counter()
+        new = handoff.reshard(dst.store, new_cfg, my_dc=0)
+        sync()
+        reshard_s = time.perf_counter() - t
+        wrong = [dk for dk, ent in new.directory.items()
+                 if ent[1] != key_to_shard(dk[0], dk[1], new_shards)]
+        if wrong or len(new.directory) != len(moved):
+            raise AssertionError(f"{len(wrong)} keys routed wrong, "
+                                 f"{len(new.directory)} keys")
+        dst.close()
+        del dst
+        t = time.perf_counter()
+        check(AntidoteNode(store=new), moved, "after the reshard")
+        out["reshard"] = {"shards": new_shards, "keys": len(new.directory),
+                          "recover_s": dst_recover_s, "seconds": reshard_s,
+                          "to_shards": sorted({e[1] for e in
+                                               new.directory.values()}),
+                          "check_s": time.perf_counter() - t}
+        log(f"cold: reshard {json.dumps(out['reshard'])}")
+        del new
+    finally:
+        timers.close()
+        shutil.rmtree(keep["root"], ignore_errors=True)
+    return out
+
+
 def count_resolves(fn):
     """``fn()`` with every ``SetAW.resolve`` call counted: (its result,
     the count)."""
@@ -2561,10 +3096,14 @@ def main() -> int:
     types = run_path(lambda: {"tables": types_tables(torch, dev),
                               "session": types_node_session(dev),
                               "long_logs": long_log_folds(torch, dev)})
-    durable = run_path(lambda: durable_phase(torch, dev))
+    keep = {}
+    durable = run_path(lambda: durable_phase(torch, dev, keep=keep))
     print(f"durable: {json.dumps(durable)} | card: {card}", flush=True)
+    cold = run_path(lambda: cold_phase(torch, dev, keep))
+    print(f"cold: {json.dumps(cold)} | card: {card}", flush=True)
     paths = {"serve": serve, "node": node, "serving": serving,
-             "cluster": cluster, "types": types, "durable": durable}
+             "cluster": cluster, "types": types, "durable": durable,
+             "cold": cold}
     for path, res in paths.items():
         log(f"{path}: {json.dumps(res)}")
         missing = [n for n in PATH_KERNELS[path] if res["launches"][n] == 0]

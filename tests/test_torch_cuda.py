@@ -607,3 +607,119 @@ def test_checkpoint_stamp_never_syncs_the_card(dev, tmp_path):
                        recover=True, device=dev)
     assert rec.read_objects(_durable_objs())[0] == want
     rec.close()
+
+
+def _cold_script(node):
+    """Counters and sets, a full image, evictions by budget on the commit
+    path, fault-ins by reads, a full image carrying the cold rows forward.
+    Returns the cold key sets it saw."""
+    seen = []
+    for i in range(40):
+        node.update_objects([(i, "counter_pn", "b", ("increment", i + 1)),
+                             (("s", i % 13), "set_aw", "b", ("add", i))])
+    node.checkpoint_now(full=True)
+    cold = node.store.cold
+    cold.budget = 20
+    node.update_objects([(3, "counter_pn", "b", ("increment", 7))])
+    seen.append(sorted(map(repr, cold.cold_set)))
+    node.read_objects([(5, "counter_pn", "b"), (("s", 4), "set_aw", "b")])
+    seen.append(sorted(map(repr, cold.cold_set)))
+    node.checkpoint_now(full=True)
+    return seen
+
+
+def _cold_objs():
+    return ([(i, "counter_pn", "b") for i in range(40)]
+            + [(("s", i), "set_aw", "b") for i in range(13)])
+
+
+def test_evict_and_fault_in_on_the_card_equal_cpu(dev, tmp_path):
+    """One script on a CUDA node and its CPU twin: the same keys go cold,
+    the evicted rows are zero on the card, and every key faults back in
+    to the same value, head and table arrays."""
+    from antidote_tpu_torch.carry import table_arrays
+
+    nodes, seen = [], []
+    for i, x in enumerate(("cpu", dev)):
+        n = AntidoteNode(_durable_cfg(), log_dir=str(tmp_path / f"n{i}"),
+                         resident_rows=1 << 30, device=x)
+        seen.append(_cold_script(n))
+        nodes.append(n)
+    assert seen[0] == seen[1] and len(seen[0][-1]) > 20
+    gpu = nodes[1].store
+    for name, t in gpu.tables.items():
+        assert t.head_vc.device.type == "cuda"
+        for s, rows in t.free_rows.items():
+            idx = torch.as_tensor(rows, device=dev)
+            assert int(t.head_vc[s][idx].abs().sum()) == 0, name
+    vals = [n.read_objects(_cold_objs())[0] for n in nodes]
+    assert vals[0] == vals[1]
+    assert nodes[1].store.cold.faults == nodes[0].store.cold.faults > 20
+    assert nodes[0].store.cold.cold_set == nodes[1].store.cold.cold_set
+    for name, t in nodes[0].store.tables.items():
+        a, b = table_arrays(t), table_arrays(gpu.tables[name])
+        for f, x in a.items():
+            if isinstance(x, dict):
+                assert all(np.array_equal(x[g], b[f][g]) for g in x), f
+            else:
+                assert np.array_equal(np.asarray(x), np.asarray(b[f])), f
+    for n in nodes:
+        n.close()
+
+
+def test_stamp_then_evict_then_image_on_the_card(dev, tmp_path):
+    """A full stamp's head copy is issued on the table's stream before an
+    eviction zeroes the rows in place on the same stream: the image
+    written afterwards holds every row's pre-evict bytes."""
+    from antidote_tpu_torch.log import checkpoint as ckpt
+
+    node = AntidoteNode(_durable_cfg(), log_dir=str(tmp_path / "w"),
+                        resident_rows=1 << 30, device=dev)
+    for i in range(64):
+        node.update_objects([(i, "counter_pn", "b", ("increment", i + 1))])
+    node.checkpoint_now(full=True)
+    cp, store = node.checkpointer, node.store
+    with node.txm.checkpoint_barrier:
+        cap, frozen = cp._capture_locked()
+        store.cold.budget = 1
+        assert store.cold.evict_now(max_rows=64) == 64
+    cp._scan_chains(cap)
+    cp._write_atomic(cap, frozen)
+    path = f"{cp.root}/ckpt_{cap['id']}"
+    image = ckpt._load_verified(path, ckpt.load_manifest(path))
+    tb = image["tables"]["counter_pn"]
+    for key, _b, _t, shard, row in image["directory"]:
+        assert int(tb["head"]["cnt"][shard, row]) == key + 1
+    assert int(store.tables["counter_pn"].head["cnt"].abs().sum()) == 0
+    node.close()
+
+
+def test_import_and_reshard_onto_a_cuda_store(dev, tmp_path):
+    """A shard exported from a CPU node imports into a CUDA node, and a
+    reshard of the CUDA store (4 to 8 shards) keeps every value and moves
+    its rows on the card."""
+    from antidote_tpu_torch.log import LogManager
+    from antidote_tpu_torch.store import handoff
+
+    cfg = _durable_cfg()
+    src = AntidoteNode(cfg, log_dir=str(tmp_path / "src"), device="cpu")
+    for i in range(48):
+        src.update_objects([(i, "counter_pn", "b", ("increment", i + 1)),
+                            (("s", i % 7), "set_aw", "b", ("add", i))])
+    objs = _cold_objs()[:48] + [(("s", i), "set_aw", "b") for i in range(7)]
+    want = src.read_objects(objs)[0]
+    dst = AntidoteNode(cfg, log_dir=str(tmp_path / "dst"), device=dev)
+    for shard in range(cfg.n_shards):
+        dst.receive_handoff(handoff.unpack(handoff.pack(
+            handoff.export_shard(src.store, shard))))
+    assert dst.read_objects(objs)[0] == want
+    import dataclasses
+
+    new_cfg = dataclasses.replace(cfg, n_shards=cfg.n_shards * 2)
+    new = handoff.reshard(dst.store, new_cfg, my_dc=0,
+                          log=LogManager(new_cfg, str(tmp_path / "n")))
+    assert new.device.type == "cuda"
+    assert all(t.head_vc.device.type == "cuda" for t in new.tables.values())
+    assert AntidoteNode(store=new).read_objects(objs)[0] == want
+    src.close()
+    dst.close()

@@ -137,11 +137,13 @@ def test_carried_store_reads_like_jax(nodes):
 
 def test_unported_node_options_raise(nodes):
     tn = nodes[1]
-    # the durable log is ported (tests/test_torch_log.py); adopting a
-    # store and the cold tier's residency bound are not
-    with pytest.raises(NotImplementedError, match="handoff"):
-        AntidoteNode(AntidoteConfig(**KW), store=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="cold tier"):
+    # the durable log, store adoption and the cold tier are ported
+    # (tests/test_torch_log.py, test_torch_handoff.py,
+    # test_torch_coldtier.py): a store adopts, and a residency bound
+    # without a log raises as the JAX node's does
+    adopted = AntidoteNode(store=tn.store)
+    assert adopted.store is tn.store and adopted.cfg is tn.store.cfg
+    with pytest.raises(RuntimeError, match="log_dir"):
         AntidoteNode(AntidoteConfig(**KW), resident_rows=10, device="cpu")
     with pytest.raises(NotImplementedError):
         AntidoteNode(AntidoteConfig(**KW), meta=object(), device="cpu")
