@@ -11,8 +11,10 @@ WAL append puts the node in degraded read-only mode.  ``resident_rows``
 bounds the rows on the device: the cold tier evicts image-covered rows to
 the checkpoint sidecar and faults them back in on demand.  ``store=``
 adopts a populated store (a reshard's output) and ``receive_handoff``
-installs an exported shard.  The metadata store (``meta=``) is a later
-slice.
+installs an exported shard.  The metadata store (``meta=``, a fresh
+in-memory one by default) carries the DC-replicated runtime flags
+(``sync_log``, ``txn_cert``).  ``check_ready`` runs a transaction on the
+node's device and ``status`` is the operator's one-call view.
 """
 
 from __future__ import annotations
@@ -25,11 +27,14 @@ import time
 from typing import Optional, Sequence
 
 import numpy as np
+import torch
 
 from antidote_tpu_torch.config import AntidoteConfig
 from antidote_tpu_torch.crdt import is_type
+from antidote_tpu_torch.meta import MetaDataStore
 from antidote_tpu_torch.obs import (MetricsServer, NodeMetrics,
                                     install_error_monitor)
+from antidote_tpu_torch.obs.metrics import net_metrics
 from antidote_tpu_torch.obs.server import DEFAULT_METRICS_PORT
 from antidote_tpu_torch.store.kv import (KVStore, effect_from_rec,
                                          freeze_key, key_to_shard)
@@ -58,13 +63,12 @@ class AntidoteNode:
                  recover: bool = False, meta=None,
                  store: Optional[KVStore] = None, resident_rows: int = 0,
                  cold_fault_rate_cap: float = 0.0, device="cuda"):
-        if meta is not None:
-            raise NotImplementedError("meta: the metadata store is not "
-                                      "ported yet")
         if store is not None and cfg is None:
             cfg = store.cfg
         self.cfg = cfg or AntidoteConfig()
         self.dc_id = dc_id
+        #: durable, DC-replicated metadata/flag store
+        self.meta = meta if meta is not None else MetaDataStore()
         log = None
         if store is not None:
             assert log_dir is None, "store= and log_dir= are exclusive"
@@ -89,13 +93,18 @@ class AntidoteNode:
                 raise RuntimeError(
                     f"log_dir {log_dir!r} contains existing WAL data; pass "
                     "recover=True (or point at an empty directory)")
-            log = LogManager(self.cfg, log_dir)
+            log = LogManager(self.cfg, log_dir,
+                             sync_on_commit=self.meta.get_env(
+                                 "sync_log", self.cfg.sync_log))
         elif recover:
             raise RuntimeError(
                 "recover=True requires log_dir and cfg.enable_logging")
         self.store = store if store is not None else KVStore(
             self.cfg, device=device, log=log)
-        self.txm = TransactionManager(self.store, my_dc=dc_id, cert=cert)
+        self.txm = TransactionManager(
+            self.store, my_dc=dc_id,
+            cert=self.meta.get_env("txn_cert", cert),
+            protocol=self.meta.get_env("txn_prot", "clocksi"))
         #: the prometheus metric set; the manager's and the store's
         #: counters land in it
         self.metrics = NodeMetrics()
@@ -130,6 +139,9 @@ class AntidoteNode:
             self.enable_cold_tier(resident_rows, cold_fault_rate_cap)
         if recover and log is not None:
             self._recover(log_dir, cold_fault_rate_cap)
+        # react to replicated flag flips from ANY node in the DC
+        # (registered last: construction-time get_env seeds fire watchers)
+        self.meta.watch(self._on_meta_change)
 
     def _recover(self, log_dir: str, cold_fault_rate_cap: float) -> None:
         """Node restart: compose the newest verifiable full image with its
@@ -269,6 +281,166 @@ class AntidoteNode:
                 self.txm.committed_keys[dk] = max(
                     self.txm.committed_keys.get(dk, 0), lane)
 
+    # --- readiness (the reference's wait_init) ----------------------------
+    def check_ready(self) -> dict:
+        """Probe every subsystem; returns {probe: bool}.  All-true means
+        the node can serve traffic.  The ``txn`` probe runs a transaction
+        (an update and a read, then an abort) and, on a card, a launch of
+        the kernel library on the node's device: the first probe builds
+        the kernels, so a node that answers ready has them built."""
+        probes = {}
+        probes["types"] = bool(is_type("counter_pn"))
+        try:
+            probes["meta"] = self.meta.get_env("txn_prot", "clocksi") in (
+                "clocksi", "gr")
+        except Exception:
+            probes["meta"] = False
+        try:
+            self.store.stable_vc()
+            probes["clocks"] = True
+        except Exception:
+            probes["clocks"] = False
+        if self.store.log is not None:
+            try:
+                self.store.log.commit_barrier([0])
+                probes["log"] = True
+            except Exception:
+                probes["log"] = False
+        else:
+            probes["log"] = True  # ephemeral mode: nothing to probe
+        metrics, self.txm.metrics = self.txm.metrics, None
+        try:
+            # full txn machinery, then rolled back.  Metrics are detached
+            # so health polling never skews op/abort dashboards; the
+            # aborted probe binds no rows
+            txn = self.start_transaction()
+            self.update_objects(
+                [("__ready__", "counter_pn", "__ready__", ("increment", 1))],
+                txn)
+            self.read_objects([("__ready__", "counter_pn", "__ready__")], txn)
+            self.abort_transaction(txn)
+            dev = self.store.device
+            if dev.type == "cuda":
+                # the device round trip: the probe's reads of unwritten
+                # keys launch nothing, so launch the kernel library's
+                # empty kernel on the node's card (building the library on
+                # the first call) and wait for it
+                from antidote_tpu_torch.materializer import cuda_kernels
+
+                cuda_kernels.launch_floor(dev)
+                torch.cuda.synchronize(dev)
+            probes["txn"] = True
+        except Exception:
+            logging.getLogger("antidote_tpu_torch").exception(
+                "readiness probe")
+            probes["txn"] = False
+        finally:
+            self.txm.metrics = metrics
+        return probes
+
+    def is_ready(self) -> bool:
+        return all(self.check_ready().values())
+
+    def status(self, include_ready: bool = False) -> dict:
+        """Operator-facing snapshot (the console's ``status`` command).
+
+        Passive by default — ``include_ready=True`` additionally runs the
+        full readiness probe (a device round trip + WAL barrier), which is
+        too heavy for high-frequency monitoring polls."""
+        stable = self.store.stable_vc()
+        out = {
+            "dc_id": self.dc_id,
+            "n_shards": self.cfg.n_shards,
+            "max_dcs": self.cfg.max_dcs,
+            "protocol": self.txm.protocol,
+            "certification": self.txm.cert,
+            "stable_vc": [int(x) for x in stable],
+            "commit_counter": int(self.txm.commit_counter),
+            "keys": len(self.store.directory),
+            "tables": {
+                t: {"rows_used": int(tab.used_rows.sum()),
+                    "n_rows": tab.n_rows}
+                for t, tab in self.store.tables.items()
+            },
+            "durable": self.store.log is not None,
+        }
+        # fabric/RPC resilience counters (process-wide)
+        out["net"] = {k: v for k, v in net_metrics().snapshot().items()
+                      if v}
+        # overload/degradation view: every bound and shed is visible here
+        # and on /metrics
+        shed = {
+            plane[0]: v
+            for plane, v in sorted(self.metrics.shed.snapshot().items())
+            if v
+        }
+        out["overload"] = {
+            "read_only": self.txm.read_only_reason,
+            "commit_backlog": self.txm._commit_backlog,
+            "max_commit_backlog": self.txm.max_commit_backlog,
+            "shed": shed,
+        }
+        # escrow economy: typed bounded-counter refusals, queued shortfall
+        # and rights-transfer traffic
+        out["escrow"] = dict(
+            self.txm.bcounters.status(),
+            grants={
+                role[0]: int(v) for role, v in sorted(
+                    self.metrics.escrow_grants.snapshot().items()) if v
+            },
+        )
+
+        # write plane: merge width, group-fsync batching, per-segment
+        # durability debt, bypass counts
+        def _hist(h):
+            s = h.summary()
+            return {"count": s["count"], "mean": round(s["mean"], 2),
+                    "p50": s["p50"], "p99": s["p99"]}
+
+        wlog = self.store.log
+        out["write_plane"] = {
+            "merge_width": _hist(self.metrics.commit_merge_width),
+            "fsync_batch": _hist(self.metrics.wal_fsync_batch),
+            "cert_bypass_total": int(self.metrics.cert_bypass.value()),
+            "sync_log": (bool(wlog.wals[0].sync_on_commit)
+                         if wlog is not None else None),
+            "wal_segments": wlog.n_segments if wlog is not None else 0,
+            "segment_depth_bytes": (wlog.segment_depths()
+                                    if wlog is not None else []),
+        }
+        # checkpoint view: last published image stamp, size, age, and the
+        # tail a crash-now restart would replay; read from disk when no
+        # checkpointer is attached
+        if wlog is not None:
+            if self.checkpointer is not None:
+                out["checkpoint"] = self.checkpointer.status()
+            else:
+                from antidote_tpu_torch.log import checkpoint as _ckpt
+
+                cks = _ckpt.list_checkpoints(
+                    _ckpt.checkpoint_root(wlog.dir))
+                blk = {
+                    "interval_s": 0,
+                    "tail_records": int(
+                        (wlog.seqs - wlog.floor_seqs).sum()),
+                }
+                if cks:
+                    m = _ckpt.load_manifest(cks[-1][1]) or {}
+                    blk.update({
+                        "last_id": m.get("id"),
+                        "stamp_vc_max": m.get("stamp_vc_max"),
+                        "image_bytes": m.get("image_bytes"),
+                        "age_s": round(
+                            time.time() - m.get("created_at", 0), 1),
+                    })
+                out["checkpoint"] = blk
+        if self.store.cold is not None:
+            # residency vs budget, fault/evict counters, anchor image
+            out["cold_tier"] = self.store.cold.status()
+        if include_ready:
+            out["ready"] = self.check_ready()
+        return out
+
     # --- checkpointing ----------------------------------------------------
     def start_checkpointer(self, interval_s: float = 300.0, retain: int = 2,
                            rebase_every: int = 8,
@@ -373,13 +545,17 @@ class AntidoteNode:
         return out
 
     def set_sync_log(self, sync: bool) -> None:
-        """Flip fsync-on-commit on the running log (the reference's
-        ``logging_vnode:set_sync_log``).  The JAX node routes the flag
-        through its replicated metadata store so that every node of the DC
-        applies it; the port has no metadata store yet, so this applies it
-        to this node's log directly."""
-        if self.store.log is not None:
-            self.store.log.set_sync(bool(sync))
+        """Flip fsync-on-commit DC-wide (the reference's replicated
+        ``logging_vnode:set_sync_log``): the flag goes through the metadata
+        store, whose broadcast reaches every member node's watcher, which
+        applies it to its running log."""
+        self.meta.set_env("sync_log", sync)
+
+    def _on_meta_change(self, key: str, value) -> None:
+        if key == "env:sync_log" and self.store.log is not None:
+            self.store.log.set_sync(bool(value))
+        elif key == "env:txn_cert":
+            self.txm.cert = bool(value)
 
     # --- hooks ------------------------------------------------------------
     def register_pre_hook(self, bucket: str, fn) -> None:

@@ -6,8 +6,9 @@ riak_core handoff retries; this package earns ours with seeded chaos: a
 named injection sites.  In this package the sites are the WAL
 (``log/wal.py``: ``wal.append``, ``wal.fsync``), its checkpoint reclaim
 (``log/__init__.py``: ``wal.truncate_below``) and the checkpoint writer
-(``log/checkpoint.py``: ``ckpt.write``, ``ckpt.fsync``, ``ckpt.rename``);
-the inter-DC and RPC sites come with those planes.
+(``log/checkpoint.py``: ``ckpt.write``, ``ckpt.fsync``, ``ckpt.rename``)
+and the wire server's inbound frames (``proto/server.py``:
+``frontend.recv``); the inter-DC and RPC sites come with those planes.
 
 Usage::
 

@@ -1,39 +1,139 @@
-"""The typed refusal errors the transaction layer and the cold tier raise,
-their retry hint, and the deadline check.  The admission gates of the
-serving planes are later work."""
+"""Overload protection primitives: typed shed errors + admission gates.
+
+The backpressure vocabulary every plane shares (the riak_core analogue:
+vnode overload protection + OTP mailbox discipline — a saturated vnode
+answers ``{error, overload}`` instead of queueing unboundedly).  Three
+rules, applied at the wire server, the commit gate, and the WAL:
+
+  * **bounded everything** — every queue has a cap; past it, work is
+    refused with a typed error, never parked forever;
+  * **honest busy errors** — a shed request gets an explicit reply with
+    a retry-after hint; silent drops are reserved for planes with a
+    built-in repair path (the inter-DC opid-gap catch-up);
+  * **deadlines** — a request that outlived its caller is aborted at
+    dequeue, not executed (its reply would be garbage-collected anyway).
+
+All three error types are raised server-side and surface on the wire as
+distinguishable error replies (proto/server.py maps them; the client
+raises the ``Remote*`` twins in proto/client.py).
+"""
 
 from __future__ import annotations
 
+import threading
 import time
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 
 class BusyError(Exception):
     """Admission refused: the plane is at its in-flight/backlog cap.
-    ``retry_after_ms`` is the hint for client backoff."""
+
+    ``retry_after_ms`` is the server's hint for client backoff (the
+    apb dialect carries it inside the errmsg text)."""
 
     def __init__(self, msg: str, retry_after_ms: int = 50):
         super().__init__(msg)
         self.retry_after_ms = int(retry_after_ms)
 
 
+class TenantBusyError(BusyError):
+    """Admission refused by a TENANT-scoped bound, not a global one
+   : the named tenant is at its own in-flight cap or its own
+    bounded backlog lane is full while the node as a whole still has
+    headroom.  Subclasses :class:`BusyError` so every existing catch
+    site keeps its retry semantics, but the wire mapping checks this
+    type FIRST and encodes ``tenant_busy`` — a client seeing it knows
+    the refusal is its own quota, not node saturation, so backing off
+    (or buying a bigger weight) helps and failing over to a sibling
+    node does not."""
+
+    def __init__(self, msg: str, tenant: str, retry_after_ms: int = 50):
+        super().__init__(msg, retry_after_ms=retry_after_ms)
+        self.tenant = str(tenant)
+
+
 class DeadlineExceeded(Exception):
-    """The request outlived its deadline before execution started —
-    aborted at dequeue."""
+    """The request outlived its client-supplied (or configured default)
+    deadline before execution started — aborted at dequeue."""
 
 
 class ReadOnlyError(Exception):
-    """The node is in degraded read-only mode (WAL appends failing);
-    writes are rejected, reads keep serving."""
+    """The node is in degraded read-only mode (WAL appends failing —
+    ENOSPC/IO error); writes are rejected, reads keep serving.  The mode
+    exits automatically once an append probe succeeds again."""
 
     def __init__(self, reason: str):
         super().__init__(f"node is read-only (degraded): {reason}")
         self.reason = reason
 
 
+class NotOwnerError(Exception):
+    """This node is a follower read replica: writes and interactive
+    transactions belong to the owner.  ``redirect`` is the owner's
+    client endpoint ``[host, port]`` (None when unknown) — the wire
+    reply carries it so a session client can re-route without operator
+    help (the follower-tier twin of the busy reply's retry hint)."""
+
+    def __init__(self, redirect=None):
+        where = f" at {redirect[0]}:{redirect[1]}" if redirect else ""
+        super().__init__(
+            f"this node is a follower read replica; route writes and "
+            f"interactive transactions to the owner{where}"
+        )
+        self.redirect = list(redirect) if redirect else None
+
+
+class ReplicaLagging(Exception):
+    """A follower's applied clock is still behind the session token
+    after its bounded park window (or the follower is mid-bootstrap /
+    mid-heal): the read was NOT served — serving it would violate the
+    session's read-your-writes / monotonic-reads guarantees.  Carries
+    the same retry-hint machinery as :class:`BusyError` plus the owner
+    redirect, so clients either wait out the hint or fail over."""
+
+    def __init__(self, msg: str, retry_after_ms: int = 50, redirect=None):
+        super().__init__(msg)
+        self.retry_after_ms = int(retry_after_ms)
+        self.redirect = list(redirect) if redirect else None
+
+
+class ColdMiss(Exception):
+    """A read/write touched a cold-tier key whose device state could not
+    be faulted back in RIGHT NOW — the fault-rate cap is exceeded, the
+    fault-in hit an (injected or real) I/O error, or the backing
+    checkpoint sidecar failed its per-row CRC.  The request was NOT
+    served with a wrong value; the client retries after the hint (the
+    fault-in usually succeeds on the retry once pressure drains or the
+    scrub-forced rebase publishes).  ``permanent=True`` marks the one
+    unrecoverable case — the sidecar row is verifiably lost on every
+    retained image — which an operator heals by re-bootstrapping from a
+    peer/follower, never by a silent bottom read."""
+
+    def __init__(self, msg: str, retry_after_ms: int = 50,
+                 permanent: bool = False):
+        super().__init__(msg)
+        self.retry_after_ms = int(retry_after_ms)
+        self.permanent = bool(permanent)
+
+
+class ReplicaDown(ConnectionError):
+    """Every endpoint of a session (followers and owner alike) refused
+    or dropped the request — the typed terminal error of the session
+    client's failover loop."""
+
+
 class InsufficientRightsError(Exception):
-    """A bounded-counter (``counter_b``) decrement/transfer asked for more
-    rights than this DC's escrow lane holds; nothing was applied."""
+    """A bounded-counter (``counter_b``) decrement/transfer asked for
+    more rights than this DC's escrow lane holds.  The op was
+    NOT executed and nothing in the batch it rode was partially applied
+    — the group-commit escrow pass NACKs exactly the refused sub-group.
+    ``retry_after_ms`` scales with the expected grant arrival: the
+    background rights-transfer loop has already been told about the
+    shortfall, so the hint tracks its next tick (deeper refusal streaks
+    mean rights are scarce fleet-wide and back off harder).  Zero
+    oversell is the invariant this error buys: refusing typed here is
+    what lets both sides of a partition keep selling their own escrow
+    safely."""
 
     def __init__(self, msg: str, retry_after_ms: int = 100,
                  key=None, needed: int = 0, held: int = 0):
@@ -44,28 +144,43 @@ class InsufficientRightsError(Exception):
         self.held = int(held)
 
 
-class ColdMiss(Exception):
-    """A read or write touched a cold-tier key whose device state could not
-    be faulted back in right now: the fault-rate cap is exceeded, the
-    fault-in hit an (injected or real) I/O error, or the checkpoint sidecar
-    row failed its CRC.  The request was NOT served with a wrong value; the
-    client retries after the hint.  ``permanent=True`` marks the one
-    unrecoverable case, a sidecar row verifiably lost on every retained
-    image, which an operator heals by re-bootstrapping from a peer, never
-    by a silent bottom read."""
+class ForwardFailed(Exception):
+    """A server-side forwarded write lost its owner
+    connection AFTER the request left the socket: the owner **may have
+    executed** the non-idempotent commit, so the forwarding node must
+    not blindly resend — it surfaces this typed error and the CLIENT
+    decides (re-read at its session token, or retry an idempotent op).
+    Send-phase failures never raise this: they redial within the
+    forwarding budget, exactly the at-most-once ``request_sent``
+    discipline the session client and the inter-DC query channel keep."""
 
-    def __init__(self, msg: str, retry_after_ms: int = 50,
-                 permanent: bool = False):
+    def __init__(self, msg: str):
         super().__init__(msg)
-        self.retry_after_ms = int(retry_after_ms)
-        self.permanent = bool(permanent)
+        #: the defining property: the forwarded request reached the
+        #: wire, so the owner may have executed it
+        self.maybe_executed = True
 
 
 def retry_hint_ms(streak: int) -> int:
-    """Pressure-scaled retry hint: ``streak`` counts refusals since the
-    plane last admitted work, so the hint backs off harder the longer the
-    plane stays saturated, bounded 25..500 ms."""
+    """Pressure-scaled retry hint shared by every refusal plane: the
+    streak counts refusals since the plane last admitted work, so it
+    measures how deep the overload (or replication lag) runs — back off
+    harder the longer the plane has stayed saturated, bounded 25..500 ms
+    (the AdmissionGate discipline; the follower session gate reuses it so
+    a parked fleet stops hammering a lagging replica with a fixed
+    hint)."""
     return max(25, min(500, 25 * (1 + int(streak) // 4)))
+
+
+def deadline_from_ms(deadline_ms, default_ms=None) -> Optional[float]:
+    """Absolute monotonic deadline from a client-supplied relative ms
+    budget (``None`` falls back to the configured default, which may
+    itself be None = no deadline)."""
+    if deadline_ms is None:
+        deadline_ms = default_ms
+    if deadline_ms is None:
+        return None
+    return time.monotonic() + float(deadline_ms) / 1e3
 
 
 def check_deadline(deadline: Optional[float], where: str) -> None:
@@ -73,3 +188,168 @@ def check_deadline(deadline: Optional[float], where: str) -> None:
         raise DeadlineExceeded(
             f"request deadline passed before {where}; not executed"
         )
+
+
+#: refusal streaks with no refusal for this long are forgotten (the
+#: bcounter ``_last_request`` discipline: a stale entry carries no
+#: pressure information, and without a TTL the map grows one entry per
+#: client host ever refused, forever)
+STREAK_TTL_S = 10.0
+#: hard cap on tracked streak entries — a synthetic flood of distinct
+#: client ids must not grow the map unboundedly between TTL sweeps
+_STREAK_MAP_MAX = 4096
+
+
+class AdmissionGate:
+    """Global + per-client (+ per-tenant) in-flight caps for
+    the wire server.
+
+    ``enter`` admits or raises :class:`BusyError`; callers MUST pair it
+    with ``exit`` (try/finally).  ``client_id`` is an opaque key — the
+    wire server passes the PEER HOST, so the cap bounds one client
+    machine's whole connection fleet (each connection's handler thread
+    is serial, so per-socket in-flight never exceeds 1; per-host is the
+    accounting that actually stops a greedy client from monopolizing
+    the global budget).
+
+    ``tenant_enter``/``tenant_exit`` are the tenant-scoped twin, called
+    at the pipeline-submit stage where the decoded request has revealed
+    its tenant: accounting is unconditional (the in-flight gauge and
+    node-status block), the CAP is enforced only for tenants whose
+    registry spec sets ``max_in_flight`` — weights govern queueing
+    order, caps govern concurrency.
+
+    Refusal streaks — the pressure signal behind the retry hint — are
+    tracked PER key (client host or tenant), not gate-global: one hot
+    client hammering a full gate must not inflate every other caller's
+    backoff (a well-behaved first-time client deserves the 25 ms floor,
+    not the hot client's 500 ms ceiling).  The map is bounded and
+    TTL-pruned like bcounter's ``_last_request``."""
+
+    def __init__(self, max_in_flight: int = 256, max_per_client: int = 64,
+                 gauge=None, tenants=None, clock=time.monotonic):
+        self.max_in_flight = int(max_in_flight)
+        self.max_per_client = int(max_per_client)
+        #: optional TenantRegistry (antidote_tpu_torch.tenancy) holding
+        #: per-tenant in-flight caps; None = untenanted gate
+        self.tenants = tenants
+        self.clock = clock
+        self._lock = threading.Lock()
+        self._total = 0
+        self._per_client: Dict[object, int] = {}
+        #: per-tenant in-flight counts (bounded: keys come from the
+        #: registry's closed name set, never from the wire)
+        self._per_tenant: Dict[str, int] = {}
+        #: refusal streaks per client/tenant key: key -> (streak, last
+        #: refusal time).  A key's streak counts ITS refusals since ITS
+        #: last successful admission.
+        # bounded-by: pruned past STREAK_TTL_S on every refusal sweep,
+        # hard-capped at _STREAK_MAP_MAX entries
+        self._streaks: Dict[object, Tuple[int, float]] = {}
+        #: optional obs Gauge mirroring ``self._total``
+        self._gauge = gauge
+
+    def enter(self, client_id) -> None:
+        with self._lock:
+            if self._total >= self.max_in_flight:
+                raise BusyError(
+                    f"server at max_in_flight={self.max_in_flight}",
+                    retry_after_ms=self._retry_hint_locked(client_id),
+                )
+            if self._per_client.get(client_id, 0) >= self.max_per_client:
+                raise BusyError(
+                    f"client {client_id} at max_in_flight_per_client="
+                    f"{self.max_per_client}",
+                    retry_after_ms=self._retry_hint_locked(client_id),
+                )
+            self._total += 1
+            self._streaks.pop(client_id, None)
+            self._per_client[client_id] = (
+                self._per_client.get(client_id, 0) + 1)
+            if self._gauge is not None:
+                self._gauge.set(self._total)
+
+    def exit(self, client_id) -> None:
+        with self._lock:
+            self._total -= 1
+            n = self._per_client.get(client_id, 0) - 1
+            if n <= 0:
+                self._per_client.pop(client_id, None)
+            else:
+                self._per_client[client_id] = n
+            if self._gauge is not None:
+                self._gauge.set(self._total)
+
+    # ------------------------------------------------------------------
+    # tenant-scoped accounting
+    # ------------------------------------------------------------------
+    def tenant_enter(self, tenant: str) -> None:
+        """Account one in-flight request against ``tenant``; raise
+        :class:`TenantBusyError` if the tenant's configured
+        ``max_in_flight`` cap is reached.  MUST be paired with
+        ``tenant_exit`` (try/finally) once admitted."""
+        cap = None
+        if self.tenants is not None:
+            cap = self.tenants.max_in_flight(tenant)
+        with self._lock:
+            if cap is not None and self._per_tenant.get(tenant, 0) >= cap:
+                raise TenantBusyError(
+                    f"tenant {tenant} at max_in_flight={cap}",
+                    tenant=tenant,
+                    retry_after_ms=self._retry_hint_locked(
+                        ("tenant", tenant)),
+                )
+            self._streaks.pop(("tenant", tenant), None)
+            self._per_tenant[tenant] = self._per_tenant.get(tenant, 0) + 1
+
+    def tenant_exit(self, tenant: str) -> None:
+        with self._lock:
+            n = self._per_tenant.get(tenant, 0) - 1
+            if n <= 0:
+                self._per_tenant.pop(tenant, None)
+            else:
+                self._per_tenant[tenant] = n
+
+    def in_flight(self) -> int:
+        return self._total
+
+    def tenant_in_flight(self, tenant: str) -> int:
+        with self._lock:
+            return self._per_tenant.get(tenant, 0)
+
+    def _retry_hint_locked(self, key) -> int:
+        # pressure-scaled hint PER refusal key: a key's refusals since
+        # its own last admission measure how deep ITS overload runs —
+        # back off harder the longer that caller has been refused
+        # (bounded 25..500 ms), without one hot client inflating every
+        # other caller's backoff
+        now = self.clock()
+        streak = self._streaks.get(key, (0, 0.0))[0] + 1
+        self._streaks[key] = (streak, now)
+        self._prune_streaks_locked(now)
+        return retry_hint_ms(streak)
+
+    def _prune_streaks_locked(self, now: float) -> None:
+        if len(self._streaks) <= _STREAK_MAP_MAX:
+            # cheap common case: sweep expired entries only when the
+            # map has actually accumulated some (the sweep is O(n) and
+            # runs on the refusal path)
+            if len(self._streaks) < 64:
+                return
+            for k, (_, t) in list(self._streaks.items()):
+                if now - t >= STREAK_TTL_S:
+                    del self._streaks[k]
+            return
+        # flood of distinct keys inside one TTL window: drop the oldest
+        # half so the map stays hard-bounded (losing a streak only
+        # resets that caller's hint to the 25 ms floor — safe)
+        victims = sorted(self._streaks.items(), key=lambda kv: kv[1][1])
+        for k, _ in victims[: len(victims) // 2]:
+            del self._streaks[k]
+
+
+__all__ = ["BusyError", "TenantBusyError", "DeadlineExceeded",
+           "ReadOnlyError", "NotOwnerError", "ReplicaLagging",
+           "ReplicaDown", "ColdMiss", "ForwardFailed",
+           "InsufficientRightsError", "AdmissionGate",
+           "deadline_from_ms", "check_deadline", "retry_hint_ms"]

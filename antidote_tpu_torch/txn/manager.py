@@ -16,6 +16,10 @@
     rights once per key for the whole group; then one commit-counter bump
     per txn mints its commit VC and the effects reach the store in commit
     order.
+  * tenancy: with a TenantRegistry installed (``tenants``, set by the wire
+    server), a merged commit group is split into weight-proportional
+    rounds, each a merged batch of its own, so one tenant's write storm
+    cannot fill a whole merge while another tenant's commit waits.
   * serving epochs (``enable_serving_epochs``): a write-bearing commit
     round publishes a store-wide serving snapshot before it returns, so a
     lock-free epoch read admitted after the commit sees it; with the
@@ -28,8 +32,7 @@
     puts the node in degraded read-only mode: writes are refused typed,
     reads keep serving, and the mode exits once an append probe succeeds.
 
-The manager is single-tenant: tenancy rounds and the GentleRain protocol
-are later slices.
+The GentleRain protocol is a later slice.
 """
 
 from __future__ import annotations
@@ -113,6 +116,12 @@ class TransactionManager:
         self.max_commit_backlog = 64
         self._backlog_lock = threading.Lock()
         self._commit_backlog = 0
+        #: multi-tenant QoS: when the serving layer installs a
+        #: TenantRegistry here, a merged group-commit batch is split into
+        #: weight-proportional ROUNDS so no tenant's writes occupy more
+        #: than its share of the merge (work-conserving: a lone tenant
+        #: still gets the whole batch).  None = untenanted.
+        self.tenants = None
         #: (key, bucket) -> own-lane counter of its last certified commit;
         #: entries at or below every open txn's snapshot are GC'd
         self.committed_keys: Dict[Tuple[Any, str], int] = {}
@@ -479,8 +488,17 @@ class TransactionManager:
         for a retry).  ``deadline`` (absolute monotonic) is re-checked
         once the lock is held.  A write-bearing group is refused with
         :class:`ReadOnlyError` in degraded read-only mode (the check also
-        runs the recovery probe)."""
+        runs the recovery probe).
+
+        With ``tenants`` installed the group is split into
+        weight-proportional rounds (:meth:`_tenant_rounds`).  The
+        deadline and writable checks gate the FIRST round only: a
+        first-round failure re-raises (nothing committed); a later
+        round's failure must not raise — earlier rounds' commit VCs are
+        final — so it becomes the failed txns' per-txn results (their
+        txns aborted)."""
         has_writes = any(t.writeset for t in txns)
+        rounds = self._tenant_rounds(txns)
         with self._backlog_lock:
             if self._commit_backlog >= self.max_commit_backlog:
                 if self.metrics is not None:
@@ -490,21 +508,34 @@ class TransactionManager:
                     f"{self.max_commit_backlog}")
             self._commit_backlog += 1
         try:
-            with self.commit_lock:
+            results: dict = {}
+            outs = self._commit_round(rounds[0], deadline, has_writes,
+                                      first=True)
+            for t, r in zip(rounds[0], outs):
+                results[id(t)] = r
+            for ri in range(1, len(rounds)):
                 try:
-                    check_deadline(deadline, "commit dequeue")
-                except DeadlineExceeded:
-                    if self.metrics is not None:
-                        self.metrics.shed.inc(plane="deadline")
-                    raise
-                if has_writes:
-                    self.check_writable()
-                out = self._commit_round_locked(txns)
+                    outs = self._commit_round(rounds[ri], deadline,
+                                              has_writes, first=False)
+                except BaseException as e:
+                    # rounds before this one COMMITTED: fail the rest per
+                    # txn (aborted), never the whole group, or a client's
+                    # resend would double-apply the acknowledged ones
+                    err = e if isinstance(e, Exception) \
+                        else RuntimeError(f"commit round failed: {e!r}")
+                    for rnd in rounds[ri:]:
+                        for t in rnd:
+                            if t.active:
+                                self._mark_aborted(t)
+                            results[id(t)] = err
+                    break
+                for t, r in zip(rounds[ri], outs):
+                    results[id(t)] = r
             if has_writes and self.store.log is not None \
                     and self.metrics is not None:
                 for i, d in enumerate(self.store.log.segment_depths()):
                     self.metrics.wal_segment_depth.set(d, segment=str(i))
-            return out
+            return [results[id(t)] for t in txns]
         except BaseException:
             # a failed group must not leak open transactions: they pin the
             # certification-GC floor forever
@@ -515,6 +546,37 @@ class TransactionManager:
         finally:
             with self._backlog_lock:
                 self._commit_backlog -= 1
+
+    def _tenant_rounds(self, txns: Sequence[Transaction]) -> List[List]:
+        """Weight-proportional round split of one merged commit group.
+        Untenanted managers, single-member groups and groups whose
+        members all belong to one tenant keep the one-round path."""
+        reg = self.tenants
+        if reg is None or not reg.multi or len(txns) <= 1:
+            return [list(txns)]
+        from antidote_tpu_torch.tenancy import batch_rounds
+
+        def tenant_of(t):
+            return reg.resolve(None, (e.bucket for e, _ in t.writeset))
+
+        return batch_rounds(list(txns), tenant_of, reg)
+
+    def _commit_round(self, txns: Sequence[Transaction],
+                      deadline: Optional[float], has_writes: bool,
+                      first: bool):
+        """One round under the commit lock; the deadline and writable
+        checks run on the first round only."""
+        with self.commit_lock:
+            if first:
+                try:
+                    check_deadline(deadline, "commit dequeue")
+                except DeadlineExceeded:
+                    if self.metrics is not None:
+                        self.metrics.shed.inc(plane="deadline")
+                    raise
+                if has_writes:
+                    self.check_writable()
+            return self._commit_round_locked(txns)
 
     def _commit_round_locked(self, txns: Sequence[Transaction]):
         """One merged commit round under the lock, then — for a

@@ -27,7 +27,7 @@ Run from the root of a checkout on a machine with a CUDA card (one card;
    against a host oracle built from the op stream, then run an
    ``AntidoteNode`` workload on ``set_aw`` and ``counter_pn`` against a
    host model, historical reads included; then the serving read plane
-   (``serving``) on a 500,000-key ``set_aw`` store populated through
+   (``serving``) on a 250,000-key ``set_aw`` store populated through
    ``KVStore.apply_effect_groups``: two copy publishes and ten scatters of
    serving epochs, 60 Zipf batches read through the epoch plane (pin,
    launch — one of them under the CUDA sync debug mode — finish, unpin)
@@ -73,7 +73,7 @@ Run from the root of a checkout on a machine with a CUDA card (one card;
    full image writes the cold sidecar, and the directory is kept for:
 7. the cold tier and shard handoff (``cold``) on that directory: a
    recovery with 150,000 of its 600,000 rows resident (the rest evicted
-   to the sidecar), 20 Zipf(1.0) batches of 16,384 keys over every key
+   to the sidecar), 10 Zipf(1.0) batches of 16,384 keys over every key
    faulting cold keys in (every value equal to the durable phase's, beside
    the same batches on its all-resident node), writes to faulted-in keys
    and reads between them (``set_aw_fold``, ``counter_fold``), a burst of
@@ -85,14 +85,34 @@ Run from the root of a checkout on a machine with a CUDA card (one card;
    key resurrects at the source's restart), and the destination, restarted,
    resharded from 8 to 16 shards (every value and route equal).  Its
    figures print on a ``cold:`` line beside the card;
-8. print one JSON line per kernel record, the card line, and last the
+8. the wire front end (``wire``): ``bench_wire.py``'s
+   ``set_aw_zipf_north_star`` at its full size, 200,000 ``set_aw`` keys
+   at BASELINE's widths populated through ``KVStore.apply_effect_groups``
+   into an ephemeral ``AntidoteNode`` that a ``ProtocolServer`` with the
+   JAX package's defaults serves over localhost: the server's launch
+   stage under the CUDA sync debug mode; epoch reads launched on one
+   thread and finished on another while a third commits and publishes,
+   equal to the locked read at each epoch's clock; 32 workers in 2 client
+   processes (``chip_smoke.py --wire-worker``; 90% static reads,
+   Zipf(1.0)) for an untimed 3 s round and a timed 10 s window, the
+   card's busy share over 2 s of the same load right after it; every
+   touched key and 2,048 others
+   read back over the wire at the join of the acknowledged clocks, equal
+   to a host model; read-your-writes on 4 clients; an interactive session
+   whose reads fold (``set_aw_fold``, ``counter_fold``) and a
+   certification conflict (``RemoteAbort``), the apb dialect beside it; a
+   second server with ``max_in_flight=4`` under a burst of 32 updates
+   (every refusal a typed ``RemoteBusy``, no acknowledged write lost) and
+   a 1 µs deadline (``RemoteDeadline``); the node status over the wire.
+   Its figures print on a ``wire:`` line beside the card;
+9. print one JSON line per kernel record, the card line, and last the
    ``{"ok": true, ...}`` line.
 
 The launch counts are reset just before the serve, the node workload, the
-serving plane, the cluster, the types phase, the durable phase and the
-cold phase, and read just after each; each must show the kernels that
-``PATH_KERNELS`` names for it, and a kernel record's ``launches`` is the
-sum over the seven.
+serving plane, the cluster, the types phase, the durable phase, the cold
+phase and the wire phase, and read just after each; each must show the
+kernels that ``PATH_KERNELS`` names for it, and a kernel record's
+``launches`` is the sum over the eight.
 The serve must launch ``orset_presence`` exactly once per
 ``SetAW.resolve``, and a resolve on a CUDA state must call no torch sort.
 Exits non-zero without a CUDA device, and outside a
@@ -126,9 +146,11 @@ SERVE_BATCHES, HIST_EVERY = 60, 5
 # the cluster: members, shards, keys, adds per key, updates per populate
 # txn, removed keys, mixed txns per coordinator.  The keys are half of
 # the repo benchmark's 200,000 (cut with the cold phase's arrival: the
-# script's 600 s budget; the populate scales with them)
+# script's 600 s budget; the populate scales with them); the mixed
+# transactions half of the 256 a coordinator of earlier runs (cut with the
+# wire phase's arrival, the same budget)
 CL_MEMBERS, CL_SHARDS, CL_KEYS, CL_ADDS = 4, 2048, 100_000, 3
-CL_TXN, CL_REMOVES, CL_MIXED = 1024, 2000, 256
+CL_TXN, CL_REMOVES, CL_MIXED = 1024, 2000, 128
 # set_aw_fold's edge cases (K, E, D) at an odd B: the tier widths, widths
 # that fill no whole segment of lanes, 1 to 12 clock lanes, rings of one
 # op and past one warp; together they reach every variant of the launcher
@@ -154,12 +176,13 @@ COUNTER_CASES = [(1, 4), (16, 4), (33, 4), (16, 1), (16, 3), (33, 8)]
 # populate and its CPU twin scale with the keys)
 TY_KEYS, TY_ROUNDS, TY_CUT, TY_SHARDS = 25_000, 20, 18, 8
 MV_SLOTS, RGA_SLOTS = 4, 64
-# the serving phase: keys (half of BASELINE's 1M, cut with the cold
-# phase's arrival: the populate through the store scales with them),
+# the serving phase: keys (a quarter of BASELINE's 1M: halved with the
+# cold phase's arrival and again with the wire phase's, for the 600 s
+# budget; the populate through the store scales with them),
 # element pool, publish rounds of SV_ROUND_KEYS keys x 4 effects,
 # epoch-read batches, the concurrent writer's round size, the hot set;
 # long logs of LL_OPS ops for LL_KEYS keys
-SV_KEYS = 500_000
+SV_KEYS = 250_000
 SV_POOL, SV_ROUNDS, SV_ROUND_KEYS, SV_BATCHES = 4096, 10, 4096, 60
 SV_WRITE_KEYS, SV_HOT = 256, 1024
 LL_KEYS, LL_OPS = 1024, 4096
@@ -175,14 +198,28 @@ LL_KEYS, LL_OPS = 1024, 4096
 DU_SET_KEYS, DU_CTR_KEYS, DU_GROUP = 500_000, 100_000, 4096
 DU_ROUNDS, DU_TAIL_ROUNDS, DU_LADDER_LONG = 32, 16, 1500
 # the cold phase, on the durable phase's directory: the resident budget (a
-# quarter of its 600,000 rows), Zipf read batches, the faulted-in keys of
+# quarter of its 600,000 rows), Zipf read batches (10, half of earlier
+# runs' 20: cut with the wire phase's arrival for the 600 s budget), the
+# faulted-in keys of
 # the write rounds, the rate cap's fault-ins a second and its burst, the
 # sample of keys checked after the second recovery, the budget the delta
 # link's evictions go down to, the shard moved by handoff and the
 # reshard's shard count
-CO_RESIDENT, CO_BATCHES, CO_ROUND_KEYS = 150_000, 20, 2048
+CO_RESIDENT, CO_BATCHES, CO_ROUND_KEYS = 150_000, 10, 2048
 CO_CAP, CO_BURST, CO_SAMPLE, CO_EVICT_TO = 10.0, 256, 2048, 100_000
 CO_SHARD, CO_NEW_SHARDS = 3, 16
+# the wire phase: bench_wire.py's set_aw_zipf_north_star (config 3) at its
+# full size — keys, client processes, worker threads a process, the
+# untimed round and the timed window (seconds), the read fraction, the
+# sample of untouched keys read back; the three-thread check's batches and
+# commit rounds; read-your-writes pairs a client; the interactive
+# session's keys of each type; the overload burst
+WI_KEYS, WI_PROCS, WI_THREADS = 200_000, 2, 16
+WI_WARM_S, WI_WINDOW_S, WI_READ_FRAC, WI_SAMPLE = 3.0, 10.0, 0.9, 2048
+# seconds of the same load after the window, untimed: the card's profile
+WI_TAIL_S = 2.5
+WI_TT_BATCHES, WI_TT_ROUNDS, WI_RYW_PAIRS, WI_TXN_KEYS = 16, 4, 50, 64
+WI_BURST = 32
 # the kernels each path must launch: the serve resolves sets (presence)
 # and folds the historical batches; the node session folds a set and a
 # counter at older snapshots; every cluster transaction start merges the
@@ -193,7 +230,10 @@ CO_SHARD, CO_NEW_SHARDS = 3, 16
 # every set read, and its reads at the clock inside the WAL tail fold the
 # recovered rings (sets and counters); the cold phase resolves every set
 # read, faulted-in keys included, and its reads between two writes to
-# faulted-in keys fold the installed base (sets and counters)
+# faulted-in keys fold the installed base (sets and counters); the wire
+# server resolves every static read that misses the snapshot cache (one
+# launch an epoch-read chunk), and its interactive session reads sets and
+# counters at a snapshot older than other clients' writes (the folds)
 PATH_KERNELS = {"serve": ("orset_presence", "set_aw_fold"),
                 "node": ("counter_fold", "set_aw_fold"),
                 "serving": ("orset_presence", "set_aw_fold"),
@@ -201,7 +241,8 @@ PATH_KERNELS = {"serve": ("orset_presence", "set_aw_fold"),
                 "types": ("orset_presence", "set_aw_fold", "counter_fold"),
                 "durable": ("orset_presence", "set_aw_fold",
                             "counter_fold"),
-                "cold": ("orset_presence", "set_aw_fold", "counter_fold")}
+                "cold": ("orset_presence", "set_aw_fold", "counter_fold"),
+                "wire": ("orset_presence", "set_aw_fold", "counter_fold")}
 
 
 def log(msg: str) -> None:
@@ -3025,6 +3066,755 @@ def cold_phase(torch, dev, keep, budget=CO_RESIDENT, batches=CO_BATCHES,
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the wire front end
+# ---------------------------------------------------------------------------
+def _wire_op(c, rng, k, is_read, acked, lat_r, lat_u):
+    """``bench_wire.py``'s ``_op_set_aw`` on key ``k``, timed, with every
+    acknowledged update recorded as (key, op, element, commit clock) and
+    its latency as (start on the system's monotonic clock, ms)."""
+    t0 = time.monotonic()
+    if is_read:
+        c.read_objects([(k, "set_aw", "b")])
+        lat_r.append((time.monotonic() - t0) * 1e3)
+        return
+    op = "add" if rng.random() < 0.8 else "remove"
+    elem = int(rng.integers(1 << 30))
+    vc = c.update_objects([(k, "set_aw", "b", (op, elem))])
+    lat_u.append((t0, (time.monotonic() - t0) * 1e3))
+    acked.append((k, op, elem, [int(x) for x in vc]))
+
+
+def wire_worker(argv) -> int:
+    """One client process of the wire phase's load (``bench_wire.py``'s
+    model: its workers are threads of a few client processes).  Runs
+    ``threads`` workers of the Zipf(1.0) ``set_aw`` mix for an untimed
+    round, prints ``{"warm": ...}``, waits for a line on stdin, runs the
+    timed window and ``tail_s`` more seconds of the same load (untimed:
+    the parent profiles the card then), and prints the window's counts
+    and latencies and every acknowledged update of all rounds as one JSON
+    line.  Any error is fatal."""
+    import threading
+
+    from antidote_tpu_torch.proto.client import AntidoteClient
+
+    (host, port, n_keys, threads, seed, warm_s, window_s, tail_s,
+     read_frac) = argv
+    port, n_keys, threads, seed = int(port), int(n_keys), int(threads), \
+        int(seed)
+    warm_s, window_s, tail_s, read_frac = (float(warm_s), float(window_s),
+                                           float(tail_s), float(read_frac))
+    cdf = _zipf_cdf(n_keys)
+    acked = [[] for _ in range(threads)]
+    lat_r = [[] for _ in range(threads)]
+    lat_u = [[] for _ in range(threads)]
+    errs = []
+    go = threading.Event()
+    gate = {"stop": 0.0}
+    counts = [[0, 0] for _ in range(threads)]  # ops: warm, timed
+
+    def worker(i):
+        rng = np.random.default_rng(seed + i)
+        try:
+            c = AntidoteClient(host, port, timeout=60)
+            for phase in (0, 1):
+                if phase:
+                    go.wait(300)
+                    lat_r[i].clear()
+                    lat_u[i].clear()
+                stop = (time.perf_counter() + warm_s if phase == 0
+                        else gate["stop"] + tail_s)
+                while (now := time.perf_counter()) < stop:
+                    timed = phase == 0 or now < gate["stop"]
+                    k = int(np.searchsorted(cdf, rng.random()))
+                    _wire_op(c, rng, min(k, n_keys - 1),
+                             rng.random() < read_frac, acked[i],
+                             lat_r[i] if timed else [],
+                             lat_u[i] if timed else [])
+                    counts[i][phase] += timed
+            c.close()
+        except Exception as e:  # noqa: BLE001 — reported, fatal upstream
+            errs.append(repr(e))
+            go.set()
+
+    ts = [threading.Thread(target=worker, args=(i,)) for i in range(threads)]
+    for t in ts:
+        t.start()
+    time.sleep(warm_s)
+    print(json.dumps({"warm": sum(c[0] for c in counts), "errs": errs}),
+          flush=True)
+    sys.stdin.readline()
+    gate["stop"] = time.perf_counter() + window_s
+    go.set()
+    for t in ts:
+        t.join(window_s + tail_s + 120)
+    print(json.dumps({
+        "ops": sum(c[1] for c in counts), "window_s": window_s,
+        "lat_read_ms": [x for xs in lat_r for x in xs],
+        "lat_update_ms": [x for xs in lat_u for _t, x in xs],
+        "slow_updates": sorted((x for xs in lat_u for x in xs),
+                               key=lambda tx: -tx[1])[:5],
+        "acked": [a for xs in acked for a in xs], "errs": errs,
+        "alive": sum(t.is_alive() for t in ts)}), flush=True)
+    return 0
+
+
+def _read_line(proc, timeout):
+    """One stdout line of a child, or an AssertionError after ``timeout``
+    seconds or at the child's exit."""
+    import select
+
+    deadline = time.monotonic() + timeout
+    while True:
+        left = deadline - time.monotonic()
+        if left <= 0:
+            raise AssertionError("a wire worker went silent")
+        ready, _, _ = select.select([proc.stdout], [], [], min(left, 1.0))
+        if ready:
+            line = proc.stdout.readline()
+            if not line:
+                raise AssertionError(
+                    f"a wire worker exited (rc {proc.wait(10)})")
+            return json.loads(line)
+
+
+class _GcPauses:
+    """The interpreter's garbage-collection pauses in this process while
+    it is open, by generation (every thread waits for a collection)."""
+
+    def __init__(self):
+        import gc
+
+        self._gc = gc
+        self._t0 = 0.0
+        self.ms: dict = {0: [], 1: [], 2: []}
+        gc.callbacks.append(self._cb)
+
+    def _cb(self, phase, info):
+        if phase == "start":
+            self._t0 = time.perf_counter()
+        else:
+            self.ms[info["generation"]].append(
+                (time.perf_counter() - self._t0) * 1e3)
+
+    def close(self) -> None:
+        if self._cb in self._gc.callbacks:
+            self._gc.callbacks.remove(self._cb)
+
+    def summary(self) -> dict:
+        return {f"gen{g}": {"n": len(v), "sum": float(sum(v)),
+                            "max": float(max(v, default=0.0))}
+                for g, v in self.ms.items()}
+
+
+def _stage_means(pre, post) -> dict:
+    """Per-stage mean µs of the server pipeline over a window, from two
+    ``_pipeline_status`` blocks."""
+    out = {}
+    for k, p2 in post["stages"].items():
+        p1 = pre["stages"][k]
+        n = p2["count"] - p1["count"]
+        out[k] = {"count": n, "mean_us": ((p2["sum_ms"] - p1["sum_ms"])
+                                          * 1e3 / n) if n else 0.0}
+    return out
+
+
+def _counter_deltas(pre, post, blk) -> dict:
+    """The counters of a status block over a window (gauges left out)."""
+    return {k: v - pre[blk].get(k, 0) for k, v in post[blk].items()
+            if isinstance(v, (int, float)) and k not in ("size", "cap")}
+
+
+def _busy_window(torch, seconds) -> dict:
+    """The card's busy share over ``seconds`` of wall time while other
+    threads (the server's) and processes (the clients) run the load, two
+    ways: ``torch.profiler`` (CPU and CUDA activities) summing the device
+    time of the kernels it traced, and ``nvidia-smi``'s ``utilization.gpu``
+    (the share of each sample period in which a kernel ran) sampled every
+    100 ms beside it.  An observation: a profiler or sampler that fails is
+    reported, not fatal."""
+    from torch.profiler import ProfilerActivity, profile
+
+    out: dict = {}
+    smi = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=utilization.gpu",
+         "--format=csv,noheader,nounits", "-lms", "100"],
+        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    started = True
+    try:
+        prof.start()
+    except Exception as e:  # noqa: BLE001 — reported, see docstring
+        out["profiler_error"] = repr(e)
+        started = False
+    t0 = time.perf_counter()
+    time.sleep(seconds)
+    wall_us = (time.perf_counter() - t0) * 1e6
+    smi.terminate()
+    try:
+        samples = [float(x) for x in smi.communicate(timeout=30)[0].split()]
+    except (subprocess.TimeoutExpired, ValueError) as e:
+        smi.kill()
+        smi.wait(30)
+        samples = []
+        out["smi_error"] = repr(e)
+    if samples:
+        out["smi_util_pct"] = _stats(samples)
+    if started:
+        try:
+            prof.stop()
+            rows = [(e.self_device_time_total, e.key)
+                    for e in prof.key_averages()
+                    if str(e.device_type).endswith("CUDA")]
+        except Exception as e:  # noqa: BLE001 — reported, see docstring
+            out["profiler_error"] = repr(e)
+            return out
+        busy_us = sum(t for t, _ in rows)
+        by_name: dict = {}
+        for t, k in rows:
+            by_name[k[:80]] = by_name.get(k[:80], 0.0) + t / 1e3
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+        out.update(wall_ms=wall_us / 1e3, device_ms=busy_us / 1e3,
+                   device_busy_share=busy_us / wall_us,
+                   top_device_ms={k: ms for k, ms in top if ms > 0})
+    return out
+
+
+def wire_phase(torch, dev, n_keys=WI_KEYS, procs=WI_PROCS,
+               threads=WI_THREADS, warm_s=WI_WARM_S, window_s=WI_WINDOW_S,
+               sample=WI_SAMPLE, burst=WI_BURST) -> dict:
+    """The wire front end on the card: ``bench_wire.py``'s
+    ``set_aw_zipf_north_star`` (config 3) against an ephemeral
+    ``AntidoteNode`` of BASELINE's widths served by a ``ProtocolServer``
+    with the JAX package's defaults.  Populate ``n_keys`` keys in-process
+    through ``KVStore.apply_effect_groups`` (3 adds a key, removes on a
+    tenth); hold the server's launch stage under the CUDA sync debug mode
+    and an epoch read launched on one thread, finished on another while a
+    third commits and publishes, to the locked read at the epoch's clock;
+    then ``procs`` client processes of ``threads`` workers each (90%
+    static reads, Zipf(1.0)) for an untimed round and a timed window, the
+    card's busy share over 2 s of the same load right after it; every
+    touched key and ``sample``
+    others read back over the wire at the join of the acknowledged
+    clocks, equal to a host model; read-your-writes on 4 clients; an
+    interactive session (``set_aw_fold``, ``counter_fold``) and a
+    certification conflict, the apb dialect beside it; a second server
+    with ``max_in_flight=4`` under a burst of ``burst`` updates (every
+    refusal typed, no acknowledged write lost) and a deadline; the node
+    status over the wire.  On a CPU device (a rehearsal at a small
+    ``n_keys``) the card-only checks are skipped."""
+    import queue
+    import threading
+
+    from antidote_tpu_torch.api import AntidoteNode
+    from antidote_tpu_torch.config import AntidoteConfig
+    from antidote_tpu_torch.proto.client import (AntidoteClient, ApbClient,
+                                                 RemoteAbort, RemoteBusy,
+                                                 RemoteDeadline)
+    from antidote_tpu_torch.proto.server import ProtocolServer, _StaticWork
+    from antidote_tpu_torch.store.kv import Effect, KVStore
+
+    on_card = torch.device(dev).type == "cuda"
+    out: dict = {"keys": n_keys, "procs": procs, "threads": threads,
+                 "window_s": window_s}
+    cfg = AntidoteConfig(n_shards=8, max_dcs=D, ops_per_key=K,
+                         snap_versions=2, set_slots=E,
+                         keys_per_table=n_keys // 8)
+    # ---- 1. populate ---------------------------------------------------
+    t0 = time.perf_counter()
+    store = KVStore(cfg, device=dev)
+    st = orset_stream(np.random.default_rng(67), n_keys)
+    keys, lane0, first_idx = st["keys"], st["lane0"], st["first_idx"]
+    rm_keys, rm_t = st["rm_keys"], st["rm_t"]
+    vals = (st["elems"] % SV_POOL).astype(np.int64)
+    pool_h = np.asarray([store.blobs.intern(v) for v in range(SV_POOL)],
+                        np.int64)
+    eff_a = pool_h[vals][:, None]
+    add_b = np.zeros((1 + D,), np.int32)
+    for lo in range(0, len(keys), POP_BATCH):
+        hi = min(lo + POP_BATCH, len(keys))
+        vcs = np.zeros((hi - lo, D), np.int32)
+        vcs[:, 0] = lane0[lo:hi]
+        effs = [Effect(k, "set_aw", "b", eff_a[lo + j], add_b)
+                for j, k in enumerate(keys[lo:hi].tolist())]
+        store.apply_effect_groups([(effs, list(vcs), [0] * (hi - lo))])
+    for lo in range(0, len(rm_keys), POP_BATCH):
+        kk = rm_keys[lo:lo + POP_BATCH]
+        rb = np.zeros((len(kk), 1 + D), np.int32)
+        rb[:, 0] = 1
+        rb[:, 1] = lane0[first_idx[kk]]
+        vcs = np.zeros((len(kk), D), np.int32)
+        vcs[:, 0] = rm_t[kk]
+        effs = [Effect(k, "set_aw", "b", eff_a[first_idx[k]], rb[j])
+                for j, k in enumerate(kk.tolist())]
+        store.apply_effect_groups([(effs, list(vcs), [0] * len(kk))])
+    if on_card:
+        torch.cuda.synchronize()
+    out["populate_s"] = time.perf_counter() - t0
+    # the host model: each key's elements after the populate (a remove
+    # takes the first add's element, unless another add of the key put
+    # the same value in with its own dot)
+    key_vals = np.zeros((n_keys, ADDS_PER_KEY), np.int64)
+    occ = np.zeros(n_keys, np.int64)
+    for i, k in enumerate(keys.tolist()):
+        key_vals[k, occ[k]] = vals[i]
+        occ[k] += 1
+    model = [set(row) for row in key_vals.tolist()]
+    v0 = vals[first_idx]
+    for k in rm_keys.tolist():
+        if (key_vals[k] == v0[k]).sum() == 1:
+            model[k].discard(int(v0[k]))
+    node = AntidoteNode(store=store)
+    txm = node.txm
+    log(f"wire: populated {n_keys} keys in {out['populate_s']:.1f} s")
+
+    def objs_of(kk):
+        return [(int(k), "set_aw", "b") for k in kk]
+
+    # ---- 2. the launch stage never syncs; three threads, one batch -----
+    txm.enable_serving_epochs()
+    txm.publish_serving_epoch()
+    probe = ProtocolServer(node, port=0, batch_static=False)
+    try:
+        rng = np.random.default_rng(71)
+        works = [_StaticWork("read", objects=objs_of(
+            zipf_keys(rng, n_keys, 64))) for _ in range(16)]
+        if on_card:
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            left = probe._launch_epoch_reads(works)
+        finally:
+            if on_card:
+                torch.cuda.set_sync_debug_mode("default")
+        if left:
+            raise AssertionError(f"{len(left)} works left the epoch plane")
+        n_checked = 0
+        while not probe._writeback_q.empty():
+            b = probe._writeback_q.get_nowait()
+            got = store.epoch_read_finish(b.pending)
+            store.unpin_serving_epoch(b.pending.ep)
+            for w, (lo, hi) in zip(b.works, b.spans):
+                if got[lo:hi] != node.read_objects(w.objects)[0]:
+                    raise AssertionError("a probe epoch read differs")
+                n_checked += hi - lo
+    finally:
+        probe.close()
+    out["launch_stage"] = {"works": len(works), "objects": n_checked,
+                           "sync_debug": "error" if on_card else None}
+    launched: "queue.Queue" = queue.Queue()
+    done = threading.Event()
+    results, errors = [], []
+    wrng = np.random.default_rng(73)
+    t_rounds = [0]
+
+    def launcher():
+        r = np.random.default_rng(79)
+        try:
+            for _ in range(WI_TT_BATCHES):
+                objs = objs_of(zipf_distinct(
+                    r, n_keys, ProtocolServer.EPOCH_LAUNCH_CHUNK))
+                ep = store.pin_serving_epoch()
+                pend, fb = store.epoch_read_launch(objs, ep)
+                if fb:
+                    store.unpin_serving_epoch(ep)
+                    raise AssertionError(f"fallbacks {fb}")
+                launched.put((ep, pend, objs, ep.vc.copy()))
+        except Exception as e:  # noqa: BLE001 — fatal, raised below
+            errors.append(e)
+        finally:
+            launched.put(None)
+
+    def finisher():
+        try:
+            while True:
+                item = launched.get(timeout=300)
+                if item is None:
+                    return
+                ep, pend, objs, vc = item
+                try:
+                    results.append((objs, vc, store.epoch_read_finish(pend)))
+                finally:
+                    store.unpin_serving_epoch(ep)
+        except Exception as e:  # noqa: BLE001 — fatal, raised below
+            errors.append(e)
+
+    def publisher():
+        try:
+            while not done.is_set() and t_rounds[0] < WI_TT_ROUNDS:
+                kk = np.unique(zipf_keys(wrng, n_keys, 256))
+                node.update_objects([(int(k), "set_aw", "b",
+                                      ("add", int(SV_POOL + t_rounds[0])))
+                                     for k in kk])
+                for k in kk.tolist():
+                    model[k].add(SV_POOL + t_rounds[0])
+                txm.publish_serving_epoch()
+                t_rounds[0] += 1
+        except Exception as e:  # noqa: BLE001 — fatal, raised below
+            errors.append(e)
+
+    ths = [threading.Thread(target=f, name=f"wire-{f.__name__}")
+           for f in (launcher, finisher, publisher)]
+    for t in ths:
+        t.start()
+    ths[0].join(300)
+    ths[1].join(300)
+    done.set()
+    ths[2].join(300)
+    if errors:
+        raise errors[0]
+    eps = set()
+    for objs, vc, got in results:
+        eps.add(tuple(int(x) for x in vc))
+        if got != _read_all(node, objs, vc):
+            raise AssertionError(f"a three-thread epoch read at {vc} "
+                                 f"differs from the locked read")
+    out["three_threads"] = {"batches": len(results), "epochs": len(eps),
+                            "commit_rounds": t_rounds[0]}
+    log(f"wire: launch stage and three-thread reads "
+        f"{json.dumps(out['three_threads'])}")
+    # ---- 3. the server and the timed load ------------------------------
+    srv = ProtocolServer(node, port=0)
+    children = []
+    try:
+        probes = node.check_ready()
+        if not all(probes.values()):
+            raise AssertionError(f"the node is not ready: {probes}")
+        status_c = AntidoteClient(srv.host, srv.port, timeout=60)
+        env = dict(os.environ)
+        env["PYTHONPATH"] = (os.path.dirname(os.path.abspath(__file__))
+                             + os.pathsep + env.get("PYTHONPATH", ""))
+        for p in range(procs):
+            children.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--wire-worker",
+                 srv.host, str(srv.port), str(n_keys), str(threads),
+                 str(1000 * (p + 1)), str(warm_s), str(window_s),
+                 str(WI_TAIL_S if on_card else 0.0), str(WI_READ_FRAC)],
+                env=env, stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+                stderr=subprocess.DEVNULL, text=True))
+        warm = [_read_line(c, 600) for c in children]
+        if any(w["errs"] for w in warm):
+            raise AssertionError(f"warm round errors: {warm}")
+        pre = status_c.node_status()["pipeline"]
+        gc_pauses = _GcPauses()
+        for c in children:
+            c.stdin.write("go\n")
+            c.stdin.flush()
+        t_go = time.perf_counter()
+        if on_card:
+            # the profile runs on the same load just after the timed
+            # window: its stop processes the trace for seconds under the
+            # interpreter lock, which inside the window stalled every
+            # request
+            time.sleep(window_s + 0.25)
+            t_prof = time.monotonic()
+            out["busy"] = _busy_window(torch, WI_TAIL_S - 0.5)
+        res = [_read_line(c, window_s + 300) for c in children]
+        load_s = time.perf_counter() - t_go
+        gc_pauses.close()
+        post = status_c.node_status()["pipeline"]
+        if any(r["errs"] or r["alive"] for r in res):
+            raise AssertionError(f"load errors: "
+                                 f"{[r['errs'][:3] for r in res]}")
+        ops = sum(r["ops"] for r in res)
+        if on_card:
+            # the window's slowest updates: start (s, against the
+            # profile's start) and ms
+            out["busy"]["slow_updates_s_ms"] = sorted(
+                ((t - t_prof, ms) for r in res for t, ms in r["slow_updates"]),
+                key=lambda tx: -tx[1])[:5]
+        lr = [x for r in res for x in r["lat_read_ms"]]
+        lu = [x for r in res for x in r["lat_update_ms"]]
+        nm = node.metrics
+        out["load"] = {
+            "warm_ops": sum(w["warm"] for w in warm), "ops": ops,
+            "ops_s": ops / window_s, "wall_s": load_s,
+            "read_ms": _stats(lr), "update_ms": _stats(lu),
+            "stages_us": _stage_means(pre, post),
+            "reads": _counter_deltas(pre, post, "reads"),
+            "snapshot_cache": _counter_deltas(pre, post, "snapshot_cache"),
+            "epoch_publish": _counter_deltas(pre, post, "epoch_publish"),
+            # the phase's commit rounds so far (the populate took none)
+            "commit_round_ms": {k: v * 1e3 if k in ("mean", "p50", "p99")
+                                else v for k, v in
+                                nm.commit_seconds.summary().items()},
+            "merge_width": nm.commit_merge_width.summary(),
+            "gc_pauses_ms": gc_pauses.summary()}
+        log(f"wire: load {json.dumps({k: out['load'][k] for k in ('ops_s', 'read_ms', 'update_ms')})}")
+        # ---- 4. every acknowledged write reads back ---------------------
+        acked = [a for r in res for a in r["acked"]]
+        join = np.zeros(D, np.int64)
+        by_key: dict = {}
+        for k, op, elem, vc in acked:
+            join = np.maximum(join, np.asarray(vc, np.int64))
+            by_key.setdefault(k, []).append((op, elem, vc[0]))
+        racy = 0
+        expect = {}
+        for k, ops_k in by_key.items():
+            adds = {e for op, e, _ in ops_k if op == "add"}
+            base = model[k] | adds
+            hit = {e for op, e, _ in ops_k if op == "remove" and e in base}
+            if hit:
+                racy += 1  # the remove's snapshot decides; either value
+            expect[k] = (base, base - hit)
+            model[k] |= adds
+        rest = np.setdiff1d(np.arange(n_keys), np.fromiter(by_key, np.int64))
+        pick = np.random.default_rng(83).choice(
+            rest, min(sample, len(rest)), replace=False)
+        for k in pick.tolist():
+            expect[k] = (model[k], model[k])
+        chk = sorted(expect)
+        got = []
+        clock = [int(x) for x in join]
+        for lo in range(0, len(chk), 512):
+            v, _ = status_c.read_objects(objs_of(chk[lo:lo + 512]),
+                                         clock=clock)
+            got.extend(v)
+        bad = [k for k, v in zip(chk, got)
+               if set(v) not in (expect[k][0], expect[k][1])]
+        if bad:
+            k = bad[0]
+            raise AssertionError(
+                f"{len(bad)} keys differ from the model after the load, "
+                f"key {k}: {sorted(got[chk.index(k)])[:8]} against "
+                f"{sorted(expect[k][1])[:8]}")
+        out["check"] = {"acked_updates": len(acked),
+                        "touched_keys": len(by_key),
+                        "sampled_keys": len(pick), "racy_keys": racy}
+        # ---- 5. read-your-writes ----------------------------------------
+        ryw = {"pairs": 0}
+        rerr = []
+
+        def ryw_client(i):
+            try:
+                c = AntidoteClient(srv.host, srv.port, timeout=60)
+                r = np.random.default_rng(89 + i)
+                for j in range(WI_RYW_PAIRS):
+                    k = int(zipf_keys(r, n_keys, 1)[0])
+                    e = (1 << 31) + 1000 * i + j
+                    vc = c.update_objects([(k, "set_aw", "b", ("add", e))])
+                    v, _ = c.read_objects([(k, "set_aw", "b")], clock=vc)
+                    if e not in v[0]:
+                        raise AssertionError(f"client {i} missed its write "
+                                             f"of {e} to key {k}")
+                    ryw["pairs"] += 1
+                c.close()
+            except Exception as e:  # noqa: BLE001 — fatal, raised below
+                rerr.append(e)
+
+        rts = [threading.Thread(target=ryw_client, args=(i,))
+               for i in range(4)]
+        for t in rts:
+            t.start()
+        for t in rts:
+            t.join(300)
+        if rerr:
+            raise rerr[0]
+        out["read_your_writes"] = ryw
+        # ---- 6. an interactive session and the apb dialect -------------
+        out["session"] = _wire_session(srv, AntidoteClient, ApbClient,
+                                       RemoteAbort)
+        # ---- 7. overload: typed sheds, no lost write, a deadline -------
+        out["overload"] = _wire_overload(node, AntidoteClient, RemoteBusy,
+                                         RemoteDeadline, ProtocolServer,
+                                         burst)
+        # ---- 8. the status over the wire --------------------------------
+        st = status_c.node_status(include_ready=True)
+        if not all(st["ready"].values()):
+            raise AssertionError(f"status ready {st['ready']}")
+        pipe = st["pipeline"]
+        need = {"overload", "pipeline", "tenants", "write_plane", "escrow",
+                "net"}
+        if not need <= set(st) or not pipe["epoch_reads"]:
+            raise AssertionError(f"status blocks {sorted(st)}")
+        out["status"] = {"reads": pipe["reads"],
+                         "epoch_publish": pipe["epoch_publish"],
+                         "serving_epoch_id": pipe["serving_epoch_id"],
+                         "shed": st["overload"]["shed"],
+                         "materializer": pipe["materializer"]}
+        status_c.close()
+    finally:
+        for c in children:
+            if c.poll() is None:
+                c.kill()
+            c.wait(30)
+        srv.close()
+    return out
+
+
+def _wire_session(srv, AntidoteClient, ApbClient, RemoteAbort) -> dict:
+    """Interactive transactions over the wire: a transaction started
+    before other clients write its keys reads them at its snapshot (the
+    ring folds: ``set_aw_fold``, ``counter_fold``), then commits; two
+    read-bearing transactions on one counter: the second commit is
+    ``RemoteAbort``.  The apb dialect: static writes and reads, and an
+    interactive transaction whose conflict comes back as the JAX
+    server's ``AbortError`` reply."""
+    from antidote_tpu_torch.proto import apb
+
+    a = AntidoteClient(srv.host, srv.port, timeout=60)
+    b = AntidoteClient(srv.host, srv.port, timeout=60)
+    sets = [(f"wtx{i}", "set_aw", "b") for i in range(WI_TXN_KEYS)]
+    ctrs = [(f"wtc{i}", "counter_pn", "b") for i in range(WI_TXN_KEYS)]
+    try:
+        a.update_objects([(k, t, bk, ("add", j)) for j, (k, t, bk)
+                          in enumerate(sets)]
+                         + [(k, t, bk, ("increment", 5)) for k, t, bk in ctrs])
+        # one commit to a third table first: the transaction's snapshot is
+        # then above the set and counter tables' own commit clocks, so no
+        # table epoch the ticker froze since is pinned exactly at it (the
+        # ladder's rung 2, which folds nothing): its reads fold the rings
+        vc = a.update_objects([("wtx-bump", "flag_ew", "b",
+                                ("enable", None))])
+        txn = a.start_transaction(clock=vc)
+        for r in range(3):  # newer ops in every ring past the snapshot
+            b.update_objects([(k, t, bk, ("add", 100 + r))
+                              for k, t, bk in sets]
+                             + [(k, t, bk, ("increment", 1))
+                                for k, t, bk in ctrs])
+        got = txn.read_objects(sets + ctrs)
+        want = [[j] for j in range(len(sets))] + [5] * len(ctrs)
+        if got != want:
+            raise AssertionError(f"a transaction read {got[:3]}... at its "
+                                 f"snapshot, want {want[:3]}...")
+        txn.update_objects([(k, t, bk, ("add", 7)) for k, t, bk in sets])
+        cvc = txn.commit()
+        vals, _ = b.read_objects(sets + ctrs, clock=cvc)
+        want = ([sorted({j, 7, 100, 101, 102}) for j in range(len(sets))]
+                + [8] * len(ctrs))
+        if [sorted(v) for v in vals[:len(sets)]] + vals[len(sets):] != want:
+            raise AssertionError("the session's values after its commit")
+        t1 = a.start_transaction()
+        t2 = b.start_transaction()
+        for t in (t1, t2):
+            t.read_objects(ctrs[:1])
+            t.update_objects([ctrs[0] + (("increment", 1),)])
+        t1.commit()
+        try:
+            t2.commit()
+        except RemoteAbort:
+            conflict = "RemoteAbort"
+        else:
+            raise AssertionError("a certification conflict committed")
+        # the apb dialect
+        c = ApbClient(srv.host, srv.port, timeout=60)
+        try:
+            avc = c.update_objects([(b"wapb", "counter_pn", b"b",
+                                     ("increment", 3)),
+                                    (b"wapbs", "set_aw", b"b",
+                                     ("add", b"e1"))])
+            v, _ = c.read_objects([(b"wapb", "counter_pn", b"b"),
+                                   (b"wapbs", "set_aw", b"b")], clock=avc)
+            if v != [3, [b"e1"]]:
+                raise AssertionError(f"apb static read {v}")
+            bo = {"key": b"wapb", "type": apb.TYPE_IDS["counter_pn"],
+                  "bucket": b"b"}
+            upd = {"boundobject": bo,
+                   "operation": {"counterop": {"inc": 1}}}
+            descs = []
+            for _ in range(2):
+                _n, r = c._call("ApbStartTransaction", {
+                    "timestamp": apb._enc_clock(avc)})
+                descs.append(r["transaction_descriptor"])
+            for d in descs:
+                _n, r = c._call("ApbReadObjects", {
+                    "transaction_descriptor": d, "boundobjects": [bo]})
+                if apb.read_resp_to_value(r["objects"][0]) != 3:
+                    raise AssertionError("apb transaction read")
+                c._call("ApbUpdateObjects", {"transaction_descriptor": d,
+                                             "updates": [upd]})
+            c._call("ApbCommitTransaction",
+                    {"transaction_descriptor": descs[0]})
+            try:
+                c._call("ApbCommitTransaction",
+                        {"transaction_descriptor": descs[1]})
+            except Exception as e:  # noqa: BLE001 — checked below
+                apb_conflict = str(e)
+            else:
+                raise AssertionError("an apb conflict committed")
+            if "AbortError" not in apb_conflict:
+                raise AssertionError(f"apb conflict reply {apb_conflict}")
+        finally:
+            c.close()
+    finally:
+        a.close()
+        b.close()
+    return {"keys": 2 * len(sets), "conflict": conflict,
+            "apb_conflict": apb_conflict.split(":")[1].strip()}
+
+
+def _wire_overload(node, AntidoteClient, RemoteBusy, RemoteDeadline,
+                   ProtocolServer, burst) -> dict:
+    """A second server on the node with ``max_in_flight=4``: bursts of
+    ``burst`` concurrent static updates until some are shed; every
+    refusal is a typed ``RemoteBusy`` with a retry hint, and every
+    acknowledged update reads back.  Then an update with
+    ``deadline_ms=0.001`` is refused typed and never executes."""
+    import threading
+
+    srv = ProtocolServer(node, port=0, max_in_flight=4)
+    acked, busy, other = [], [], []
+    try:
+        for rnd in range(3):
+            barrier = threading.Barrier(burst)
+
+            def fire(i, rnd=rnd):
+                try:
+                    c = AntidoteClient(srv.host, srv.port, timeout=60)
+                except OSError as e:
+                    other.append(repr(e))
+                    return
+                try:
+                    barrier.wait(60)
+                    k = f"ovl{rnd}-{i}"
+                    vc = c.update_objects([(k, "set_aw", "b", ("add", i))])
+                    acked.append((k, i, vc))
+                except RemoteBusy as e:
+                    busy.append(e.retry_after_ms)
+                except Exception as e:  # noqa: BLE001 — counted, fatal
+                    other.append(repr(e))
+                finally:
+                    c.close()
+
+            ts = [threading.Thread(target=fire, args=(i,))
+                  for i in range(burst)]
+            for t in ts:
+                t.start()
+            for t in ts:
+                t.join(120)
+            if busy:
+                break
+        if other or not busy or min(busy) < 25:
+            raise AssertionError(f"burst: {len(acked)} acked, busy hints "
+                                 f"{busy[:8]}, other {other[:3]}")
+        c = AntidoteClient(srv.host, srv.port, timeout=60)
+        try:
+            join = np.max([vc for _k, _i, vc in acked], axis=0).tolist()
+            vals, _ = c.read_objects([(k, "set_aw", "b")
+                                      for k, _i, _vc in acked], clock=join)
+            lost = [k for (k, i, _vc), v in zip(acked, vals) if v != [i]]
+            if lost:
+                raise AssertionError(f"acknowledged writes lost: {lost}")
+            try:
+                c.update_objects([("ovl-deadline", "set_aw", "b",
+                                   ("add", 1))], deadline_ms=0.001)
+            except RemoteDeadline:
+                pass
+            else:
+                raise AssertionError("a 1 µs deadline was not refused")
+            if c.read_objects([("ovl-deadline", "set_aw", "b")])[0] != [[]]:
+                raise AssertionError("the expired update executed")
+        finally:
+            c.close()
+        return {"burst": burst, "rounds": rnd + 1, "acked": len(acked),
+                "busy": len(busy), "hint_ms": _stats(busy),
+                "deadline": "RemoteDeadline",
+                "shed": {k: v for k, v in
+                         node.status()["overload"]["shed"].items()}}
+    finally:
+        srv.close()
+
+
 def count_resolves(fn):
     """``fn()`` with every ``SetAW.resolve`` call counted: (its result,
     the count)."""
@@ -3045,6 +3835,8 @@ def count_resolves(fn):
 
 
 def main() -> int:
+    if sys.argv[1:2] == ["--wire-worker"]:
+        return wire_worker(sys.argv[2:])
     import torch
 
     if not torch.cuda.is_available():
@@ -3101,9 +3893,11 @@ def main() -> int:
     print(f"durable: {json.dumps(durable)} | card: {card}", flush=True)
     cold = run_path(lambda: cold_phase(torch, dev, keep))
     print(f"cold: {json.dumps(cold)} | card: {card}", flush=True)
+    wire = run_path(lambda: wire_phase(torch, dev))
+    print(f"wire: {json.dumps(wire)} | card: {card}", flush=True)
     paths = {"serve": serve, "node": node, "serving": serving,
              "cluster": cluster, "types": types, "durable": durable,
-             "cold": cold}
+             "cold": cold, "wire": wire}
     for path, res in paths.items():
         log(f"{path}: {json.dumps(res)}")
         missing = [n for n in PATH_KERNELS[path] if res["launches"][n] == 0]

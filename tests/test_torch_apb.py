@@ -1,0 +1,675 @@
+"""The port's antidote_pb codec against the JAX package's, on the CPU.
+
+Counterparts of ``tests/test_apb.py`` on the port (golden bytes, the
+``protoc`` cross-check, live apb round trips against a port server,
+interleaved with the msgpack dialect on one port), then the codec across
+the packages: every message of the schema table encodes to the JAX
+``apb.encode_msg`` bytes and decodes back, the frame codes agree, and
+``error_text``/``parse_error_text`` round-trip for every typed error.
+"""
+
+import socket
+import struct
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+from antidote_tpu.proto import apb as japb
+from antidote_tpu_torch.api.node import AntidoteNode as _Node
+from antidote_tpu_torch.config import AntidoteConfig
+from antidote_tpu_torch.proto import apb
+from antidote_tpu_torch.proto.server import ProtocolServer
+
+pytestmark = pytest.mark.smoke
+
+
+def AntidoteNode(*a, **kw):
+    """The port's node on the CPU."""
+    kw.setdefault("device", "cpu")
+    return _Node(*a, **kw)
+
+
+ANTIDOTE_PROTO = r"""
+syntax = "proto2";
+enum CRDT_type {
+    COUNTER = 3; ORSET = 4; LWWREG = 5; MVREG = 6; GMAP = 8;
+    RWSET = 10; RRMAP = 11; FATCOUNTER = 12; FLAG_EW = 13;
+    FLAG_DW = 14; BCOUNTER = 15;
+}
+message ApbErrorResp { required bytes errmsg = 1; required uint32 errcode = 2; }
+message ApbCounterUpdate { optional sint64 inc = 1; }
+message ApbGetCounterResp { required sint32 value = 1; }
+message ApbSetUpdate {
+    enum SetOpType { ADD = 1; REMOVE = 2; }
+    required SetOpType optype = 1;
+    repeated bytes adds = 2;
+    repeated bytes rems = 3;
+}
+message ApbGetSetResp { repeated bytes value = 1; }
+message ApbRegUpdate { required bytes value = 1; }
+message ApbGetRegResp { required bytes value = 1; }
+message ApbGetMVRegResp { repeated bytes values = 1; }
+message ApbMapKey { required bytes key = 1; required CRDT_type type = 2; }
+message ApbMapUpdate {
+    repeated ApbMapNestedUpdate updates = 1;
+    repeated ApbMapKey removedKeys = 2;
+}
+message ApbMapNestedUpdate {
+    required ApbMapKey key = 1;
+    required ApbUpdateOperation update = 2;
+}
+message ApbMapEntry { required ApbMapKey key = 1; required ApbReadObjectResp value = 2; }
+message ApbGetMapResp { repeated ApbMapEntry entries = 1; }
+message ApbFlagUpdate { required bool value = 1; }
+message ApbGetFlagResp { required bool value = 1; }
+message ApbCrdtReset { }
+message ApbBoundObject {
+    required bytes key = 1;
+    required CRDT_type type = 2;
+    required bytes bucket = 3;
+}
+message ApbReadObjects {
+    repeated ApbBoundObject boundobjects = 1;
+    required bytes transaction_descriptor = 2;
+}
+message ApbUpdateOperation {
+    optional ApbCounterUpdate counterop = 1;
+    optional ApbSetUpdate setop = 2;
+    optional ApbRegUpdate regop = 3;
+    optional ApbCrdtReset resetop = 4;
+    optional ApbFlagUpdate flagop = 5;
+    optional ApbMapUpdate mapop = 6;
+}
+message ApbUpdateOp {
+    required ApbBoundObject boundobject = 1;
+    required ApbUpdateOperation operation = 2;
+}
+message ApbUpdateObjects {
+    repeated ApbUpdateOp updates = 1;
+    required bytes transaction_descriptor = 2;
+}
+message ApbStartTransaction {
+    optional bytes timestamp = 1;
+    optional ApbTxnProperties properties = 2;
+}
+message ApbTxnProperties { optional uint32 read_write = 1; optional uint32 red_blue = 2; }
+message ApbAbortTransaction { required bytes transaction_descriptor = 1; }
+message ApbCommitTransaction { required bytes transaction_descriptor = 1; }
+message ApbStaticUpdateObjects {
+    required ApbStartTransaction transaction = 1;
+    repeated ApbUpdateOp updates = 2;
+}
+message ApbStaticReadObjects {
+    required ApbStartTransaction transaction = 1;
+    repeated ApbBoundObject objects = 2;
+}
+message ApbStartTransactionResp {
+    required bool success = 1;
+    optional bytes transaction_descriptor = 2;
+    optional uint32 errorcode = 3;
+}
+message ApbOperationResp { required bool success = 1; optional uint32 errorcode = 2; }
+message ApbReadObjectResp {
+    optional ApbGetCounterResp counter = 1;
+    optional ApbGetSetResp set = 2;
+    optional ApbGetRegResp reg = 3;
+    optional ApbGetMVRegResp mvreg = 4;
+    optional ApbGetMapResp map = 6;
+    optional ApbGetFlagResp flag = 7;
+}
+message ApbReadObjectsResp {
+    required bool success = 1;
+    repeated ApbReadObjectResp objects = 2;
+    optional uint32 errorcode = 3;
+}
+message ApbCommitResp {
+    required bool success = 1;
+    optional bytes commit_time = 2;
+    optional uint32 errorcode = 3;
+}
+message ApbStaticReadObjectsResp {
+    required ApbReadObjectsResp objects = 1;
+    required ApbCommitResp committime = 2;
+}
+"""
+
+
+# ---------------------------------------------------------------------------
+# 1. golden bytes (hand-computed proto2 encodings)
+# ---------------------------------------------------------------------------
+def test_golden_bytes():
+    # ApbCounterUpdate{inc=5}: tag(1,varint)=0x08, zigzag(5)=10
+    assert apb.encode_msg("ApbCounterUpdate", {"inc": 5}) == b"\x08\x0a"
+    # negative: zigzag(-3)=5
+    assert apb.encode_msg("ApbCounterUpdate", {"inc": -3}) == b"\x08\x05"
+    # ApbBoundObject{key=b"k", type=COUNTER(3), bucket=b"b"}:
+    #   tag(1,len)=0x0a len=1 'k'; tag(2,varint)=0x10 3; tag(3,len)=0x1a len=1 'b'
+    assert apb.encode_msg("ApbBoundObject", {
+        "key": b"k", "type": 3, "bucket": b"b",
+    }) == b"\x0a\x01k\x10\x03\x1a\x01b"
+    # ApbSetUpdate{optype=ADD, adds=[b"x", b"y"]}
+    assert apb.encode_msg("ApbSetUpdate", {
+        "optype": 1, "adds": [b"x", b"y"],
+    }) == b"\x08\x01\x12\x01x\x12\x01y"
+    # ApbStartTransactionResp{success=true, descriptor=b"7"}
+    assert apb.encode_msg("ApbStartTransactionResp", {
+        "success": True, "transaction_descriptor": b"7",
+    }) == b"\x08\x01\x12\x017"
+    # nested: ApbUpdateOp{boundobject=..., operation={counterop={inc=1}}}
+    bo = b"\x0a\x01k\x10\x03\x1a\x01b"  # 8 bytes
+    op = b"\x0a\x02\x08\x02"  # operation{counterop{inc=1 -> zz 2}}, 4 bytes
+    assert apb.encode_msg("ApbUpdateOp", {
+        "boundobject": {"key": b"k", "type": 3, "bucket": b"b"},
+        "operation": {"counterop": {"inc": 1}},
+    }) == b"\x0a\x08" + bo + b"\x12\x04" + op
+    # decode round-trips
+    for name, d in [
+        ("ApbCounterUpdate", {"inc": -12345}),
+        ("ApbBoundObject", {"key": b"kk", "type": 4, "bucket": b"bb"}),
+        ("ApbCommitResp", {"success": True, "commit_time": b"\x01\x02"}),
+    ]:
+        enc = apb.encode_msg(name, d)
+        dec = apb.decode_msg(name, enc)
+        for k, v in d.items():
+            assert dec[k] == v, (name, k, dec)
+    # frame body carries the antidote_pb_codec message code
+    body = apb.encode_frame_body("ApbStartTransaction", {})
+    assert body == bytes([119])
+    assert apb.MSG_CODES["ApbErrorResp"] == 0
+    assert apb.MSG_CODES["ApbCommitResp"] == 127
+
+
+# ---------------------------------------------------------------------------
+# 2. protoc cross-check
+# ---------------------------------------------------------------------------
+@pytest.fixture(scope="module")
+def pb2(tmp_path_factory):
+    protoc = None
+    import shutil
+    protoc = shutil.which("protoc")
+    if protoc is None:
+        pytest.skip("protoc not available")
+    pytest.importorskip("google.protobuf")
+    d = tmp_path_factory.mktemp("apbproto")
+    (d / "antidote.proto").write_text(ANTIDOTE_PROTO)
+    subprocess.run([protoc, f"--python_out={d}", "antidote.proto"],
+                   cwd=d, check=True)
+    sys.path.insert(0, str(d))
+    try:
+        import antidote_pb2  # noqa: F401
+        return antidote_pb2
+    finally:
+        sys.path.remove(str(d))
+
+
+CROSS_CASES = [
+    ("ApbCounterUpdate", {"inc": 42}),
+    ("ApbCounterUpdate", {"inc": -7}),
+    ("ApbGetCounterResp", {"value": -5}),
+    ("ApbBoundObject", {"key": b"mykey", "type": 4, "bucket": b"bkt"}),
+    ("ApbSetUpdate", {"optype": 2, "rems": [b"a", b"bb", b"ccc"]}),
+    ("ApbRegUpdate", {"value": b"hello world"}),
+    ("ApbStartTransaction", {"timestamp": b"\x93\x01\x02\x03"}),
+    ("ApbStartTransactionResp",
+     {"success": True, "transaction_descriptor": b"17"}),
+    ("ApbCommitResp", {"success": True, "commit_time": b"\x01" * 8}),
+    ("ApbReadObjectsResp",
+     {"success": True,
+      "objects": [{"counter": {"value": 3}},
+                  {"set": {"value": [b"x", b"y"]}}]}),
+    ("ApbUpdateObjects",
+     {"transaction_descriptor": b"1",
+      "updates": [{"boundobject": {"key": b"k", "type": 3, "bucket": b"b"},
+                   "operation": {"counterop": {"inc": 9}}}]}),
+    ("ApbStaticReadObjects",
+     {"transaction": {},
+      "objects": [{"key": b"k", "type": 11, "bucket": b"b"}]}),
+]
+
+
+def _fill(msg, d):
+    for k, v in d.items():
+        if isinstance(v, dict):
+            sub = getattr(msg, k)
+            sub.SetInParent()  # mark presence even for empty submessages
+            _fill(sub, v)
+        elif isinstance(v, list):
+            fld = getattr(msg, k)
+            for x in v:
+                if isinstance(x, dict):
+                    _fill(fld.add(), x)
+                else:
+                    fld.append(x)
+        else:
+            setattr(msg, k, v)
+
+
+@pytest.mark.parametrize("name,d", CROSS_CASES,
+                         ids=[f"{n}-{i}" for i, (n, _) in enumerate(CROSS_CASES)])
+def test_protoc_cross_check(pb2, name, d):
+    ours = apb.encode_msg(name, d)
+    ref = getattr(pb2, name)()
+    _fill(ref, d)
+    theirs = ref.SerializeToString()
+    # byte-identical (both emit fields in schema order)
+    assert ours == theirs, (ours.hex(), theirs.hex())
+    # and the real toolchain parses our bytes back to the same content
+    back = getattr(pb2, name)()
+    back.ParseFromString(ours)
+    assert back.SerializeToString() == theirs
+
+
+# ---------------------------------------------------------------------------
+# 3. live socket round-trip in the apb dialect
+# ---------------------------------------------------------------------------
+class _ApbConn:
+    """Minimal antidotec_pb-style client: 4-byte frames, apb bodies."""
+
+    def __init__(self, host, port):
+        self.sock = socket.create_connection((host, port))
+
+    def call(self, name, d):
+        body = apb.encode_frame_body(name, d)
+        self.sock.sendall(struct.pack(">I", len(body)) + body)
+        (n,) = struct.unpack(">I", self._read(4))
+        resp = self._read(n)
+        return apb.decode_frame_body(resp)
+
+    def _read(self, n):
+        buf = b""
+        while len(buf) < n:
+            chunk = self.sock.recv(n - len(buf))
+            assert chunk, "peer closed"
+            buf += chunk
+        return buf
+
+    def close(self):
+        self.sock.close()
+
+
+def _mk_server():
+    cfg = AntidoteConfig(n_shards=2, max_dcs=2, keys_per_table=64)
+    node = AntidoteNode(cfg)
+    return node, ProtocolServer(node, port=0)
+
+
+def test_apb_interactive_txn_over_socket():
+    node, srv = _mk_server()
+    try:
+        c = _ApbConn("127.0.0.1", srv.port)
+        name, resp = c.call("ApbStartTransaction", {})
+        assert name == "ApbStartTransactionResp" and resp["success"]
+        txd = resp["transaction_descriptor"]
+        name, resp = c.call("ApbUpdateObjects", {
+            "transaction_descriptor": txd,
+            "updates": [
+                {"boundobject": {"key": b"cnt", "type": 3, "bucket": b"b"},
+                 "operation": {"counterop": {"inc": 4}}},
+                {"boundobject": {"key": b"st", "type": 4, "bucket": b"b"},
+                 "operation": {"setop": {"optype": 1,
+                                         "adds": [b"e1", b"e2"]}}},
+                {"boundobject": {"key": b"rg", "type": 5, "bucket": b"b"},
+                 "operation": {"regop": {"value": b"hello"}}},
+                {"boundobject": {"key": b"fl", "type": 13, "bucket": b"b"},
+                 "operation": {"flagop": {"value": True}}},
+                {"boundobject": {"key": b"mp", "type": 11, "bucket": b"b"},
+                 "operation": {"mapop": {"updates": [
+                     {"key": {"key": b"f1", "type": 3},
+                      "update": {"counterop": {"inc": 7}}},
+                 ]}}},
+            ],
+        })
+        assert name == "ApbOperationResp" and resp["success"], resp
+        name, resp = c.call("ApbReadObjects", {
+            "transaction_descriptor": txd,
+            "boundobjects": [
+                {"key": b"cnt", "type": 3, "bucket": b"b"},
+                {"key": b"st", "type": 4, "bucket": b"b"},
+            ],
+        })
+        assert name == "ApbReadObjectsResp" and resp["success"], resp
+        assert resp["objects"][0]["counter"]["value"] == 4
+        assert sorted(resp["objects"][1]["set"]["value"]) == [b"e1", b"e2"]
+        name, resp = c.call("ApbCommitTransaction",
+                            {"transaction_descriptor": txd})
+        assert name == "ApbCommitResp" and resp["success"]
+        commit_time = resp["commit_time"]
+
+        # static read AT the commit time (client echoes the opaque clock)
+        name, resp = c.call("ApbStaticReadObjects", {
+            "transaction": {"timestamp": commit_time},
+            "objects": [
+                {"key": b"cnt", "type": 3, "bucket": b"b"},
+                {"key": b"rg", "type": 5, "bucket": b"b"},
+                {"key": b"fl", "type": 13, "bucket": b"b"},
+                {"key": b"mp", "type": 11, "bucket": b"b"},
+            ],
+        })
+        assert name == "ApbStaticReadObjectsResp"
+        objs = resp["objects"]["objects"]
+        assert objs[0]["counter"]["value"] == 4
+        assert objs[1]["reg"]["value"] == b"hello"
+        assert objs[2]["flag"]["value"] is True
+        m = objs[3]["map"]["entries"]
+        assert len(m) == 1 and m[0]["key"]["key"] == b"f1"
+        assert m[0]["value"]["counter"]["value"] == 7
+        c.close()
+    finally:
+        srv.close()
+
+
+def test_apb_static_update_and_error_reply():
+    node, srv = _mk_server()
+    try:
+        c = _ApbConn("127.0.0.1", srv.port)
+        name, resp = c.call("ApbStaticUpdateObjects", {
+            "transaction": {},
+            "updates": [
+                {"boundobject": {"key": b"k", "type": 3, "bucket": b"b"},
+                 "operation": {"counterop": {"inc": 2}}},
+            ],
+        })
+        assert name == "ApbCommitResp" and resp["success"]
+        # unknown txn descriptor -> ApbErrorResp (reference catch-all shape)
+        name, resp = c.call("ApbReadObjects", {
+            "transaction_descriptor": b"99999",
+            "boundobjects": [{"key": b"k", "type": 3, "bucket": b"b"}],
+        })
+        assert name == "ApbErrorResp"
+        # the same socket still serves the NATIVE msgpack dialect
+        from antidote_tpu_torch.proto.codec import MessageCode, encode, read_frame, decode
+        c.sock.sendall(encode(MessageCode.STATIC_READ_OBJECTS, {
+            "objects": [[b"k", "counter_pn", b"b"]], "clock": None,
+        }))
+        frame = read_frame(c.sock)
+        code, body = decode(frame)
+        assert code == MessageCode.READ_OBJECTS_RESP
+        assert body["values"][0] == 2
+        c.close()
+    finally:
+        srv.close()
+
+
+def test_apb_orphaned_connection_aborts_txn():
+    node, srv = _mk_server()
+    try:
+        c = _ApbConn("127.0.0.1", srv.port)
+        _, resp = c.call("ApbStartTransaction", {})
+        assert node.txm._open_snaps
+        c.close()
+        import time
+        for _ in range(100):
+            if not node.txm._open_snaps:
+                break
+            time.sleep(0.05)
+        assert not node.txm._open_snaps
+    finally:
+        srv.close()
+
+
+def test_apb_failed_update_aborts_txn():
+    """r3 review: a failed interactive update must abort the txn — never
+    leave it active but unreachable (it would pin the cert-GC floor)."""
+    node, srv = _mk_server()
+    try:
+        c = _ApbConn("127.0.0.1", srv.port)
+        _, resp = c.call("ApbStartTransaction", {})
+        txd = resp["transaction_descriptor"]
+        # unknown CRDT_type enum 7 -> error reply
+        name, resp = c.call("ApbUpdateObjects", {
+            "transaction_descriptor": txd,
+            "updates": [{"boundobject": {"key": b"k", "type": 7,
+                                         "bucket": b"b"},
+                         "operation": {"counterop": {"inc": 1}}}],
+        })
+        assert name == "ApbErrorResp"
+        assert not node.txm._open_snaps, "txn leaked after failed update"
+        assert not srv._txns
+        c.close()
+    finally:
+        srv.close()
+
+
+def test_apb_bounded_counter_ops_carry_actor_lane():
+    node, srv = _mk_server()
+    try:
+        c = _ApbConn("127.0.0.1", srv.port)
+        name, resp = c.call("ApbStaticUpdateObjects", {
+            "transaction": {},
+            "updates": [{"boundobject": {"key": b"bc", "type": 15,
+                                         "bucket": b"b"},
+                         "operation": {"counterop": {"inc": 10}}}],
+        })
+        assert name == "ApbCommitResp" and resp["success"], resp
+        name, resp = c.call("ApbStaticReadObjects", {
+            "transaction": {"timestamp": resp["commit_time"]},
+            "objects": [{"key": b"bc", "type": 15, "bucket": b"b"}],
+        })
+        assert name == "ApbStaticReadObjectsResp"
+        assert resp["objects"]["objects"][0]["counter"]["value"] == 10
+        c.close()
+    finally:
+        srv.close()
+
+
+def test_apb_bounded_counter_refusal_is_typed_and_retryable():
+    """Over-decrementing a counter_b surfaces the escrow refusal as a
+    typed ApbErrorResp (``insufficient_rights`` + retry hint in the
+    errmsg grammar) and leaves the connection and the value
+    intact — the client retries within rights on the same socket."""
+    node, srv = _mk_server()
+    try:
+        c = _ApbConn("127.0.0.1", srv.port)
+        name, resp = c.call("ApbStaticUpdateObjects", {
+            "transaction": {},
+            "updates": [{"boundobject": {"key": b"esc", "type": 15,
+                                         "bucket": b"b"},
+                         "operation": {"counterop": {"inc": 3}}}],
+        })
+        assert name == "ApbCommitResp" and resp["success"], resp
+        # decrement beyond rights: typed refusal, not a blind abort
+        name, resp = c.call("ApbStaticUpdateObjects", {
+            "transaction": {},
+            "updates": [{"boundobject": {"key": b"esc", "type": 15,
+                                         "bucket": b"b"},
+                         "operation": {"counterop": {"inc": -5}}}],
+        })
+        assert name == "ApbErrorResp", resp
+        err = apb.parse_error_text(resp["errmsg"])
+        assert err["kind"] == "insufficient_rights", err
+        assert err["retry_after_ms"] > 0
+        assert "need 5, hold 3" in err["detail"]
+        # connection stays usable; a covered decrement commits
+        name, resp = c.call("ApbStaticUpdateObjects", {
+            "transaction": {},
+            "updates": [{"boundobject": {"key": b"esc", "type": 15,
+                                         "bucket": b"b"},
+                         "operation": {"counterop": {"inc": -2}}}],
+        })
+        assert name == "ApbCommitResp" and resp["success"], resp
+        name, resp = c.call("ApbStaticReadObjects", {
+            "transaction": {"timestamp": resp["commit_time"]},
+            "objects": [{"key": b"esc", "type": 15, "bucket": b"b"}],
+        })
+        assert resp["objects"]["objects"][0]["counter"]["value"] == 1
+        c.close()
+    finally:
+        srv.close()
+
+
+def test_apb_commit_busy_keeps_descriptor_retryable():
+    """A commit-backlog shed leaves the txn OPEN for retry in the native
+    dialect; the apb dialect must match — popping the descriptor before
+    the outcome is known would turn the advertised busy-retry into
+    KeyError('unknown transaction') and leak an unreachable open txn
+    pinning the certification-GC floor."""
+    node, srv = _mk_server()
+    try:
+        c = _ApbConn("127.0.0.1", srv.port)
+        name, resp = c.call("ApbStartTransaction", {})
+        txd = resp["transaction_descriptor"]
+        c.call("ApbUpdateObjects", {
+            "transaction_descriptor": txd,
+            "updates": [{"boundobject": {"key": b"bz", "type": 3,
+                                         "bucket": b"b"},
+                         "operation": {"counterop": {"inc": 5}}}],
+        })
+        saved = node.txm.max_commit_backlog
+        node.txm.max_commit_backlog = 0  # every commit sheds busy
+        try:
+            name, resp = c.call("ApbCommitTransaction",
+                                {"transaction_descriptor": txd})
+            assert name == "ApbErrorResp"
+            assert resp["errmsg"].startswith(b"busy retry_after_ms="), resp
+            assert node.txm._open_snaps, "busy shed must leave the txn open"
+        finally:
+            node.txm.max_commit_backlog = saved
+        # pressure gone: the SAME descriptor commits
+        name, resp = c.call("ApbCommitTransaction",
+                            {"transaction_descriptor": txd})
+        assert name == "ApbCommitResp" and resp["success"], resp
+        name, resp = c.call("ApbStaticReadObjects", {
+            "transaction": {"timestamp": resp["commit_time"]},
+            "objects": [{"key": b"bz", "type": 3, "bucket": b"b"}],
+        })
+        assert resp["objects"]["objects"][0]["counter"]["value"] == 5
+        assert not node.txm._open_snaps and not srv._txns
+        c.close()
+    finally:
+        srv.close()
+
+
+# ---------------------------------------------------------------------------
+# across the packages
+# ---------------------------------------------------------------------------
+_SCALARS = {"bool": [True, False], "uint32": [7, 0, 300],
+            "sint32": [-3, 5], "sint64": [-9, 1 << 40], "enum": [4, 11],
+            "bytes": [b"xy", b"", bytes(range(200))]}
+
+
+def _sample(name, rng, depth=0):
+    """A random body of message ``name`` with every field present (nested
+    messages to a bounded depth; repeated fields with 0-2 items)."""
+    out = {}
+    for _no, field, label, kind in apb.SCHEMAS[name]:
+        if kind in _SCALARS:
+            pick = _SCALARS[kind]
+
+            def one():
+                return pick[int(rng.integers(len(pick)))]
+        elif depth < 3:
+            def one(kind=kind):
+                return _sample(kind, rng, depth + 1)
+        else:
+            if label == "required":
+                return None
+            continue
+        if label == "repeated":
+            items = [one() for _ in range(int(rng.integers(3)))]
+            if any(x is None for x in items):
+                continue
+            out[field] = items
+        else:
+            v = one()
+            if v is None:
+                if label == "required":
+                    return None
+                continue
+            out[field] = v
+    return out
+
+
+def test_schema_tables_equal():
+    assert apb.SCHEMAS == japb.SCHEMAS
+    assert apb.MSG_CODES == japb.MSG_CODES
+    assert apb.APB_REQUEST_CODES == japb.APB_REQUEST_CODES
+    assert apb.CRDT_TYPES == japb.CRDT_TYPES
+
+
+@pytest.mark.parametrize("name", sorted(apb.SCHEMAS))
+def test_every_message_encodes_to_the_jax_bytes(name):
+    rng = np.random.default_rng(sum(map(ord, name)))
+    n_ok = 0
+    for _ in range(8):
+        body = _sample(name, rng)
+        if body is None:
+            continue
+        ours = apb.encode_msg(name, body)
+        assert ours == japb.encode_msg(name, body), body
+        assert apb.decode_msg(name, ours) == japb.decode_msg(name, ours)
+        if name in apb.MSG_CODES:
+            frame = apb.encode_frame_body(name, body)
+            assert frame == japb.encode_frame_body(name, body)
+            assert apb.decode_frame_body(frame) == japb.decode_frame_body(
+                frame)
+        n_ok += 1
+    assert n_ok
+
+
+_TYPED = [
+    ("busy", "server at max_in_flight=4", 75, None, None, None),
+    ("tenant_busy", "tenant gold at max_in_flight=2", 50, None, None,
+     "gold"),
+    ("deadline", "request deadline passed before dispatch", 0, None, None,
+     None),
+    ("read_only", "node is read-only (degraded): ENOSPC", 0, None, None,
+     None),
+    ("cold_miss", "fault-in refused: rate cap", 40, None, None, None),
+    ("insufficient_rights", "needs 5: holds 2", 100, None, None, None),
+    ("not_owner", "route writes to the owner", 0, ["10.0.0.1", 8087],
+     None, None),
+    ("lagging", "applied clock behind the token", 25, ["h", 1],
+     [["f1", 2], ["f2", 3]], None),
+    ("forward_failed", "owner connection lost", 0, None, [["f", 9]],
+     None),
+]
+
+
+@pytest.mark.parametrize("kind,msg,retry,redirect,fleet,tenant", _TYPED,
+                         ids=[t[0] for t in _TYPED])
+def test_error_text_round_trips_across_the_packages(kind, msg, retry,
+                                                     redirect, fleet,
+                                                     tenant):
+    text = apb.error_text(kind, msg, retry, redirect=redirect, fleet=fleet,
+                          tenant=tenant)
+    assert text == japb.error_text(kind, msg, retry, redirect=redirect,
+                                   fleet=fleet, tenant=tenant)
+    for parse in (apb.parse_error_text, japb.parse_error_text):
+        got = parse(text.encode())
+        assert got["kind"] == kind and got["detail"] == msg
+        assert got["retry_after_ms"] == retry
+        assert got["redirect"] == redirect
+        assert got["fleet"] == fleet
+        assert got["tenant"] == tenant
+    assert apb.overload_error(kind, msg, retry) == japb.overload_error(
+        kind, msg, retry)
+    assert apb.parse_error_text(b"plain reference error") == \
+        japb.parse_error_text(b"plain reference error")
+
+
+def test_value_and_op_conversions_equal():
+    """The semantic bridge of both codecs gives the same wire forms for
+    every value shape and op the server reads and writes."""
+    values = [("counter_pn", 5), ("counter_fat", -2), ("counter_b", 9),
+              ("set_aw", [b"a", b"b"]), ("set_rw", [b"x"]),
+              ("register_lww", b"v"), ("register_mv", [b"p", b"q"]),
+              ("flag_ew", True), ("flag_dw", False),
+              ("map_rr", {(b"f", "counter_pn"): 3,
+                          (b"g", "set_aw"): [b"e"]})]
+    for t, v in values:
+        assert apb.value_to_read_resp(t, v) == japb.value_to_read_resp(t, v)
+        resp = apb.value_to_read_resp(t, v)
+        assert apb.read_resp_to_value(resp) == japb.read_resp_to_value(resp)
+    ups = [(b"k", "counter_pn", b"b", ("increment", 3)),
+           (b"k", "counter_pn", b"b", ("decrement", 2)),
+           (b"s", "set_aw", b"b", ("add", b"e")),
+           (b"s", "set_aw", b"b", ("remove_all", [b"e", b"f"])),
+           (b"r", "register_lww", b"b", ("assign", b"v")),
+           (b"f", "flag_ew", b"b", ("enable", None))]
+    for u in ups:
+        op = apb.update_op_from_native(u)
+        assert op == japb.update_op_from_native(u)
+        assert apb.updates_from_update_ops([op], 1) == \
+            japb.updates_from_update_ops([op], 1)

@@ -723,3 +723,221 @@ def test_import_and_reshard_onto_a_cuda_store(dev, tmp_path):
     assert AntidoteNode(store=new).read_objects(objs)[0] == want
     src.close()
     dst.close()
+
+
+# ---------------------------------------------------------------------------
+# the wire front end on the card
+# ---------------------------------------------------------------------------
+def _wire_node(dev):
+    node = AntidoteNode(AntidoteConfig(n_shards=4, max_dcs=D,
+                                       keys_per_table=256), device=dev)
+    node.update_objects([(i, "set_aw", "b", ("add", i)) for i in range(200)]
+                        + [(i, "counter_pn", "b", ("increment", i))
+                           for i in range(200, 260)])
+    node.txm.enable_serving_epochs()
+    node.txm.publish_serving_epoch()
+    return node
+
+
+def _objs(rng, n):
+    ks = rng.choice(260, n, replace=False)
+    return [(int(k), "set_aw" if k < 200 else "counter_pn", "b")
+            for k in ks]
+
+
+def test_epoch_read_across_three_threads_equals_locked_read(dev):
+    """An epoch read launched on one thread and finished on another while
+    a third commits and publishes equals the locked read at the epoch's
+    clock: every thread runs on the legacy default stream, so the
+    finish's host copy is ordered after the launch."""
+    import queue
+    import threading
+
+    node = _wire_node(dev)
+    store = node.store
+    q, results, errors = queue.Queue(), [], []
+    done = threading.Event()
+
+    def launcher():
+        rng = np.random.default_rng(3)
+        try:
+            for _ in range(24):
+                objs = _objs(rng, 128)
+                ep = store.pin_serving_epoch()
+                pend, fb = store.epoch_read_launch(objs, ep)
+                assert not fb
+                q.put((ep, pend, objs, ep.vc.copy()))
+        except Exception as e:  # noqa: BLE001 — raised below
+            errors.append(e)
+        finally:
+            q.put(None)
+
+    def finisher():
+        while (item := q.get(timeout=120)) is not None:
+            ep, pend, objs, vc = item
+            try:
+                results.append((objs, vc, store.epoch_read_finish(pend)))
+            finally:
+                store.unpin_serving_epoch(ep)
+
+    def writer():
+        r = 0
+        while not done.is_set() and r < 6:
+            node.update_objects([(i, "set_aw", "b", ("add", 1000 + r))
+                                 for i in range(r, 200, 7)]
+                                + [(i, "counter_pn", "b", ("increment", 1))
+                                   for i in range(200 + r, 260, 5)])
+            node.txm.publish_serving_epoch()
+            r += 1
+
+    ts = [threading.Thread(target=f) for f in (launcher, finisher, writer)]
+    for t in ts:
+        t.start()
+    ts[0].join(120)
+    ts[1].join(120)
+    done.set()
+    ts[2].join(120)
+    assert not errors and not any(t.is_alive() for t in ts)
+    assert len(results) == 24
+    for objs, vc, got in results:
+        txn = node.start_transaction()
+        txn.snapshot_vc = np.asarray(vc, np.int32)
+        try:
+            want = node.read_objects(objs, txn)
+        finally:
+            node.abort_transaction(txn)
+        assert got == want
+
+
+def test_server_launch_stage_never_syncs_the_card(dev):
+    """The dispatcher's launch stage (pin, classify, chunk, launch,
+    hand-off) runs under the CUDA sync debug mode at "error"; the
+    writeback of the same batches then equals the locked read."""
+    from antidote_tpu_torch.proto.server import ProtocolServer, _StaticWork
+
+    node = _wire_node(dev)
+    srv = ProtocolServer(node, port=0, batch_static=False)
+    try:
+        rng = np.random.default_rng(5)
+        works = [_StaticWork("read", objects=_objs(rng, 64))
+                 for _ in range(12)]
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            left = srv._launch_epoch_reads(works)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert left == []
+        n = 0
+        while not srv._writeback_q.empty():
+            b = srv._writeback_q.get_nowait()
+            got = node.store.epoch_read_finish(b.pending)
+            node.store.unpin_serving_epoch(b.pending.ep)
+            for w, (lo, hi) in zip(b.works, b.spans):
+                assert got[lo:hi] == node.read_objects(w.objects)[0]
+                n += 1
+        assert n == len(works)
+    finally:
+        srv.close()
+
+
+def _frames():
+    from antidote_tpu_torch.proto import apb
+    from antidote_tpu_torch.proto.codec import MessageCode, encode
+
+    def msg(code, body):
+        return encode(code, body)[4:]
+
+    rng = np.random.default_rng(9)
+    out = []
+    for i in range(20):
+        k = int(rng.integers(8))
+        out.append(msg(MessageCode.STATIC_UPDATE_OBJECTS, {"updates": [
+            [k, "counter_pn", "b", ["increment", int(rng.integers(9))]],
+            [f"s{k}", "set_aw", "b", ["add", int(rng.integers(99))]],
+            [f"m{k}", "register_mv", "b", ["assign", i]]], "clock": None}))
+        out.append(msg(MessageCode.STATIC_READ_OBJECTS, {"objects": [
+            [k, "counter_pn", "b"], [f"s{k}", "set_aw", "b"],
+            [f"m{k}", "register_mv", "b"]], "clock": None}))
+        out.append(apb.encode_frame_body("ApbStaticReadObjects", {
+            "transaction": {}, "objects": [
+                {"key": f"s{k}".encode(), "type": apb.TYPE_IDS["set_aw"],
+                 "bucket": b"b"}]}))
+    return out
+
+
+def test_reply_bytes_of_a_cuda_node_equal_a_cpu_node(dev):
+    """One script of frames, both dialects, through a server over a CPU
+    node and one over a CUDA node: the reply frames are byte-equal (the
+    values a card decodes encode as the CPU's)."""
+    import socket
+    import struct
+
+    from antidote_tpu_torch.proto.codec import read_frame_buffered
+    from antidote_tpu_torch.proto.server import ProtocolServer
+
+    replies = []
+    for d in ("cpu", dev):
+        node = AntidoteNode(AntidoteConfig(n_shards=4, max_dcs=D,
+                                           keys_per_table=64), device=d)
+        srv = ProtocolServer(node, port=0, epoch_tick_ms=0)
+        try:
+            s = socket.create_connection((srv.host, srv.port), timeout=60)
+            rf = s.makefile("rb")
+            got = []
+            for f in _frames():
+                s.sendall(struct.pack(">I", len(f)) + f)
+                got.append(read_frame_buffered(rf))
+            rf.close()
+            s.close()
+            replies.append(got)
+        finally:
+            srv.close()
+    assert replies[0] == replies[1]
+
+
+def test_console_serve_on_the_card_is_ready_after_the_kernel_build(
+        dev, tmp_path):
+    """``console serve --device cuda`` prints its ready line only after
+    the readiness probe launched the kernel library on the card (built
+    by then), and a ``console ready`` poll answers without a rebuild."""
+    import json
+    import os
+    import select
+    import subprocess
+    import sys
+    import time
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parent.parent
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(root) + os.pathsep + env.get("PYTHONPATH", "")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "antidote_tpu_torch.console", "serve",
+         "--port", "0", "--shards", "4", "--max-dcs", "2"],
+        cwd=root, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.DEVNULL, text=True)
+    try:
+        ready, _, _ = select.select([proc.stdout], [], [], 900)
+        assert ready, "serve printed no ready line"
+        info = json.loads(proc.stdout.readline())
+        built = sorted((root / "antidote_tpu_torch" / "_build").glob(
+            "libmaterializer_*.so"), key=os.path.getmtime)
+        assert built and os.path.getmtime(built[-1]) <= time.time()
+        t0 = time.monotonic()
+        res = subprocess.run(
+            [sys.executable, "-m", "antidote_tpu_torch.console", "ready",
+             "--port", str(info["port"])], cwd=root, env=env,
+            capture_output=True, text=True, timeout=300)
+        assert res.returncode == 0, res.stderr
+        assert all(json.loads(res.stdout).values())
+        assert time.monotonic() - t0 < 60
+        assert sorted(built[-1].parent.glob("libmaterializer_*.so"),
+                      key=os.path.getmtime)[-1] == built[-1]
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout=30)

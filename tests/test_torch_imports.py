@@ -50,9 +50,15 @@ def test_importing_every_module_loads_no_jax():
 
 def test_sources_cover_every_subpackage():
     """The walk above reaches every subpackage of the port, the cluster
-    slice's, the metrics registry's and the durable log's included."""
+    slice's, the metrics registry's, the durable log's and the wire front
+    end's included."""
     pkgs = {p.parent.name for p in SOURCES if p.parent != ROOT}
     assert {"api", "clock", "cluster", "crdt", "faults", "log",
-            "materializer", "obs", "store", "txn"} <= pkgs
+            "materializer", "meta", "obs", "proto", "store", "txn"} <= pkgs
+    assert {p.name for p in SOURCES if p.parent.name == "proto"} >= {
+        "__init__.py", "apb.py", "client.py", "codec.py", "server.py"}
+    assert {p.name for p in SOURCES
+            if p.parent.name == "antidote_tpu_torch"} >= {
+        "console.py", "overload.py", "supervise.py", "tenancy.py"}
     assert {p.name for p in SOURCES if p.parent.name == "cluster"} >= {
         "__init__.py", "rpc.py", "member.py", "coordinator.py"}

@@ -137,16 +137,20 @@ def test_carried_store_reads_like_jax(nodes):
 
 def test_unported_node_options_raise(nodes):
     tn = nodes[1]
-    # the durable log, store adoption and the cold tier are ported
-    # (tests/test_torch_log.py, test_torch_handoff.py,
-    # test_torch_coldtier.py): a store adopts, and a residency bound
-    # without a log raises as the JAX node's does
+    # the durable log, store adoption, the cold tier and the metadata
+    # store are ported (tests/test_torch_log.py, test_torch_handoff.py,
+    # test_torch_coldtier.py, test_torch_meta.py): a store adopts, and a
+    # residency bound without a log raises as the JAX node's does
     adopted = AntidoteNode(store=tn.store)
     assert adopted.store is tn.store and adopted.cfg is tn.store.cfg
     with pytest.raises(RuntimeError, match="log_dir"):
         AntidoteNode(AntidoteConfig(**KW), resident_rows=10, device="cpu")
-    with pytest.raises(NotImplementedError):
-        AntidoteNode(AntidoteConfig(**KW), meta=object(), device="cpu")
+    # the metadata store is ported: ``meta=`` is the node's own
+    from antidote_tpu_torch.meta import MetaDataStore
+
+    meta = MetaDataStore()
+    assert AntidoteNode(AntidoteConfig(**KW), meta=meta,
+                        device="cpu").meta is meta
     with pytest.raises(NotImplementedError):
         tn.txm.__class__(tn.store, protocol="gr")
     assert tn.is_type("rga") and not tn.is_type("nope")
