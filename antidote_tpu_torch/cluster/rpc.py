@@ -6,8 +6,10 @@ a 4-byte big-endian length and a msgpack body, ``{"m": method, "a":
 [args]}`` one way and ``{"ok": result}`` or ``{"err": message}`` back —
 the JAX package's wire form, so the two packages' members speak alike.
 
-Fault-injection hooks (dropped, delayed or failed calls; killing and
-restarting a server) come with the faults slice.
+Fault sites: ``rpc.call`` (keyed by method: ``delay`` sleeps, ``error``
+fails the call with :class:`RpcError`, ``drop`` fails it as a lost request
+does, with :class:`RpcTimeout`), and every server registers itself as the
+endpoint ``rpc.server.<port>`` so a fault plan can kill and restart it.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ from typing import Any, Callable, Dict, Optional
 import msgpack
 import numpy as np
 
+from antidote_tpu_torch import faults
 from antidote_tpu_torch.store.kv import Effect, freeze_key
 
 log = logging.getLogger(__name__)
@@ -80,6 +83,7 @@ class RpcServer:
     """Dispatches {"m": method, "a": [args]} to registered handlers."""
 
     def __init__(self, host: str = "127.0.0.1", port: int = 0):
+        self._bind_host = host
         self.handlers: Dict[str, Callable] = {}
         #: live handler connections — close() must sever these, or a
         #: closed server keeps answering through parked threads
@@ -125,8 +129,16 @@ class RpcServer:
             daemon_threads = True
             allow_reuse_address = True
 
+        self._server_cls, self._handler_cls = Server, Handler
         self._server = Server((host, port), Handler)
         self.host, self.port = self._server.server_address
+        self._serve()
+        inj = faults.get_injector()
+        if inj is not None:
+            inj.register_endpoint(f"rpc.server.{self.port}",
+                                  kill=self.close, restart=self.restart)
+
+    def _serve(self) -> None:
         self._thread = threading.Thread(
             target=self._server.serve_forever, daemon=True,
             name=f"cluster-rpc:{self.port}")
@@ -152,6 +164,13 @@ class RpcServer:
                     pass
             self._conns.clear()
         self._thread.join(timeout=10)
+
+    def restart(self) -> None:
+        """Rebind on the SAME port with the same handler table (a killed
+        member coming back); clients redial into it."""
+        self._server = self._server_cls((self._bind_host, self.port),
+                                        self._handler_cls)
+        self._serve()
 
 
 class RpcClient:
@@ -187,9 +206,23 @@ class RpcClient:
                 pass
 
     def call(self, method: str, *args) -> Any:
+        d = faults.hit("rpc.call", key=method)
+        if d is not None:
+            if d.action == "delay" and d.arg:
+                time.sleep(float(d.arg))
+            elif d.action == "error":
+                raise RpcError(f"injected fault: rpc.call {method}")
+            elif d.action == "drop":
+                # a lost request or reply: the call fails as a real drop
+                # does once its deadline fires
+                self._drop_sock()
+                _net_deadline()
+                raise RpcTimeout(
+                    f"injected drop: rpc.call {method} to {self.addr}")
         last: Optional[Exception] = None
         for attempt in range(DEFAULT_RETRIES):
             if attempt:
+                _net_retry()
                 time.sleep(BACKOFF_BASE_S * (2 ** (attempt - 1)))
             try:
                 s = self._sock()
@@ -203,17 +236,20 @@ class RpcClient:
                 reply = _recv(s)
             except socket.timeout as e:
                 self._drop_sock()
+                _net_deadline()
                 raise RpcTimeout(
                     f"{method} to {self.addr} exceeded "
                     f"{DEFAULT_TIMEOUT_S}s deadline") from e
             except (ConnectionError, OSError) as e:
                 self._drop_sock()
+                _net_deadline()
                 raise RpcTimeout(
                     f"{method} to {self.addr}: connection died awaiting "
                     "the reply (remote may have executed)") from e
             if "err" in reply:
                 raise RpcError(reply["err"])
             return reply["ok"]
+        _net_deadline()
         raise RpcTimeout(
             f"{method} to {self.addr} failed after {DEFAULT_RETRIES} "
             f"attempt(s)") from last
@@ -222,6 +258,18 @@ class RpcClient:
         # only the calling thread's connection: others close with their
         # threads (daemon server threads see EOF)
         self._drop_sock()
+
+
+def _net_retry() -> None:
+    from antidote_tpu_torch.obs.metrics import net_metrics
+
+    net_metrics().rpc_retries.inc()
+
+
+def _net_deadline() -> None:
+    from antidote_tpu_torch.obs.metrics import net_metrics
+
+    net_metrics().rpc_deadline_exceeded.inc()
 
 
 # ---------------------------------------------------------------------------

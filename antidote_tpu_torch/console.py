@@ -12,11 +12,19 @@ the client protocol.
     python -m antidote_tpu_torch.console read  --port 8087 KEY TYPE BUCKET
     python -m antidote_tpu_torch.console update --port 8087 KEY TYPE BUCKET OP ARG
     python -m antidote_tpu_torch.console checkpoint-now --port 8087
+    python -m antidote_tpu_torch.console inspect --log-dir /data/dc0
+    python -m antidote_tpu_torch.console inspect-checkpoint --log-dir /data/dc0
 
 ``serve`` puts the node's tables on ``--device`` (``cuda`` by default; a
 machine without a card must ask for ``cpu``) and prints its ready line —
 one JSON object on stdout — only after the readiness probe ran a
-transaction on that device: on a card, after the kernels were built.
+transaction on that device (on a card, after the kernels were built) and
+the protocol server bound its port.  The client port belongs to the native
+C++ front end unless ``--no-native-frontend`` (or
+``ANTIDOTE_NATIVE_FRONTEND=off``) asks for the Python socketserver plane;
+a native plane that cannot be built or bound stops the boot (exit 2).
+``inspect`` and ``inspect-checkpoint`` read a log directory offline, with
+no node.
 """
 
 from __future__ import annotations
@@ -62,6 +70,8 @@ def cmd_serve(args) -> int:
     from antidote_tpu_torch.api import AntidoteNode
     from antidote_tpu_torch.config import AntidoteConfig, resolve_device
     from antidote_tpu_torch.log.checkpoint import has_checkpoints
+    from antidote_tpu_torch.proto.native_frontend import (
+        NativeFrontendUnavailable, count_python_plane)
     from antidote_tpu_torch.proto.server import ProtocolServer
     from antidote_tpu_torch.supervise import Supervisor
     from antidote_tpu_torch.tenancy import TenantRegistry
@@ -128,6 +138,7 @@ def cmd_serve(args) -> int:
             epoch_tick_ms=args.epoch_tick_ms,
             snapshot_cache_size=args.snapshot_cache_size,
             group_commit_window_us=args.group_commit_window_us,
+            native_frontend=args.native_frontend,
         )
         return server_box["srv"]
 
@@ -145,7 +156,16 @@ def cmd_serve(args) -> int:
                 lambda: node.serve_metrics(args.metrics_port),
                 alive=lambda m: m._thread.is_alive(),
                 stop=stop_metrics)
-    sup.start()
+    if not args.native_frontend:
+        count_python_plane("--no-native-frontend")
+    try:
+        sup.start()
+    except NativeFrontendUnavailable as e:
+        log(f"{e} (--no-native-frontend serves from the Python plane)")
+        sup.shutdown()
+        if node.checkpointer is not None:
+            node.checkpointer.stop()
+        return 2
     server = server_box["srv"]
     ready: dict = {"host": server.host, "port": server.port, "ready": True}
     if tenants.multi:
@@ -213,6 +233,82 @@ def cmd_checkpoint_now(args) -> int:
     return 0
 
 
+def cmd_inspect(args) -> int:
+    """Offline WAL inspection: per shard, records, op-id chain maxima by
+    origin DC, records by type, segments and bytes.  Segment files
+    (``shard_P.sN.wal``) merge into their shard's summary in replay
+    order, as recovery reads them."""
+    import glob
+    import re
+
+    from antidote_tpu_torch.log import shard_segment_paths
+    from antidote_tpu_torch.log.wal import replay_segments
+
+    shards = sorted({
+        int(m.group(1))
+        for p in glob.glob(os.path.join(args.log_dir, "shard_*.wal"))
+        if (m := re.match(r"shard_(\d+)\.(?:s\d+\.)?(?:g\d+\.)?wal$",
+                          os.path.basename(p)))
+    })
+    out = {}
+    for shard in shards:
+        paths = [p for p in shard_segment_paths(args.log_dir, shard)
+                 if os.path.exists(p)]
+        recs = 0
+        chains: dict = {}
+        types: dict = {}
+        for rec in replay_segments(paths):
+            recs += 1
+            o = int(rec["o"])
+            chains[o] = max(chains.get(o, 0), int(rec["id"]))
+            types[rec["t"]] = types.get(rec["t"], 0) + 1
+        out[f"shard_{shard}"] = {
+            "records": recs, "opid_chains": chains,
+            "records_by_type": types,
+            "segments": len(paths),
+            "bytes": sum(os.path.getsize(p) for p in paths),
+        }
+    print(json.dumps(out, indent=2))
+    return 0
+
+
+def cmd_inspect_checkpoint(args) -> int:
+    """Offline checkpoint inspection: every published image's manifest
+    (newest last), and the decoded summary of the newest one — stamp VC,
+    per-shard floors, replication chain floors, tables, extras."""
+    from antidote_tpu_torch.log import checkpoint as _ckpt
+
+    root = _ckpt.checkpoint_root(args.log_dir)
+    out = {"root": root,
+           "published": [m for _id, p in _ckpt.list_checkpoints(root)
+                         if (m := _ckpt.load_manifest(p)) is not None]}
+    latest = _ckpt.load_latest(args.log_dir)
+    if latest is not None:
+        image, manifest = latest
+        out["latest"] = {
+            "id": int(image["id"]),
+            "verified": True,
+            "keys": len(image["directory"]),
+            "tables": {
+                t: int(sum(int(x) for x in tb["used_rows"]))
+                for t, tb in image["tables"].items()
+            },
+            "stamp_vc_max": manifest.get("stamp_vc_max"),
+            "commit_counter": int(image["commit_counter"]),
+            "floor_seqs": [int(x) for x in image["floor_seqs"]],
+            "chain_floor": [[int(x) for x in row]
+                            for row in image["chain_floor"]],
+            "blobs": len(image.get("blobs", [])),
+            "shard_resets": image.get("shard_resets", {}),
+            "extras": sorted((image.get("extras") or {}).keys()),
+        }
+        membership = (image.get("extras") or {}).get("membership")
+        if membership:
+            out["latest"]["membership"] = membership
+    print(json.dumps(out, indent=2))
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="antidote_tpu_torch.console")
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -235,9 +331,18 @@ def main(argv=None) -> int:
                     help="initial rows per (type, shard); size near the "
                          "expected keyspace — every growth doubling "
                          "reallocates the device tables")
+    sv.add_argument("--native-frontend", default=True,
+                    action=argparse.BooleanOptionalAction,
+                    help="own the client port from the C++ epoll front "
+                         "end: accept, framing, admission and whole-batch "
+                         "cache hits run off the interpreter lock "
+                         "(--no-native-frontend: the Python socketserver "
+                         "plane).  A native plane that cannot be built or "
+                         "bound stops the boot")
     sv.add_argument("--max-connections", type=int, default=1024,
-                    help="connection cap for the accept loop; excess "
-                         "connections queue in the kernel listen backlog")
+                    help="connection cap for the accept loop (native and "
+                         "Python planes alike); excess connections queue "
+                         "in the kernel listen backlog")
     sv.add_argument("--max-in-flight", type=int, default=256,
                     help="global admitted-request cap; past it the server "
                          "answers a typed busy error with a retry-after "
@@ -352,6 +457,18 @@ def main(argv=None) -> int:
     cn.add_argument("--host", default="127.0.0.1")
     cn.add_argument("--port", type=int, default=8087)
     cn.set_defaults(fn=cmd_checkpoint_now)
+
+    ins = sub.add_parser("inspect", help="offline WAL inspection")
+    ins.add_argument("--log-dir", required=True)
+    ins.set_defaults(fn=cmd_inspect)
+
+    ic = sub.add_parser("inspect-checkpoint",
+                        help="offline checkpoint inspection: published "
+                             "manifests + the newest image's decoded "
+                             "summary (stamp VC, floors, chain floors, "
+                             "membership extras)")
+    ic.add_argument("--log-dir", required=True)
+    ic.set_defaults(fn=cmd_inspect_checkpoint)
 
     args = ap.parse_args(argv)
     return args.fn(args)

@@ -156,6 +156,16 @@ class FaultPlan:
                                                        blind-resends, the
                                                        next tick re-asks)
     native_pump.load    None                           native receive plane
+    native_frontend.load None                          native front end
+                                                       (any action: the
+                                                       server refuses to
+                                                       start, typed)
+    frontend.recv       None                           inbound frames on
+                                                       either accept plane
+                                                       (drop closes the
+                                                       conn; truncate
+                                                       keeps ``arg`` bytes;
+                                                       delay sleeps)
     ==================  =============================  =================
     """
 

@@ -89,7 +89,15 @@ void sync_loop(Wal* w) {
 
 }  // namespace
 
+#ifndef ANTIDOTE_SRC_SHA
+#define ANTIDOTE_SRC_SHA "unknown"
+#endif
+
 extern "C" {
+
+// the sha256 of the source this library was built from
+// (antidote_tpu_torch/native_build.py passes it)
+const char* wal_src_sha() { return ANTIDOTE_SRC_SHA; }
 
 // sync_on_commit: fdatasync inside every commit barrier (sync_log=true).
 // sync_interval_ms > 0: background fsync thread (async durability).

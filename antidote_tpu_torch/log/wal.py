@@ -8,8 +8,9 @@ for reads below the device's coverage read it back.
 Frames are ``<III`` (magic, payload length, crc32) + a msgpack payload —
 the JAX package's frames exactly, so either package replays the other's
 files.  The native writer is the port's own ``log/cpp/wal.cc``, built with
-g++ at first use into ``antidote_tpu_torch/_build/`` (named by the
-source's hash, so an edited source rebuilds).  Where no compiler exists a
+g++ at first use into ``antidote_tpu_torch/_build/`` by
+:mod:`antidote_tpu_torch.native_build` (named by the source's hash, so an
+edited source rebuilds).  Where no compiler exists a
 pure-Python writer keeps the API working and writes the same frames;
 ``ShardWAL.native`` says which one runs.
 """
@@ -18,12 +19,9 @@ from __future__ import annotations
 
 import ctypes
 import errno
-import hashlib
 import heapq
 import os
-import shutil
 import struct
-import subprocess
 import threading
 import time
 import zlib
@@ -32,37 +30,16 @@ from typing import Iterator, List, Optional, Sequence, Tuple
 
 import msgpack
 
-from antidote_tpu_torch import faults
+from antidote_tpu_torch import faults, native_build
 
 _MAGIC = 0xA17D07E1
 _HDR = struct.Struct("<III")
 
-_PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "log" / "cpp" / "wal.cc"
-BUILD_DIR = _PKG / "_build"
+SOURCE = Path(__file__).resolve().parent / "cpp" / "wal.cc"
 
 _lib = None
 _lib_tried = False
 _lib_lock = threading.Lock()
-
-
-def build() -> Path:
-    """Compile ``wal.cc`` (once per source version) and return the
-    library's path."""
-    src = SOURCE.read_bytes()
-    lib = BUILD_DIR / f"libwal_{hashlib.sha256(src).hexdigest()[:16]}.so"
-    if lib.exists():
-        return lib
-    cxx = os.environ.get("CXX") or shutil.which("g++")
-    if cxx is None:
-        raise RuntimeError("g++ not found: the native WAL cannot be built")
-    BUILD_DIR.mkdir(exist_ok=True)
-    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    subprocess.run([cxx, "-O2", "-shared", "-fPIC", "-std=c++17",
-                    "-pthread", str(SOURCE), "-o", str(tmp)],
-                   check=True, capture_output=True)
-    os.replace(tmp, lib)  # atomic: a concurrent build sees all or nothing
-    return lib
 
 
 def _load_lib():
@@ -75,8 +52,9 @@ def _load_lib():
         try:
             # use_errno: a failed append/commit must surface WHICH OS
             # error (ENOSPC vs EIO) — the read-only mode keys off it
-            lib = ctypes.CDLL(str(build()), use_errno=True)
-        except (OSError, RuntimeError, subprocess.CalledProcessError):
+            lib = ctypes.CDLL(str(native_build.ensure(SOURCE, "wal")),
+                              use_errno=True)
+        except (OSError, native_build.NativeBuildError):
             return None
         lib.wal_open.restype = ctypes.c_void_p
         lib.wal_open.argtypes = [ctypes.c_char_p, ctypes.c_int, ctypes.c_int]

@@ -1,0 +1,319 @@
+"""ctypes binding for the native serving front-end (``cpp/frontend.cc``).
+
+One C++ epoll thread owns the client listen socket: accept, per-conn
+read buffers, 4-byte framing, hot-read decode, admission (the
+``overload.py`` global/per-host caps + retry hints, natively) and the
+whole-batch snapshot-cache fast path all run off the interpreter lock.
+Python sees only cache misses, writes, interactive txns and apb-dialect
+frames via one packed batch-drain crossing per wakeup (``take_batch``).
+The library is loaded with ``ctypes.CDLL``, which releases the
+interpreter lock around every call, so a ``take_batch`` blocked in C
+stalls no other thread.
+
+The mirror protocol (``store/kv.py`` pushes, epoch-id-stamped entries):
+
+* ``fill(key, bucket, type_name, value, epoch_id)`` — pushed wherever
+  Python itself fills or re-proves a snapshot-cache entry, and for the
+  bottom of a never-written key; ``epoch_id`` is the epoch the value was
+  read at, never a later one;
+* ``invalidate(key, bucket)`` — pushed EAGERLY under the commit lock for
+  every applied effect, and wherever a key must leave the epoch planes
+  (``drop_cached_values``, ``mark_epoch_fallback_many``: tier promotion,
+  eviction, fault-in, a key born on a reused row);
+* ``advance(epoch_id, vc, clockless_ok)`` — the server's epoch ticker
+  after every publish: entries stamped with the previous epoch survive
+  (every mutation in between invalidated its keys before the publish),
+  older ones drop;
+* ``reset()`` — ``drop_serving_epoch``: native serving is off until the
+  next advance.
+
+No fallback: a library that cannot be built or loaded, a port that cannot
+be bound, or an injected ``native_frontend.load`` fault raises
+:class:`NativeFrontendUnavailable`.  Only the operator's switch
+``ANTIDOTE_NATIVE_FRONTEND=off`` makes :meth:`NativeFrontend.create`
+return None (logged and counted in ``frontend_fallback``), and the server
+then serves from its Python plane.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import logging
+import os
+import threading
+from pathlib import Path
+from typing import Optional
+
+import msgpack
+
+from antidote_tpu_torch import faults, native_build
+from antidote_tpu_torch.proto.codec import encode_value
+
+log = logging.getLogger(__name__)
+
+SOURCE = Path(__file__).resolve().parent / "cpp" / "frontend.cc"
+
+_lib = None
+_lib_lock = threading.Lock()
+
+
+class NativeFrontendUnavailable(RuntimeError):
+    """The native front end was asked for and cannot serve: its library
+    did not build or load, its port did not bind, or a fault plan
+    injected the load failure."""
+
+
+def count_python_plane(reason: str) -> None:
+    """An operator's choice of the Python plane: logged, and counted in
+    ``frontend_fallback``."""
+    from antidote_tpu_torch.obs.metrics import net_metrics
+
+    log.info("native front end off (%s): the Python socketserver plane "
+             "serves", reason)
+    net_metrics().frontend_fallback.inc()
+
+
+def _load_lib():
+    global _lib
+    if _lib is not None:
+        return _lib
+    with _lib_lock:
+        if _lib is not None:
+            return _lib
+        try:
+            lib = ctypes.CDLL(str(native_build.ensure(SOURCE, "frontend")))
+        except (OSError, native_build.NativeBuildError) as e:
+            raise NativeFrontendUnavailable(f"native front end: {e}") from e
+        lib.frontend_create.restype = ctypes.c_void_p
+        lib.frontend_create.argtypes = [
+            ctypes.c_char_p, ctypes.c_int, ctypes.c_int, ctypes.c_long,
+            ctypes.c_long, ctypes.c_long,
+        ]
+        lib.frontend_port.restype = ctypes.c_int
+        lib.frontend_port.argtypes = [ctypes.c_void_p]
+        lib.frontend_take_batch.restype = ctypes.c_long
+        lib.frontend_take_batch.argtypes = [
+            ctypes.c_void_p, ctypes.c_char_p, ctypes.c_long,
+            ctypes.POINTER(ctypes.c_long), ctypes.c_long, ctypes.c_long,
+        ]
+        lib.frontend_send.restype = None
+        lib.frontend_send.argtypes = [
+            ctypes.c_void_p, ctypes.c_long, ctypes.c_char_p,
+            ctypes.c_long, ctypes.c_long,
+        ]
+        lib.frontend_close_conn.restype = None
+        lib.frontend_close_conn.argtypes = [ctypes.c_void_p, ctypes.c_long]
+        lib.frontend_advance.restype = None
+        lib.frontend_advance.argtypes = [
+            ctypes.c_void_p, ctypes.c_long, ctypes.c_char_p,
+            ctypes.c_long, ctypes.c_int,
+        ]
+        lib.frontend_fill.restype = None
+        lib.frontend_fill.argtypes = [
+            ctypes.c_void_p, ctypes.c_char_p, ctypes.c_long,
+            ctypes.c_char_p, ctypes.c_long, ctypes.c_char_p,
+            ctypes.c_long, ctypes.c_long,
+        ]
+        lib.frontend_invalidate.restype = None
+        lib.frontend_invalidate.argtypes = [
+            ctypes.c_void_p, ctypes.c_char_p, ctypes.c_long,
+        ]
+        lib.frontend_mirror_reset.restype = None
+        lib.frontend_mirror_reset.argtypes = [ctypes.c_void_p]
+        lib.frontend_set_fast_serve.restype = None
+        lib.frontend_set_fast_serve.argtypes = [ctypes.c_void_p,
+                                                ctypes.c_int]
+        lib.frontend_set_clockless_ok.restype = None
+        lib.frontend_set_clockless_ok.argtypes = [ctypes.c_void_p,
+                                                  ctypes.c_int]
+        lib.frontend_stats.restype = None
+        lib.frontend_stats.argtypes = [
+            ctypes.c_void_p, ctypes.POINTER(ctypes.c_long), ctypes.c_int,
+        ]
+        lib.frontend_stop.restype = None
+        lib.frontend_stop.argtypes = [ctypes.c_void_p]
+        lib.frontend_free.restype = None
+        lib.frontend_free.argtypes = [ctypes.c_void_p]
+        _lib = lib
+        return lib
+
+
+def _packb(v) -> bytes:
+    # the SAME packer settings as codec.encode — fragment-level byte
+    # parity with the Python reply path depends on it
+    return msgpack.packb(v, use_bin_type=True)
+
+
+class NativeFrontend:
+    """Owns the client listen socket; yields (conn_id, kind, aux,
+    payload) frames.  kind 0 = conn closed, 1 = admitted frame,
+    2 = admission-shed frame (aux carries the retry hint)."""
+
+    _BATCH = 512
+
+    K_CONN_DROP = 0
+    K_FRAME = 1
+    K_SHED = 2
+
+    STAT_FIELDS = ("accepted", "closed", "frames", "native_hits",
+                   "hit_objects", "sheds", "forwarded", "drains",
+                   "mirror_size", "in_flight", "open_conns", "bad_frames")
+
+    def __init__(self, lib, h):
+        self._lib = lib
+        self._h = h
+        self._buf = ctypes.create_string_buffer(1 << 20)
+        self._descs = (ctypes.c_long * (4 * self._BATCH))()
+        #: mirror pushes by kind (Python-side odometers, read by the
+        #: chip smoke's figures; not part of the wire or of ``stats()``)
+        self.pushes = {"fill": 0, "invalidate": 0, "advance": 0}
+        self._pushes_lock = threading.Lock()
+
+    @staticmethod
+    def create(host: str, port: int, max_connections: int,
+               max_in_flight: int, max_per_host: int,
+               mirror_cap: int = 1 << 18) -> Optional["NativeFrontend"]:
+        """The native plane bound on ``host:port``; None only under
+        ``ANTIDOTE_NATIVE_FRONTEND=off``.  Raises
+        :class:`NativeFrontendUnavailable`."""
+        if os.environ.get("ANTIDOTE_NATIVE_FRONTEND", "on") == "off":
+            count_python_plane("ANTIDOTE_NATIVE_FRONTEND=off")
+            return None
+        if faults.hit("native_frontend.load") is not None:
+            raise NativeFrontendUnavailable(
+                "injected fault: native_frontend.load")
+        lib = _load_lib()
+        h = lib.frontend_create(host.encode(), int(port),
+                                int(max_connections), int(max_in_flight),
+                                int(max_per_host), int(mirror_cap))
+        if not h:
+            raise NativeFrontendUnavailable(
+                f"native front end: bind/listen on {host}:{port} failed")
+        return NativeFrontend(lib, h)
+
+    # -- serving plane --------------------------------------------------
+    @property
+    def port(self) -> int:
+        return int(self._lib.frontend_port(self._h))
+
+    def take_batch(self, timeout_ms: int) -> list:
+        """Drain up to _BATCH crossings — [(conn_id, kind, aux,
+        payload)], [] after timeout or once stopped."""
+        h = self._h  # capture: close() may null the handle concurrently
+        if h is None:
+            return []
+        n = self._lib.frontend_take_batch(h, self._buf,
+                                          len(self._buf), self._descs,
+                                          self._BATCH, int(timeout_ms))
+        if n == -2:
+            # head frame alone exceeds the scratch buffer: grow, retake
+            need = int(self._descs[2])
+            self._buf = ctypes.create_string_buffer(need + 1024)
+            return self.take_batch(timeout_ms)
+        if n <= 0:
+            return []
+        d = self._descs
+        total = sum(d[i * 4 + 2] for i in range(n))
+        raw = ctypes.string_at(self._buf, total)
+        out = []
+        off = 0
+        for i in range(n):
+            ln = d[i * 4 + 2]
+            out.append((int(d[i * 4]), int(d[i * 4 + 1]),
+                        int(d[i * 4 + 3]), raw[off:off + ln]))
+            off += ln
+        return out
+
+    def send(self, conn_id: int, buf: bytes, admitted: int) -> None:
+        """Queue one framed reply (b"" = account only); releases
+        ``admitted`` admission slots."""
+        h = self._h
+        if h is None:
+            return
+        self._lib.frontend_send(h, int(conn_id), buf, len(buf),
+                                int(admitted))
+
+    def close_conn(self, conn_id: int) -> None:
+        h = self._h
+        if h is not None:
+            self._lib.frontend_close_conn(h, int(conn_id))
+
+    # -- mirror protocol ------------------------------------------------
+    def _count(self, kind: str) -> None:
+        with self._pushes_lock:  # pushes arrive from several threads
+            self.pushes[kind] += 1
+
+    @staticmethod
+    def _mirror_key(key, bucket) -> Optional[bytes]:
+        try:
+            return _packb(key) + _packb(bucket)
+        except Exception:
+            return None  # unpackable key shapes are simply never mirrored
+
+    def fill(self, key, bucket, type_name: str, value, epoch_id: int):
+        h = self._h
+        if h is None:
+            return
+        k = self._mirror_key(key, bucket)
+        if k is None:
+            return
+        try:
+            # the SAME wire shape the Python reply path produces
+            # (tuple-keyed CRDT maps ride as tagged pair lists) — the
+            # byte-parity contract depends on packing encode_value(v),
+            # not v
+            val = _packb(encode_value(value))
+        except Exception:
+            return
+        t = _packb(type_name)
+        self._count("fill")
+        self._lib.frontend_fill(h, k, len(k), t, len(t), val,
+                                len(val), int(epoch_id))
+
+    def invalidate(self, key, bucket) -> None:
+        h = self._h
+        if h is None:
+            return
+        k = self._mirror_key(key, bucket)
+        if k is not None:
+            self._count("invalidate")
+            self._lib.frontend_invalidate(h, k, len(k))
+
+    def advance(self, epoch_id: int, vc_list, clockless_ok: bool) -> None:
+        h = self._h
+        if h is None:
+            return
+        frag = _packb([int(x) for x in vc_list])
+        self._count("advance")
+        self._lib.frontend_advance(h, int(epoch_id), frag,
+                                   len(frag), 1 if clockless_ok else 0)
+
+    def reset(self) -> None:
+        h = self._h
+        if h is not None:
+            self._lib.frontend_mirror_reset(h)
+
+    def set_fast_serve(self, on: bool) -> None:
+        h = self._h
+        if h is not None:
+            self._lib.frontend_set_fast_serve(h, 1 if on else 0)
+
+    def set_clockless_ok(self, on: bool) -> None:
+        h = self._h
+        if h is not None:
+            self._lib.frontend_set_clockless_ok(h, 1 if on else 0)
+
+    # -- observability / lifecycle -------------------------------------
+    def stats(self) -> dict:
+        h = self._h
+        if h is None:
+            return {}
+        out = (ctypes.c_long * len(self.STAT_FIELDS))()
+        self._lib.frontend_stats(h, out, len(self.STAT_FIELDS))
+        return {f: int(v) for f, v in zip(self.STAT_FIELDS, out)}
+
+    def close(self) -> None:
+        if self._h is not None:
+            h, self._h = self._h, None
+            self._lib.frontend_stop(h)
+            self._lib.frontend_free(h)

@@ -19,8 +19,12 @@ stream of the thread that issues it, and no thread here switches
 streams, so a batch launched on the dispatcher and materialized on the
 writeback thread is ordered after the publishes it read.
 
-The native C++ front end and the follower's proxy plane are not part of
-this package: ``native_frontend=True`` and ``follower=`` raise.
+With ``native_frontend=True`` the advertised port belongs to the C++ epoll
+plane (``proto/native_frontend.py``): it accepts, frames, admits and
+answers whole-batch snapshot-cache hits off the interpreter lock, and the
+frames it cannot answer cross to per-connection drain workers here, which
+run the same serving core as the socketserver handlers.  The follower's
+proxy plane comes with inter-DC replication: ``follower=`` raises.
 """
 
 from __future__ import annotations
@@ -159,15 +163,28 @@ class ProtocolServer:
                  snapshot_cache_size: Optional[int] = None,
                  group_commit_window_us: float = 0.0,
                  follower=None, native_frontend: bool = False,
-                 tenants=None):
-        if native_frontend:
-            raise NotImplementedError(
-                "native_frontend: the C++ front end is not ported; the "
-                "Python socket plane serves both dialects")
+                 native_mirror_cap: int = 1 << 18, tenants=None):
         if follower is not None:
             raise NotImplementedError(
                 "follower: read replicas and the proxy plane come with "
                 "inter-DC replication, which is not ported")
+        # --- native serving front-end ----------------------------------
+        #: a C++ epoll thread owning accept / framing / hot-read decode /
+        #: admission / whole-batch cache hits on the ADVERTISED port;
+        #: Python sees only drained misses, writes, txns and apb frames.
+        #: Created before any thread starts: a plane that cannot serve
+        #: raises NativeFrontendUnavailable from here and leaves nothing
+        #: running (no fallback; only ANTIDOTE_NATIVE_FRONTEND=off serves
+        #: from the socketserver plane, which stays bound either way)
+        self.native = None
+        self._native_drain = None
+        if native_frontend:
+            from antidote_tpu_torch.proto.native_frontend import (
+                NativeFrontend)
+
+            self.native = NativeFrontend.create(
+                host, port, max_connections, max_in_flight,
+                max_in_flight_per_client, mirror_cap=native_mirror_cap)
         self.node = node
         #: multi-tenant QoS: weights + caps for every tenant this node
         #: serves.  An untenanted node gets a registry holding only the
@@ -319,13 +336,36 @@ class ProtocolServer:
                 finally:
                     conn_slots.release()
 
-        self._server = Server((host, port), handler)
+        self._server = Server(
+            (host, port if self.native is None else 0), handler)
         self.host, self.port = self._server.server_address
         self._thread = threading.Thread(
             target=self._server.serve_forever, daemon=True,
             name=f"antidote-proto:{self.port}",
         )
         self._thread.start()
+        if self.native is not None:
+            self.port = self.native.port
+            store = node.txm.store
+            # fast-serve needs the epoch plane, and every armed
+            # frontend.* fault rule must keep firing — rules apply
+            # Python-side per drained frame, so a natively-served hit
+            # would bypass them; with any armed, everything crosses.  A
+            # store feeds ONE mirror: a second native server on the node
+            # forwards every frame (the JAX package rewires the store to
+            # the newest server, and the older one's mirror then misses
+            # invalidations)
+            if (self._epoch_reads
+                    and not _faults.armed_prefix("frontend.")
+                    and store.native_mirror is None):
+                store.native_mirror = self.native
+            else:
+                self.native.set_fast_serve(False)
+            self._native_drain = threading.Thread(
+                target=self._native_drain_loop, daemon=True,
+                name="antidote-native-drain",
+            )
+            self._native_drain.start()
 
     # ------------------------------------------------------------------
     def _make_handler(server_self):
@@ -528,6 +568,118 @@ class ProtocolServer:
                 self.node.abort_transaction(txn)
 
     # ------------------------------------------------------------------
+    # native front-end drain plane
+    # ------------------------------------------------------------------
+    def _native_drain_loop(self):
+        """Fans batch-drain crossings out to per-connection workers.
+
+        The C++ loop serves whole-batch cache hits itself; everything it
+        can't (misses, writes, interactive txns, apb frames, admission
+        sheds) crosses here in packed batches — ONE interpreter-lock
+        acquisition per drain, then per-conn queues so one slow device
+        batch never head-of-line-blocks another connection's frames.
+        Reply order per connection is preserved: the native loop only
+        fast-serves a conn with no frame still pending in Python."""
+        nf = self.native
+        workers: Dict[int, "queue.SimpleQueue"] = {}
+        while not self._closing:
+            batch = nf.take_batch(200)
+            now = time.monotonic()
+            for conn_id, kind, aux, payload in batch:
+                if kind == nf.K_CONN_DROP:
+                    q = workers.pop(conn_id, None)
+                    if q is not None:
+                        q.put(None)
+                    continue
+                q = workers.get(conn_id)
+                if q is None:
+                    # admitted frames hold admission slots until
+                    # frontend_send releases them, and the native loop
+                    # stops reading sockets when its crossing queue
+                    # fills — so this queue's depth is bounded by the
+                    # admission caps and the native QUEUE_CAP
+                    q = queue.SimpleQueue()
+                    workers[conn_id] = q
+                    threading.Thread(
+                        target=self._native_conn_worker, daemon=True,
+                        args=(conn_id, q),
+                        name=f"antidote-native-conn-{conn_id}",
+                    ).start()
+                q.put((kind, aux, payload, now))
+        for q in workers.values():
+            q.put(None)
+
+    def _native_conn_worker(self, conn_id: int, q: "queue.SimpleQueue"):
+        """One drained connection's serving thread — the twin of a
+        socketserver Handler: the same fault site, the same serving core,
+        the same orphan-txn rollback when the conn drops."""
+        nf = self.native
+        conn_txns = set()
+        try:
+            while True:
+                item = q.get()
+                if item is None or self._closing:
+                    return
+                kind, aux, frame, t0 = item
+                admitted = 1 if kind == nf.K_FRAME else 0
+                frame = self._frame_fault(frame)
+                if frame is None:
+                    # chaos drop: account the slot, then drop the conn —
+                    # the Python plane's silent-close twin
+                    nf.send(conn_id, b"", admitted)
+                    nf.close_conn(conn_id)
+                    continue
+                if kind == nf.K_SHED:
+                    # the native loop refused admission; serialize the
+                    # typed busy reply in the frame's dialect here
+                    # (Python owns the apb encoder)
+                    self.metrics.shed.inc(plane="server")
+                    nf.send(conn_id, self._busy_reply_bytes(frame, aux), 0)
+                    continue
+                self._tls.t0 = t0
+                try:
+                    buf = self._frame_reply(frame, conn_txns)
+                except Exception as e:  # never wedge the admission slot
+                    log.exception("native drain request failed")
+                    buf = encode(MessageCode.ERROR_RESP, {
+                        "error": type(e).__name__, "detail": str(e)})
+                nf.send(conn_id, buf, admitted)
+                self.metrics.server_request_seconds.observe(
+                    time.monotonic() - t0)
+        finally:
+            for txid in conn_txns:
+                self._abort_orphan(txid)
+
+    def _busy_reply_bytes(self, frame: bytes, hint_ms: int) -> bytes:
+        """Framed admission-shed reply in the frame's dialect (the native
+        loop sheds apb frames to Python — kind 2 — because the apb error
+        encoder lives here)."""
+        if frame and frame[0] in apb.APB_REQUEST_CODES:
+            body = apb.overload_error(
+                "busy", "server admission refused", int(hint_ms))
+            return struct.pack(">I", len(body)) + body
+        return encode(MessageCode.ERROR_RESP, {
+            "error": "busy", "detail": "server admission refused",
+            "retry_after_ms": int(hint_ms),
+        })
+
+    def _native_advance(self) -> None:
+        """Push the freshly-published serving epoch to the C++ mirror —
+        called by the epoch ticker right after every publish.  The
+        mirror's re-stamping is sound because every effect applied since
+        the last advance invalidated its keys eagerly (under the commit
+        lock, BEFORE the publish made them visible)."""
+        nf = self.native
+        txm = self.node.txm
+        if nf is None or txm.store.native_mirror is not nf:
+            return
+        ep = txm.store.serving_epoch
+        if ep is None:
+            nf.set_clockless_ok(False)
+            return
+        nf.advance(int(ep.id), ep.vc.tolist(),
+                   int(ep.vc[txm.my_dc]) >= txm.epoch_lag_counter)
+
     # ------------------------------------------------------------------
     # static batch gate
     # ------------------------------------------------------------------
@@ -992,6 +1144,7 @@ class ProtocolServer:
             try:
                 if self._epoch_reads:
                     txm.publish_serving_epoch()
+                    self._native_advance()
                 self._publish_table_epochs_capped()
             except Exception:
                 log.exception("epoch ticker publish failed")
@@ -1435,6 +1588,8 @@ class ProtocolServer:
             "locked_depth": self._locked_q.qsize(),
             "group_commit_window_us": round(self._group_window_s * 1e6, 1),
         }
+        if self.native is not None:
+            out["native"] = self.native.stats()
         store = self.node.txm.store
         out["snapshot_cache"]["size"] = len(store.snapshot_cache)
         out["snapshot_cache"]["cap"] = store.snapshot_cache_cap
@@ -1451,6 +1606,15 @@ class ProtocolServer:
         self._ticker_stop.set()
         self._server.shutdown()
         self._server.server_close()
+        if self.native is not None:
+            # unwire the mirror FIRST: the store must stop pushing into a
+            # handle about to be stopped
+            store = self.node.txm.store
+            if store.native_mirror is self.native:
+                store.native_mirror = None
+            self.native.close()
+            if self._native_drain is not None:
+                self._native_drain.join(timeout=5)
         if self.batch_static:
             # the gate is bounded now: a full queue + wedged dispatcher
             # must not turn close() into a forever-blocking put

@@ -51,6 +51,7 @@ from antidote_tpu_torch.crdt.blob import BlobStore
 from antidote_tpu_torch.materializer import cuda_kernels
 from antidote_tpu_torch.materializer import fold as fold_mod
 from antidote_tpu_torch.materializer import longlog
+from antidote_tpu_torch.store import router
 from antidote_tpu_torch.store.router import shard_batch, shard_of
 from antidote_tpu_torch.store.typed_table import TypedTable
 
@@ -300,6 +301,9 @@ class KVStore:
     def __init__(self, cfg: AntidoteConfig, device="cuda", log=None):
         self.cfg = cfg
         self.device = resolve_device(device)
+        # the native router routes every key this store binds: a library
+        # that cannot be built fails the construction, never a later write
+        router.load()
         #: the durable log (``log.LogManager``) or None: when set, effects
         #: are logged (with blob payloads) before the tables observe them
         self.log = log
@@ -379,6 +383,12 @@ class KVStore:
         #: so that a composed recovery re-registers them cold instead of
         #: resurrecting a row that was since reused)
         self._ckpt_evicted: Dict[Tuple[Any, str], tuple] = {}
+        #: the native front end's mirror (``proto/native_frontend``) — the
+        #: C++ serving loop's epoch-stamped copy of the snapshot cache.
+        #: Wired by the protocol server when native whole-batch serving
+        #: is on; pushed from the fill / invalidate / drop paths below so
+        #: the native plane never serves a value Python would not.
+        self.native_mirror = None
 
     #: dirty-key windows past this size stop tracking (rebase instead)
     _CKPT_KEYS_CAP = 262144
@@ -414,6 +424,11 @@ class KVStore:
                 eps.append(self.serving_epoch)
         for e in eps:
             e.promoted.update(dks)
+        nm = self.native_mirror
+        if nm is not None:
+            # an epoch-ineligible key: the native mirror must miss too
+            for dk in dks:
+                nm.invalidate(dk[0], dk[1])
 
     def drop_cached_value(self, dk) -> None:
         """Invalidate both decoded-value caches for one key (an eviction:
@@ -429,6 +444,10 @@ class KVStore:
         with self._snapshot_cache_lock:
             for dk in dks:
                 self.snapshot_cache.pop(dk, None)
+        nm = self.native_mirror
+        if nm is not None:
+            for dk in dks:
+                nm.invalidate(dk[0], dk[1])
 
     def materializer_status(self) -> dict:
         """Which fold strategies the serving and replay paths dispatched
@@ -597,6 +616,16 @@ class KVStore:
     def _apply_effect_groups_inner(self, groups, defer_sync):
         effects = [e for g in groups for e in g[0]]
         self.locate_many([(e.key, e.type_name, e.bucket) for e in effects])
+        nm = self.native_mirror
+        if nm is not None:
+            # EAGER native-mirror invalidation, under the commit lock,
+            # BEFORE any table observes the effects: the C++ loop can at
+            # worst keep serving the pre-commit value at the current
+            # epoch stamp (what the Python cache serves until the next
+            # publish), never a torn one — the ordering that makes
+            # advance()'s re-stamping sound
+            for dk in {(e.key, e.bucket) for e in effects}:
+                nm.invalidate(dk[0], dk[1])
         # ---- overflow escape hatch: promote BEFORE anything can drop.
         # Aggregate each key's worst-case fresh-slot demand (and the tier
         # its effect lanes need: a replayed or remote effect of a promoted
@@ -766,6 +795,9 @@ class KVStore:
             if ep is not None:
                 self.serving_epoch = None
                 self._epoch_graveyard.append(ep)
+        nm = self.native_mirror
+        if nm is not None:
+            nm.reset()  # no epoch, no native serving until the next advance
 
     def publish_serving_epoch(self, vc: np.ndarray) -> str:
         """Publish a new store-wide serving snapshot at clock ``vc``.
@@ -856,6 +888,7 @@ class KVStore:
         locked path (only a whole-batch success counts its hits)."""
         vals: List[Any] = []
         n_hits = 0
+        nm = self.native_mirror
         for key, type_name, bucket in objects:
             if not is_type(type_name):
                 return None
@@ -876,13 +909,22 @@ class KVStore:
             if ent is None:
                 if self.cold is not None and self.cold.is_cold(dk):
                     return None  # a cold key: the locked path faults it in
-                vals.append(self._bottom_value(type_name))
+                bottom = self._bottom_value(type_name)
+                if nm is not None:
+                    # teach the native mirror the bottom: its first write
+                    # invalidates eagerly, so serving it at ep is exactly
+                    # what this path serves
+                    nm.fill(key, bucket, type_name, bottom, ep.id)
+                vals.append(bottom)
                 continue
             tname_t, shard, row = ent
             ur = ep.used_rows.get(tname_t)
             if (split_tier(tname_t)[0] == type_name and ur is not None
                     and row >= ur[shard]):
-                vals.append(self._bottom_value(type_name))  # born after E
+                bottom = self._bottom_value(type_name)  # born after E
+                if nm is not None:
+                    nm.fill(key, bucket, type_name, bottom, ep.id)
+                vals.append(bottom)
                 continue
             return None  # needs a frozen-head gather or the locked path
         if self.metrics is not None:
@@ -925,6 +967,14 @@ class KVStore:
                     else:
                         self.snapshot_cache[dk] = (ep.id, loc, value)
                         ok = True
+                        nm = self.native_mirror
+                        if nm is not None:
+                            # re-prove the entry to the native mirror too
+                            # (its advance() only carries entries stamped
+                            # with the previous epoch; the touch-log walk
+                            # bridges longer gaps)
+                            nm.fill(dk[0], dk[1], split_tier(loc[0])[0],
+                                    value, ep.id)
                 if ok:
                     self.snapshot_cache.move_to_end(dk)
                     if m is not None:
@@ -941,6 +991,12 @@ class KVStore:
                 self.snapshot_cache.popitem(last=False)
                 if self.metrics is not None:
                     self.metrics.snapshot_cache.inc(event="evict")
+        nm = self.native_mirror
+        if nm is not None:
+            # stamped with the epoch the value was READ at: the C++ side
+            # keeps a fill that lands after its key's invalidation from
+            # being carried past that epoch
+            nm.fill(dk[0], dk[1], split_tier(loc[0])[0], value, ep.id)
 
     def _bottom_value(self, type_name: str):
         """Decoded client-visible value of a never-written key."""

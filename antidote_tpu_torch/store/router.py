@@ -1,18 +1,29 @@
-"""Key→shard router: a pure-Python XXH64, bit-exact with the JAX package's
-native ``router.cc`` and its Python fallback, so both packages place every
-key on the same shard.
+"""Key→shard router: the port's native XXH64 (``store/cpp/router.cc``) with
+a batched route, and a pure-Python XXH64 as its plain version, bit-exact
+with each other and with the JAX package's router, so both packages place
+every key on the same shard.
 
 Integer keys map directly (``key % n_shards``); other keys hash the
-canonical msgpack serialization of ``(key, bucket)``.  A native batched
-router is later work.
+canonical msgpack serialization of ``(key, bucket)``.  The native library
+is built with g++ at first use (:mod:`antidote_tpu_torch.native_build`);
+a store's construction loads it (:func:`load`) and raises when it cannot
+be built — nothing falls back to the plain hash, which only the tests
+call.
 """
 
 from __future__ import annotations
 
+import ctypes
+import threading
+from pathlib import Path
 from typing import Any, Sequence
 
 import msgpack
 import numpy as np
+
+from antidote_tpu_torch import native_build
+
+SOURCE = Path(__file__).resolve().parent / "cpp" / "router.cc"
 
 _M = (1 << 64) - 1
 _P1 = 0x9E3779B185EBCA87
@@ -21,7 +32,44 @@ _P3 = 0x165667B19E3779F9
 _P4 = 0x85EBCA77C2B2AE63
 _P5 = 0x27D4EB2F165667C5
 
+_lib = None
+_lib_lock = threading.Lock()
 
+
+class RouterUnavailable(RuntimeError):
+    """The native router library could not be built or loaded."""
+
+
+def load():
+    """The native router library (built on first use).  Raises
+    :class:`RouterUnavailable` when it cannot be built or loaded."""
+    global _lib
+    if _lib is not None:
+        return _lib
+    with _lib_lock:
+        if _lib is not None:
+            return _lib
+        try:
+            lib = ctypes.CDLL(str(native_build.ensure(SOURCE, "router")))
+        except (OSError, native_build.NativeBuildError) as e:
+            raise RouterUnavailable(f"native router: {e}") from e
+        lib.router_hash64.restype = ctypes.c_uint64
+        lib.router_hash64.argtypes = [ctypes.c_char_p, ctypes.c_uint64,
+                                      ctypes.c_uint64]
+        lib.router_shard_batch.restype = None
+        lib.router_shard_batch.argtypes = [
+            ctypes.c_char_p,
+            np.ctypeslib.ndpointer(np.uint64, flags="C_CONTIGUOUS"),
+            ctypes.c_int64, ctypes.c_uint64, ctypes.c_int64,
+            np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS"),
+        ]
+        _lib = lib
+        return lib
+
+
+# ---------------------------------------------------------------------------
+# plain XXH64 (same spec as router.cc; must agree bit for bit)
+# ---------------------------------------------------------------------------
 def _rotl(x, r):
     return ((x << r) | (x >> (64 - r))) & _M
 
@@ -77,18 +125,45 @@ def xxh64(data: bytes, seed: int = 0) -> int:
     return h
 
 
+# ---------------------------------------------------------------------------
+# public API (the native library)
+# ---------------------------------------------------------------------------
 def key_bytes(key: Any, bucket: str) -> bytes:
     """Canonical serialization of a bound key for hashing."""
     return msgpack.packb((key, bucket), use_bin_type=True)
 
 
+def hash64(data: bytes, seed: int = 0) -> int:
+    return int(load().router_hash64(data, len(data), seed))
+
+
 def shard_of(key: Any, bucket: str, n_shards: int) -> int:
     if isinstance(key, int) and not isinstance(key, bool):
         return key % n_shards  # direct-int path
-    return xxh64(key_bytes(key, bucket)) % n_shards
+    return hash64(key_bytes(key, bucket)) % n_shards
 
 
 def shard_batch(keys: Sequence[Any], buckets: Sequence[str],
                 n_shards: int) -> np.ndarray:
-    return np.asarray([shard_of(k, b, n_shards)
-                       for k, b in zip(keys, buckets)], np.int64)
+    """Vector route: one FFI crossing for the whole batch."""
+    n = len(keys)
+    out = np.empty(n, np.int64)
+    ints = np.empty(n, bool)
+    blobs = []
+    offsets = [0]
+    for i, (k, b) in enumerate(zip(keys, buckets)):
+        if isinstance(k, int) and not isinstance(k, bool):
+            ints[i] = True
+            out[i] = k % n_shards
+            continue
+        ints[i] = False
+        kb = key_bytes(k, b)
+        blobs.append(kb)
+        offsets.append(offsets[-1] + len(kb))
+    if blobs:
+        hashed = np.empty(len(blobs), np.int64)
+        load().router_shard_batch(b"".join(blobs),
+                                  np.asarray(offsets, np.uint64),
+                                  len(blobs), 0, n_shards, hashed)
+        out[~ints] = hashed
+    return out

@@ -255,9 +255,21 @@ class TransactionManager:
     def _publish_serving_epoch_locked(self) -> str:
         return self.store.publish_serving_epoch(self.serving_epoch_vc())
 
+    def _native_lag_raised(self) -> None:
+        """The serving epoch just started lagging the commit counter: the
+        native front end must stop serving clockless reads from it (the
+        Python cache read refuses through ``epoch_lag_counter``; the C++
+        loop learns the same fact here).  The next advance after a
+        publish that catches up — the server's epoch ticker — turns it
+        back on."""
+        nm = self.store.native_mirror
+        if nm is not None:
+            nm.set_clockless_ok(False)
+
     # ------------------------------------------------------------------
     # transaction lifecycle
     # ------------------------------------------------------------------
+
     def _snapshot_vc(self) -> np.ndarray:
         """Remote lanes from the DC stable snapshot, own lane from the
         commit counter (local commits apply synchronously)."""
@@ -619,6 +631,7 @@ class TransactionManager:
         if idle and now - self._last_inline_publish \
                 < self.EPOCH_INLINE_PUBLISH_S:
             self.epoch_lag_counter = self.commit_counter
+            self._native_lag_raised()
             return
         self._last_inline_publish = now
         self._reads_at_last_publish = reads_now
@@ -629,6 +642,7 @@ class TransactionManager:
             log.exception("serving-epoch publish failed")
         if st not in ("published", "noop"):
             self.epoch_lag_counter = self.commit_counter
+            self._native_lag_raised()
 
     def _commit_group_locked(self, txns: Sequence[Transaction]):
         out: List[Any] = []

@@ -55,8 +55,8 @@ Run from the root of a checkout on a machine with a CUDA card (one card;
    assoc-capable types, ``assoc_fold`` and ``fold_long`` equal to
    ``fold_batch`` on the card;
 6. durability (``durable``): an ``AntidoteNode`` with a log directory on
-   the local disk (``tempfile``), at BASELINE's configuration with half its
-   keys: 500,000 ``set_aw`` keys
+   the local disk (``tempfile``), at BASELINE's configuration with 30% of
+   its keys: 300,000 ``set_aw`` keys
    (2 adds each, removes on 10%) and 100,000 ``counter_pn`` keys (2
    increments) committed through the manager in groups; a full
    checkpoint (its stamp's time under the commit lock against its copy
@@ -72,7 +72,7 @@ Run from the root of a checkout on a machine with a CUDA card (one card;
    beside the card.  The node carries a cold tier with no budget, so its
    full image writes the cold sidecar, and the directory is kept for:
 7. the cold tier and shard handoff (``cold``) on that directory: a
-   recovery with 150,000 of its 600,000 rows resident (the rest evicted
+   recovery with 150,000 of its 400,000 rows resident (the rest evicted
    to the sidecar), 10 Zipf(1.0) batches of 16,384 keys over every key
    faulting cold keys in (every value equal to the durable phase's, beside
    the same batches on its all-resident node), writes to faulted-in keys
@@ -105,14 +105,30 @@ Run from the root of a checkout on a machine with a CUDA card (one card;
    (every refusal a typed ``RemoteBusy``, no acknowledged write lost) and
    a 1 µs deadline (``RemoteDeadline``); the node status over the wire.
    Its figures print on a ``wire:`` line beside the card;
-9. print one JSON line per kernel record, the card line, and last the
+9. the native front end (``native``), the serve default: the wire phase's
+   node, its Python-plane server closed, served by a
+   ``ProtocolServer(native_frontend=True)`` with the same defaults (the
+   C++ epoll plane and the native router build with g++ at first use):
+   the same timed load, with the native plane's hit share, crossings per
+   drain and mirror pushes over the window beside this call's wire
+   figures; every key touched in either window and 2,048 others read back
+   through the native plane, equal to the host model, with
+   ``native_hits > 0`` and no fallback; clockless counter reads after
+   each of 8 increments never past the committed total and converging;
+   one whole-batch hit byte-equal to the Python plane's at one epoch id;
+   the interactive session (``set_aw_fold``, ``counter_fold``) and the
+   apb dialect; a burst of 32 updates against a native server with
+   ``max_in_flight=4`` (every shed a typed ``RemoteBusy``); 1M string keys
+   through the native router in batches of 16,384, a sample equal to the
+   plain XXH64.  Its figures print on a ``native:`` line beside the card;
+10. print one JSON line per kernel record, the card line, and last the
    ``{"ok": true, ...}`` line.
 
 The launch counts are reset just before the serve, the node workload, the
 serving plane, the cluster, the types phase, the durable phase, the cold
-phase and the wire phase, and read just after each; each must show the
-kernels that ``PATH_KERNELS`` names for it, and a kernel record's
-``launches`` is the sum over the eight.
+phase, the wire phase and the native phase, and read just after each; each
+must show the kernels that ``PATH_KERNELS`` names for it, and a kernel
+record's ``launches`` is the sum over the nine.
 The serve must launch ``orset_presence`` exactly once per
 ``SetAW.resolve``, and a resolve on a CUDA state must call no torch sort.
 Exits non-zero without a CUDA device, and outside a
@@ -190,15 +206,17 @@ LL_KEYS, LL_OPS = 1024, 4096
 # group, delta rounds before the link and tail rounds after it (each of
 # SV_ROUND_KEYS keys), the ladder's long logs (past its fold chunk of
 # 1,024 ops; 5,000 past 4,096 before the cold phase came).  The set keys
-# are half of
-# BASELINE's 1M: at 500,000 the phase takes 137-146 s on the card and the
-# whole script 417-519 s (hosts differ); its populate, full image and
-# whole-store reads grow with the keys and would add ~80-100 s at 1M,
-# taking the script to or past its 600 s budget on the slower host
-DU_SET_KEYS, DU_CTR_KEYS, DU_GROUP = 500_000, 100_000, 4096
+# are 30% of BASELINE's 1M (half of it before the native phase came: at
+# 500,000 the phase took 130-160 s on the card and, with the native phase,
+# the whole script 588 s on a slower host; its populate, full image and
+# whole-store reads grow with the keys, and so do the cold phase's
+# evictions and export on the same directory)
+DU_SET_KEYS, DU_CTR_KEYS, DU_GROUP = 300_000, 100_000, 4096
 DU_ROUNDS, DU_TAIL_ROUNDS, DU_LADDER_LONG = 32, 16, 1500
-# the cold phase, on the durable phase's directory: the resident budget (a
-# quarter of its 600,000 rows), Zipf read batches (10, half of earlier
+# the cold phase, on the durable phase's directory: the resident budget
+# (about the rows the delta link and the WAL tail wrote, which cannot go
+# cold; a quarter of the 600,000 rows before the native phase's cut, now
+# 150,000 of 400,000), Zipf read batches (10, half of earlier
 # runs' 20: cut with the wire phase's arrival for the 600 s budget), the
 # faulted-in keys of
 # the write rounds, the rate cap's fault-ins a second and its burst, the
@@ -220,6 +238,10 @@ WI_WARM_S, WI_WINDOW_S, WI_READ_FRAC, WI_SAMPLE = 3.0, 10.0, 0.9, 2048
 WI_TAIL_S = 2.5
 WI_TT_BATCHES, WI_TT_ROUNDS, WI_RYW_PAIRS, WI_TXN_KEYS = 16, 4, 50, 64
 WI_BURST = 32
+# the native phase, on the wire phase's node and at its load: the
+# soundness check's increments, and the router's string keys and batch
+NA_SOUND_ROUNDS = 8
+NA_ROUTER_KEYS, NA_ROUTER_BATCH = 1_000_000, 16_384
 # the kernels each path must launch: the serve resolves sets (presence)
 # and folds the historical batches; the node session folds a set and a
 # counter at older snapshots; every cluster transaction start merges the
@@ -233,7 +255,9 @@ WI_BURST = 32
 # faulted-in keys fold the installed base (sets and counters); the wire
 # server resolves every static read that misses the snapshot cache (one
 # launch an epoch-read chunk), and its interactive session reads sets and
-# counters at a snapshot older than other clients' writes (the folds)
+# counters at a snapshot older than other clients' writes (the folds); the
+# native plane's drained reads that miss the mirror and the snapshot cache
+# ride the same epoch-read chunks, and its session folds as the wire's does
 PATH_KERNELS = {"serve": ("orset_presence", "set_aw_fold"),
                 "node": ("counter_fold", "set_aw_fold"),
                 "serving": ("orset_presence", "set_aw_fold"),
@@ -242,7 +266,8 @@ PATH_KERNELS = {"serve": ("orset_presence", "set_aw_fold"),
                 "durable": ("orset_presence", "set_aw_fold",
                             "counter_fold"),
                 "cold": ("orset_presence", "set_aw_fold", "counter_fold"),
-                "wire": ("orset_presence", "set_aw_fold", "counter_fold")}
+                "wire": ("orset_presence", "set_aw_fold", "counter_fold"),
+                "native": ("orset_presence", "set_aw_fold", "counter_fold")}
 
 
 def log(msg: str) -> None:
@@ -3282,7 +3307,7 @@ def _busy_window(torch, seconds) -> dict:
 
 def wire_phase(torch, dev, n_keys=WI_KEYS, procs=WI_PROCS,
                threads=WI_THREADS, warm_s=WI_WARM_S, window_s=WI_WINDOW_S,
-               sample=WI_SAMPLE, burst=WI_BURST) -> dict:
+               sample=WI_SAMPLE, burst=WI_BURST, keep=None) -> dict:
     """The wire front end on the card: ``bench_wire.py``'s
     ``set_aw_zipf_north_star`` (config 3) against an ephemeral
     ``AntidoteNode`` of BASELINE's widths served by a ``ProtocolServer``
@@ -3302,7 +3327,10 @@ def wire_phase(torch, dev, n_keys=WI_KEYS, procs=WI_PROCS,
     with ``max_in_flight=4`` under a burst of ``burst`` updates (every
     refusal typed, no acknowledged write lost) and a deadline; the node
     status over the wire.  On a CPU device (a rehearsal at a small
-    ``n_keys``) the card-only checks are skipped."""
+    ``n_keys``) the card-only checks are skipped.  With ``keep`` (a dict)
+    the node, the host model, the keys the window touched, the join of its
+    acknowledged clocks and its load figures are left there for the
+    native phase, which serves the same node."""
     import queue
     import threading
 
@@ -3475,112 +3503,21 @@ def wire_phase(torch, dev, n_keys=WI_KEYS, procs=WI_PROCS,
         f"{json.dumps(out['three_threads'])}")
     # ---- 3. the server and the timed load ------------------------------
     srv = ProtocolServer(node, port=0)
-    children = []
     try:
         probes = node.check_ready()
         if not all(probes.values()):
             raise AssertionError(f"the node is not ready: {probes}")
         status_c = AntidoteClient(srv.host, srv.port, timeout=60)
-        env = dict(os.environ)
-        env["PYTHONPATH"] = (os.path.dirname(os.path.abspath(__file__))
-                             + os.pathsep + env.get("PYTHONPATH", ""))
-        for p in range(procs):
-            children.append(subprocess.Popen(
-                [sys.executable, os.path.abspath(__file__), "--wire-worker",
-                 srv.host, str(srv.port), str(n_keys), str(threads),
-                 str(1000 * (p + 1)), str(warm_s), str(window_s),
-                 str(WI_TAIL_S if on_card else 0.0), str(WI_READ_FRAC)],
-                env=env, stdin=subprocess.PIPE, stdout=subprocess.PIPE,
-                stderr=subprocess.DEVNULL, text=True))
-        warm = [_read_line(c, 600) for c in children]
-        if any(w["errs"] for w in warm):
-            raise AssertionError(f"warm round errors: {warm}")
-        pre = status_c.node_status()["pipeline"]
-        gc_pauses = _GcPauses()
-        for c in children:
-            c.stdin.write("go\n")
-            c.stdin.flush()
-        t_go = time.perf_counter()
-        if on_card:
-            # the profile runs on the same load just after the timed
-            # window: its stop processes the trace for seconds under the
-            # interpreter lock, which inside the window stalled every
-            # request
-            time.sleep(window_s + 0.25)
-            t_prof = time.monotonic()
-            out["busy"] = _busy_window(torch, WI_TAIL_S - 0.5)
-        res = [_read_line(c, window_s + 300) for c in children]
-        load_s = time.perf_counter() - t_go
-        gc_pauses.close()
-        post = status_c.node_status()["pipeline"]
-        if any(r["errs"] or r["alive"] for r in res):
-            raise AssertionError(f"load errors: "
-                                 f"{[r['errs'][:3] for r in res]}")
-        ops = sum(r["ops"] for r in res)
-        if on_card:
-            # the window's slowest updates: start (s, against the
-            # profile's start) and ms
-            out["busy"]["slow_updates_s_ms"] = sorted(
-                ((t - t_prof, ms) for r in res for t, ms in r["slow_updates"]),
-                key=lambda tx: -tx[1])[:5]
-        lr = [x for r in res for x in r["lat_read_ms"]]
-        lu = [x for r in res for x in r["lat_update_ms"]]
-        nm = node.metrics
-        out["load"] = {
-            "warm_ops": sum(w["warm"] for w in warm), "ops": ops,
-            "ops_s": ops / window_s, "wall_s": load_s,
-            "read_ms": _stats(lr), "update_ms": _stats(lu),
-            "stages_us": _stage_means(pre, post),
-            "reads": _counter_deltas(pre, post, "reads"),
-            "snapshot_cache": _counter_deltas(pre, post, "snapshot_cache"),
-            "epoch_publish": _counter_deltas(pre, post, "epoch_publish"),
-            # the phase's commit rounds so far (the populate took none)
-            "commit_round_ms": {k: v * 1e3 if k in ("mean", "p50", "p99")
-                                else v for k, v in
-                                nm.commit_seconds.summary().items()},
-            "merge_width": nm.commit_merge_width.summary(),
-            "gc_pauses_ms": gc_pauses.summary()}
+        out["load"], out["busy"], acked, _pre, _post = _wire_load(
+            torch, srv, status_c, n_keys, procs, threads, warm_s, window_s)
         log(f"wire: load {json.dumps({k: out['load'][k] for k in ('ops_s', 'read_ms', 'update_ms')})}")
         # ---- 4. every acknowledged write reads back ---------------------
-        acked = [a for r in res for a in r["acked"]]
-        join = np.zeros(D, np.int64)
-        by_key: dict = {}
-        for k, op, elem, vc in acked:
-            join = np.maximum(join, np.asarray(vc, np.int64))
-            by_key.setdefault(k, []).append((op, elem, vc[0]))
-        racy = 0
-        expect = {}
-        for k, ops_k in by_key.items():
-            adds = {e for op, e, _ in ops_k if op == "add"}
-            base = model[k] | adds
-            hit = {e for op, e, _ in ops_k if op == "remove" and e in base}
-            if hit:
-                racy += 1  # the remove's snapshot decides; either value
-            expect[k] = (base, base - hit)
-            model[k] |= adds
-        rest = np.setdiff1d(np.arange(n_keys), np.fromiter(by_key, np.int64))
-        pick = np.random.default_rng(83).choice(
-            rest, min(sample, len(rest)), replace=False)
-        for k in pick.tolist():
-            expect[k] = (model[k], model[k])
-        chk = sorted(expect)
-        got = []
-        clock = [int(x) for x in join]
-        for lo in range(0, len(chk), 512):
-            v, _ = status_c.read_objects(objs_of(chk[lo:lo + 512]),
-                                         clock=clock)
-            got.extend(v)
-        bad = [k for k, v in zip(chk, got)
-               if set(v) not in (expect[k][0], expect[k][1])]
-        if bad:
-            k = bad[0]
-            raise AssertionError(
-                f"{len(bad)} keys differ from the model after the load, "
-                f"key {k}: {sorted(got[chk.index(k)])[:8]} against "
-                f"{sorted(expect[k][1])[:8]}")
-        out["check"] = {"acked_updates": len(acked),
-                        "touched_keys": len(by_key),
-                        "sampled_keys": len(pick), "racy_keys": racy}
+        out["check"], touched, join = _wire_readback(
+            status_c, model, acked, (), np.zeros(D, np.int64), n_keys,
+            sample, 83)
+        if keep is not None:
+            keep.update(node=node, model=model, touched=touched,
+                        join=join, load=out["load"])
         # ---- 5. read-your-writes ----------------------------------------
         ryw = {"pairs": 0}
         rerr = []
@@ -3597,6 +3534,7 @@ def wire_phase(torch, dev, n_keys=WI_KEYS, procs=WI_PROCS,
                     if e not in v[0]:
                         raise AssertionError(f"client {i} missed its write "
                                              f"of {e} to key {k}")
+                    model[k].add(e)
                     ryw["pairs"] += 1
                 c.close()
             except Exception as e:  # noqa: BLE001 — fatal, raised below
@@ -3613,11 +3551,11 @@ def wire_phase(torch, dev, n_keys=WI_KEYS, procs=WI_PROCS,
         out["read_your_writes"] = ryw
         # ---- 6. an interactive session and the apb dialect -------------
         out["session"] = _wire_session(srv, AntidoteClient, ApbClient,
-                                       RemoteAbort)
+                                       RemoteAbort, "w")
         # ---- 7. overload: typed sheds, no lost write, a deadline -------
         out["overload"] = _wire_overload(node, AntidoteClient, RemoteBusy,
                                          RemoteDeadline, ProtocolServer,
-                                         burst)
+                                         burst, "w")
         # ---- 8. the status over the wire --------------------------------
         st = status_c.node_status(include_ready=True)
         if not all(st["ready"].values()):
@@ -3634,28 +3572,163 @@ def wire_phase(torch, dev, n_keys=WI_KEYS, procs=WI_PROCS,
                          "materializer": pipe["materializer"]}
         status_c.close()
     finally:
-        for c in children:
-            if c.poll() is None:
-                c.kill()
-            c.wait(30)
         srv.close()
     return out
 
 
-def _wire_session(srv, AntidoteClient, ApbClient, RemoteAbort) -> dict:
+def _wire_load(torch, srv, status_c, n_keys, procs, threads, warm_s,
+               window_s, snap=None) -> tuple:
+    """``bench_wire.py``'s timed load against ``srv``: ``procs`` client
+    processes of ``threads`` workers (``chip_smoke.py --wire-worker``) for
+    an untimed round and a timed window, then (on a card) the card's busy
+    share over ``WI_TAIL_S - 0.5`` s of the same load.  Returns the load
+    figures, the busy figures, every acknowledged update and the server's
+    pipeline blocks before and after the window (with ``snap()`` under
+    their ``"snap"`` key when given)."""
+    on_card = srv.node.store.device.type == "cuda"
+    children = []
+    try:
+        env = dict(os.environ)
+        env["PYTHONPATH"] = (os.path.dirname(os.path.abspath(__file__))
+                             + os.pathsep + env.get("PYTHONPATH", ""))
+        for p in range(procs):
+            children.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--wire-worker",
+                 srv.host, str(srv.port), str(n_keys), str(threads),
+                 str(1000 * (p + 1)), str(warm_s), str(window_s),
+                 str(WI_TAIL_S if on_card else 0.0), str(WI_READ_FRAC)],
+                env=env, stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+                stderr=subprocess.DEVNULL, text=True))
+        warm = [_read_line(c, 600) for c in children]
+        if any(w["errs"] for w in warm):
+            raise AssertionError(f"warm round errors: {warm}")
+        pre = status_c.node_status()["pipeline"]
+        if snap is not None:
+            pre["snap"] = snap()
+        gc_pauses = _GcPauses()
+        for c in children:
+            c.stdin.write("go\n")
+            c.stdin.flush()
+        t_go = time.perf_counter()
+        busy: dict = {}
+        if on_card:
+            # the profile runs on the same load just after the timed
+            # window: its stop processes the trace for seconds under the
+            # interpreter lock, which inside the window stalled every
+            # request
+            time.sleep(window_s + 0.25)
+            t_prof = time.monotonic()
+            busy = _busy_window(torch, WI_TAIL_S - 0.5)
+        res = [_read_line(c, window_s + 300) for c in children]
+        load_s = time.perf_counter() - t_go
+        gc_pauses.close()
+        post = status_c.node_status()["pipeline"]
+        if snap is not None:
+            post["snap"] = snap()
+    finally:
+        for c in children:
+            if c.poll() is None:
+                c.kill()
+            c.wait(30)
+    if any(r["errs"] or r["alive"] for r in res):
+        raise AssertionError(f"load errors: "
+                             f"{[r['errs'][:3] for r in res]}")
+    ops = sum(r["ops"] for r in res)
+    if on_card:
+        # the window's slowest updates: start (s, against the profile's
+        # start) and ms
+        busy["slow_updates_s_ms"] = sorted(
+            ((t - t_prof, ms) for r in res for t, ms in r["slow_updates"]),
+            key=lambda tx: -tx[1])[:5]
+    lr = [x for r in res for x in r["lat_read_ms"]]
+    lu = [x for r in res for x in r["lat_update_ms"]]
+    nm = srv.node.metrics
+    load = {
+        "warm_ops": sum(w["warm"] for w in warm), "ops": ops,
+        "ops_s": ops / window_s, "wall_s": load_s,
+        "read_ms": _stats(lr), "update_ms": _stats(lu),
+        "stages_us": _stage_means(pre, post),
+        "reads": _counter_deltas(pre, post, "reads"),
+        "snapshot_cache": _counter_deltas(pre, post, "snapshot_cache"),
+        "epoch_publish": _counter_deltas(pre, post, "epoch_publish"),
+        # the node's commit rounds so far (the populate took none)
+        "commit_round_ms": {k: v * 1e3 if k in ("mean", "p50", "p99")
+                            else v for k, v in
+                            nm.commit_seconds.summary().items()},
+        "merge_width": nm.commit_merge_width.summary(),
+        "gc_pauses_ms": gc_pauses.summary()}
+    acked = [a for r in res for a in r["acked"]]
+    return load, busy, acked, pre, post
+
+
+def _wire_readback(c, model, acked, also, base_join, n_keys, sample,
+                   seed) -> tuple:
+    """Read back over ``c``, at the join of ``base_join`` and the
+    acknowledged clocks: every key ``acked`` updated, every key of
+    ``also`` and ``sample`` others, each equal to the host ``model`` (a
+    key with an acknowledged remove of an element that an add put back
+    may read either way: the remove's snapshot decides).  The model takes
+    the values read, so it is exact for a later phase.  Returns the
+    figures, the touched keys and the join."""
+    join = np.asarray(base_join, np.int64).copy()
+    by_key: dict = {}
+    for k, op, elem, vc in acked:
+        join = np.maximum(join, np.asarray(vc, np.int64))
+        by_key.setdefault(k, []).append((op, elem, vc[0]))
+    racy = 0
+    expect = {}
+    for k, ops_k in by_key.items():
+        adds = {e for op, e, _ in ops_k if op == "add"}
+        base = model[k] | adds
+        hit = {e for op, e, _ in ops_k if op == "remove" and e in base}
+        if hit:
+            racy += 1
+        expect[k] = (base, base - hit)
+    for k in also:
+        expect.setdefault(k, (model[k], model[k]))
+    rest = np.setdiff1d(np.arange(n_keys), np.fromiter(expect, np.int64))
+    pick = np.random.default_rng(seed).choice(
+        rest, min(sample, len(rest)), replace=False)
+    for k in pick.tolist():
+        expect[k] = (model[k], model[k])
+    chk = sorted(expect)
+    got = []
+    clock = [int(x) for x in join]
+    for lo in range(0, len(chk), 512):
+        v, _ = c.read_objects([(int(k), "set_aw", "b")
+                               for k in chk[lo:lo + 512]], clock=clock)
+        got.extend(v)
+    bad = [k for k, v in zip(chk, got)
+           if set(v) not in (expect[k][0], expect[k][1])]
+    if bad:
+        k = bad[0]
+        raise AssertionError(
+            f"{len(bad)} keys differ from the model after the load, "
+            f"key {k}: {sorted(got[chk.index(k)])[:8]} against "
+            f"{sorted(expect[k][1])[:8]}")
+    for k, v in zip(chk, got):
+        model[k] = set(v)
+    return ({"acked_updates": len(acked), "touched_keys": len(by_key),
+             "also_keys": len(set(also) - set(by_key)),
+             "sampled_keys": len(pick), "racy_keys": racy},
+            set(by_key), join)
+
+
+def _wire_session(srv, AntidoteClient, ApbClient, RemoteAbort,
+                  tag: str) -> dict:
     """Interactive transactions over the wire: a transaction started
     before other clients write its keys reads them at its snapshot (the
     ring folds: ``set_aw_fold``, ``counter_fold``), then commits; two
     read-bearing transactions on one counter: the second commit is
     ``RemoteAbort``.  The apb dialect: static writes and reads, and an
     interactive transaction whose conflict comes back as the JAX
-    server's ``AbortError`` reply."""
+    server's ``AbortError`` reply.  Every key starts with ``tag``."""
     from antidote_tpu_torch.proto import apb
 
     a = AntidoteClient(srv.host, srv.port, timeout=60)
     b = AntidoteClient(srv.host, srv.port, timeout=60)
-    sets = [(f"wtx{i}", "set_aw", "b") for i in range(WI_TXN_KEYS)]
-    ctrs = [(f"wtc{i}", "counter_pn", "b") for i in range(WI_TXN_KEYS)]
+    sets = [(f"{tag}tx{i}", "set_aw", "b") for i in range(WI_TXN_KEYS)]
+    ctrs = [(f"{tag}tc{i}", "counter_pn", "b") for i in range(WI_TXN_KEYS)]
     try:
         a.update_objects([(k, t, bk, ("add", j)) for j, (k, t, bk)
                           in enumerate(sets)]
@@ -3664,7 +3737,7 @@ def _wire_session(srv, AntidoteClient, ApbClient, RemoteAbort) -> dict:
         # then above the set and counter tables' own commit clocks, so no
         # table epoch the ticker froze since is pinned exactly at it (the
         # ladder's rung 2, which folds nothing): its reads fold the rings
-        vc = a.update_objects([("wtx-bump", "flag_ew", "b",
+        vc = a.update_objects([(f"{tag}tx-bump", "flag_ew", "b",
                                 ("enable", None))])
         txn = a.start_transaction(clock=vc)
         for r in range(3):  # newer ops in every ring past the snapshot
@@ -3699,15 +3772,16 @@ def _wire_session(srv, AntidoteClient, ApbClient, RemoteAbort) -> dict:
         # the apb dialect
         c = ApbClient(srv.host, srv.port, timeout=60)
         try:
-            avc = c.update_objects([(b"wapb", "counter_pn", b"b",
+            ka, kas = f"{tag}apb".encode(), f"{tag}apbs".encode()
+            avc = c.update_objects([(ka, "counter_pn", b"b",
                                      ("increment", 3)),
-                                    (b"wapbs", "set_aw", b"b",
+                                    (kas, "set_aw", b"b",
                                      ("add", b"e1"))])
-            v, _ = c.read_objects([(b"wapb", "counter_pn", b"b"),
-                                   (b"wapbs", "set_aw", b"b")], clock=avc)
+            v, _ = c.read_objects([(ka, "counter_pn", b"b"),
+                                   (kas, "set_aw", b"b")], clock=avc)
             if v != [3, [b"e1"]]:
                 raise AssertionError(f"apb static read {v}")
-            bo = {"key": b"wapb", "type": apb.TYPE_IDS["counter_pn"],
+            bo = {"key": ka, "type": apb.TYPE_IDS["counter_pn"],
                   "bucket": b"b"}
             upd = {"boundobject": bo,
                    "operation": {"counterop": {"inc": 1}}}
@@ -3744,16 +3818,21 @@ def _wire_session(srv, AntidoteClient, ApbClient, RemoteAbort) -> dict:
 
 
 def _wire_overload(node, AntidoteClient, RemoteBusy, RemoteDeadline,
-                   ProtocolServer, burst) -> dict:
-    """A second server on the node with ``max_in_flight=4``: bursts of
-    ``burst`` concurrent static updates until some are shed; every
-    refusal is a typed ``RemoteBusy`` with a retry hint, and every
+                   ProtocolServer, burst, tag: str,
+                   native: bool = False) -> dict:
+    """A second server on the node with ``max_in_flight=4`` (on the native
+    plane with ``native``): bursts of ``burst`` concurrent static updates
+    until some are shed; every refusal is a typed ``RemoteBusy`` with a
+    retry hint and one of the Python plane's details, and every
     acknowledged update reads back.  Then an update with
-    ``deadline_ms=0.001`` is refused typed and never executes."""
+    ``deadline_ms=0.001`` is refused typed and never executes.  Every key
+    starts with ``tag``."""
+    import re
     import threading
 
-    srv = ProtocolServer(node, port=0, max_in_flight=4)
-    acked, busy, other = [], [], []
+    srv = ProtocolServer(node, port=0, max_in_flight=4,
+                         native_frontend=native)
+    acked, busy, other, details = [], [], [], set()
     try:
         for rnd in range(3):
             barrier = threading.Barrier(burst)
@@ -3766,11 +3845,12 @@ def _wire_overload(node, AntidoteClient, RemoteBusy, RemoteDeadline,
                     return
                 try:
                     barrier.wait(60)
-                    k = f"ovl{rnd}-{i}"
+                    k = f"{tag}ovl{rnd}-{i}"
                     vc = c.update_objects([(k, "set_aw", "b", ("add", i))])
                     acked.append((k, i, vc))
                 except RemoteBusy as e:
                     busy.append(e.retry_after_ms)
+                    details.add(re.sub(r"\d+", "N", str(e)))
                 except Exception as e:  # noqa: BLE001 — counted, fatal
                     other.append(repr(e))
                 finally:
@@ -3784,9 +3864,13 @@ def _wire_overload(node, AntidoteClient, RemoteBusy, RemoteDeadline,
                 t.join(120)
             if busy:
                 break
-        if other or not busy or min(busy) < 25:
+        shapes = {"server at max_in_flight=N",
+                  "client N.N.N.N at max_in_flight_per_client=N",
+                  "server admission refused"}
+        if other or not busy or min(busy) < 25 or not details <= shapes:
             raise AssertionError(f"burst: {len(acked)} acked, busy hints "
-                                 f"{busy[:8]}, other {other[:3]}")
+                                 f"{busy[:8]}, details {details}, other "
+                                 f"{other[:3]}")
         c = AntidoteClient(srv.host, srv.port, timeout=60)
         try:
             join = np.max([vc for _k, _i, vc in acked], axis=0).tolist()
@@ -3796,23 +3880,229 @@ def _wire_overload(node, AntidoteClient, RemoteBusy, RemoteDeadline,
             if lost:
                 raise AssertionError(f"acknowledged writes lost: {lost}")
             try:
-                c.update_objects([("ovl-deadline", "set_aw", "b",
+                c.update_objects([(f"{tag}ovl-deadline", "set_aw", "b",
                                    ("add", 1))], deadline_ms=0.001)
             except RemoteDeadline:
                 pass
             else:
                 raise AssertionError("a 1 µs deadline was not refused")
-            if c.read_objects([("ovl-deadline", "set_aw", "b")])[0] != [[]]:
+            if c.read_objects([(f"{tag}ovl-deadline", "set_aw",
+                                "b")])[0] != [[]]:
                 raise AssertionError("the expired update executed")
         finally:
             c.close()
-        return {"burst": burst, "rounds": rnd + 1, "acked": len(acked),
-                "busy": len(busy), "hint_ms": _stats(busy),
-                "deadline": "RemoteDeadline",
-                "shed": {k: v for k, v in
-                         node.status()["overload"]["shed"].items()}}
+        res = {"burst": burst, "rounds": rnd + 1, "acked": len(acked),
+               "busy": len(busy), "hint_ms": _stats(busy),
+               "details": sorted(details), "deadline": "RemoteDeadline",
+               "shed": {k: v for k, v in
+                        node.status()["overload"]["shed"].items()}}
+        if native:
+            res["native_sheds"] = srv.native.stats()["sheds"]
+        return res
     finally:
         srv.close()
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the native front end
+# ---------------------------------------------------------------------------
+def native_phase(torch, dev, keep, procs=WI_PROCS, threads=WI_THREADS,
+                 warm_s=WI_WARM_S, window_s=WI_WINDOW_S, sample=WI_SAMPLE,
+                 burst=WI_BURST, router_keys=NA_ROUTER_KEYS) -> dict:
+    """The native front end on the card, the serve default: the wire
+    phase's node (``keep``) served by a ``ProtocolServer(native_frontend=
+    True)`` with the JAX package's defaults.  The same timed load as the
+    wire phase (``bench_wire.py`` config 3), with the native plane's
+    counters over the window beside this call's wire figures; every key
+    touched in either window and ``sample`` others read back through the
+    native plane at the join of the acknowledged clocks, equal to the host
+    model; ``native_hits > 0`` and no fallback; clockless counter reads
+    after each of ``NA_SOUND_ROUNDS`` increments never past the committed
+    total and converging, and one whole-batch hit byte-equal to the Python
+    plane's at one epoch id; the interactive session and the apb dialect
+    through the native plane; a burst against a native server with
+    ``max_in_flight=4`` (every shed typed); ``router_keys`` string keys
+    routed by the native router, a sample equal to the plain XXH64."""
+    from antidote_tpu_torch.obs.metrics import net_metrics
+    from antidote_tpu_torch.proto.client import (AntidoteClient, ApbClient,
+                                                 RemoteAbort, RemoteBusy,
+                                                 RemoteDeadline)
+    from antidote_tpu_torch.proto.server import ProtocolServer
+    from antidote_tpu_torch.store import router
+
+    node, model = keep["node"], keep["model"]
+    n_keys = len(model)
+    out: dict = {"keys": n_keys, "procs": procs, "threads": threads,
+                 "window_s": window_s,
+                 "wire_load": {k: keep["load"][k]
+                               for k in ("ops_s", "read_ms", "update_ms")}}
+    fb0 = net_metrics().frontend_fallback.value()
+    srv = ProtocolServer(node, port=0, native_frontend=True)
+    try:
+        nf = srv.native
+        if nf is None or node.store.native_mirror is not nf:
+            raise AssertionError("the native plane does not feed on the "
+                                 "store's mirror")
+        c = AntidoteClient(srv.host, srv.port, timeout=60)
+        # ---- 1. the timed load -----------------------------------------
+        load, out["busy"], acked, pre, post = _wire_load(
+            torch, srv, c, n_keys, procs, threads, warm_s, window_s,
+            snap=lambda: dict(nf.pushes))
+        nat = {k: v - pre["native"][k] for k, v in post["native"].items()
+               if k not in ("mirror_size", "in_flight", "open_conns")}
+        py_reads = sum(load["reads"].values())
+        load["native"] = {
+            **nat, "mirror_size": post["native"]["mirror_size"],
+            "pushes": {k: v - pre["snap"][k]
+                       for k, v in post["snap"].items()},
+            # requests: one object a read in this traffic
+            "hit_share": nat["native_hits"] / max(
+                1, nat["native_hits"] + py_reads),
+            "crossings_per_drain": nat["forwarded"] / max(1, nat["drains"])}
+        out["load"] = load
+        log(f"native: load {json.dumps({k: load[k] for k in ('ops_s', 'read_ms', 'update_ms')})}, "
+            f"hit share {load['native']['hit_share']:.3f}")
+        if nat["native_hits"] <= 0:
+            raise AssertionError("the native plane served no hit in the "
+                                 "window")
+        # ---- 2. every acknowledged write of both windows reads back ----
+        out["check"], _t, _j = _wire_readback(
+            c, model, acked, keep["touched"], keep["join"], n_keys, sample,
+            97)
+        # ---- 3. the mirror never serves what Python would not ----------
+        out["soundness"] = _native_soundness(node, srv, AntidoteClient,
+                                             ProtocolServer)
+        # ---- 4. an interactive session and the apb dialect -------------
+        out["session"] = _wire_session(srv, AntidoteClient, ApbClient,
+                                       RemoteAbort, "n")
+        # ---- 5. overload on the native plane ---------------------------
+        out["overload"] = _wire_overload(node, AntidoteClient, RemoteBusy,
+                                         RemoteDeadline, ProtocolServer,
+                                         burst, "n", native=True)
+        out["status_native"] = c.node_status()["pipeline"]["native"]
+        c.close()
+    finally:
+        srv.close()
+    out["frontend_fallback"] = net_metrics().frontend_fallback.value() - fb0
+    if out["frontend_fallback"]:
+        raise AssertionError("the native plane fell back")
+    # ---- 6. the native router ------------------------------------------
+    out["router"] = _native_router(router, router_keys, NA_ROUTER_BATCH)
+    return out
+
+
+def _native_soundness(node, srv, AntidoteClient, ProtocolServer) -> dict:
+    """Clockless counter reads through the native plane (a reader that
+    never commits, beside a writer): after each of ``NA_SOUND_ROUNDS``
+    increments no read exceeds the committed total, and the reads converge
+    to it; then one whole-batch hit served by the C++ loop is byte-equal to
+    the Python plane's reply at the same epoch id (a second server on the
+    node, without the native plane)."""
+    import socket
+    import struct
+
+    import msgpack
+
+    from antidote_tpu_torch.proto.codec import MessageCode, read_frame
+
+    nf = srv.native
+    obj = [("nsound", "counter_pn", "b")]
+    w = AntidoteClient(srv.host, srv.port, timeout=60)
+    r = AntidoteClient(srv.host, srv.port, timeout=60)
+    reads, h0 = 0, nf.stats()["native_hits"]
+    try:
+        for total in range(1, NA_SOUND_ROUNDS + 1):
+            w.update_objects([obj[0] + (("increment", 1),)])
+            deadline = time.monotonic() + 30
+            while True:
+                v = r.read_objects(obj)[0][0]
+                reads += 1
+                if v > total:
+                    raise AssertionError(f"a clockless read gave {v} past "
+                                         f"the committed {total}")
+                if v == total:
+                    break
+                if time.monotonic() > deadline:
+                    raise AssertionError(f"clockless reads stuck at {v} < "
+                                         f"{total}")
+                time.sleep(0.005)
+            # past the ticker's next advance the C++ loop serves the key
+            time.sleep(0.15)
+            for _ in range(4):
+                reads += 1
+                if r.read_objects(obj)[0] != [total]:
+                    raise AssertionError("a converged read moved")
+    finally:
+        w.close()
+        r.close()
+    out = {"rounds": NA_SOUND_ROUNDS, "reads": reads,
+           "native_hits": nf.stats()["native_hits"] - h0}
+    if not out["native_hits"]:
+        raise AssertionError("no converged read was served natively")
+    body = bytes([MessageCode.STATIC_READ_OBJECTS]) + msgpack.packb(
+        {"objects": [list(obj[0])] + [[k, "set_aw", "b"] for k in range(8)],
+         "clock": None}, use_bin_type=True)
+    req = struct.pack(">I", len(body)) + body
+    ps = ProtocolServer(node, port=0)
+    try:
+        for attempt in range(5):
+            ep = node.store.serving_epoch
+            s = socket.create_connection((srv.host, srv.port), timeout=60)
+            try:
+                h = nf.stats()["native_hits"]
+                deadline = time.monotonic() + 30
+                while nf.stats()["native_hits"] == h:
+                    if time.monotonic() > deadline:
+                        raise AssertionError("no whole-batch native hit")
+                    s.sendall(req)
+                    read_frame(s)
+                s.sendall(req)
+                native = read_frame(s)
+            finally:
+                s.close()
+            s = socket.create_connection((ps.host, ps.port), timeout=60)
+            try:
+                s.sendall(req)
+                python = read_frame(s)
+            finally:
+                s.close()
+            if node.store.serving_epoch is ep:
+                break
+        else:
+            raise AssertionError("the serving epoch moved in every attempt")
+    finally:
+        ps.close()
+    if native != python:
+        raise AssertionError(f"native hit bytes {native!r} differ from the "
+                             f"Python plane's {python!r}")
+    out.update(hit_bytes=len(native), epoch_id=int(ep.id), attempts=attempt + 1)
+    return out
+
+
+def _native_router(router, n, batch) -> dict:
+    """``n`` string keys (``user:i``, bucket ``b``) routed to BASELINE's 8
+    shards by the native router in batches of ``batch`` (host clock around
+    each ``shard_batch``), and a random sample of ``batch`` keys equal to
+    the plain XXH64."""
+    keys = [f"user:{i}" for i in range(n)]
+    buckets = ["b"] * batch
+    ms, shards = [], np.empty(n, np.int64)
+    for lo in range(0, n, batch):
+        kk = keys[lo:lo + batch]
+        t = time.perf_counter()
+        shards[lo:lo + len(kk)] = router.shard_batch(kk, buckets[:len(kk)],
+                                                     8)
+        ms.append((time.perf_counter() - t) * 1e3)
+    pick = np.random.default_rng(101).choice(n, min(batch, n), replace=False)
+    plain = [router.xxh64(router.key_bytes(keys[i], "b")) % 8
+             for i in pick.tolist()]
+    if shards[pick].tolist() != plain:
+        raise AssertionError("the native router differs from the plain "
+                             "XXH64")
+    counts = np.bincount(shards, minlength=8)
+    return {"keys": n, "batch": batch, "shards": 8, "ms_per_batch": _stats(ms),
+            "keys_per_s": n / (sum(ms) / 1e3), "sample": len(pick),
+            "shard_min_max": [int(counts.min()), int(counts.max())]}
 
 
 def count_resolves(fn):
@@ -3850,8 +4140,30 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     t0 = time.perf_counter()
+    # the g++ builds of the native planes (WAL, front end, router) run
+    # beside nvcc
+    import threading
+
+    from antidote_tpu_torch import native_build
+
+    gxx_err = []
+
+    def gxx():
+        try:
+            for src, stem, _getter in native_build.MODULES:
+                native_build.ensure(src, stem)
+        except Exception as e:  # noqa: BLE001 — raised below
+            gxx_err.append(e)
+
+    gxx_thread = threading.Thread(target=gxx, name="g++")
+    gxx_thread.start()
     lib, report = ck.build()
     log(f"built {lib.name} in {time.perf_counter() - t0:.1f} s")
+    gxx_thread.join()
+    if gxx_err:
+        raise gxx_err[0]
+    log(f"native planes built by {time.perf_counter() - t0:.1f} s: "
+        f"{native_build.check() or 'every library matches its source'}")
     for line in report.splitlines():
         if any(w in line for w in ("registers", "Compiling entry", "spill")):
             log(f"ptxas: {line.strip()}")
@@ -3893,11 +4205,15 @@ def main() -> int:
     print(f"durable: {json.dumps(durable)} | card: {card}", flush=True)
     cold = run_path(lambda: cold_phase(torch, dev, keep))
     print(f"cold: {json.dumps(cold)} | card: {card}", flush=True)
-    wire = run_path(lambda: wire_phase(torch, dev))
+    wire_keep = {}
+    wire = run_path(lambda: wire_phase(torch, dev, keep=wire_keep))
     print(f"wire: {json.dumps(wire)} | card: {card}", flush=True)
+    native = run_path(lambda: native_phase(torch, dev, wire_keep))
+    wire_keep.clear()
+    print(f"native: {json.dumps(native)} | card: {card}", flush=True)
     paths = {"serve": serve, "node": node, "serving": serving,
              "cluster": cluster, "types": types, "durable": durable,
-             "cold": cold, "wire": wire}
+             "cold": cold, "wire": wire, "native": native}
     for path, res in paths.items():
         log(f"{path}: {json.dumps(res)}")
         missing = [n for n in PATH_KERNELS[path] if res["launches"][n] == 0]

@@ -5,7 +5,10 @@ Counterparts of ``tests/test_console.py`` (the reference's
 status snapshot, the ``status``/``read``/``update``/``ready`` commands),
 then ``python -m antidote_tpu_torch.console serve --device cpu`` as a real
 subprocess: its ready line, the commands against it, and a durable serve
-stopped and restarted with recovery on the same log directory.
+stopped and restarted with recovery on the same log directory; the
+native front end as the serve default and ``--no-native-frontend``; and
+the offline ``inspect`` / ``inspect-checkpoint`` commands, whose JSON
+equals the JAX console's on one log directory written by either package.
 """
 
 import json
@@ -16,9 +19,13 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
+from antidote_tpu import console as jconsole
+from antidote_tpu.api import AntidoteNode as JaxNode
+from antidote_tpu.config import AntidoteConfig as JaxConfig
 from antidote_tpu_torch import console
 from antidote_tpu_torch.api import AntidoteNode as _Node
 from antidote_tpu_torch.config import AntidoteConfig
@@ -205,7 +212,7 @@ def test_serve_subprocess_recovers_its_log_dir(tmp_path, capsys):
 
 @pytest.mark.parametrize("flag", ["--pallas", "--mesh-devices=2",
                                   "--interdc", "--follower-of=h:1",
-                                  "--native-frontend"])
+                                  "--interdc-port=1"])
 def test_serve_refuses_flags_without_a_port_meaning(flag, capsys):
     with pytest.raises(SystemExit) as ei:
         console.main(["serve", "--device", "cpu", flag])
@@ -216,3 +223,73 @@ def test_serve_on_cuda_without_a_card_exits_typed():
     if torch.cuda.is_available():
         pytest.skip("a card is present: serve --device cuda would serve")
     assert console.main(["serve", "--port", "0"]) == 2
+
+
+def test_serve_runs_the_native_plane_by_default(capsys):
+    """The client port belongs to the native front end unless the
+    operator asks for the Python plane: the status carries the ``native``
+    block, and a repeated clockless read is served by the C++ loop."""
+    proc, info = _spawn_serve("--shards", "2", "--max-dcs", "2",
+                              "--epoch-tick-ms", "25")
+    try:
+        c = AntidoteClient(info["host"], info["port"], timeout=30)
+        c.update_objects([("k", "counter_pn", "b", ("increment", 3))])
+        c.close()
+        time.sleep(0.4)
+        c = AntidoteClient(info["host"], info["port"], timeout=30)
+        for _ in range(20):
+            assert c.read_objects([("k", "counter_pn", "b")])[0] == [3]
+        nat = c.node_status()["pipeline"]["native"]
+        c.close()
+        assert nat["native_hits"] > 0 and nat["accepted"] >= 2
+    finally:
+        _stop(proc)
+    proc, info = _spawn_serve("--shards", "2", "--max-dcs", "2",
+                              "--no-native-frontend")
+    try:
+        c = AntidoteClient(info["host"], info["port"], timeout=30)
+        c.update_objects([("k", "counter_pn", "b", ("increment", 3))])
+        assert c.read_objects([("k", "counter_pn", "b")])[0] == [3]
+        assert "native" not in c.node_status()["pipeline"]
+        c.close()
+    finally:
+        _stop(proc)
+
+
+_INSPECT_KW = dict(n_shards=4, max_dcs=2, ops_per_key=8, snap_versions=2,
+                   set_slots=8, keys_per_table=64, wal_segments=2)
+
+
+def _inspect_dir(writer: str, d: str) -> None:
+    """Commits, a full image, more commits: a log directory with a
+    checkpoint and a WAL tail, written by either package."""
+    if writer == "jax":
+        node = JaxNode(JaxConfig(batch_buckets=(16, 64), **_INSPECT_KW),
+                       log_dir=d)
+    else:
+        node = AntidoteNode(AntidoteConfig(**_INSPECT_KW), log_dir=d)
+    rng = np.random.default_rng(3)
+    for i in range(12):
+        node.update_objects([
+            (f"c{i % 5}", "counter_pn", "b",
+             ("increment", int(rng.integers(1, 9)))),
+            (f"s{i % 3}", "set_aw", "b", ("add", int(rng.integers(100))))])
+        if i == 7:
+            node.checkpoint_now()
+    if node.checkpointer is not None:
+        node.checkpointer.stop()
+    node.store.log.close()
+
+
+@pytest.mark.parametrize("writer", ["jax", "port"])
+def test_inspect_commands_print_the_jax_console_json(writer, tmp_path,
+                                                     capsys):
+    d = str(tmp_path / "dc0")
+    _inspect_dir(writer, d)
+    for cmd in ("inspect", "inspect-checkpoint"):
+        assert console.main([cmd, "--log-dir", d]) == 0
+        ours = json.loads(capsys.readouterr().out)
+        assert jconsole.main([cmd, "--log-dir", d]) == 0
+        theirs = json.loads(capsys.readouterr().out)
+        assert ours == theirs, cmd
+    assert ours["latest"]["verified"] is True and ours["published"]

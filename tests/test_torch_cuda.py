@@ -900,7 +900,9 @@ def test_console_serve_on_the_card_is_ready_after_the_kernel_build(
         dev, tmp_path):
     """``console serve --device cuda`` prints its ready line only after
     the readiness probe launched the kernel library on the card (built
-    by then), and a ``console ready`` poll answers without a rebuild."""
+    by then) and the native front end was built and bound, and a
+    ``console ready`` poll answers without a rebuild; its status carries
+    the native plane's block."""
     import json
     import os
     import select
@@ -924,6 +926,15 @@ def test_console_serve_on_the_card_is_ready_after_the_kernel_build(
         built = sorted((root / "antidote_tpu_torch" / "_build").glob(
             "libmaterializer_*.so"), key=os.path.getmtime)
         assert built and os.path.getmtime(built[-1]) <= time.time()
+        from antidote_tpu_torch import native_build
+        from antidote_tpu_torch.proto.client import AntidoteClient
+        from antidote_tpu_torch.proto.native_frontend import SOURCE
+
+        assert native_build.lib_path(SOURCE, "frontend").exists()
+        c = AntidoteClient("127.0.0.1", info["port"], timeout=60)
+        nat = c.node_status()["pipeline"]["native"]
+        c.close()
+        assert nat["accepted"] >= 1
         t0 = time.monotonic()
         res = subprocess.run(
             [sys.executable, "-m", "antidote_tpu_torch.console", "ready",
@@ -941,3 +952,85 @@ def test_console_serve_on_the_card_is_ready_after_the_kernel_build(
         except subprocess.TimeoutExpired:
             proc.kill()
             proc.wait(timeout=30)
+
+
+def _native_hits(srv):
+    return srv.native.stats()["native_hits"]
+
+
+def test_native_server_over_a_cuda_node_converges(dev):
+    """Clockless reads through the native plane over a CUDA node: never
+    beyond the committed total, converged after every write, and served by
+    the C++ loop between writes."""
+    import time
+
+    from antidote_tpu_torch.proto.client import AntidoteClient
+    from antidote_tpu_torch.proto.server import ProtocolServer
+
+    node = AntidoteNode(AntidoteConfig(n_shards=4, max_dcs=D,
+                                       keys_per_table=64), device=dev)
+    srv = ProtocolServer(node, port=0, native_frontend=True,
+                         epoch_tick_ms=25)
+    c = AntidoteClient(port=srv.port, timeout=60)
+    obj = [("wk", "counter_pn", "b")]
+    try:
+        for total in range(1, 9):
+            c.update_objects([("wk", "counter_pn", "b", ("increment", 1))])
+            deadline = time.monotonic() + 30
+            while (v := c.read_objects(obj)[0][0]) != total:
+                assert v <= total and time.monotonic() < deadline
+                time.sleep(0.01)
+            for _ in range(4):
+                assert c.read_objects(obj)[0] == [total]
+        assert _native_hits(srv) > 0
+    finally:
+        c.close()
+        srv.close()
+
+
+def test_native_hit_bytes_of_a_cuda_node_equal_a_cpu_node(dev):
+    """One script through a native server over a CPU node and one over a
+    CUDA node: the whole-batch hit the C++ loop serves is byte-equal."""
+    import socket
+    import struct
+    import time
+
+    import msgpack
+
+    from antidote_tpu_torch.proto.client import AntidoteClient
+    from antidote_tpu_torch.proto.codec import MessageCode, read_frame
+    from antidote_tpu_torch.proto.server import ProtocolServer
+
+    objs = [[f"c{i}", "counter_pn", "b"] for i in range(4)] + [
+        [f"s{i}", "set_aw", "b"] for i in range(4)] + [["nil", "set_aw", "b"]]
+    body = bytes([MessageCode.STATIC_READ_OBJECTS]) + msgpack.packb(
+        {"objects": objs, "clock": None}, use_bin_type=True)
+    req = struct.pack(">I", len(body)) + body
+    replies = []
+    for d in ("cpu", dev):
+        node = AntidoteNode(AntidoteConfig(n_shards=4, max_dcs=D,
+                                           keys_per_table=64), device=d)
+        srv = ProtocolServer(node, port=0, native_frontend=True,
+                             epoch_tick_ms=25)
+        try:
+            c = AntidoteClient(port=srv.port, timeout=60)
+            c.update_objects([(f"c{i}", "counter_pn", "b", ("increment", i))
+                              for i in range(4)]
+                             + [(f"s{i}", "set_aw", "b", ("add_all", [i, 9]))
+                                for i in range(4)])
+            c.close()
+            time.sleep(0.5)
+            s = socket.create_connection((srv.host, srv.port), timeout=60)
+            h0 = _native_hits(srv)
+            deadline = time.monotonic() + 30
+            while _native_hits(srv) == h0:
+                assert time.monotonic() < deadline
+                s.sendall(req)
+                read_frame(s)
+            s.sendall(req)
+            replies.append(read_frame(s))
+            assert _native_hits(srv) == h0 + 2
+            s.close()
+        finally:
+            srv.close()
+    assert replies[0] == replies[1]

@@ -50,15 +50,17 @@ def test_importing_every_module_loads_no_jax():
 
 def test_sources_cover_every_subpackage():
     """The walk above reaches every subpackage of the port, the cluster
-    slice's, the metrics registry's, the durable log's and the wire front
-    end's included."""
+    slice's, the metrics registry's, the durable log's, the wire front
+    end's and the native front end's included."""
     pkgs = {p.parent.name for p in SOURCES if p.parent != ROOT}
     assert {"api", "clock", "cluster", "crdt", "faults", "log",
             "materializer", "meta", "obs", "proto", "store", "txn"} <= pkgs
     assert {p.name for p in SOURCES if p.parent.name == "proto"} >= {
-        "__init__.py", "apb.py", "client.py", "codec.py", "server.py"}
+        "__init__.py", "apb.py", "client.py", "codec.py", "server.py",
+        "native_frontend.py"}
     assert {p.name for p in SOURCES
             if p.parent.name == "antidote_tpu_torch"} >= {
-        "console.py", "overload.py", "supervise.py", "tenancy.py"}
+        "console.py", "overload.py", "supervise.py", "tenancy.py",
+        "native_build.py"}
     assert {p.name for p in SOURCES if p.parent.name == "cluster"} >= {
         "__init__.py", "rpc.py", "member.py", "coordinator.py"}
