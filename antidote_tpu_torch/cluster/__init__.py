@@ -4,9 +4,9 @@ certify and apply their shards, and stable time aggregates every member's
 clock rows (the ``stable_min`` kernel's path).
 
 This slice runs in memory.  The inter-DC endpoint of a member
-(``attach_interdc``) and the catch-up router come with the inter-DC slice;
-live join/leave, resize and booting members as processes come with the
-durability and console slices.
+(``attach_interdc``) and the catch-up router, live join/leave, resize and
+booting members as processes come with later slices (the replication of
+single-node DCs is ``interdc``).
 """
 
 from __future__ import annotations

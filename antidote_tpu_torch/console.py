@@ -23,6 +23,12 @@ the protocol server bound its port.  The client port belongs to the native
 C++ front end unless ``--no-native-frontend`` (or
 ``ANTIDOTE_NATIVE_FRONTEND=off``) asks for the Python socketserver plane;
 a native plane that cannot be built or bound stops the boot (exit 2).
+``--interdc`` adds inter-DC replication: a TCP fabric endpoint (on
+``--interdc-port``, advertised under ``--public-host``) with the native
+receive pump, a ``DCReplica`` (its chains restored from the log on
+recovery), and the replication and escrow loops as supervised children;
+other DCs bootstrap a mesh through ``get_connection_descriptor`` and
+``connect_to_dcs``.  A pump that cannot be built stops the boot (exit 2).
 ``inspect`` and ``inspect-checkpoint`` read a log directory offline, with
 no node.
 """
@@ -72,6 +78,7 @@ def cmd_serve(args) -> int:
     from antidote_tpu_torch.log.checkpoint import has_checkpoints
     from antidote_tpu_torch.proto.native_frontend import (
         NativeFrontendUnavailable, count_python_plane)
+    from antidote_tpu_torch.interdc.native_pump import NativePumpUnavailable
     from antidote_tpu_torch.proto.server import ProtocolServer
     from antidote_tpu_torch.supervise import Supervisor
     from antidote_tpu_torch.tenancy import TenantRegistry
@@ -120,17 +127,56 @@ def cmd_serve(args) -> int:
     if not all(probes.values()):
         log(f"NOT READY: {probes}")
         return 1
+    interdc = fabric = None
+    if args.interdc:
+        # geo-replication: a TCP fabric endpoint + replica, so protocol
+        # clients can bootstrap a DC mesh (GetConnectionDescriptor /
+        # ConnectToDCs on either dialect)
+        from antidote_tpu_torch.interdc import DCReplica
+        from antidote_tpu_torch.interdc.tcp import TcpFabric
+
+        public = args.public_host
+        if public is None and args.host not in ("0.0.0.0", "::"):
+            public = args.host
+        try:
+            fabric = TcpFabric(host=args.host, port=args.interdc_port,
+                               public_host=public)
+        except NativePumpUnavailable as e:
+            log(f"--interdc: {e}")
+            if node.checkpointer is not None:
+                node.checkpointer.stop()
+            return 2
+        if public is None:
+            log("WARNING: binding inter-DC on a wildcard address with no "
+                "--public-host: connection descriptors will advertise the "
+                "bind address, which remote DCs cannot reach")
+        interdc = DCReplica(node, fabric, name=f"dc{args.dc_id}")
+        if recover:
+            interdc.restore_from_log()
     # the OTP supervision tree (antidote_sup one_for_one, 5-in-10s):
-    # listener + metrics run as supervised children; a flapping child
-    # takes the node down
+    # listener, metrics and the replication loops run as supervised
+    # children; a flapping child takes the node down
     sup = Supervisor(on_giveup=lambda name: os._exit(70))
+    if interdc is not None:
+        # a pump crash (bad frame, handler bug) restarts the loop instead
+        # of silently freezing replication while the node keeps serving;
+        # the escrow loop likewise keeps bounded-counter grants moving
+        sup.add("interdc-pump",
+                start=lambda: fabric.start_pump_loop(),
+                alive=lambda lp: lp.is_alive(),
+                stop=lambda lp: lp.stop())
+        sup.add("escrow-pump",
+                start=lambda: interdc.start_escrow_loop(),
+                alive=lambda lp: lp.is_alive(),
+                stop=lambda lp: lp.stop())
     server_box = {}
     tenants = TenantRegistry.from_flags(args.tenant)
 
     def start_proto():
         port = server_box["srv"].port if "srv" in server_box else args.port
         server_box["srv"] = ProtocolServer(
-            node, host=args.host, port=port, tenants=tenants,
+            node, host=args.host, port=port, interdc=interdc,
+            tenants=tenants,
             max_connections=args.max_connections,
             max_in_flight=args.max_in_flight,
             max_in_flight_per_client=args.max_in_flight_per_client,
@@ -163,6 +209,8 @@ def cmd_serve(args) -> int:
     except NativeFrontendUnavailable as e:
         log(f"{e} (--no-native-frontend serves from the Python plane)")
         sup.shutdown()
+        if fabric is not None:
+            fabric.close()
         if node.checkpointer is not None:
             node.checkpointer.stop()
         return 2
@@ -170,6 +218,9 @@ def cmd_serve(args) -> int:
     ready: dict = {"host": server.host, "port": server.port, "ready": True}
     if tenants.multi:
         ready["tenants"] = list(tenants.names)
+    if interdc is not None:
+        # the escrow plane armed at boot: the rights-transfer loop runs
+        ready["escrow"] = dict(node.txm.bcounters.status(), loop=True)
     log(f"antidote_tpu_torch dc{args.dc_id} serving on "
         f"{server.host}:{server.port} (device={device}, "
         f"recovered={recover}, keys={len(node.store.directory)})")
@@ -182,6 +233,8 @@ def cmd_serve(args) -> int:
         if node.checkpointer is not None:
             node.checkpointer.stop()
         sup.shutdown()
+        if fabric is not None:
+            fabric.close()
     return 0
 
 
@@ -321,6 +374,14 @@ def main(argv=None) -> int:
     sv.add_argument("--host", default="127.0.0.1")
     sv.add_argument("--port", type=int, default=8087)
     sv.add_argument("--metrics-port", type=int, default=None)
+    sv.add_argument("--interdc", action="store_true",
+                    help="serve inter-DC replication (a TCP fabric endpoint "
+                         "+ replica; bootstrap with connect_to_dcs)")
+    sv.add_argument("--interdc-port", type=int, default=0,
+                    help="fixed inter-DC fabric port (0 = ephemeral)")
+    sv.add_argument("--public-host", default=None,
+                    help="host advertised in connection descriptors "
+                         "(defaults to --host unless it is a wildcard)")
     sv.add_argument("--dc-id", type=int, default=0)
     sv.add_argument("--shards", type=int, default=None,
                     help="default: the log dir's recorded shape, else 16")

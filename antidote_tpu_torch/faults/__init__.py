@@ -6,9 +6,12 @@ riak_core handoff retries; this package earns ours with seeded chaos: a
 named injection sites.  In this package the sites are the WAL
 (``log/wal.py``: ``wal.append``, ``wal.fsync``), its checkpoint reclaim
 (``log/__init__.py``: ``wal.truncate_below``) and the checkpoint writer
-(``log/checkpoint.py``: ``ckpt.write``, ``ckpt.fsync``, ``ckpt.rename``)
-and the wire server's inbound frames (``proto/server.py``:
-``frontend.recv``); the inter-DC and RPC sites come with those planes.
+(``log/checkpoint.py``: ``ckpt.write``, ``ckpt.fsync``, ``ckpt.rename``),
+the wire server's inbound frames (``proto/server.py``: ``frontend.recv``),
+the native planes' loads (``native_frontend.load``, ``native_pump.load``),
+the inter-DC fabric (``interdc/tcp.py``: ``interdc.deliver``,
+``interdc.rpc``, and the partitions of ``sever``) and the escrow grant
+plane (``interdc/replica.py``: ``bcounter.transfer``).
 
 Usage::
 

@@ -156,6 +156,9 @@ class FaultPlan:
                                                        blind-resends, the
                                                        next tick re-asks)
     native_pump.load    None                           native receive plane
+                                                       (any action: the
+                                                       fabric refuses to
+                                                       start, typed)
     native_frontend.load None                          native front end
                                                        (any action: the
                                                        server refuses to

@@ -1,0 +1,957 @@
+"""DCReplica — the inter-DC replication endpoint of one single-node DC.
+
+  egress:  local commit → per-shard TxnMessage with (shard, origin) opid
+           chaining → transport publish; a bounded window of recent
+           messages serves catch-up, the WAL serves what lies below it
+  ingress: message → per-(origin, shard) chain check: eq → deliver,
+           gt → buffer + log catch-up query, lt → drop the duplicate
+           → causal dependency gate: apply once the shard clock dominates
+           the transaction's snapshot VC with the origin lane zeroed
+  heartbeats: empty messages carrying the origin's safe time, so remote
+           stable snapshots advance while a DC is idle
+
+The gate drains under the transaction manager's commit lock: a remote
+apply and a local commit never write the tables at once (two appliers can
+lose a whole batch, and the chain-clock duplicate suppression would make
+the loss permanent).  Remote effects reach the serving plane only through
+the serving-epoch ticker; the replica never publishes an epoch itself.
+
+The requests of the follower and anti-entropy plane (image shipping,
+shard digests, Merkle walks, follower reports, peer origins) and the
+live-shard-move seams (``adopt_shard``, ``export_shard_state``,
+``release_shard``, ``ingress_barrier``) come with the follower slice:
+each raises :class:`NotPortedError`.
+"""
+
+from __future__ import annotations
+
+import collections
+import errno
+import itertools
+import logging
+import random
+import threading
+import time
+from typing import Dict, List, Tuple
+
+import numpy as np
+
+from antidote_tpu_torch import faults
+from antidote_tpu_torch.crdt import get_type
+from antidote_tpu_torch.interdc.messages import Descriptor, TxnMessage
+from antidote_tpu_torch.obs.metrics import net_metrics
+from antidote_tpu_torch.store.kv import effect_from_rec
+from antidote_tpu_torch.supervise import ThreadLoop
+from antidote_tpu_torch.txn.bcounter import TRANSFER_FREQ
+
+log = logging.getLogger(__name__)
+
+#: request kinds of the follower and anti-entropy plane
+FOLLOWER_KINDS = ("ckpt_meta", "ckpt_fetch", "shard_digest", "merkle_root",
+                  "merkle_node", "merkle_leaf", "peer_origins",
+                  "follower_report")
+
+
+class NotPortedError(NotImplementedError):
+    """A request or method of the follower and anti-entropy slice, which
+    the port does not have yet."""
+
+    def __init__(self, what: str):
+        super().__init__(
+            f"{what}: followers, anti-entropy and live shard moves come with "
+            "a later slice of the port (single-node DC replication only)")
+        self.what = what
+
+
+class DCReplica:
+    #: recent egress messages kept in memory per shard; catch-up below the
+    #: window is served from the WAL
+    SENT_WINDOW = 256
+    #: heartbeat cadence: at most one flush per interval on the commit
+    #: path (a 1 s heartbeat timer), or every N commits, whichever first;
+    #: pumps flush lazily whenever commits are pending
+    HEARTBEAT_INTERVAL_S = 1.0
+    HEARTBEAT_EVERY_COMMITS = 64
+    #: ingress high-water marks.  GATE_HWM caps one (origin,
+    #: shard) chain's causal-gate queue: past it, delivery is SHED
+    #: without advancing ``last_seen`` — the chain gap that opens is
+    #: exactly what the opid catch-up repairs, so pressure converts into
+    #: repair traffic instead of memory.  PENDING_HWM caps the
+    #: out-of-order buffer the same way (anything dropped is above
+    #: ``last_seen`` and gets refetched).
+    GATE_HWM = 1024
+    PENDING_HWM = 256
+
+    def __init__(self, node, hub, name: str = ""):
+        self.node = node
+        self.hub = hub
+        self.name = name or f"dc{node.dc_id}"
+        self.dc_id = node.dc_id
+        #: a single-node DC publishes and ingests every shard's chain
+        self.shards = set(range(node.cfg.n_shards))
+        #: the id this endpoint registers under on the fabric (a peer's
+        #: catch-up queries go to the origin DC's own endpoint)
+        self.fabric_id = self.dc_id
+        p = node.cfg.n_shards
+        #: egress opid chain per shard (my origin)
+        self.pub_opid = np.zeros(p, np.int64)
+        #: bounded recent-message window per shard (fast catch-up path);
+        #: guarded by _sent_lock — the TCP fabric serves catch-up queries
+        #: on server threads while the control thread appends, and deque
+        #: iteration under concurrent append raises
+        self.sent: List[collections.deque] = [
+            collections.deque(maxlen=self.SENT_WINDOW) for _ in range(p)
+        ]
+        self._sent_lock = threading.Lock()
+        self._commits_since_hb = 0
+        self._last_hb = time.monotonic()
+        #: per-shard safe time last pinged (drives the tick-path flush)
+        self._published_safe: Dict[int, int] = {}
+        #: ingress: last delivered opid per (origin, shard)
+        self.last_seen: Dict[Tuple[int, int], int] = {}
+        #: ingress: out-of-order buffer per (origin, shard)
+        # bounded-by: PENDING_HWM (checked at every insert in _on_message)
+        self.pending: Dict[Tuple[int, int], List[TxnMessage]] = (
+            collections.defaultdict(list)
+        )
+        #: causal gate FIFO per (origin, shard)
+        # bounded-by: GATE_HWM (shed-at-accept in _accept/_flush_pending)
+        self.gate: Dict[Tuple[int, int], collections.deque] = (
+            collections.defaultdict(collections.deque)
+        )
+        hub.register(self.fabric_id, self._on_message, self._serve_log_query)
+        hub.register_request(self.fabric_id, self._serve_request)
+        hub.register_tick(self.fabric_id, self.maybe_heartbeat)
+        #: a drain owed by deliveries of a pump batch that is not over
+        #: yet (see _drain_after_delivery); the fabric's flush settles it.
+        #: The in-process hub delivers one message at a time and drains
+        #: after each
+        self._drain_due = False
+        if hasattr(hub, "register_flush"):
+            hub.register_flush(self.fabric_id, self.flush_deliveries)
+        node.txm.commit_listeners.append(self._on_local_commit)
+        node.txm.on_clock_wait = self._on_clock_wait
+        node.txm.remote_ingest = True
+        # bounded-counter rights requests ride the query channel; the
+        # batched twin sends one tick's asks to one granter in one trip
+        node.txm.bcounters.request_transfer = self._request_transfer
+        node.txm.bcounters.request_transfer_many = self._request_transfer_many
+        #: ingress odometers: catch-up queries sent and the deepest the
+        #: causal gate has been
+        self.catchups = 0
+        self.max_gate_depth = 0
+
+    # ------------------------------------------------------------------
+    # restart: chain positions from the WAL
+    # ------------------------------------------------------------------
+    def _wal_txn_groups(self, shard: int, my_effects_after: int = 0,
+                        snap: "Tuple[int, int] | None" = None):
+        """One shard's WAL records grouped into transactions, in apply
+        order.  Grouping key is the (origin, commit VC) IDENTITY over the
+        whole replay — commit VCs are unique per origin — never record
+        adjacency: handoff/reshard re-chaining interleaves a multi-shard
+        txn's records, and adjacency grouping would split such a txn and
+        desync the opid chain.
+
+        Returns [[origin, vc_tuple, effects]].  Effects are materialized
+        only for my own chain and only for groups whose chain opid
+        exceeds ``my_effects_after`` — a catch-up query slightly below
+        the window must not pay effect decoding for the whole chain
+        prefix it will discard.  My-chain opids are numbered from the
+        log's CHAIN FLOOR: a checkpoint-truncated WAL holds
+        only the tail groups, and the floor records how many own-origin
+        groups the image covers, so numbering stays continuous across
+        compaction."""
+        store = self.node.store
+        index: Dict[Tuple[int, tuple], int] = {}
+        out: List[list] = []
+        my_opid: Dict[int, int] = {}
+        # (base, floor) snapshot under the commit lock: a checkpoint
+        # publish updates both together there, and a torn read would
+        # shift this response's opid numbering against the chain.
+        # Callers that ALSO number against the base (catch-up serving)
+        # pass their own snapshot so both sides agree.
+        if snap is None:
+            with self.node.txm.commit_lock:
+                snap = (store.log.chain_base(shard, self.dc_id),
+                        int(store.log.floor_seqs[shard]))
+        my_count, floor = snap
+        for rec in store.log.replay_shard(shard, floor=floor):
+            ident = (int(rec["o"]), tuple(int(x) for x in rec["vc"]))
+            at = index.get(ident)
+            if at is None:
+                index[ident] = at = len(out)
+                out.append([ident[0], ident[1], []])
+                if ident[0] == self.dc_id:
+                    my_count += 1
+                    my_opid[at] = my_count
+            if ident[0] == self.dc_id and my_opid[at] > my_effects_after:
+                out[at][2].append(effect_from_rec(rec))
+        return out
+
+    def _chain_message(self, shard: int, opid: int, vc: tuple,
+                       effects: list) -> TxnMessage:
+        """My-origin chain message #opid (1-based) for a shard."""
+        cvc = np.asarray(vc, np.int32)
+        svc = cvc.copy()
+        svc[self.dc_id] = 0
+        return TxnMessage(
+            origin=self.dc_id, shard=shard, prev_opid=opid - 1,
+            last_opid=opid, commit_vc=cvc, snapshot_vc=svc,
+            effects=effects, timestamp=int(cvc[self.dc_id]),
+        )
+
+    def restore_from_log(self) -> None:
+        """Rebuild replication chains after a node restart from its WAL.
+
+        Egress: my own-origin records regroup into per-shard TxnMessages
+        with fresh sequential opids, so peers' catch-up queries keep
+        working.  Ingress: each remote (origin, shard) chain's
+        delivered-txn count IS the publisher's opid (one opid per txn per
+        shard, delivered exactly once in order), so ``last_seen`` reseeds
+        from the log.  Both resume at ``LogManager.chain_base`` (the
+        checkpoint's chain floor), and catch-up below it is refused.
+        """
+        store = self.node.store
+        if store.log is None:
+            raise RuntimeError("restore_from_log needs a node with a WAL")
+        for shard in sorted(self.shards):
+            # chain positions resume at the checkpoint's chain floor
+            # (groups the image covers but the truncated WAL no longer
+            # holds) + whatever the tail replays on top; with no
+            # checkpoint the floors are zero and this is the classic
+            # whole-log reseed
+            counts: Dict[int, int] = collections.defaultdict(int)
+            for origin in range(self.node.cfg.max_dcs):
+                base = store.log.chain_base(shard, origin)
+                if base:
+                    counts[origin] = base
+            self.pub_opid[shard] = store.log.chain_base(shard, self.dc_id)
+            for origin, vc, effs in self._wal_txn_groups(shard):
+                counts[origin] += 1
+                if origin != self.dc_id:
+                    continue
+                self.pub_opid[shard] += 1
+                with self._sent_lock:
+                    self.sent[shard].append(self._chain_message(
+                        shard, int(self.pub_opid[shard]), vc, effs
+                    ))
+            for origin, n in counts.items():
+                if origin != self.dc_id:
+                    self.last_seen[(origin, shard)] = n
+
+    # ------------------------------------------------------------------
+    # live shard moves and ingress barriers: the follower slice
+    # ------------------------------------------------------------------
+    def adopt_shard(self, shard: int, extras=None) -> None:
+        raise NotPortedError("adopt_shard")
+
+    def export_shard_state(self, shard: int) -> dict:
+        raise NotPortedError("export_shard_state")
+
+    def release_shard(self, shard: int) -> None:
+        raise NotPortedError("release_shard")
+
+    def ingress_barrier(self):
+        raise NotPortedError("ingress_barrier")
+
+    def descriptor(self) -> Descriptor:
+        """Shareable connection descriptor.  Carries the
+        transport endpoint when the hub has one (TcpFabric), so another
+        process/deployment can subscribe from the descriptor alone."""
+        addr = None
+        # exported descriptors carry the ADVERTISED address (public_host
+        # substituted); local dialing keeps using the bind address
+        address_of = getattr(self.hub, "advertised_of",
+                             getattr(self.hub, "address_of", None))
+        if address_of is not None:
+            try:
+                addr = tuple(address_of(self.fabric_id))
+            except KeyError:
+                addr = None
+        return Descriptor(self.dc_id, self.name, self.node.cfg.n_shards,
+                          addr, self.fabric_id)
+
+    def observe_dc(self, remote: "DCReplica") -> None:
+        """Subscribe to a remote DC's txn stream (in-process peers)."""
+        self.hub.subscribe(self.fabric_id, remote.fabric_id, self._on_message)
+
+    def observe_descriptor(self, desc) -> None:
+        """Subscribe from a wire descriptor (dict or Descriptor) — the
+        cross-process form of :meth:`observe_dc`.  Learns the
+        remote endpoint, opens the stream subscription; the opid-gap
+        catch-up machinery fetches anything missed before connecting."""
+        if isinstance(desc, dict):
+            desc = Descriptor.from_wire(desc)
+        remote_fid = desc.fabric_id if desc.fabric_id is not None else desc.dc_id
+        if remote_fid == self.fabric_id:
+            return  # self-descriptor: nothing to subscribe to
+        if desc.address is not None:
+            connect = getattr(self.hub, "connect_remote", None)
+            if connect is not None:
+                connect(remote_fid, desc.address[0], int(desc.address[1]))
+        self.hub.subscribe(self.fabric_id, remote_fid, self._on_message)
+
+    @staticmethod
+    def connect_all(replicas: List["DCReplica"]) -> None:
+        for a in replicas:
+            for b in replicas:
+                if a is not b:
+                    a.observe_dc(b)
+
+    # ------------------------------------------------------------------
+    # egress
+    # ------------------------------------------------------------------
+    def _on_local_commit(self, effects, commit_vc, origin) -> None:
+        by_shard: Dict[int, list] = {}
+        for eff in effects:
+            _, shard, _ = self.node.store.locate(eff.key, eff.type_name,
+                                                 eff.bucket)
+            by_shard.setdefault(shard, []).append(eff)
+        snapshot_vc = np.asarray(commit_vc, np.int32).copy()
+        snapshot_vc[origin] = 0
+        for shard, effs in by_shard.items():
+            prev = int(self.pub_opid[shard])
+            self.pub_opid[shard] += 1
+            msg = TxnMessage(
+                origin=origin, shard=shard, prev_opid=prev,
+                last_opid=prev + 1,
+                commit_vc=np.asarray(commit_vc, np.int32),
+                snapshot_vc=snapshot_vc, effects=effs,
+                timestamp=int(commit_vc[origin]),
+            )
+            with self._sent_lock:
+                self.sent[shard].append(msg)
+            self.hub.publish(self.fabric_id, msg.to_bytes())
+        # idle-shard safe times are NOT broadcast per commit — that would
+        # be O(n_shards) fabric messages per txn.  They flush on the
+        # interval/commit-count thresholds below and at every fabric pump
+        # (maybe_heartbeat via the tick)
+        self._drain_if_gated()
+        self._commits_since_hb += 1
+        if self.node.txm._publishing_group:
+            # mid-group publish: later group members' counters are
+            # already minted but their messages are not on the stream
+            # yet, so a safe-time ping here would make subscribers skip
+            # them as duplicates (lost effects).  The tick-path flush
+            # (maybe_heartbeat at every pump) or the next commit sends
+            # the deferred ping instead.
+            return
+        if (self._commits_since_hb >= self.HEARTBEAT_EVERY_COMMITS
+                or time.monotonic() - self._last_hb
+                >= self.HEARTBEAT_INTERVAL_S):
+            self.heartbeat()
+
+    def maybe_heartbeat(self) -> None:
+        """Flush deferred safe-time pings iff something new is worth
+        publishing: commits since the last flush, or a shard's safe time
+        advancing past what was last pinged.  Tick path: called at every
+        fabric pump, so a peer blocked on my
+        lane is unblocked promptly without any per-commit broadcast."""
+        if self._commits_since_hb > 0:
+            self.heartbeat()
+            return
+        safe = self.safe_time(0)
+        if any(safe > self._published_safe.get(s, 0) for s in self.shards):
+            self.heartbeat()
+            return
+        # LIVENESS: re-ping on the wall-clock interval even with nothing
+        # new — a LOST final ping (or txn) is only ever detected by a
+        # later message on the same chain, and this re-send provides it
+        if time.monotonic() - self._last_hb >= self.HEARTBEAT_INTERVAL_S:
+            self.heartbeat()
+
+    def safe_time(self, shard: int) -> int:
+        """Largest own-lane ts such that no future local commit on
+        ``shard`` can carry a smaller one — AND every commit at or below
+        it has already been published to the stream (taken under the
+        manager's commit lock: a counter read mid-commit would mint a
+        ping that outruns its own txn on the wire, and the subscriber's
+        chain-clock duplicate suppression would drop the txn as
+        already-applied).  A single-node DC mints commits from one
+        monotone counter applied synchronously, so the counter itself is
+        safe for every shard."""
+        txm = self.node.txm
+        with txm.commit_lock:
+            return txm.commit_counter
+
+    def heartbeat(self, exclude=frozenset()) -> None:
+        """Broadcast per-shard safe times.  Also
+        advances MY lane on idle local shards: without it, a remote txn
+        whose snapshot depends on my lane would gate forever on shards I
+        never wrote to."""
+        self._commits_since_hb = 0
+        self._last_hb = time.monotonic()
+        vc = self.node.store.applied_vc
+        # stamp under the commit lock, once for every shard: the safe time
+        # and the chain positions must belong to one cut (and a busy
+        # commit plane is waited for once, not once a shard)
+        with self.node.txm.commit_lock:
+            safe = int(self.safe_time(0))
+            prevs = {}
+            for shard in sorted(self.shards):
+                vc[shard, self.dc_id] = max(vc[shard, self.dc_id], safe)
+                self._published_safe[shard] = safe
+                prevs[shard] = int(self.pub_opid[shard])
+        for shard, prev in prevs.items():
+            if shard in exclude:
+                continue
+            msg = TxnMessage(
+                origin=self.dc_id, shard=shard, prev_opid=prev,
+                last_opid=prev,  # pings do not advance the chain
+                commit_vc=np.zeros(self.node.cfg.max_dcs, np.int32),
+                snapshot_vc=np.zeros(self.node.cfg.max_dcs, np.int32),
+                effects=[], timestamp=safe,
+            )
+            self.hub.publish(self.fabric_id, msg.to_bytes())
+        self._drain_if_gated()
+
+    def _drain_after_delivery(self) -> None:
+        """Drain the gate after a delivery — or, while the fabric's pump
+        holds more frames of the same batch, owe it to the batch's end
+        (``flush_deliveries``): one device apply then covers every
+        transaction the batch made ready, where a drain a message paid
+        one apply a message.  Caller holds the commit lock."""
+        if getattr(self.hub, "batching", lambda: False)():
+            self._drain_due = True
+            return
+        self._drain_due = False
+        self._drain_gates()
+
+    def flush_deliveries(self) -> None:
+        """The fabric's pump batch ended: settle an owed drain."""
+        with self.node.txm.commit_lock:
+            if self._drain_due:
+                self._drain_due = False
+                self._drain_gates()
+
+    def _drain_if_gated(self) -> None:
+        """My own lane just rose (a local commit on its shards, a
+        heartbeat on the others): a remote transaction gated on it — its
+        snapshot saw my commits — can apply now, not only when the next
+        message of some chain arrives."""
+        with self.node.txm.commit_lock:
+            if any(self.gate.values()):
+                self._drain_gates()
+
+    def _serve_request(self, kind: str, payload) -> object:
+        """Generic query-channel dispatch.  The follower plane's kinds
+        answer with :class:`NotPortedError` (the requester sees it typed
+        as a remote error)."""
+        if kind == "bcounter":
+            return self._grant_one(payload)
+        if kind == "bcounter_many":
+            # batched rights requests: each entry keeps the single-key
+            # grant discipline — the SAME fault site keyed per key (a
+            # plan can starve one key of the batch), the same granter
+            # counter.  Per-
+            # entry faults fail THAT entry (grant 0), not the frame:
+            # the requester's at-most-once throttle already covers each
+            # (key, target) independently, so a half-served batch must
+            # not un-serve the grants that committed.
+            out = []
+            for key, bucket, amount in payload["entries"]:
+                try:
+                    out.append(self._grant_one({
+                        "key": key, "bucket": bucket, "amount": amount,
+                        "to_dc": payload["to_dc"],
+                    }))
+                except (ConnectionError, OSError):
+                    out.append(0)
+            return out
+        if kind == "check_up":
+            return True
+        if kind in FOLLOWER_KINDS:
+            raise NotPortedError(f"request kind {kind!r}")
+        raise ValueError(f"unknown request kind {kind!r}")
+
+    def _grant_one(self, payload) -> int:
+        """Serve ONE rights request at granter entry: consult the
+        ``bcounter.transfer`` fault site (keyed per key, so chaos plans
+        can starve/stretch grant traffic — wide enough to SIGKILL a
+        granter mid-transfer), then commit the grant locally."""
+        d = faults.hit("bcounter.transfer",
+                        key=(payload.get("key"), self.dc_id))
+        if d is not None:
+            if d.action == "delay" and d.arg:
+                time.sleep(float(d.arg))
+            elif d.action == "drop":
+                raise ConnectionError(
+                    "injected fault: bcounter.transfer dropped")
+            elif d.action in ("error", "io_error", "enospc"):
+                raise OSError(
+                    errno.EIO,
+                    f"injected fault: bcounter.transfer "
+                    f"{payload.get('key')!r}")
+        grant = self.node.txm.bcounters.process_transfer(
+            self.node.txm, payload["key"], payload["bucket"],
+            payload["amount"], payload["to_dc"])
+        m = self.node.metrics
+        if grant and m is not None:
+            m.escrow_grants.inc(role="granter")
+        return grant
+
+    def _request_transfer_many(self, dc: int, entries) -> None:
+        """Batched rights requests: every shortfall key asking the same
+        granter DC this tick rides ONE query-channel round trip
+        (``bcounter_many``) instead of one RPC per key — a flash-sale
+        tick with hundreds of starved keys was paying hundreds of
+        sequential cross-DC round trips before any grant landed.
+
+        The at-most-once discipline is unchanged and PER ENTRY: the
+        requester's grace throttle was set before the send for each
+        (key, target) pair, so a reply-phase failure of the batch holds
+        every member's throttle — no blind resend of any entry inside
+        the grace window, exactly as if each had been its own RPC."""
+        m = self.node.metrics
+        t0 = time.monotonic()
+        try:
+            grants = self.hub.request(
+                dc, "bcounter_many",
+                {"entries": [[k, b, a] for k, b, a in entries],
+                 "to_dc": self.dc_id},
+            )
+        except Exception as e:
+            log.warning(
+                "bcounter batched transfer request to dc%d (%d keys) "
+                "failed typed (%s); grace throttle holds — no blind "
+                "resend", dc, len(entries), e)
+            if m is not None:
+                m.escrow_grants.inc(role="failed")
+            return
+        if m is not None:
+            m.escrow_transfer_seconds.observe(time.monotonic() - t0)
+            for g in (grants or ()):
+                if g:
+                    m.escrow_grants.inc(role="requester")
+
+    def _request_transfer(self, dc: int, key, bucket: str,
+                          amount: int) -> None:
+        """One rights request over the AT-MOST-ONCE query channel.
+
+        Grants are non-idempotent commits on the granter, so a reply-
+        phase failure (timeout after the request left the socket,
+        connection lost before the reply) means the grant MAY have
+        committed remotely — this surfaces typed in the log + metrics
+        and relies on the grace throttle (set BEFORE the send in
+        transfer_periodic) instead of blind-resending; the next tick
+        past the grace window re-reads state, so an arrived grant
+        retires the shortfall instead of being asked for twice."""
+        m = self.node.metrics
+        t0 = time.monotonic()
+        try:
+            grant = self.hub.request(
+                dc, "bcounter", {"key": key, "bucket": bucket,
+                                 "amount": amount, "to_dc": self.dc_id},
+            )
+        except Exception as e:
+            log.warning(
+                "bcounter transfer request to dc%d for %r failed typed "
+                "(%s); grace throttle holds — no blind resend",
+                dc, key, e)
+            if m is not None:
+                m.escrow_grants.inc(role="failed")
+            return
+        if m is not None:
+            m.escrow_transfer_seconds.observe(time.monotonic() - t0)
+            if grant:
+                m.escrow_grants.inc(role="requester")
+
+    def bcounter_tick(self) -> int:
+        """Run one round of the rights-transfer loop."""
+        ty = get_type("counter_b")
+        txm = self.node.txm
+
+        def read_state(key, bucket):
+            # under the commit lock: the write plane grows the device
+            # tables in place while committing
+            with txm.commit_lock:
+                return txm.store.read_states(
+                    [(key, "counter_b", bucket)], txm.store.dc_max_vc()
+                )[0]
+
+        sent = txm.bcounters.transfer_periodic(read_state, ty)
+        m = self.node.metrics
+        if m is not None:
+            m.escrow_shortfall.set(txm.bcounters.shortfall())
+        return sent
+
+    def start_escrow_loop(self, base_s: float = None,
+                          seed: int = None) -> ThreadLoop:
+        """The supervised background rights-transfer loop — the same
+        ThreadLoop discipline as the pump loop: crashes end the
+        thread loudly and the supervisor restarts it.  The interval is
+        JITTERED around the base while demand is queued (two DCs'
+        loops must not phase-lock their grant traffic) and backs off
+        up to 5x base when the queue is empty, snapping back on the
+        first refusal."""
+        base = float(base_s) if base_s is not None else TRANSFER_FREQ
+        rng = random.Random(seed if seed is not None else self.dc_id)
+        loop = ThreadLoop(lambda: None, interval_s=base,
+                          name=f"escrow-pump-{self.name}")
+
+        def tick():
+            self.bcounter_tick()
+            if self.node.txm.bcounters.pending:
+                loop.interval_s = base * (0.5 + rng.random())
+            else:
+                loop.interval_s = min(loop.interval_s * 1.5 + 1e-3,
+                                      base * 5.0)
+
+        loop.fn = tick
+        return loop.start()
+
+    def _serve_log_query(self, shard: int, origin: int,
+                         from_opid: int) -> List[bytes]:
+        """Serve a catch-up read of my own chain.
+
+        The bounded in-memory window serves recent requests; anything
+        below it is regrouped from the durable log, so catch-up
+        correctness survives both long uptimes (the window caps memory)
+        and restarts.  A request below the log's chain base (a prefix a
+        checkpoint truncated) is refused."""
+        if origin != self.dc_id:
+            raise ValueError(f"dc{self.dc_id} serves only its own chain, "
+                             f"not origin {origin}")
+        with self._sent_lock:
+            window = self.sent[shard]
+            covered = not window or window[0].prev_opid <= from_opid
+            if covered:
+                return [
+                    m.to_bytes() for m in window if m.last_opid > from_opid
+                ]
+            window_start = window[0].prev_opid
+        if self.node.store.log is not None:
+            wlog = self.node.store.log
+            with self.node.txm.commit_lock:
+                base = wlog.chain_base(shard, self.dc_id)
+                floor_snap = (base, int(wlog.floor_seqs[shard]))
+            if from_opid < base:
+                # the requested prefix was checkpoint-compacted away:
+                # serving from base would leave an unfillable gap at the
+                # subscriber (its chain check only accepts contiguous
+                # opids), so refuse loudly — the operator remedy is a
+                # fresh subscription / state transfer, and the
+                # prevention is retention sized above the slowest peer
+                raise RuntimeError(
+                    f"catch-up from opid {from_opid} on shard {shard} is "
+                    f"below the compaction floor ({base}): that chain "
+                    "prefix was checkpoint-truncated and only lives in "
+                    "the checkpoint image"
+                )
+            out = []
+            opid = base
+            for origin_g, vc, effs in self._wal_txn_groups(
+                shard, my_effects_after=from_opid, snap=floor_snap
+            ):
+                if origin_g != self.dc_id:
+                    continue
+                opid += 1
+                if opid > from_opid:
+                    out.append(
+                        self._chain_message(shard, opid, vc, effs).to_bytes()
+                    )
+            return out
+        raise RuntimeError(
+            f"catch-up from opid {from_opid} on shard {shard} is below the "
+            f"in-memory window (starts at {window_start}) and no WAL "
+            "is attached to serve it"
+        )
+
+    def replica_status(self) -> dict:
+        """The node-status replication block of an owner: its followers
+        with their liveness (none until the follower slice lands)."""
+        return {"role": "owner", "followers": {}}
+
+    # ------------------------------------------------------------------
+    # ingress
+    # ------------------------------------------------------------------
+    def _on_message(self, data: bytes) -> None:
+        try:
+            msg = TxnMessage.from_bytes(data)
+        except Exception:
+            # a frame corrupted in transit (truncation, bit rot) must not
+            # kill the pump: discard it — if it carried a txn, the chain
+            # gap surfaces on the next message and catch-up replays it
+            # from the publisher's log
+            net_metrics().corrupt_frames.inc()
+            log.warning("discarding undecodable inter-DC frame (%d bytes)",
+                        len(data))
+            return
+        if msg.origin == self.dc_id:
+            return  # a DC never applies its own origin's chain
+        # INGRESS STATE DISCIPLINE: last_seen/pending/gate mutate only
+        # under the node's commit lock — the same lock the gate drain
+        # holds.  The catch-up NETWORK call stays outside the lock (a
+        # dead endpoint's 30 s timeout must not freeze local commits)
+        lock = self.node.txm.commit_lock
+        key = (msg.origin, msg.shard)
+        catchup_from = None
+        with lock:
+            if msg.shard not in self.shards:
+                return  # another shard count: not a chain of this store
+            last = self.last_seen.get(key, 0)
+            if msg.is_ping:
+                if msg.last_opid <= last:
+                    self._queue(msg)
+                    self._drain_after_delivery()
+                    return
+                # the ping reveals lost txns: catch up before trusting it
+                catchup_from = last
+            elif msg.prev_opid == last:
+                self._accept(key, msg)
+                self._drain_after_delivery()
+                return
+            elif msg.prev_opid > last:
+                # gap: buffer and query the origin's log reader (the
+                # catch-up's pending flush integrates this message).
+                # BOUNDED: past the high-water mark the message is shed —
+                # it sits above last_seen, so the still-open gap makes
+                # catch-up refetch it once the buffer drains
+                if len(self.pending[key]) >= self.PENDING_HWM:
+                    self._shed_ingress(key, "pending")
+                else:
+                    self.pending[key].append(msg)
+                catchup_from = last
+            else:
+                return  # duplicate — drop
+        self._catch_up(key, catchup_from)
+        with lock:
+            # a ping the catch-up could NOT cover (severed query channel)
+            # is dropped: trusting it would advance the chain clock past
+            # the undelivered txns, and the duplicate suppression would
+            # then drop their eventual replay forever — a permanently lost
+            # effect.  The publisher re-sends on its 1 s cadence and the
+            # next ping retries the catch-up.  What the catch-up did
+            # deliver drains either way
+            if msg.is_ping and msg.last_opid <= self.last_seen.get(key, 0):
+                self._queue(msg)
+            self._drain_after_delivery()
+
+    def _catch_up(self, key, from_opid) -> None:
+        origin, shard = key
+        target = origin
+        self.catchups += 1
+        try:
+            msgs = self.hub.query_log(target, shard, origin, from_opid)
+        except (ConnectionError, OSError, KeyError) as e:
+            # the query channel is down (partition, endpoint restart) or
+            # the origin's address is not known yet (KeyError): keep the
+            # out-of-order buffer and return — every later ping on this
+            # chain re-reveals the gap and retries the catch-up, so
+            # healing the link heals the chain with no operator action
+            net_metrics().catchup_failures.inc()
+            log.warning("catch-up query to dc%s for chain %s failed (%r); "
+                        "will retry on the next chain message", target, key, e)
+            return
+        # the replayed suffix lands under the commit lock (same ingress
+        # discipline as _on_message)
+        with self.node.txm.commit_lock:
+            for data in msgs:
+                m = TxnMessage.from_bytes(data)
+                if not m.is_ping and m.prev_opid == self.last_seen.get(key, 0):
+                    self._accept(key, m)
+            self._flush_pending(key)
+
+    def _shed_ingress(self, key, where: str) -> None:
+        """Count + (throttled) log one shed ingress message.  The shed
+        NEVER advances ``last_seen``, so it is indistinguishable from a
+        lossy link: the publisher's next chain message re-reveals the
+        gap and catch-up replays the loss once pressure drains — shed is
+        deferral into the repair path, not data loss.  The publisher
+        sees the pressure as catch-up queries against its log (plus the
+        antidote_interdc_ingress_shed_total counter here)."""
+        net_metrics().ingress_shed.inc()
+        now = time.monotonic()
+        if now - getattr(self, "_last_shed_log", 0.0) > 5.0:
+            self._last_shed_log = now
+            log.warning("ingress gate for chain %s past its %s high-water "
+                        "mark; shedding (catch-up will refill)", key, where)
+
+    def _gate_full(self, key) -> bool:
+        q = self.gate.get(key)
+        return q is not None and len(q) >= self.GATE_HWM
+
+    def _accept(self, key, msg: TxnMessage) -> None:
+        # BOUNDED gate: a chain at its high-water mark (dep-blocked head
+        # under a delivery storm) sheds instead of queueing — last_seen
+        # stays put, so the skipped suffix returns through catch-up
+        if self._gate_full(key):
+            self._shed_ingress(key, "gate")
+            return
+        self.last_seen[key] = msg.last_opid
+        self._queue(msg)
+        self._flush_pending(key)
+
+    def _flush_pending(self, key) -> None:
+        """Drain the out-of-order buffer: one pass over the buffer sorted
+        by chain position.  Stops flushing (keeps the tail buffered) once the gate
+        hits its high-water mark — same bound as _accept."""
+        buf = self.pending.get(key)
+        if not buf:
+            return
+        buf.sort(key=lambda m: m.prev_opid)
+        keep: List[TxnMessage] = []
+        for m in buf:
+            last = self.last_seen.get(key, 0)
+            if m.prev_opid == last and not self._gate_full(key):
+                self.last_seen[key] = m.last_opid
+                self._queue(m)
+            elif m.last_opid > last:
+                keep.append(m)  # still a gap ahead of it (or gate full)
+            # else: duplicate — drop
+        self.pending[key] = keep
+
+    # ------------------------------------------------------------------
+    # causal dependency gate
+    # ------------------------------------------------------------------
+    def _queue(self, msg: TxnMessage) -> None:
+        q = self.gate[(msg.origin, msg.shard)]
+        if msg.is_ping and q and q[-1].is_ping:
+            # coalesce trailing pings: per-chain ping timestamps are
+            # monotone and the drain only reads the LAST one, so a
+            # blocked head accumulates at most one parked ping instead
+            # of one per heartbeat interval
+            q[-1] = msg
+            return
+        q.append(msg)
+        # gate-depth gauge refresh is the drain path's job (_drain_gates
+        # runs on every delivery pump): an O(#chains) sum per enqueued
+        # message would tax the hot ingress path for a gauge
+
+    def _drain_gates(self) -> None:
+        """Apply every gated txn whose dependencies are satisfied; loop
+        until no queue makes progress.
+
+        Ready txns are BATCHED into one ``apply_effects`` device launch
+        per drain round: readiness cascades are evaluated against a
+        simulated clock copy, and the real partition clocks only advance
+        after the whole batch applied (the stable snapshot must never
+        dominate unapplied ops — including ping advances, which are
+        deferred the same way so a ping queued behind a txn cannot claim
+        its ts early).
+
+        SERIALIZATION: the whole drain runs under the transaction
+        manager's commit lock.  A server-thread commit writes the same
+        device tables in place through ``KVStore.apply_effect_groups``;
+        two concurrent appliers can silently drop a whole batch, and the
+        chain-clock duplicate suppression then makes the loss permanent.
+        The lock is reentrant and taken in the same order everywhere
+        (endpoint handler lock → commit lock), so the remote-ingress
+        plane and the local-commit plane are mutually exclusive
+        writers."""
+        with self.node.txm.commit_lock:
+            depth = sum(len(g) for g in self.gate.values())
+            self.max_gate_depth = max(self.max_gate_depth, depth)
+            self._drain_gates_locked()
+            if self.node.metrics is not None:
+                self.node.metrics.interdc_gate_depth.set(
+                    sum(len(g) for g in self.gate.values()))
+
+    def _drain_gates_locked(self) -> None:
+        store = self.node.store
+        while True:
+            sim = store.applied_vc.copy()
+            batch: list = []  # ready txns, dependency-respecting order
+            advances: list = []  # (shard, origin, ts) after apply
+            taken: Dict[tuple, int] = {}  # gate key -> msgs consumed
+            progressed = True
+            while progressed:
+                progressed = False
+                for gk, q in self.gate.items():
+                    origin, shard = gk
+                    i = taken.get(gk, 0)
+                    for msg in itertools.islice(q, i, None):
+                        if msg.is_ping:
+                            ts = msg.timestamp
+                            if sim[shard, origin] < ts:
+                                sim[shard, origin] = ts
+                                advances.append((shard, origin, ts))
+                            i += 1
+                            progressed = True
+                            continue
+                        # duplicate suppression: per-chain origin
+                        # timestamps are strictly monotone, and the chain
+                        # clock only advances past ts once the txn
+                        # carrying ts was applied (or a catch-up replayed
+                        # it) — so ts ≤ clock ⟺ already applied.  Makes
+                        # re-delivery (restart catch-up from a
+                        # conservative opid) idempotent.
+                        ts = int(msg.commit_vc[origin])
+                        if ts <= int(sim[shard, origin]):
+                            i += 1
+                            progressed = True
+                            continue
+                        local = sim[shard].copy()
+                        local[origin] = 0
+                        if not (local >= msg.snapshot_vc).all():
+                            # dep-blocked head.  Pings QUEUED BEHIND it
+                            # may still advance this lane up to ts-1:
+                            # everything below the head's ts is applied
+                            # (chain order), so duplicate suppression
+                            # survives — and without this, two chains
+                            # can deadlock after message loss (each
+                            # head's unblocking ping trapped behind the
+                            # other's blocked head)
+                            # per-chain ping timestamps are monotone:
+                            # the LAST ping in the queue carries the max
+                            best = 0
+                            for m2 in reversed(q):
+                                if m2.is_ping:
+                                    best = m2.timestamp
+                                    break
+                            adv = min(best, ts - 1)
+                            if adv > sim[shard, origin]:
+                                sim[shard, origin] = adv
+                                advances.append((shard, origin, adv))
+                                progressed = True
+                            break
+                        batch.append((msg, origin))
+                        sim[shard, origin] = ts
+                        advances.append((shard, origin, ts))
+                        i += 1
+                        progressed = True
+                    taken[gk] = i
+            if not batch and not advances:
+                # still consume the examined prefix (duplicates, stale
+                # pings): leaving it queued forever is a leak AND makes
+                # every later drain rescan it
+                for gk, n in taken.items():
+                    q = self.gate[gk]
+                    for _ in range(n):
+                        q.popleft()
+                return
+            if batch:
+                effects, vcs, origins = [], [], []
+                for msg, origin in batch:
+                    vc = np.asarray(msg.commit_vc, np.int32)
+                    for eff in msg.effects:
+                        effects.append(eff)
+                        vcs.append(vc)
+                        origins.append(origin)
+                # messages are consumed from the queues only AFTER the
+                # apply succeeds — an exception leaves everything queued
+                # for the next drain instead of silently dropping txns
+                store.apply_effects(effects, vcs, origins)
+            for gk, n in taken.items():
+                q = self.gate[gk]
+                for _ in range(n):
+                    q.popleft()
+            for shard, origin, ts in advances:
+                self._advance_clock(shard, origin, ts)
+
+    def _advance_clock(self, shard: int, origin: int, ts: int) -> None:
+        vc = self.node.store.applied_vc
+        if vc[shard, origin] < ts:
+            vc[shard, origin] = ts
+
+    # ------------------------------------------------------------------
+    def _on_clock_wait(self) -> None:
+        """Called by the txn manager while waiting for the stable snapshot
+        to catch up to a client clock.  An idle pump sleeps a moment so
+        the spin paces real time: peers' safe times advance on their
+        heartbeat timers, not on our loop iterations.  The pump is bounded
+        (a few hundred frames, a 2 ms wait) so the waiting reader
+        re-checks its clock often while a busy fabric keeps delivering."""
+        if self.hub.pump(max_rounds=256, timeout=0.002) == 0:
+            time.sleep(0.002)

@@ -1,7 +1,7 @@
 """Shared build + provenance helper for the port's native ``.so`` planes.
 
 Every C++ module of the port (``log/cpp/wal.cc``, ``proto/cpp/frontend.cc``,
-``store/cpp/router.cc``) compiles through ONE pinned flag set, and every
+``store/cpp/router.cc``, ``interdc/cpp/pump.cc``) compiles through ONE pinned flag set, and every
 build embeds the sha256 of its source as ``ANTIDOTE_SRC_SHA`` (each module
 exports a ``<name>_src_sha()`` getter).  A build is made with g++ at first
 use into ``antidote_tpu_torch/_build/``, named by the source's hash, so an
@@ -34,6 +34,7 @@ MODULES: List[Tuple[Path, str, str]] = [
     (_PKG / "log" / "cpp" / "wal.cc", "wal", "wal_src_sha"),
     (_PKG / "proto" / "cpp" / "frontend.cc", "frontend", "frontend_src_sha"),
     (_PKG / "store" / "cpp" / "router.cc", "router", "router_src_sha"),
+    (_PKG / "interdc" / "cpp" / "pump.cc", "pump", "pump_src_sha"),
 ]
 
 

@@ -23,8 +23,13 @@ With ``native_frontend=True`` the advertised port belongs to the C++ epoll
 plane (``proto/native_frontend.py``): it accepts, frames, admits and
 answers whole-batch snapshot-cache hits off the interpreter lock, and the
 frames it cannot answer cross to per-connection drain workers here, which
-run the same serving core as the socketserver handlers.  The follower's
-proxy plane comes with inter-DC replication: ``follower=`` raises.
+run the same serving core as the socketserver handlers.
+
+``interdc=`` attaches the node's inter-DC replica (``interdc.DCReplica``):
+the DC-management requests of both dialects (get the connection
+descriptor, connect to DCs) reach it, and the node status gains its
+replication block.  Read replicas and the follower's proxy plane come
+with a later slice: ``follower=`` raises.
 """
 
 from __future__ import annotations
@@ -155,7 +160,7 @@ class ProtocolServer:
     never falling back to the CPU."""
 
     def __init__(self, node: AntidoteNode, host: str = "127.0.0.1",
-                 port: int = 0, max_connections: int = 1024,
+                 port: int = 0, interdc=None, max_connections: int = 1024,
                  batch_static: bool = True, max_in_flight: int = 256,
                  max_in_flight_per_client: int = 64, queue_max: int = 4096,
                  default_deadline_ms: Optional[float] = None,
@@ -166,8 +171,8 @@ class ProtocolServer:
                  native_mirror_cap: int = 1 << 18, tenants=None):
         if follower is not None:
             raise NotImplementedError(
-                "follower: read replicas and the proxy plane come with "
-                "inter-DC replication, which is not ported")
+                "follower: read replicas and the proxy plane come with a "
+                "later slice of the port")
         # --- native serving front-end ----------------------------------
         #: a C++ epoll thread owning accept / framing / hot-read decode /
         #: admission / whole-batch cache hits on the ADVERTISED port;
@@ -186,6 +191,8 @@ class ProtocolServer:
                 host, port, max_connections, max_in_flight,
                 max_in_flight_per_client, mirror_cap=native_mirror_cap)
         self.node = node
+        #: the node's inter-DC replica (DCReplica) or None
+        self.interdc = interdc
         #: multi-tenant QoS: weights + caps for every tenant this node
         #: serves.  An untenanted node gets a registry holding only the
         #: default lane — every tenant code path then degenerates to the
@@ -664,21 +671,18 @@ class ProtocolServer:
         })
 
     def _native_advance(self) -> None:
-        """Push the freshly-published serving epoch to the C++ mirror —
-        called by the epoch ticker right after every publish.  The
-        mirror's re-stamping is sound because every effect applied since
-        the last advance invalidated its keys eagerly (under the commit
-        lock, BEFORE the publish made them visible)."""
+        """Push the current serving epoch to the C++ mirror, under the
+        commit lock (every publish already does so itself: see
+        ``TransactionManager.native_advance_locked``).  The mirror's
+        re-stamping is sound because every effect applied since the last
+        advance invalidated its keys eagerly (under the commit lock,
+        BEFORE the publish made them visible)."""
         nf = self.native
         txm = self.node.txm
         if nf is None or txm.store.native_mirror is not nf:
             return
-        ep = txm.store.serving_epoch
-        if ep is None:
-            nf.set_clockless_ok(False)
-            return
-        nf.advance(int(ep.id), ep.vc.tolist(),
-                   int(ep.vc[txm.my_dc]) >= txm.epoch_lag_counter)
+        with txm.commit_lock:
+            txm.native_advance_locked()
 
     # ------------------------------------------------------------------
     # static batch gate
@@ -1143,8 +1147,8 @@ class ProtocolServer:
         while not self._ticker_stop.wait(tick):
             try:
                 if self._epoch_reads:
+                    # the publish advances the native mirror itself
                     txm.publish_serving_epoch()
-                    self._native_advance()
                 self._publish_table_epochs_capped()
             except Exception:
                 log.exception("epoch ticker publish failed")
@@ -1401,11 +1405,15 @@ class ProtocolServer:
                 "commit_clock": [int(x) for x in vc]
             }
         if code == MessageCode.REPLICA_ADMIN:
-            # the follower-replica registry lives on the replica plane,
-            # which this package has not: the JAX server's reply to a
-            # node started without one, word for word
-            raise RuntimeError("no replica plane attached (start "
-                               "with --interdc or --follower-of)")
+            # the follower-replica registry lives on the replica plane:
+            # without one, the JAX server's reply word for word; with one,
+            # the follower slice's typed refusal
+            if self.interdc is None:
+                raise RuntimeError("no replica plane attached (start "
+                                   "with --interdc or --follower-of)")
+            from antidote_tpu_torch.interdc.replica import NotPortedError
+
+            raise NotPortedError("replica admin")
         if code == MessageCode.CHECKPOINT_NOW:
             # admin op, OUTSIDE the dispatch lock: the checkpointer has
             # its own serialization, and streaming a multi-second image
@@ -1492,6 +1500,9 @@ class ProtocolServer:
             })
             status["pipeline"] = self._pipeline_status()
             status["tenants"] = self._tenant_status()
+            if self.interdc is not None:
+                # the replication block (an owner's follower liveness)
+                status["replicas"] = self.interdc.replica_status()
             return MessageCode.OPERATION_RESP, {"status": status}
         raise ValueError(f"unhandled message code {code!r}")
 
@@ -1504,15 +1515,19 @@ class ProtocolServer:
     # ------------------------------------------------------------------
     # DC management (antidote_pb_process:process create_dc /
     # get_connection_descriptor / connect_to_dcs clauses) — shared by both
-    # wire dialects.  Without inter-DC replication a node has no
-    # descriptor and subscribes to no DC: the JAX server's replies to a
-    # node started without a replica, word for word.
+    # wire dialects.  A node started without a replica has no descriptor
+    # and subscribes to no DC: the JAX server's replies, word for word.
     # ------------------------------------------------------------------
     def _get_descriptor(self) -> dict:
-        raise RuntimeError("no inter-DC replica attached")
+        if self.interdc is None:
+            raise RuntimeError("no inter-DC replica attached")
+        return self.interdc.descriptor().to_wire()
 
     def _connect_to_dcs(self, descriptors) -> None:
-        raise RuntimeError("no inter-DC replica attached")
+        if self.interdc is None:
+            raise RuntimeError("no inter-DC replica attached")
+        for d in descriptors:
+            self.interdc.observe_descriptor(d)
 
     def _create_dc(self, nodes) -> None:
         """The reference assembles a riak cluster from ``nodes`` here;

@@ -31,8 +31,13 @@
     group fsync that covers it completed.  A refused append (ENOSPC, EIO)
     puts the node in degraded read-only mode: writes are refused typed,
     reads keep serving, and the mode exits once an append probe succeeds.
-
-The GentleRain protocol is a later slice.
+  * replication seams: ``commit_listeners`` see every acknowledged
+    commit's effects (the inter-DC egress), ``on_clock_wait`` is pumped
+    while a client clock waits for the stable snapshot, and
+    ``apply_remote`` ingests a remote transaction.
+  * protocols: ``clocksi`` (Cure, full-vector snapshots) or ``gr``
+    (GentleRain: the remote lanes of a snapshot collapse to the scalar
+    global stable time, the minimum over the lanes).
 """
 
 from __future__ import annotations
@@ -101,16 +106,37 @@ class TransactionManager:
 
     def __init__(self, store: KVStore, my_dc: int = 0, cert: bool = True,
                  protocol: str = "clocksi"):
-        if protocol != "clocksi":
-            raise NotImplementedError(
-                f"protocol {protocol!r} is not ported yet (clocksi only)")
+        if protocol not in ("clocksi", "gr"):
+            raise ValueError(f"unknown transaction protocol {protocol!r} "
+                             "(clocksi or gr)")
         self.store = store
         self.cfg: AntidoteConfig = store.cfg
         self.my_dc = my_dc
         self.cert = cert
         self.protocol = protocol
         self.commit_counter = 0
+        #: held across counter increment -> apply -> commit listeners, and
+        #: taken by anything deriving a SAFE time from the counter (the
+        #: inter-DC heartbeat): a ping minted from a mid-commit counter
+        #: would outrun its own transaction on the wire.  Reentrant:
+        #: commit listeners themselves send heartbeats
         self.commit_lock = threading.RLock()
+        #: True while a multi-transaction group is mid-publish: every
+        #: member's counter is minted, so a safe-time ping must wait for
+        #: the group's last egress message
+        self._publishing_group = False
+        #: called with (effects, commit_vc, origin) after every
+        #: acknowledged local commit — the inter-DC egress seam
+        self.commit_listeners: List = []
+        #: called while a client clock waits for the stable snapshot; the
+        #: inter-DC layer points it at its message pump
+        self.on_clock_wait = lambda: None
+        #: set by the inter-DC replica: remote transactions then apply on
+        #: the pump's thread, writing the tables in place, so a read holds
+        #: the commit lock (a read beside the drain could gather a head
+        #: half-written by a remote transaction, or fold a ring the drain
+        #: just collected past the read's snapshot)
+        self.remote_ingest = False
         #: threads allowed to park on the commit lock before new commit
         #: attempts are refused with a typed BusyError
         self.max_commit_backlog = 64
@@ -253,15 +279,35 @@ class TransactionManager:
             return self._publish_serving_epoch_locked()
 
     def _publish_serving_epoch_locked(self) -> str:
-        return self.store.publish_serving_epoch(self.serving_epoch_vc())
+        st = self.store.publish_serving_epoch(self.serving_epoch_vc())
+        self.native_advance_locked()
+        return st
+
+    def native_advance_locked(self) -> None:
+        """Move the native front end's mirror to the current serving epoch
+        (caller holds the commit lock).  Every publish runs it — the
+        ticker's, a remote apply's and a write round's inline one, before
+        the round's acknowledgements leave — so the C++ hit check
+        (``stamp == cur_epoch``) never serves an entry that a published
+        write has passed: a late fill stamped with the previous epoch
+        misses from the moment the publish returns.  Under the commit
+        lock, advances reach the mirror in epoch order."""
+        nm = self.store.native_mirror
+        if nm is None:
+            return
+        ep = self.store.serving_epoch
+        if ep is None:
+            nm.set_clockless_ok(False)
+            return
+        nm.advance(int(ep.id), ep.vc.tolist(),
+                   int(ep.vc[self.my_dc]) >= self.epoch_lag_counter)
 
     def _native_lag_raised(self) -> None:
         """The serving epoch just started lagging the commit counter: the
         native front end must stop serving clockless reads from it (the
         Python cache read refuses through ``epoch_lag_counter``; the C++
-        loop learns the same fact here).  The next advance after a
-        publish that catches up — the server's epoch ticker — turns it
-        back on."""
+        loop learns the same fact here).  The next publish that catches
+        up turns it back on (``native_advance_locked``)."""
         nm = self.store.native_mirror
         if nm is not None:
             nm.set_clockless_ok(False)
@@ -272,9 +318,15 @@ class TransactionManager:
 
     def _snapshot_vc(self) -> np.ndarray:
         """Remote lanes from the DC stable snapshot, own lane from the
-        commit counter (local commits apply synchronously)."""
+        commit counter (local commits apply synchronously).  GentleRain
+        replaces the vector with the scalar GST — the minimum entry over
+        the lanes — on every lane but the own one."""
         snap = self.store.stable_vc().copy()
         snap[self.my_dc] = self.commit_counter
+        if self.protocol == "gr":
+            gst = int(snap.min())
+            snap = np.full_like(snap, gst)
+            snap[self.my_dc] = self.commit_counter
         return snap
 
     def start_transaction(self, clock: Optional[np.ndarray] = None,
@@ -283,9 +335,14 @@ class TransactionManager:
         if clock is not None:
             clock = np.asarray(clock, np.int32)
             mask = np.arange(len(snap)) != self.my_dc
-            if not (clock[mask] <= snap[mask]).all():
-                # a remote lane ahead of the stable snapshot can only be
-                # reached through replication, a later slice
+            for _ in range(10_000):
+                if (clock[mask] <= snap[mask]).all():
+                    break
+                # a remote lane ahead of the stable snapshot: wait for
+                # replication to bring it (the inter-DC pump runs here)
+                self.on_clock_wait()
+                snap = self._snapshot_vc()
+            else:
                 raise TimeoutError(
                     f"stable snapshot {snap} never reached client clock "
                     f"{clock}")
@@ -298,6 +355,13 @@ class TransactionManager:
 
     def read_objects(self, objects: Sequence[BoundObject], txn: Transaction,
                      _internal: bool = False):
+        if self.remote_ingest:
+            with self.commit_lock:
+                return self._read_objects(objects, txn, _internal)
+        return self._read_objects(objects, txn, _internal)
+
+    def _read_objects(self, objects: Sequence[BoundObject],
+                      txn: Transaction, _internal: bool):
         assert txn.active
         if not _internal:
             # a client-level read makes the txn read-bearing: the
@@ -752,10 +816,10 @@ class TransactionManager:
             # and keeps its counter hole — certification compares
             # magnitudes, so holes are safe
             ok = []
-            for (i, txn, _vc, _e, stamped, ctr), err in zip(
+            for (i, txn, vc, effs, stamped, ctr), err in zip(
                     reversed(pend), reversed(errors)):
                 if err is None:
-                    ok.append((i, txn))
+                    ok.append((i, txn, vc, effs))
                     continue
                 self._unstamp(stamped, ctr)
                 out[i] = self._wal_refusal(err)
@@ -773,13 +837,24 @@ class TransactionManager:
                                       f"WAL group fsync stalled: {e}") from e
                 except OSError as e:
                     err = self._wal_refusal(e)
-                    for i, _txn in ok:
+                    for i, _txn, _vc, _effs in ok:
                         out[i] = err
                     ok = []
-            for _i, txn in ok:
-                for eff, op in txn.writeset:
-                    self.hooks.execute_post_commit_hook(
-                        eff.key, eff.type_name, eff.bucket, op)
+            # every member's counter is minted but members publish one at
+            # a time: a safe-time ping from an early member's listener
+            # would cover later members not yet on the stream, and a
+            # subscriber would drop them as duplicates.  The flag defers
+            # such pings until the whole group is published
+            self._publishing_group = len(ok) > 1
+            try:
+                for _i, txn, vc, effs in ok:
+                    for listener in self.commit_listeners:
+                        listener(effs, vc, self.my_dc)
+                    for eff, op in txn.writeset:
+                        self.hooks.execute_post_commit_hook(
+                            eff.key, eff.type_name, eff.bucket, op)
+            finally:
+                self._publishing_group = False
         if self.commit_counter >= self._next_cert_gc:
             self._gc_committed_keys()
             self._next_cert_gc = self.commit_counter + self._cert_gc_every
@@ -919,6 +994,25 @@ class TransactionManager:
                 self.abort_transaction(txn)
             raise
         return vals, txn.snapshot_vc
+
+    # ------------------------------------------------------------------
+    # remote ingestion (the inter-DC causal gate's apply)
+    # ------------------------------------------------------------------
+    def apply_remote(self, effects: Sequence[Effect], commit_vc: np.ndarray,
+                     origin: int) -> None:
+        commit_vc = np.asarray(commit_vc, np.int32)
+        with self.commit_lock:
+            self.store.apply_effects(effects, [commit_vc] * len(effects),
+                                     [origin] * len(effects))
+            if self.serving_epochs:
+                # keep the lock-free read plane moving with replication.
+                # No lag-floor bump: remote effects were never acknowledged
+                # to a local client, so clockless reads owe them nothing
+                # (the ticker's retry publishes them within a tick)
+                try:
+                    self._publish_serving_epoch_locked()
+                except Exception:
+                    log.exception("serving-epoch publish failed")
 
     # ------------------------------------------------------------------
     def _read_states_with_overlay(self, objects, txn: Transaction):

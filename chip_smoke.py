@@ -27,9 +27,9 @@ Run from the root of a checkout on a machine with a CUDA card (one card;
    against a host oracle built from the op stream, then run an
    ``AntidoteNode`` workload on ``set_aw`` and ``counter_pn`` against a
    host model, historical reads included; then the serving read plane
-   (``serving``) on a 250,000-key ``set_aw`` store populated through
+   (``serving``) on a 150,000-key ``set_aw`` store populated through
    ``KVStore.apply_effect_groups``: two copy publishes and ten scatters of
-   serving epochs, 60 Zipf batches read through the epoch plane (pin,
+   serving epochs, 30 Zipf batches read through the epoch plane (pin,
    launch — one of them under the CUDA sync debug mode — finish, unpin)
    while a second thread commits through the manager, which publishes
    inline, every value held to the locked read at the epoch's clock (or,
@@ -38,7 +38,7 @@ Run from the root of a checkout on a machine with a CUDA card (one card;
    rung 2 (no fold) and rung 3 (``set_aw_fold``); a node's Zipf-hot
    reads through the value cache, warm and cold;
 4. drive a 4-member DC (``ClusterMember``/``ClusterNode`` over localhost
-   RPC, 2048 shards, all on the card): populate 100,000 ``set_aw`` keys
+   RPC, 2048 shards, all on the card): populate 50,000 ``set_aw`` keys
    from every member's coordinator, remove on 2,000 keys through the
    owners' downstream, run mixed transactions from every coordinator
    (every start launches ``stable_min`` on the 2048 x 4 clock matrix),
@@ -46,7 +46,7 @@ Run from the root of a checkout on a machine with a CUDA card (one card;
    every key against a host model, at the stable snapshot and at an
    older one;
 5. the other types (``types``): the nine device types other than set_aw
-   and counter_pn, one 25,000-key table each at BASELINE widths, filled
+   and counter_pn, one 12,000-key table each at BASELINE widths, filled
    by a seeded three-lane stream and read fresh and historical, equal to
    the same table built on the CPU; then a node session over them and the
    maps against a host model (``bench_suite.py``'s map and rga workloads,
@@ -56,11 +56,11 @@ Run from the root of a checkout on a machine with a CUDA card (one card;
    ``fold_batch`` on the card;
 6. durability (``durable``): an ``AntidoteNode`` with a log directory on
    the local disk (``tempfile``), at BASELINE's configuration with 30% of
-   its keys: 300,000 ``set_aw`` keys
+   its keys: 150,000 ``set_aw`` keys
    (2 adds each, removes on 10%) and 100,000 ``counter_pn`` keys (2
    increments) committed through the manager in groups; a full
    checkpoint (its stamp's time under the commit lock against its copy
-   bound); 32 rounds of 4,096 Zipf-distinct keys, then a delta link taken
+   bound); 16 rounds of 4,096 Zipf-distinct keys, then a delta link taken
    while a second thread commits; a WAL tail of 16 rounds; ``recover=True``
    on the card, equal to the live node in the recovery digest, every fresh
    value, every tail key at the clock inside the tail (which folds the
@@ -72,8 +72,8 @@ Run from the root of a checkout on a machine with a CUDA card (one card;
    beside the card.  The node carries a cold tier with no budget, so its
    full image writes the cold sidecar, and the directory is kept for:
 7. the cold tier and shard handoff (``cold``) on that directory: a
-   recovery with 150,000 of its 400,000 rows resident (the rest evicted
-   to the sidecar), 10 Zipf(1.0) batches of 16,384 keys over every key
+   recovery with 150,000 of its 250,000 rows resident (the rest evicted
+   to the sidecar), 3 Zipf(1.0) batches of 16,384 keys over every key
    faulting cold keys in (every value equal to the durable phase's, beside
    the same batches on its all-resident node), writes to faulted-in keys
    and reads between them (``set_aw_fold``, ``counter_fold``), a burst of
@@ -114,21 +114,42 @@ Run from the root of a checkout on a machine with a CUDA card (one card;
    figures; every key touched in either window and 2,048 others read back
    through the native plane, equal to the host model, with
    ``native_hits > 0`` and no fallback; clockless counter reads after
-   each of 8 increments never past the committed total and converging;
+   each of 8 increments at least the acknowledged total on the writer's
+   connection, never past the committed total and converging;
    one whole-batch hit byte-equal to the Python plane's at one epoch id;
    the interactive session (``set_aw_fold``, ``counter_fold``) and the
    apb dialect; a burst of 32 updates against a native server with
    ``max_in_flight=4`` (every shed a typed ``RemoteBusy``); 1M string keys
    through the native router in batches of 16,384, a sample equal to the
    plain XXH64.  Its figures print on a ``native:`` line beside the card;
-10. print one JSON line per kernel record, the card line, and last the
+10. inter-DC replication (``interdc``): three single-node DCs at
+   BASELINE's widths, each an ``AntidoteNode`` on the card with a WAL, its
+   own ``TcpFabric`` (the native receive pump) and its own
+   ``ProtocolServer(interdc=...)``, meshed through
+   ``get_connection_descriptor``/``connect_to_dcs`` (msgpack on one pair,
+   the apb dialect on the others); 100,000 ``set_aw`` keys populated
+   through DC0's manager replicate over the sockets (the origin's
+   records/s, each peer's seconds to cover the final clock); the geo load
+   (``bench_wire.py`` config 3's mix at all three DCs, 8 workers a DC in
+   one client process each, a 2 s untimed round and a 10 s window) with
+   the visibility lag of probe writes read at another DC with their clock,
+   the card's busy share; every acknowledged write and 2,048 untouched
+   keys equal at all three DCs and to the host model; a causal chain
+   across the three; concurrent counters summing exactly; an injected
+   ``interdc.deliver`` drop repaired by catch-up; the flash sale of
+   ``bench_wire.py`` (10,000 ``counter_b`` SKUs, 50 units over two lanes, 8
+   shoppers a DC, a 5 s storm) with zero oversell, then a grant that must
+   arrive on a SKU whose rights lie on DC0's lane only;
+   then a GentleRain pair whose reads at the GST fold the rings
+   (``set_aw_fold``, ``counter_fold``).  Its figures print on an ``interdc:`` line beside the card;
+11. print one JSON line per kernel record, the card line, and last the
    ``{"ok": true, ...}`` line.
 
 The launch counts are reset just before the serve, the node workload, the
 serving plane, the cluster, the types phase, the durable phase, the cold
-phase, the wire phase and the native phase, and read just after each; each
-must show the kernels that ``PATH_KERNELS`` names for it, and a kernel
-record's ``launches`` is the sum over the nine.
+phase, the wire phase, the native phase and the interdc phase, and read
+just after each; each must show the kernels that ``PATH_KERNELS`` names
+for it, and a kernel record's ``launches`` is the sum over the ten.
 The serve must launch ``orset_presence`` exactly once per
 ``SetAW.resolve``, and a resolve on a CUDA state must call no torch sort.
 Exits non-zero without a CUDA device, and outside a
@@ -164,9 +185,13 @@ SERVE_BATCHES, HIST_EVERY = 60, 5
 # the repo benchmark's 200,000 (cut with the cold phase's arrival: the
 # script's 600 s budget; the populate scales with them); the mixed
 # transactions half of the 256 a coordinator of earlier runs (cut with the
-# wire phase's arrival, the same budget)
-CL_MEMBERS, CL_SHARDS, CL_KEYS, CL_ADDS = 4, 2048, 100_000, 3
-CL_TXN, CL_REMOVES, CL_MIXED = 1024, 2000, 128
+# wire phase's arrival, the same budget); the keys halved again, to 50,000,
+# with the interdc phase's arrival (the populate took 31.7 s of the phase's
+# 60.9 s at 100,000), and the mixed transactions halved again, to 64 a
+# coordinator (the whole script took 579 s on a slower host with them at
+# 128, 16.0 s of the phase's 49.5 s)
+CL_MEMBERS, CL_SHARDS, CL_KEYS, CL_ADDS = 4, 2048, 50_000, 3
+CL_TXN, CL_REMOVES, CL_MIXED = 1024, 2000, 64
 # set_aw_fold's edge cases (K, E, D) at an odd B: the tier widths, widths
 # that fill no whole segment of lanes, 1 to 12 clock lanes, rings of one
 # op and past one warp; together they reach every variant of the launcher
@@ -187,19 +212,24 @@ ORSET_CASES = [(8, 4), (16, 4), (17, 4), (40, 4), (64, 4), (256, 4),
 COUNTER_CASES = [(1, 4), (16, 4), (33, 4), (16, 1), (16, 3), (33, 8)]
 # the types phase: the nine device types at BASELINE widths, one table of
 # TY_KEYS keys each, TY_ROUNDS ops a key (every ring GCs once), historical
-# reads at the cut after TY_CUT rounds.  25,000 keys a type, a quarter of
-# the 100,000 of earlier runs (cut with the cold phase's arrival: the
-# populate and its CPU twin scale with the keys)
-TY_KEYS, TY_ROUNDS, TY_CUT, TY_SHARDS = 25_000, 20, 18, 8
+# reads at the cut after TY_CUT rounds.  12,000 keys a type: 100,000 in
+# the first runs, 25,000 after the cold phase's arrival, halved again
+# after the interdc phase's (the script took 553 s with the interdc storm
+# cut to 5 s, which left its escrow transfers to chance; the types phase
+# took 70.2 s, and its populate and CPU twin scale with the keys)
+TY_KEYS, TY_ROUNDS, TY_CUT, TY_SHARDS = 12_000, 20, 18, 8
 MV_SLOTS, RGA_SLOTS = 4, 64
-# the serving phase: keys (a quarter of BASELINE's 1M: halved with the
-# cold phase's arrival and again with the wire phase's, for the 600 s
-# budget; the populate through the store scales with them),
+# the serving phase: keys (15% of BASELINE's 1M: halved with the cold
+# phase's arrival and again with the wire phase's, for the 600 s budget,
+# and 250,000 -> 150,000 with the interdc phase's, whose arrival left the
+# script at 550 s against its 560 s; the populate through the store
+# scales with them),
 # element pool, publish rounds of SV_ROUND_KEYS keys x 4 effects,
-# epoch-read batches, the concurrent writer's round size, the hot set;
-# long logs of LL_OPS ops for LL_KEYS keys
-SV_KEYS = 250_000
-SV_POOL, SV_ROUNDS, SV_ROUND_KEYS, SV_BATCHES = 4096, 10, 4096, 60
+# epoch-read batches (30: 60 until the script took 579 s with the interdc
+# phase on a slower host), the concurrent writer's round size, the hot
+# set; long logs of LL_OPS ops for LL_KEYS keys
+SV_KEYS = 150_000
+SV_POOL, SV_ROUNDS, SV_ROUND_KEYS, SV_BATCHES = 4096, 10, 4096, 30
 SV_WRITE_KEYS, SV_HOT = 256, 1024
 LL_KEYS, LL_OPS = 1024, 4096
 # the durable phase: set_aw and counter_pn keys, transactions per commit
@@ -210,20 +240,23 @@ LL_KEYS, LL_OPS = 1024, 4096
 # 500,000 the phase took 130-160 s on the card and, with the native phase,
 # the whole script 588 s on a slower host; its populate, full image and
 # whole-store reads grow with the keys, and so do the cold phase's
-# evictions and export on the same directory)
-DU_SET_KEYS, DU_CTR_KEYS, DU_GROUP = 300_000, 100_000, 4096
-DU_ROUNDS, DU_TAIL_ROUNDS, DU_LADDER_LONG = 32, 16, 1500
+# evictions and export on the same directory); 15% (150,000) since the
+# interdc phase came: at 300,000 the durable phase took 121.6 s (its
+# populate 47.4 s) and the cold phase 108.5 s, the whole script 700 s;
+# the delta rounds 32 -> 16 when the script took 579 s on a slower host
+DU_SET_KEYS, DU_CTR_KEYS, DU_GROUP = 150_000, 100_000, 4096
+DU_ROUNDS, DU_TAIL_ROUNDS, DU_LADDER_LONG = 16, 16, 1500
 # the cold phase, on the durable phase's directory: the resident budget
 # (about the rows the delta link and the WAL tail wrote, which cannot go
 # cold; a quarter of the 600,000 rows before the native phase's cut, now
-# 150,000 of 400,000), Zipf read batches (10, half of earlier
-# runs' 20: cut with the wire phase's arrival for the 600 s budget), the
-# faulted-in keys of
+# 150,000 of 250,000), Zipf read batches (3: 20 in earlier runs, 10 after
+# the wire phase's arrival, 3 after the interdc phase's, ~1.6 s each on a
+# slower host), the faulted-in keys of
 # the write rounds, the rate cap's fault-ins a second and its burst, the
 # sample of keys checked after the second recovery, the budget the delta
 # link's evictions go down to, the shard moved by handoff and the
 # reshard's shard count
-CO_RESIDENT, CO_BATCHES, CO_ROUND_KEYS = 150_000, 10, 2048
+CO_RESIDENT, CO_BATCHES, CO_ROUND_KEYS = 150_000, 3, 2048
 CO_CAP, CO_BURST, CO_SAMPLE, CO_EVICT_TO = 10.0, 256, 2048, 100_000
 CO_SHARD, CO_NEW_SHARDS = 3, 16
 # the wire phase: bench_wire.py's set_aw_zipf_north_star (config 3) at its
@@ -242,6 +275,22 @@ WI_BURST = 32
 # soundness check's increments, and the router's string keys and batch
 NA_SOUND_ROUNDS = 8
 NA_ROUTER_KEYS, NA_ROUTER_BATCH = 1_000_000, 16_384
+# the interdc phase: three single-node DCs at BASELINE's widths (the size
+# of the multi-DC suites, tests/test_interdc.py), populated with half of
+# bench_wire.py config 3's 200,000 keys (at 200,000 the populate alone took
+# 128.9 s on the card's host, 4,811 records/s: three DCs share one
+# interpreter; 100,000 is the phase's floor) through DC0's manager in
+# transactions of IX_TXN_KEYS keys and commit groups of IX_GROUP (16,384
+# keys a group); the geo load's workers a DC, untimed round and window; the
+# GentleRain pair's keys and counters; bench_wire.py's FLASH_SALE (SKUs,
+# inventory across both lanes, shoppers a DC, storm seconds, mint batch).
+# The storm is cut to 5 s; a grant that must arrive is checked apart from
+# it, on a SKU whose rights lie on one lane only
+IX_KEYS, IX_TXN_KEYS, IX_GROUP = 100_000, 256, 64
+IX_THREADS, IX_WARM_S, IX_WINDOW_S = 8, 2.0, 10.0
+IX_GR_KEYS, IX_GR_CTRS = 16_384, 1024
+FS_SKUS, FS_INVENTORY, FS_SHOPPERS, FS_STORM_S, FS_MINT_BATCH = (
+    10_000, 50, 8, 5.0, 200)
 # the kernels each path must launch: the serve resolves sets (presence)
 # and folds the historical batches; the node session folds a set and a
 # counter at older snapshots; every cluster transaction start merges the
@@ -257,7 +306,10 @@ NA_ROUTER_KEYS, NA_ROUTER_BATCH = 1_000_000, 16_384
 # launch an epoch-read chunk), and its interactive session reads sets and
 # counters at a snapshot older than other clients' writes (the folds); the
 # native plane's drained reads that miss the mirror and the snapshot cache
-# ride the same epoch-read chunks, and its session folds as the wire's does
+# ride the same epoch-read chunks, and its session folds as the wire's does;
+# the interdc phase's servers resolve sets the same way, and its GentleRain
+# reads at the GST fold the rings of the rows written past it (sets and
+# counters)
 PATH_KERNELS = {"serve": ("orset_presence", "set_aw_fold"),
                 "node": ("counter_fold", "set_aw_fold"),
                 "serving": ("orset_presence", "set_aw_fold"),
@@ -267,7 +319,9 @@ PATH_KERNELS = {"serve": ("orset_presence", "set_aw_fold"),
                             "counter_fold"),
                 "cold": ("orset_presence", "set_aw_fold", "counter_fold"),
                 "wire": ("orset_presence", "set_aw_fold", "counter_fold"),
-                "native": ("orset_presence", "set_aw_fold", "counter_fold")}
+                "native": ("orset_presence", "set_aw_fold", "counter_fold"),
+                "interdc": ("orset_presence", "set_aw_fold",
+                            "counter_fold")}
 
 
 def log(msg: str) -> None:
@@ -3662,14 +3716,16 @@ def _wire_load(torch, srv, status_c, n_keys, procs, threads, warm_s,
 
 
 def _wire_readback(c, model, acked, also, base_join, n_keys, sample,
-                   seed) -> tuple:
+                   seed, peers=()) -> tuple:
     """Read back over ``c``, at the join of ``base_join`` and the
     acknowledged clocks: every key ``acked`` updated, every key of
     ``also`` and ``sample`` others, each equal to the host ``model`` (a
     key with an acknowledged remove of an element that an add put back
-    may read either way: the remove's snapshot decides).  The model takes
-    the values read, so it is exact for a later phase.  Returns the
-    figures, the touched keys and the join."""
+    may read either way: the remove's snapshot decides).  Each client of
+    ``peers`` (other DCs) reads the same keys at the same clock and must
+    answer exactly what ``c`` did.  The model takes the values read, so it
+    is exact for a later phase.  Returns the figures, the touched keys and
+    the join."""
     join = np.asarray(base_join, np.int64).copy()
     by_key: dict = {}
     for k, op, elem, vc in acked:
@@ -3698,6 +3754,17 @@ def _wire_readback(c, model, acked, also, base_join, n_keys, sample,
         v, _ = c.read_objects([(int(k), "set_aw", "b")
                                for k in chk[lo:lo + 512]], clock=clock)
         got.extend(v)
+    for i, pc in enumerate(peers):
+        for lo in range(0, len(chk), 512):
+            v, _ = pc.read_objects([(int(k), "set_aw", "b")
+                                    for k in chk[lo:lo + 512]], clock=clock)
+            if v != got[lo:lo + 512]:
+                j = next(j for j, (a, b) in enumerate(zip(v, got[lo:]))
+                         if a != b)
+                raise AssertionError(
+                    f"peer {i + 1} reads key {chk[lo + j]} as "
+                    f"{sorted(v[j])[:8]} where the first DC reads "
+                    f"{sorted(got[lo + j])[:8]}")
     bad = [k for k, v in zip(chk, got)
            if set(v) not in (expect[k][0], expect[k][1])]
     if bad:
@@ -3710,7 +3777,8 @@ def _wire_readback(c, model, acked, also, base_join, n_keys, sample,
         model[k] = set(v)
     return ({"acked_updates": len(acked), "touched_keys": len(by_key),
              "also_keys": len(set(also) - set(by_key)),
-             "sampled_keys": len(pick), "racy_keys": racy},
+             "sampled_keys": len(pick), "racy_keys": racy,
+             "dcs": 1 + len(peers)},
             set(by_key), join)
 
 
@@ -3994,8 +4062,9 @@ def native_phase(torch, dev, keep, procs=WI_PROCS, threads=WI_THREADS,
 def _native_soundness(node, srv, AntidoteClient, ProtocolServer) -> dict:
     """Clockless counter reads through the native plane (a reader that
     never commits, beside a writer): after each of ``NA_SOUND_ROUNDS``
-    increments no read exceeds the committed total, and the reads converge
-    to it; then one whole-batch hit served by the C++ loop is byte-equal to
+    increments the writer's next clockless read on its own connection
+    returns at least the acknowledged total (read-your-writes), no read
+    exceeds the committed total, and the reads converge to it; then one whole-batch hit served by the C++ loop is byte-equal to
     the Python plane's reply at the same epoch id (a second server on the
     node, without the native plane)."""
     import socket
@@ -4013,6 +4082,12 @@ def _native_soundness(node, srv, AntidoteClient, ProtocolServer) -> dict:
     try:
         for total in range(1, NA_SOUND_ROUNDS + 1):
             w.update_objects([obj[0] + (("increment", 1),)])
+            v = w.read_objects(obj)[0][0]  # clockless, after the ack
+            reads += 1
+            if v < total:
+                raise AssertionError(f"read-your-writes: a clockless read "
+                                     f"after the acknowledged {total} gave "
+                                     f"{v}")
             deadline = time.monotonic() + 30
             while True:
                 v = r.read_objects(obj)[0][0]
@@ -4105,6 +4180,769 @@ def _native_router(router, n, batch) -> dict:
             "shard_min_max": [int(counts.min()), int(counts.max())]}
 
 
+# ---------------------------------------------------------------------------
+# inter-DC replication between single-node DCs
+# ---------------------------------------------------------------------------
+def _recv_exact(sock, n: int) -> bytes:
+    buf = b""
+    while len(buf) < n:
+        chunk = sock.recv(n - len(buf))
+        if not chunk:
+            raise ConnectionError("connection closed")
+        buf += chunk
+    return buf
+
+
+def _apb_call(host, port, name, payload) -> tuple:
+    """One request of the apb dialect on a fresh connection: (reply
+    message name, decoded reply)."""
+    import socket
+    import struct
+
+    from antidote_tpu_torch.proto import apb
+
+    body = apb.encode_frame_body(name, payload)
+    with socket.create_connection((host, port), timeout=60) as s:
+        s.sendall(struct.pack(">I", len(body)) + body)
+        frame = _recv_exact(s, struct.unpack(">I", _recv_exact(s, 4))[0])
+    rn = apb.CODE_TO_NAME[frame[0]]
+    return rn, apb.decode_msg(rn, frame[1:])
+
+
+def _ix_mesh(dev, cfg, n, meta=None, servers=True, log_root=None) -> list:
+    """``n`` single-node DCs on ``dev``, each an ``AntidoteNode`` (with a
+    WAL under ``log_root`` when given) with its own ``TcpFabric`` (the
+    native receive pump), ``DCReplica``, pump loop and escrow loop, and
+    (with ``servers``) a ``ProtocolServer(interdc=)`` with the serve
+    default's native front end.  Nothing is connected."""
+    from antidote_tpu_torch.api import AntidoteNode
+    from antidote_tpu_torch.interdc import DCReplica
+    from antidote_tpu_torch.interdc.tcp import TcpFabric
+    from antidote_tpu_torch.proto.server import ProtocolServer
+
+    dcs = []
+    for i in range(n):
+        node = AntidoteNode(
+            cfg, dc_id=i, device=dev, meta=None if meta is None else meta(),
+            log_dir=None if log_root is None
+            else os.path.join(log_root, f"dc{i}"))
+        fabric = TcpFabric()
+        rep = DCReplica(node, fabric, name=f"dc{i}")
+        loops = [fabric.start_pump_loop(f"interdc-pump-{i}"),
+                 rep.start_escrow_loop()]
+        srv = (ProtocolServer(node, port=0, interdc=rep,
+                              native_frontend=True) if servers else None)
+        dcs.append({"node": node, "fabric": fabric, "rep": rep,
+                    "srv": srv, "loops": loops})
+    return dcs
+
+
+def _ix_close(dcs) -> None:
+    for d in dcs:
+        for lp in d["loops"]:
+            lp.stop()
+        if d["srv"] is not None:
+            d["srv"].close()
+        d["fabric"].close()
+
+
+def _ix_bootstrap(dcs, clients) -> dict:
+    """The mesh through the wire only: each DC's descriptor fetched over
+    its socket, DC0-DC1 cross-connected in the msgpack dialect, DC2 with
+    the other two in the apb dialect (the descriptor an opaque blob)."""
+    descs = [c.get_connection_descriptor() for c in clients[:2]]
+    clients[0].connect_to_dcs([descs[1]])
+    clients[1].connect_to_dcs([descs[0]])
+    blobs = []
+    for d in dcs:
+        rn, r = _apb_call(d["srv"].host, d["srv"].port,
+                          "ApbGetConnectionDescriptor", {})
+        if rn != "ApbGetConnectionDescriptorResp" or not r["success"]:
+            raise AssertionError(f"apb descriptor: {rn} {r}")
+        blobs.append(r["descriptor"])
+    for i, j in ((2, 0), (2, 1), (0, 2), (1, 2)):
+        d = dcs[i]["srv"]
+        rn, r = _apb_call(d.host, d.port, "ApbConnectToDCs",
+                          {"descriptors": [blobs[j]]})
+        if rn != "ApbOperationResp" or not r["success"]:
+            raise AssertionError(f"apb connect dc{i} -> dc{j}: {r}")
+    return {"msgpack_pairs": [[0, 1]], "apb_pairs": [[0, 2], [1, 2]],
+            "addresses": [list(x["address"]) for x in descs]}
+
+
+def _ix_populate(dcs, n_keys, seed) -> tuple:
+    """``n_keys`` ``set_aw`` keys through DC0's manager (3 adds a key from
+    the ``SV_POOL`` values, removes of the first add's element on a tenth),
+    in transactions of ``IX_TXN_KEYS`` keys and commit groups of
+    ``IX_GROUP``; the peers' coverage of the final clock polled beside it.
+    Returns the figures and the host model."""
+    import threading
+
+    node = dcs[0]["node"]
+    rng = np.random.default_rng(seed)
+    vals = rng.integers(0, SV_POOL, (n_keys, ADDS_PER_KEY))
+    model = [set(r) for r in vals.tolist()]
+    rm = rng.choice(n_keys, n_keys // 10, replace=False)
+    target = [None]
+    covered = {}
+    t0 = time.perf_counter()
+
+    def watch():
+        while len(covered) < len(dcs) - 1:
+            for i, d in enumerate(dcs[1:], 1):
+                if (i not in covered and target[0] is not None
+                        and int(d["node"].store.stable_vc()[0])
+                        >= target[0]):
+                    covered[i] = time.perf_counter() - t0
+            if time.perf_counter() - t0 > 900:
+                return
+            time.sleep(0.01)
+
+    wt = threading.Thread(target=watch, name="ix-coverage")
+    wt.start()
+    records = 0
+    try:
+        for r in range(ADDS_PER_KEY):
+            order = rng.permutation(n_keys)
+            txns = [[(int(k), "set_aw", "b", ("add", int(vals[k, r])))
+                     for k in order[lo:lo + IX_TXN_KEYS].tolist()]
+                    for lo in range(0, n_keys, IX_TXN_KEYS)]
+            for g in range(0, len(txns), IX_GROUP):
+                _commit_group(node, txns[g:g + IX_GROUP])
+            records += n_keys
+        txns = [[(int(k), "set_aw", "b", ("remove", int(vals[k, 0])))
+                 for k in rm[lo:lo + IX_TXN_KEYS].tolist()]
+                for lo in range(0, len(rm), IX_TXN_KEYS)]
+        for g in range(0, len(txns), IX_GROUP):
+            _commit_group(node, txns[g:g + IX_GROUP])
+        records += len(rm)
+        origin_s = time.perf_counter() - t0
+        target[0] = int(node.txm.commit_counter)
+        wt.join(900)
+    finally:
+        target[0] = target[0] if target[0] is not None else 1 << 30
+        wt.join(60)
+    if len(covered) < len(dcs) - 1:
+        raise AssertionError(f"peers never covered the populate: "
+                             f"{covered}")
+    for k in rm.tolist():
+        model[k].discard(int(vals[k, 0]))
+    return ({"keys": n_keys, "records": records,
+             "txns": -(-n_keys // IX_TXN_KEYS) * ADDS_PER_KEY
+             + -(-len(rm) // IX_TXN_KEYS),
+             "origin_s": origin_s, "origin_records_s": records / origin_s,
+             "final_clock": target[0],
+             "peer_covered_s": {f"dc{i}": s for i, s in covered.items()},
+             "peer_effects_s": {f"dc{i}": records / s
+                                for i, s in covered.items()}}, model)
+
+
+def _ix_load(torch, dcs, n_keys, threads, warm_s, window_s) -> tuple:
+    """The geo load: one client process of ``threads`` workers a DC
+    (``--wire-worker``: 90% reads, Zipf(1.0), 80% of updates adds of a
+    random 30-bit int, 20% removes), all three at once, for an untimed
+    round and a timed window; beside the window, one probe thread for each
+    ordered pair of DCs writes at the first and reads at the second with
+    the returned clock, timed until answered (the visibility lag: its
+    count, median and largest; a window holds too few probes for a tail
+    percentile); then (on a card) the card's busy share
+    over 2 s of the same load."""
+    import threading
+
+    from antidote_tpu_torch.proto.client import AntidoteClient
+
+    on_card = dcs[0]["node"].store.device.type == "cuda"
+    tail = WI_TAIL_S if on_card else 0.0
+    env = dict(os.environ)
+    env["PYTHONPATH"] = (os.path.dirname(os.path.abspath(__file__))
+                         + os.pathsep + env.get("PYTHONPATH", ""))
+    children = []
+    lag_ms, lag_err = [], []
+    stop = threading.Event()
+
+    def prober(i, j):
+        try:
+            src = AntidoteClient(dcs[i]["srv"].host, dcs[i]["srv"].port,
+                                 timeout=120)
+            dst = AntidoteClient(dcs[j]["srv"].host, dcs[j]["srv"].port,
+                                 timeout=120)
+            n = 0
+            while not stop.is_set():
+                key = ("ixlag", i, j, n % 16)
+                vc = src.update_objects([(key, "counter_pn", "b",
+                                          ("increment", 1))])
+                t = time.perf_counter()
+                dst.read_objects([(key, "counter_pn", "b")], clock=vc)
+                lag_ms.append((time.perf_counter() - t) * 1e3)
+                n += 1
+            src.close()
+            dst.close()
+        except Exception as e:  # noqa: BLE001 — fatal, raised below
+            lag_err.append(e)
+
+    def counters():
+        return [(dict(d["node"].metrics.serving_reads.snapshot()),
+                 dict(d["node"].store.replay_fold_dispatches)) for d in dcs]
+
+    try:
+        for p, d in enumerate(dcs):
+            children.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--wire-worker",
+                 d["srv"].host, str(d["srv"].port), str(n_keys),
+                 str(threads), str(5000 + 1000 * p), str(warm_s),
+                 str(window_s), str(tail), str(WI_READ_FRAC)],
+                env=env, stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+                stderr=subprocess.DEVNULL, text=True))
+        warm = [_read_line(c, 600) for c in children]
+        if any(w["errs"] for w in warm):
+            raise AssertionError(f"geo warm round errors: {warm}")
+        pre = counters()
+        for c in children:
+            c.stdin.write("go\n")
+            c.stdin.flush()
+        probers = [threading.Thread(target=prober, args=(i, j),
+                                    name=f"ix-lag-{i}-{j}")
+                   for i in range(len(dcs)) for j in range(len(dcs))
+                   if i != j]
+        for pt in probers:
+            pt.start()
+        time.sleep(window_s)
+        stop.set()
+        for pt in probers:
+            pt.join(120)
+        busy: dict = {}
+        if on_card:
+            busy = _busy_window(torch, tail - 0.5)
+        res = [_read_line(c, window_s + 300) for c in children]
+        post = counters()
+    finally:
+        stop.set()
+        for c in children:
+            if c.poll() is None:
+                c.kill()
+            c.wait(30)
+    if lag_err:
+        raise lag_err[0]
+    if any(r["errs"] or r["alive"] for r in res):
+        raise AssertionError(f"geo load errors: "
+                             f"{[r['errs'][:3] for r in res]}")
+    per_dc = {f"dc{i}": {
+        "ops_s": r["ops"] / window_s, "read_ms": _stats(r["lat_read_ms"]),
+        "update_ms": _stats(r["lat_update_ms"]),
+        # server-side reads by path (window and tail) and the log-replay
+        # folds of reads below the device's retained versions
+        "reads": {"/".join(k): v - pre[i][0].get(k, 0)
+                  for k, v in post[i][0].items() if v - pre[i][0].get(k, 0)},
+        "replay_folds": {k: v - pre[i][1].get(k, 0)
+                         for k, v in post[i][1].items()
+                         if v - pre[i][1].get(k, 0)}}
+        for i, r in enumerate(res)}
+    load = {"threads_per_dc": threads, "warm_s": warm_s,
+            "window_s": window_s,
+            "ops_s": sum(r["ops"] for r in res) / window_s,
+            "per_dc": per_dc,
+            "visibility_lag_ms": {
+                "n": len(lag_ms),
+                "median": float(np.median(lag_ms)) if lag_ms else None,
+                "max": max(lag_ms, default=None)}}
+    acked = [a for r in res for a in r["acked"]]
+    return load, busy, acked
+
+
+def _ix_converged(dcs, join, timeout=120.0) -> float:
+    """Seconds until every DC's stable snapshot covers ``join`` (the
+    heartbeats have passed)."""
+    t0 = time.perf_counter()
+    join = np.asarray(join, np.int64)
+    while True:
+        if all((d["node"].store.stable_vc().astype(np.int64) >= join).all()
+               for d in dcs):
+            return time.perf_counter() - t0
+        if time.perf_counter() - t0 > timeout:
+            raise AssertionError(
+                f"stable snapshots {[d['node'].store.stable_vc().tolist() for d in dcs]} "
+                f"never covered {join.tolist()}")
+        time.sleep(0.01)
+
+
+def _ix_causal_and_counters(dcs, clients) -> dict:
+    """A causal chain across the three DCs (DC0 writes x; DC1 reads x at
+    x's clock and writes y; DC2 reads y at y's clock and sees x), and
+    concurrent ``counter_pn`` increments at all three DCs summing exactly
+    at every DC."""
+    import threading
+
+    c0, c1, c2 = clients
+    vx = c0.update_objects([("ix_x", "set_aw", "b", ("add", 7))])
+    v, vr = c1.read_objects([("ix_x", "set_aw", "b")], clock=vx)
+    if v != [[7]]:
+        raise AssertionError(f"DC1 read x as {v} at x's clock")
+    vy = c1.update_objects([("ix_y", "set_aw", "b", ("add", 8))], clock=vr)
+    v, _ = c2.read_objects([("ix_y", "set_aw", "b"),
+                            ("ix_x", "set_aw", "b")], clock=vy)
+    if v != [[8], [7]]:
+        raise AssertionError(f"DC2 at y's clock read (y, x) as {v}")
+    per, errs, clocks = 40, [], []
+
+    def bump(i):
+        try:
+            for n in range(per):
+                clocks.append(clients[i].update_objects(
+                    [("ix_ctr", "counter_pn", "b", ("increment", i + 1))]))
+        except Exception as e:  # noqa: BLE001 — fatal, raised below
+            errs.append(e)
+
+    ts = [threading.Thread(target=bump, args=(i,)) for i in range(3)]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(300)
+    if errs:
+        raise errs[0]
+    join = np.max(np.asarray(clocks, np.int64), axis=0)
+    got = [c.read_objects([("ix_ctr", "counter_pn", "b")],
+                          clock=[int(x) for x in join])[0][0]
+           for c in clients]
+    want = per * (1 + 2 + 3)
+    if got != [want] * 3:
+        raise AssertionError(f"concurrent increments read {got}, want "
+                             f"{want} at every DC")
+    return {"causal_chain": True, "counter_sum": want,
+            "counter_increments": 3 * per}
+
+
+def _ix_drop_repaired(dcs, clients) -> dict:
+    """One injected ``interdc.deliver`` drop on the DC0 -> DC2
+    subscription, repaired by catch-up: DC2 reads the write at its clock
+    and its catch-up queries grew.  A dropped frame that was a heartbeat
+    leaves no gap; the attempt then repeats (up to 8 times)."""
+    from antidote_tpu_torch import faults
+
+    rep2 = dcs[2]["rep"]
+    for attempt in range(1, 9):
+        before = rep2.catchups
+        inj = faults.install(faults.FaultPlan(seed=attempt).drop(
+            "interdc.deliver", key=(0, 2), times=1))
+        try:
+            vc = clients[0].update_objects(
+                [("ix_drop", "counter_pn", "b", ("increment", 1))])
+            v, _ = clients[2].read_objects([("ix_drop", "counter_pn", "b")],
+                                           clock=vc)
+            fired = sum(r.fired for r in inj.plan.rules)
+        finally:
+            faults.uninstall()
+        if v != [attempt]:
+            raise AssertionError(f"DC2 read {v} after the drop, want "
+                                 f"[{attempt}]")
+        if fired and rep2.catchups > before:
+            return {"attempts": attempt, "catchups": rep2.catchups - before}
+    raise AssertionError("no dropped transaction was repaired by catch-up "
+                         "in 8 attempts")
+
+
+def _gst_snapshot(node) -> np.ndarray:
+    """The snapshot a transaction started now would read at."""
+    txn = node.start_transaction()
+    node.abort_transaction(txn)
+    return txn.snapshot_vc
+
+
+def _ix_gentlerain(torch, dev, n_keys, n_ctrs) -> dict:
+    """Two DCs with ``txn_prot=gr`` (their own mesh: GentleRain's scalar
+    GST is the minimum over every lane, so lanes no DC feeds would pin it
+    at 0).  G0 writes every key twice, in two rounds of transactions; at
+    G1, whose own lane has not moved, the GST stays at 0 and none of it
+    shows; G1 then commits until its lane (the GST) sits between the
+    rounds, and reads at the GST fold the ring (``set_aw_fold``,
+    ``counter_fold``) to exactly the first round plus the second round's
+    transactions at or below the GST; G1's heartbeats then lift G0's GST
+    to the same point, and once G1's lane passes the rounds every value is
+    whole at both DCs."""
+    from antidote_tpu_torch.config import AntidoteConfig
+    from antidote_tpu_torch.meta import MetaDataStore
+
+    def gr_meta():
+        m = MetaDataStore()
+        m.set_env("txn_prot", "gr")
+        return m
+
+    cfg = AntidoteConfig(n_shards=8, max_dcs=2, ops_per_key=K,
+                         snap_versions=2, set_slots=E,
+                         keys_per_table=max(1024, n_keys // 8))
+    dcs = _ix_mesh(dev, cfg, 2, meta=gr_meta, servers=False)
+    t0 = time.perf_counter()
+    try:
+        from antidote_tpu_torch.interdc import DCReplica
+
+        reps = [d["rep"] for d in dcs]
+        type(dcs[0]["fabric"]).interconnect([d["fabric"] for d in dcs])
+        DCReplica.connect_all(reps)
+        g0, g1 = dcs[0]["node"], dcs[1]["node"]
+        if g1.txm.protocol != "gr":
+            raise AssertionError("the GentleRain DC runs "
+                                 f"{g1.txm.protocol}")
+        per_txn = 1024
+        rounds = []  # per key and round: the G0 counter of its commit
+        stamp = np.zeros((2, n_keys), np.int64)
+        cstamp = np.zeros((2, n_ctrs), np.int64)
+        for r in range(2):
+            for lo in range(0, n_keys, per_txn):
+                ks = range(lo, min(lo + per_txn, n_keys))
+                cs = [c for c in range(n_ctrs)
+                      if lo * n_ctrs // n_keys <= c
+                      < min(lo + per_txn, n_keys) * n_ctrs // n_keys]
+                ups = ([(("g", k), "set_aw", "b", ("add", r)) for k in ks]
+                       + [(("gc", c), "counter_pn", "b",
+                           ("increment", r + 1)) for c in cs])
+                vc = g0.update_objects(ups)
+                stamp[r, lo:lo + len(ks)] = int(vc[0])
+                cstamp[r, cs] = int(vc[0])
+            rounds.append(int(g0.txm.commit_counter))
+        objs = ([(("g", k), "set_aw", "b") for k in range(n_keys)]
+                + [(("gc", c), "counter_pn", "b") for c in range(n_ctrs)])
+        deadline = time.perf_counter() + 300
+        while int(g1.store.dc_max_vc()[0]) < rounds[1]:
+            if time.perf_counter() > deadline:
+                raise AssertionError("G1 never applied G0's writes")
+            time.sleep(0.01)
+        # G1's own lane is 0: its GST is 0 and nothing of G0 shows
+        lagged = _read_all(g1, objs[:256] + objs[n_keys:n_keys + 64])
+        if any(lagged[i] for i in range(len(lagged))):
+            raise AssertionError("a GentleRain read at GST 0 saw G0's "
+                                 "writes")
+        gst = (rounds[0] + rounds[1]) // 2
+        n = 0
+        while g1.txm.commit_counter < gst:
+            g1.update_objects([(("g1own", n), "counter_pn", "b",
+                                ("increment", 1))])
+            n += 1
+        snap = _gst_snapshot(g1)
+        if int(snap[0]) != gst:
+            raise AssertionError(f"G1's GST snapshot {snap.tolist()}, "
+                                 f"want lane 0 at {gst}")
+
+        def want_at(g):
+            w = [sorted(r for r in range(2) if stamp[r, k] <= g)
+                 for k in range(n_keys)]
+            return w + [sum(r + 1 for r in range(2) if cstamp[r, c] <= g)
+                        for c in range(n_ctrs)]
+
+        def norm(vals):
+            return [sorted(v) if isinstance(v, list) else v for v in vals]
+
+        t_r = time.perf_counter()
+        got = norm(_read_all(g1, objs))
+        read_s = time.perf_counter() - t_r
+        if got != want_at(gst):
+            bad = next(i for i, (a, b) in enumerate(zip(got, want_at(gst)))
+                       if a != b)
+            raise AssertionError(f"G1 at GST {gst} reads {objs[bad]} as "
+                                 f"{got[bad]}, want {want_at(gst)[bad]}")
+        # G1's heartbeats lift G0's GST (min of G0's lane and lane 1)
+        deadline = time.perf_counter() + 60
+        while int(_gst_snapshot(g0)[1]) < gst:
+            if time.perf_counter() > deadline:
+                raise AssertionError("G1's heartbeats never lifted G0's "
+                                     "GST")
+            time.sleep(0.01)
+        while g1.txm.commit_counter < rounds[1]:
+            g1.update_objects([(("g1own", n), "counter_pn", "b",
+                                ("increment", 1))])
+            n += 1
+        full = want_at(rounds[1])
+        if norm(_read_all(g1, objs)) != full:
+            raise AssertionError("G1's reads past both rounds are not "
+                                 "whole")
+        return {"keys": n_keys, "counters": n_ctrs, "g0_txns": rounds[1],
+                "rounds_end": rounds, "gst": gst, "g1_commits": n,
+                "stale_keys": int((stamp[1] > gst).sum()
+                                  + (cstamp[1] > gst).sum()),
+                "gst_read_s": read_s,
+                "seconds": time.perf_counter() - t0}
+    finally:
+        _ix_close(dcs)
+
+
+def flash_worker(argv) -> int:
+    """One shopper process of the flash sale against ONE DC: ``threads``
+    closed loops of single-unit ``counter_b`` decrements on lane ``lane``
+    over Zipf(1.0) SKUs for ``duration`` seconds; a typed
+    ``insufficient_rights`` refusal moves on (restocking is the escrow
+    loop's job).  Prints the counts and the acknowledged units a SKU as
+    one JSON line."""
+    import threading
+
+    from antidote_tpu_torch.proto.client import (AntidoteClient,
+                                                 RemoteAbort, RemoteBusy,
+                                                 RemoteInsufficientRights)
+
+    host, port, skus, threads, lane, seed, duration = argv
+    port, skus, threads, lane, seed = (int(port), int(skus), int(threads),
+                                       int(lane), int(seed))
+    cdf = _zipf_cdf(skus)
+    stop = time.perf_counter() + float(duration)
+    acked = [0] * threads
+    refused = [0] * threads
+    busy = [0] * threads
+    aborts = [0] * threads
+    per_sku: list = [{} for _ in range(threads)]
+    errs = []
+
+    def worker(i):
+        rng = np.random.default_rng(seed + i)
+        try:
+            c = AntidoteClient(host, port, timeout=60)
+            while time.perf_counter() < stop:
+                r = int(np.searchsorted(cdf, rng.random()))
+                try:
+                    c.update_objects([(f"fs{r}", "counter_b", "b",
+                                       ("decrement", (1, lane)))])
+                except RemoteInsufficientRights:
+                    refused[i] += 1
+                    continue
+                except RemoteBusy as e:
+                    busy[i] += 1
+                    time.sleep(min(e.retry_after_ms, 50.0) / 1e3)
+                    continue
+                except RemoteAbort:
+                    aborts[i] += 1
+                    continue
+                acked[i] += 1
+                per_sku[i][r] = per_sku[i].get(r, 0) + 1
+            c.close()
+        except Exception as e:  # noqa: BLE001 — reported, fatal upstream
+            errs.append(repr(e))
+
+    ts = [threading.Thread(target=worker, args=(i,)) for i in range(threads)]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(float(duration) + 120)
+    tot: dict = {}
+    for d in per_sku:
+        for r, k in d.items():
+            tot[str(r)] = tot.get(str(r), 0) + k
+    print(json.dumps({"acked": sum(acked), "refused": sum(refused),
+                      "busy": sum(busy), "aborts": sum(aborts),
+                      "per_sku": tot, "errs": errs,
+                      "alive": sum(t.is_alive() for t in ts)}), flush=True)
+    return 0
+
+
+def _ix_flash_sale(dcs, clients, skus, inventory, shoppers, storm_s) -> dict:
+    """``bench_wire.py``'s flash sale (``FLASH_SALE``) on DC0 and DC1 with
+    their escrow loops running: each DC mints half of every SKU's
+    inventory on its own lane, then ``shoppers`` shopper threads a DC (one
+    client process each) decrement their own lane for ``storm_s`` seconds.
+    Checks: no SKU acknowledged past its inventory; every SKU converges to
+    inventory - acknowledged at both DCs.  The storm's refusals, transfer
+    requests and grants are figures: both lanes drain the hot SKUs
+    together, so most asks find no rights left.  Then ``_ix_one_grant``
+    checks a typed refusal, a request and a grant that must arrive."""
+    half = inventory // 2
+    t0 = time.perf_counter()
+    for dc in (0, 1):
+        for lo in range(0, skus, FS_MINT_BATCH):
+            clients[dc].update_objects([
+                (f"fs{r}", "counter_b", "b", ("increment", (half, dc)))
+                for r in range(lo, min(lo + FS_MINT_BATCH, skus))])
+    mint_s = time.perf_counter() - t0
+    env = dict(os.environ)
+    env["PYTHONPATH"] = (os.path.dirname(os.path.abspath(__file__))
+                         + os.pathsep + env.get("PYTHONPATH", ""))
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--flash-worker",
+         dcs[dc]["srv"].host, str(dcs[dc]["srv"].port), str(skus),
+         str(shoppers), str(dc), str(3000 + 111 * dc), str(storm_s)],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.DEVNULL,
+        text=True) for dc in (0, 1)]
+    res = []
+    try:
+        for p in procs:
+            res.append(_read_line(p, storm_s + 300))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait(30)
+    if any(r["errs"] or r["alive"] for r in res):
+        raise AssertionError(f"shopper errors: {[r['errs'][:3] for r in res]}")
+    per_sku: dict = {}
+    for r in res:
+        for k, n in r["per_sku"].items():
+            per_sku[int(k)] = per_sku.get(int(k), 0) + n
+    over = {k: n for k, n in per_sku.items() if n > 2 * half}
+    if over:
+        raise AssertionError(f"OVERSELL: {sorted(over.items())[:5]}")
+    # every SKU converges to inventory - acked at both DCs
+    t_a = time.perf_counter()
+    expect = [2 * half - per_sku.get(r, 0) for r in range(skus)]
+    objs = [(f"fs{r}", "counter_b", "b") for r in range(skus)]
+    while True:
+        got = [[v for lo in range(0, skus, 2048)
+                for v in c.read_objects(objs[lo:lo + 2048])[0]]
+               for c in clients[:2]]
+        if got[0] == expect and got[1] == expect:
+            break
+        if time.perf_counter() - t_a > 120:
+            dc = 0 if got[0] != expect else 1
+            r = next(i for i, (a, b) in enumerate(zip(got[dc], expect))
+                     if a != b)
+            raise AssertionError(f"flash sale: dc{dc} reads sku {r} as "
+                                 f"{got[dc][r]}, want {expect[r]}")
+        time.sleep(0.1)
+    esc = [c.node_status()["escrow"] for c in clients[:2]]
+    grants: dict = {}
+    for e in esc:
+        for role, v in e["grants"].items():
+            grants[role] = grants.get(role, 0) + v
+    sent = sum(e["requests_sent_total"] for e in esc)
+    refused = sum(r["refused"] for r in res)
+    acked = sum(r["acked"] for r in res)
+    return {"skus": skus, "inventory": 2 * half, "shoppers_per_dc": shoppers,
+            "storm_s": storm_s, "mint_s": mint_s, "acked": acked,
+            "acked_s": acked / storm_s, "refused": refused,
+            "busy": sum(r["busy"] for r in res),
+            "aborts": sum(r["aborts"] for r in res),
+            "skus_drained": sum(1 for n in per_sku.values()
+                                if n >= 2 * half),
+            "oversold_skus": 0, "converge_s": time.perf_counter() - t_a,
+            "transfer": {"requests_sent": sent, "grants": grants},
+            "one_grant": _ix_one_grant(clients)}
+
+
+def _ix_one_grant(clients, timeout=60.0) -> dict:
+    """A grant that must arrive: DC0 mints 10 units of a fresh SKU on its
+    own lane; DC1 reads them at DC0's clock but holds no rights, so its
+    decrement of 4 is refused typed and queued; DC1's escrow loop asks DC0,
+    whose grant commits and replicates back, and DC1's retried decrement is
+    acknowledged.  Both DCs then read 6 at its clock."""
+    from antidote_tpu_torch.proto.client import RemoteInsufficientRights
+
+    obj = ("fs-grant", "counter_b", "b")
+    before = clients[1].node_status()["escrow"]
+    vc = clients[0].update_objects([(*obj, ("increment", (10, 0)))])
+    vals, vc = clients[1].read_objects([obj], clock=vc)
+    if vals != [10]:
+        raise AssertionError(f"one grant: dc1 reads {vals}, want [10]")
+    t0 = time.perf_counter()
+    refused = 0
+    while True:
+        try:
+            vc = clients[1].update_objects(
+                [(*obj, ("decrement", (4, 1)))], clock=vc)
+            break
+        except RemoteInsufficientRights:
+            refused += 1
+        if time.perf_counter() - t0 > timeout:
+            raise AssertionError(f"one grant: no rights reached dc1 in "
+                                 f"{timeout} s ({refused} refusals)")
+        time.sleep(0.05)
+    grant_s = time.perf_counter() - t0
+    if not refused:
+        raise AssertionError("one grant: dc1 decremented rights it never "
+                             "held (no typed insufficient_rights refusal)")
+    for i, c in enumerate(clients[:2]):
+        vals, _ = c.read_objects([obj], clock=vc)
+        if vals != [6]:
+            raise AssertionError(f"one grant: dc{i} reads {vals}, want [6]")
+    after = clients[1].node_status()["escrow"]
+    sent = after["requests_sent_total"] - before["requests_sent_total"]
+    got = (after["grants"].get("requester", 0)
+           - before["grants"].get("requester", 0))
+    if sent <= 0 or got <= 0:
+        raise AssertionError(f"one grant: {sent} requests, {got} grants "
+                             f"at dc1: {after}")
+    return {"refusals": refused, "requests_sent": sent, "grants": got,
+            "grant_s": grant_s}
+
+
+def interdc_phase(torch, dev, n_keys=IX_KEYS, threads=IX_THREADS,
+                  warm_s=IX_WARM_S, window_s=IX_WINDOW_S, sample=WI_SAMPLE,
+                  gr_keys=IX_GR_KEYS, gr_ctrs=IX_GR_CTRS, skus=FS_SKUS,
+                  inventory=FS_INVENTORY, shoppers=FS_SHOPPERS,
+                  storm_s=FS_STORM_S) -> dict:
+    """Inter-DC replication between three single-node DCs on the card,
+    at BASELINE's widths: each an ``AntidoteNode`` with its own
+    ``TcpFabric`` (the native receive pump) and its own
+    ``ProtocolServer(interdc=...)``, bootstrapped into a mesh over the
+    wire in both dialects.  ``n_keys`` ``set_aw`` keys populated through
+    DC0's manager replicate to the peers over the sockets; the geo load
+    (``bench_wire.py`` config 3's mix at all three DCs at once, with the
+    visibility lag of probe writes); after the heartbeats converge, every
+    acknowledged write and ``sample`` other keys equal at all three DCs
+    and to a host model, a causal chain across the three, concurrent
+    counters summing exactly, an injected drop repaired by catch-up; then
+    GentleRain on a pair of its own and the flash sale on DC0 and DC1."""
+    import shutil
+    import tempfile
+
+    from antidote_tpu_torch.config import AntidoteConfig
+    from antidote_tpu_torch.obs.metrics import net_metrics
+    from antidote_tpu_torch.proto.client import AntidoteClient
+
+    cfg = AntidoteConfig(n_shards=8, max_dcs=D, ops_per_key=K,
+                         snap_versions=2, set_slots=E,
+                         keys_per_table=max(1024, n_keys // 8))
+    # each DC logs, as a deployed replica does: a read at the stable
+    # snapshot of a key that remote and local writes keep folding (the
+    # Zipf head) can fall below the device's retained versions, and only
+    # the log serves it (without one the store raises, in both packages)
+    log_root = tempfile.mkdtemp(prefix="antidote_interdc_")
+    out: dict = {"dcs": 3, "config": "n_shards=8, max_dcs=4, ops_per_key=16, "
+                 "snap_versions=2, set_slots=16"}
+    nm = net_metrics()
+    shed0 = nm.ingress_shed.value()
+    rec0 = sum(nm.reconnects.snapshot().values())
+    t0 = time.perf_counter()
+    dcs = _ix_mesh(dev, cfg, 3, log_root=log_root)
+    clients = []
+    try:
+        clients = [AntidoteClient(d["srv"].host, d["srv"].port, timeout=120)
+                   for d in dcs]
+        out["bootstrap"] = _ix_bootstrap(dcs, clients)
+        out["setup_s"] = time.perf_counter() - t0
+        # ---- 1. the populate through DC0's manager ---------------------
+        out["populate"], model = _ix_populate(dcs, n_keys, 137)
+        log(f"interdc: populate {json.dumps(out['populate'])}")
+        # ---- 2. the geo load -------------------------------------------
+        out["load"], out["busy"], acked = _ix_load(
+            torch, dcs, n_keys, threads, warm_s, window_s)
+        log(f"interdc: load {json.dumps(out['load'])}")
+        # ---- 3. converged: equal at every DC and to the host model -----
+        join = np.zeros(D, np.int64)
+        for a in acked:
+            join = np.maximum(join, np.asarray(a[3], np.int64))
+        out["converge_s"] = _ix_converged(dcs, join)
+        out["check"], _t, _j = _wire_readback(
+            clients[0], model, acked, (), np.zeros(D, np.int64), n_keys,
+            sample, 139, peers=clients[1:])
+        out["causal"] = _ix_causal_and_counters(dcs, clients)
+        out["drop"] = _ix_drop_repaired(dcs, clients)
+        stats = [d["fabric"].native_stats() for d in dcs]
+        if any(s is None for s in stats):
+            raise AssertionError("a fabric runs without the native pump")
+        out["replication"] = {
+            "max_gate_depth": max(d["rep"].max_gate_depth for d in dcs),
+            "catchups": sum(d["rep"].catchups for d in dcs),
+            "ingress_shed": nm.ingress_shed.value() - shed0,
+            "reconnects": sum(nm.reconnects.snapshot().values()) - rec0,
+            "pump_frames_per_take": sum(s["frames"] for s in stats)
+            / max(1, sum(s["takes"] for s in stats))}
+        # ---- 4. the flash sale on DC0 and DC1 --------------------------
+        out["flash_sale"] = _ix_flash_sale(dcs, clients, skus, inventory,
+                                           shoppers, storm_s)
+        log(f"interdc: flash sale {json.dumps(out['flash_sale'])}")
+    finally:
+        for c in clients:
+            c.close()
+        _ix_close(dcs)
+        shutil.rmtree(log_root, ignore_errors=True)
+    # ---- 5. GentleRain on a pair of its own -----------------------------
+    out["gentlerain"] = _ix_gentlerain(torch, dev, gr_keys, gr_ctrs)
+    return out
+
+
 def count_resolves(fn):
     """``fn()`` with every ``SetAW.resolve`` call counted: (its result,
     the count)."""
@@ -4127,6 +4965,8 @@ def count_resolves(fn):
 def main() -> int:
     if sys.argv[1:2] == ["--wire-worker"]:
         return wire_worker(sys.argv[2:])
+    if sys.argv[1:2] == ["--flash-worker"]:
+        return flash_worker(sys.argv[2:])
     import torch
 
     if not torch.cuda.is_available():
@@ -4179,6 +5019,8 @@ def main() -> int:
         res = fn()
         res["launches"] = dict(ck.LAUNCHES)
         res["seconds"] = time.perf_counter() - t
+        log(f"phase done in {res['seconds']:.1f} s (script "
+            f"{time.perf_counter() - t_start:.1f} s)")
         return res
 
     resolves = [0]
@@ -4211,9 +5053,12 @@ def main() -> int:
     native = run_path(lambda: native_phase(torch, dev, wire_keep))
     wire_keep.clear()
     print(f"native: {json.dumps(native)} | card: {card}", flush=True)
+    interdc = run_path(lambda: interdc_phase(torch, dev))
+    print(f"interdc: {json.dumps(interdc)} | card: {card}", flush=True)
     paths = {"serve": serve, "node": node, "serving": serving,
              "cluster": cluster, "types": types, "durable": durable,
-             "cold": cold, "wire": wire, "native": native}
+             "cold": cold, "wire": wire, "native": native,
+             "interdc": interdc}
     for path, res in paths.items():
         log(f"{path}: {json.dumps(res)}")
         missing = [n for n in PATH_KERNELS[path] if res["launches"][n] == 0]

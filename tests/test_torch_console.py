@@ -211,8 +211,7 @@ def test_serve_subprocess_recovers_its_log_dir(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flag", ["--pallas", "--mesh-devices=2",
-                                  "--interdc", "--follower-of=h:1",
-                                  "--interdc-port=1"])
+                                  "--follower-of=h:1"])
 def test_serve_refuses_flags_without_a_port_meaning(flag, capsys):
     with pytest.raises(SystemExit) as ei:
         console.main(["serve", "--device", "cpu", flag])

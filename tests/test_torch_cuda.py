@@ -1034,3 +1034,151 @@ def test_native_hit_bytes_of_a_cuda_node_equal_a_cpu_node(dev):
         finally:
             srv.close()
     assert replies[0] == replies[1]
+
+
+def test_three_cuda_dcs_over_tcp_with_the_native_pump_converge(dev):
+    """Three single-node DCs on the card, each with its own TcpFabric (the
+    native receive pump) and pump loop: concurrent set adds and counter
+    increments at every DC, a causal read at another DC with the writer's
+    clock, and at the join of every clock all three read the same, equal
+    to the host model."""
+    from antidote_tpu_torch.interdc import DCReplica
+    from antidote_tpu_torch.interdc.tcp import TcpFabric
+
+    cfg = AntidoteConfig(n_shards=8, max_dcs=4, ops_per_key=16,
+                         snap_versions=2, set_slots=16, keys_per_table=256)
+    fabrics = [TcpFabric() for _ in range(3)]
+    loops = []
+    try:
+        nodes = [AntidoteNode(cfg, dc_id=i, device=dev) for i in range(3)]
+        reps = [DCReplica(n, f, f"dc{i}")
+                for i, (n, f) in enumerate(zip(nodes, fabrics))]
+        assert all(f._np is not None for f in fabrics)
+        TcpFabric.interconnect(fabrics)
+        DCReplica.connect_all(reps)
+        loops = [f.start_pump_loop() for f in fabrics]
+        model, clocks = {}, []
+        rng = np.random.default_rng(3)
+        for r in range(30):
+            i = r % 3
+            k = int(rng.integers(40))
+            clocks.append(nodes[i].update_objects([
+                (k, "set_aw", "b", ("add", r)),
+                ("c", "counter_pn", "b", ("increment", i + 1))]))
+            model.setdefault(k, set()).add(r)
+        vals, _ = nodes[2].read_objects([("c", "counter_pn", "b")],
+                                        clock=clocks[-2])
+        assert vals[0] >= sum(r % 3 + 1 for r in range(29))
+        join = np.max(np.stack(clocks), axis=0)
+        objs = [(k, "set_aw", "b") for k in sorted(model)] + [
+            ("c", "counter_pn", "b")]
+        want = [sorted(model[k]) for k in sorted(model)] + [
+            sum(r % 3 + 1 for r in range(30))]
+        for n in nodes:
+            got = n.read_objects(objs, clock=join)[0]
+            assert [sorted(v) if isinstance(v, list) else v
+                    for v in got] == want
+    finally:
+        for lp in loops:
+            lp.stop()
+        for f in fabrics:
+            f.close()
+
+
+def test_console_serve_interdc_pair_on_the_card(dev):
+    """Two ``console serve --interdc`` processes on the card (the default
+    device) bootstrapped through ``connect_to_dcs``: a write at one is read
+    at the other with its clock."""
+    import json
+    import os
+    import select
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    from antidote_tpu_torch.proto.client import AntidoteClient
+
+    root = Path(__file__).resolve().parent.parent
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(root) + os.pathsep + env.get("PYTHONPATH", "")
+    procs, infos, cs = [], [], []
+    try:
+        for i in range(2):
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "antidote_tpu_torch.console",
+                 "serve", "--port", "0", "--interdc", "--dc-id", str(i),
+                 "--shards", "4", "--max-dcs", "2"],
+                cwd=root, env=env, stdout=subprocess.PIPE,
+                stderr=subprocess.DEVNULL, text=True))
+        for p in procs:
+            ready, _, _ = select.select([p.stdout], [], [], 900)
+            assert ready, "serve printed no ready line"
+            infos.append(json.loads(p.stdout.readline()))
+        assert all(i["escrow"]["loop"] for i in infos)
+        cs = [AntidoteClient("127.0.0.1", i["port"], timeout=120)
+              for i in infos]
+        d = [c.get_connection_descriptor() for c in cs]
+        cs[0].connect_to_dcs([d[1]])
+        cs[1].connect_to_dcs([d[0]])
+        vc = cs[0].update_objects([("k", "set_aw", "b", ("add", "x")),
+                                   ("n", "counter_pn", "b",
+                                    ("increment", 3))])
+        vals, vc1 = cs[1].read_objects([("k", "set_aw", "b"),
+                                        ("n", "counter_pn", "b")], clock=vc)
+        assert vals == [["x"], 3]
+        vc2 = cs[1].update_objects([("n", "counter_pn", "b",
+                                     ("increment", 4))], clock=vc1)
+        vals, _ = cs[0].read_objects([("n", "counter_pn", "b")], clock=vc2)
+        assert vals == [7]
+    finally:
+        for c in cs:
+            c.close()
+        for p in procs:
+            p.terminate()
+            try:
+                p.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait(timeout=30)
+
+
+def test_native_pump_frames_equal_the_jax_sources_build(dev, tmp_path):
+    """The port's pump and a build of the JAX package's ``pump.cc``
+    (compiled here into a private directory; no JAX import) turn the same
+    ragged byte stream into the same frames."""
+    import ctypes
+    import socket
+    import struct
+    import time
+    from pathlib import Path
+
+    from antidote_tpu_torch import native_build
+    from antidote_tpu_torch.interdc import native_pump
+
+    src = (Path(__file__).resolve().parent.parent / "antidote_tpu"
+           / "interdc" / "cpp" / "pump.cc")
+    so = tmp_path / "libjaxpump.so"
+    native_build.build(src, so)
+    jlib = native_pump.bind(ctypes.CDLL(str(so)))
+    jax_pump = native_pump.NativePump(jlib, jlib.pump_new())
+    port_pump = native_pump.NativePump.create()
+    hdr = struct.Struct(">IB")
+    stream = b"".join(hdr.pack(n + 1, k) + bytes([k]) * n for k, n in
+                      [(2, 0), (2, 17), (5, 70000), (2, 3), (1, 1)])
+    got = {}
+    try:
+        for name, p in (("jax", jax_pump), ("port", port_pump)):
+            a, b = socket.socketpair()
+            p.add(b.detach(), tag=4)
+            for i in range(0, len(stream), 4093):
+                a.sendall(stream[i:i + 4093])
+            a.close()
+            out, deadline = [], time.time() + 10
+            while time.time() < deadline and not any(k == 0 for _, k, _ in
+                                                     out):
+                out.extend(p.take_batch(100))
+            got[name] = out
+    finally:
+        jax_pump.close()
+        port_pump.close()
+    assert len(got["port"]) == 6 and got["port"] == got["jax"]

@@ -51,10 +51,13 @@ def test_importing_every_module_loads_no_jax():
 def test_sources_cover_every_subpackage():
     """The walk above reaches every subpackage of the port, the cluster
     slice's, the metrics registry's, the durable log's, the wire front
-    end's and the native front end's included."""
+    end's, the native front end's and inter-DC replication's included."""
     pkgs = {p.parent.name for p in SOURCES if p.parent != ROOT}
-    assert {"api", "clock", "cluster", "crdt", "faults", "log",
+    assert {"api", "clock", "cluster", "crdt", "faults", "interdc", "log",
             "materializer", "meta", "obs", "proto", "store", "txn"} <= pkgs
+    assert {p.name for p in SOURCES if p.parent.name == "interdc"} >= {
+        "__init__.py", "messages.py", "transport.py", "replica.py",
+        "tcp.py", "native_pump.py"}
     assert {p.name for p in SOURCES if p.parent.name == "proto"} >= {
         "__init__.py", "apb.py", "client.py", "codec.py", "server.py",
         "native_frontend.py"}

@@ -586,6 +586,42 @@ def test_fill_after_invalidation_is_not_carried_to_the_next_epoch(
     assert served == {"port": False, "jax": True}
 
 
+def _late_fill_after_ack(node, srv, client_cls):
+    """The read-your-writes reproduction: increment by 4, publish,
+    advance and read three times; keep the snapshot-cache entry of epoch
+    E; increment by 3 (acknowledged); land the old value as a late fill
+    stamped E; read three times more on the native port."""
+    c = client_cls(port=srv.port)
+    obj = [("ryw", "counter_pn", "b")]
+    try:
+        c.update_objects([("ryw", "counter_pn", "b", ("increment", 4))])
+        node.txm.publish_serving_epoch()
+        srv._native_advance()
+        assert [c.read_objects(obj)[0] for _ in range(3)] == [[4]] * 3
+        dk = ("ryw", "b")
+        ep_e = node.store.serving_epoch
+        _eid, loc, old = node.store.snapshot_cache[dk]
+        time.sleep(0.05)  # past the inline publish's idle-rate window
+        c.update_objects([("ryw", "counter_pn", "b", ("increment", 3))])
+        node.store.snapshot_cache_fill(dk, ep_e, loc, old)
+        return [c.read_objects(obj)[0][0] for _ in range(3)]
+    finally:
+        c.close()
+        srv.close()
+
+
+def test_acked_write_is_read_after_a_late_fill_of_the_old_epoch(jax_native):
+    """A fill of the pre-write value, stamped with the epoch before an
+    acknowledged write, must not be served after the acknowledgement: the
+    port advances its mirror on every publish, the inline one included,
+    so the native plane answers 7.  The JAX package's native plane
+    answers 4 until its next tick (its documented behaviour)."""
+    node, srv = _port(True, epoch_tick_ms=600_000)
+    assert _late_fill_after_ack(node, srv, AntidoteClient) == [7, 7, 7]
+    jnode, jsrv = _jax(jax_native, epoch_tick_ms=600_000)
+    assert _late_fill_after_ack(jnode, jsrv, JClient) == [4, 4, 4]
+
+
 # ---------------------------------------------------------------------------
 # chaos: SIGKILL under a socket storm over `console serve --device cpu`,
 # seeded drop/truncate faults on the native accept path — acked ⊆ recovered
