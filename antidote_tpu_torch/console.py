@@ -12,6 +12,11 @@ the client protocol.
     python -m antidote_tpu_torch.console read  --port 8087 KEY TYPE BUCKET
     python -m antidote_tpu_torch.console update --port 8087 KEY TYPE BUCKET OP ARG
     python -m antidote_tpu_torch.console checkpoint-now --port 8087
+    python -m antidote_tpu_torch.console serve --log-dir /data/f1 \
+        --follower-of owner-host:8087 --replica-name f1 --port 8088
+    python -m antidote_tpu_torch.console replica-status --port 8087
+    python -m antidote_tpu_torch.console replica-add --port 8087 --name f2
+    python -m antidote_tpu_torch.console replica-remove --port 8087 --name f2
     python -m antidote_tpu_torch.console inspect --log-dir /data/dc0
     python -m antidote_tpu_torch.console inspect-checkpoint --log-dir /data/dc0
 
@@ -29,6 +34,13 @@ receive pump, a ``DCReplica`` (its chains restored from the log on
 recovery), and the replication and escrow loops as supervised children;
 other DCs bootstrap a mesh through ``get_connection_descriptor`` and
 ``connect_to_dcs``.  A pump that cannot be built stops the boot (exit 2).
+``--follower-of HOST:PORT`` boots a follower read replica of that owner
+instead: it adopts the owner's shape and dc id, needs ``--log-dir``,
+ships and installs the owner's image (or catches its tail up), and only
+then prints its ready line, with ``role: follower`` and the bootstrap
+mode; ``--follower-peers`` names a geo owner's peer DCs, whose chains the
+follower subscribes to itself.  ``replica-status``, ``replica-add`` and
+``replica-remove`` operate an owner's follower registry.
 ``inspect`` and ``inspect-checkpoint`` read a log directory offline, with
 no node.
 """
@@ -71,6 +83,57 @@ def resolve_serve_shape(log_dir, shards, max_dcs):
     return shards or 16, max_dcs or 8
 
 
+def _parse_endpoints(csv: str):
+    """``host:port[,host:port...]`` -> [(host, port)] (the --follower-of
+    and --follower-peers lists)."""
+    out = []
+    for part in (csv or "").split(","):
+        part = part.strip()
+        if not part:
+            continue
+        host, port = part.rsplit(":", 1)
+        out.append((host, int(port)))
+    return out
+
+
+def _owner_shape(args):
+    """A follower adopts its owner's shape and dc lane (set on ``args``).
+    Returns the owner's endpoints from --follower-of, or an exit code
+    when they are unusable (the caller returns it)."""
+    from antidote_tpu_torch.proto.client import AntidoteClient
+
+    if args.log_dir is None:
+        log("--follower-of requires --log-dir (followers install "
+            "checkpoint images into a durable WAL)")
+        return 2
+    try:
+        owner_addrs = _parse_endpoints(args.follower_of)
+    except ValueError:
+        owner_addrs = []
+    if len(owner_addrs) != 1:
+        log("--follower-of needs exactly one HOST:PORT endpoint (a "
+            "single-node owner)")
+        return 2
+    try:
+        oc = AntidoteClient(*owner_addrs[0], timeout=30)
+        ost = oc.node_status()
+        oc.close()
+    except (ConnectionError, OSError) as e:
+        log(f"cannot reach the owner at {args.follower_of}: {e!r}")
+        return 2
+    for flag, key in (("shards", "n_shards"), ("max_dcs", "max_dcs")):
+        mine = getattr(args, flag)
+        if mine is None:
+            setattr(args, flag, int(ost[key]))
+        elif mine != int(ost[key]):
+            log(f"--{flag.replace('_', '-')} {mine} conflicts with the "
+                f"owner's {key}={ost[key]}: a follower replicates that "
+                "exact store (drop the flag to adopt the shape)")
+            return 2
+    args.dc_id = int(ost["dc_id"])
+    return owner_addrs
+
+
 def cmd_serve(args) -> int:
     from antidote_tpu_torch import faults as _faults
     from antidote_tpu_torch.api import AntidoteNode
@@ -91,6 +154,11 @@ def cmd_serve(args) -> int:
     except RuntimeError as e:
         log(f"--device {args.device}: {e}")
         return 2
+    owner_addrs = []
+    if args.follower_of:
+        owner_addrs = _owner_shape(args)
+        if isinstance(owner_addrs, int):
+            return owner_addrs
     shards, max_dcs = resolve_serve_shape(args.log_dir, args.shards,
                                           args.max_dcs)
     cfg = AntidoteConfig(n_shards=shards, max_dcs=max_dcs,
@@ -127,12 +195,13 @@ def cmd_serve(args) -> int:
     if not all(probes.values()):
         log(f"NOT READY: {probes}")
         return 1
-    interdc = fabric = None
-    if args.interdc:
-        # geo-replication: a TCP fabric endpoint + replica, so protocol
-        # clients can bootstrap a DC mesh (GetConnectionDescriptor /
-        # ConnectToDCs on either dialect)
-        from antidote_tpu_torch.interdc import DCReplica
+    interdc = fabric = follower = None
+    if args.interdc or args.follower_of:
+        # geo-replication / the follower plane: a TCP fabric endpoint +
+        # replica, so protocol clients can bootstrap a DC mesh
+        # (GetConnectionDescriptor / ConnectToDCs on either dialect) and
+        # followers can subscribe and ship images
+        from antidote_tpu_torch.interdc import DCReplica, FollowerReplica
         from antidote_tpu_torch.interdc.tcp import TcpFabric
 
         public = args.public_host
@@ -150,21 +219,31 @@ def cmd_serve(args) -> int:
             log("WARNING: binding inter-DC on a wildcard address with no "
                 "--public-host: connection descriptors will advertise the "
                 "bind address, which remote DCs cannot reach")
-        interdc = DCReplica(node, fabric, name=f"dc{args.dc_id}")
-        if recover:
-            interdc.restore_from_log()
+        if args.follower_of:
+            follower = FollowerReplica(
+                node, fabric,
+                name=(args.replica_name
+                      or f"follower-{args.dc_id}-{os.getpid()}"),
+                owner_client_addr=owner_addrs[0],
+                park_s=max(0.0, args.follower_park_ms) / 1e3,
+                digest_every_s=args.divergence_check_s)
+        else:
+            interdc = DCReplica(node, fabric, name=f"dc{args.dc_id}")
+            if recover:
+                interdc.restore_from_log()
     # the OTP supervision tree (antidote_sup one_for_one, 5-in-10s):
     # listener, metrics and the replication loops run as supervised
     # children; a flapping child takes the node down
     sup = Supervisor(on_giveup=lambda name: os._exit(70))
-    if interdc is not None:
+    if fabric is not None:
         # a pump crash (bad frame, handler bug) restarts the loop instead
-        # of silently freezing replication while the node keeps serving;
-        # the escrow loop likewise keeps bounded-counter grants moving
+        # of silently freezing replication while the node keeps serving
         sup.add("interdc-pump",
                 start=lambda: fabric.start_pump_loop(),
                 alive=lambda lp: lp.is_alive(),
                 stop=lambda lp: lp.stop())
+    if interdc is not None:
+        # the escrow loop keeps bounded-counter grants moving
         sup.add("escrow-pump",
                 start=lambda: interdc.start_escrow_loop(),
                 alive=lambda lp: lp.is_alive(),
@@ -185,6 +264,7 @@ def cmd_serve(args) -> int:
             snapshot_cache_size=args.snapshot_cache_size,
             group_commit_window_us=args.group_commit_window_us,
             native_frontend=args.native_frontend,
+            follower=follower, server_proxy=not args.no_server_proxy,
         )
         return server_box["srv"]
 
@@ -218,6 +298,37 @@ def cmd_serve(args) -> int:
     ready: dict = {"host": server.host, "port": server.port, "ready": True}
     if tenants.multi:
         ready["tenants"] = list(tenants.names)
+    if follower is not None:
+        # attach AFTER the pump and the server are supervised: the
+        # bootstrap ships the owner's image and catches the tail up, then
+        # subscribes — only then is the ready line printed, so whoever
+        # waits for it meets a SERVING follower
+        from antidote_tpu_torch.proto.client import AntidoteClient
+
+        peer_addrs = (_parse_endpoints(args.follower_peers)
+                      if args.follower_peers else [])
+        descs = []
+        for addr in owner_addrs + peer_addrs:
+            oc = AntidoteClient(*addr, timeout=30)
+            descs.append(oc.get_connection_descriptor())
+            oc.close()
+        follower.client_addr = (args.public_host or server.host,
+                                server.port)
+        try:
+            mode = follower.attach(descs)
+        except (ConnectionError, OSError, RuntimeError, ValueError) as e:
+            log(f"follower bootstrap from {args.follower_of} failed: {e!r}")
+            sup.shutdown()
+            fabric.close()
+            if node.checkpointer is not None:
+                node.checkpointer.stop()
+            return 2
+        ready.update({"role": "follower", "bootstrap": mode,
+                      "name": follower.name,
+                      "fleet": {"owner_members": 1,
+                                "peer_dcs": len(peer_addrs)}})
+        log(f"follower {follower.name} of {args.follower_of} serving "
+            f"(bootstrap mode={mode})")
     if interdc is not None:
         # the escrow plane armed at boot: the rights-transfer loop runs
         ready["escrow"] = dict(node.txm.bcounters.status(), loop=True)
@@ -283,6 +394,57 @@ def cmd_checkpoint_now(args) -> int:
     c = _client(args)
     print(json.dumps(c.checkpoint_now(), indent=2))
     c.close()
+    return 0
+
+
+def cmd_replica_status(args) -> int:
+    """Replica-plane view: against an owner, every known follower with
+    its typed state (ok | lagging | down | bootstrapping | healing) and
+    applied-VC lag, plus the hash ring a session client builds over the
+    serving fleet (size and arc shares); against a follower, its own
+    state, bootstrap and divergence view.  Exit 1 when any follower is
+    not ok."""
+    from antidote_tpu_torch.proto.client import HashRing
+
+    c = _client(args)
+    out = c.replica_admin("status")
+    c.close()
+    serving = [(f["addr"][0], int(f["addr"][1]))
+               for f in (out.get("followers") or {}).values()
+               if f.get("addr") and f.get("state") in ("ok", "lagging")]
+    if serving:
+        ring = HashRing(serving)
+        out["ring"] = {"size": len(ring),
+                       "arc_share": ring.arc_share_by_name()}
+    print(json.dumps(out, indent=2))
+    bad = [n for n, f in (out.get("followers") or {}).items()
+           if f.get("state") != "ok"]
+    if out.get("role") == "follower" and out.get("state") != "serving":
+        bad.append(out.get("name"))
+    return 1 if bad else 0
+
+
+def cmd_replica_add(args) -> int:
+    """Pre-register an expected follower with the owner (``down`` until
+    its first liveness report; clears a remove's tombstone)."""
+    c = _client(args)
+    addr = None
+    if args.addr:
+        h, p = args.addr.rsplit(":", 1)
+        addr = (h, int(p))
+    out = c.replica_admin("add", name=args.name, addr=addr)
+    c.close()
+    print(json.dumps(out, indent=2))
+    return 0
+
+
+def cmd_replica_remove(args) -> int:
+    """Decommission a follower at the owner: dropped from the registry,
+    its future reports refused (stop the follower process separately)."""
+    c = _client(args)
+    out = c.replica_admin("remove", name=args.name)
+    c.close()
+    print(json.dumps(out, indent=2))
     return 0
 
 
@@ -382,6 +544,32 @@ def main(argv=None) -> int:
     sv.add_argument("--public-host", default=None,
                     help="host advertised in connection descriptors "
                          "(defaults to --host unless it is a wildcard)")
+    sv.add_argument("--follower-of", default=None,
+                    help="boot a follower read replica of the single-node "
+                         "owner at HOST:PORT (its client endpoint): adopts "
+                         "the owner's shape and dc id, ships its image; "
+                         "requires --log-dir")
+    sv.add_argument("--follower-peers", default=None,
+                    help="with --follower-of against a geo-replicated "
+                         "owner: the peer DCs' client endpoints "
+                         "(HOST:PORT,...), whose chains the follower "
+                         "subscribes to itself (without them those lanes' "
+                         "divergence checks report 'unsubscribed')")
+    sv.add_argument("--replica-name", default=None,
+                    help="follower name in the owner's replica registry "
+                         "(default: follower-<dc>-<pid>)")
+    sv.add_argument("--follower-park-ms", type=float, default=100.0,
+                    help="how long a session read parks for the "
+                         "follower's applied clock to cover its token "
+                         "before the typed lagging redirect")
+    sv.add_argument("--no-server-proxy", action="store_true",
+                    help="on a follower: out-of-arc reads and writes "
+                         "answer typed redirects instead of being proxied "
+                         "or forwarded to the owner")
+    sv.add_argument("--divergence-check-s", type=float, default=5.0,
+                    help="cadence of the follower's round-robin per-shard "
+                         "Merkle comparison against the owner (<= 0 "
+                         "disables it)")
     sv.add_argument("--dc-id", type=int, default=0)
     sv.add_argument("--shards", type=int, default=None,
                     help="default: the log dir's recorded shape, else 16")
@@ -518,6 +706,32 @@ def main(argv=None) -> int:
     cn.add_argument("--host", default="127.0.0.1")
     cn.add_argument("--port", type=int, default=8087)
     cn.set_defaults(fn=cmd_checkpoint_now)
+
+    rs = sub.add_parser("replica-status",
+                        help="follower fleet health: typed ok/lagging/"
+                             "down states, lag and the session ring (exit "
+                             "1 when any follower is not ok)")
+    rs.add_argument("--host", default="127.0.0.1")
+    rs.add_argument("--port", type=int, default=8087)
+    rs.set_defaults(fn=cmd_replica_status)
+
+    ra = sub.add_parser("replica-add",
+                        help="pre-register an expected follower with the "
+                             "owner's registry")
+    ra.add_argument("--host", default="127.0.0.1")
+    ra.add_argument("--port", type=int, default=8087)
+    ra.add_argument("--name", required=True)
+    ra.add_argument("--addr", default=None,
+                    help="the follower's client endpoint host:port")
+    ra.set_defaults(fn=cmd_replica_add)
+
+    rr = sub.add_parser("replica-remove",
+                        help="decommission a follower at the owner (its "
+                             "reports are refused from then on)")
+    rr.add_argument("--host", default="127.0.0.1")
+    rr.add_argument("--port", type=int, default=8087)
+    rr.add_argument("--name", required=True)
+    rr.set_defaults(fn=cmd_replica_remove)
 
     ins = sub.add_parser("inspect", help="offline WAL inspection")
     ins.add_argument("--log-dir", required=True)

@@ -10,8 +10,10 @@ named injection sites.  In this package the sites are the WAL
 the wire server's inbound frames (``proto/server.py``: ``frontend.recv``),
 the native planes' loads (``native_frontend.load``, ``native_pump.load``),
 the inter-DC fabric (``interdc/tcp.py``: ``interdc.deliver``,
-``interdc.rpc``, and the partitions of ``sever``) and the escrow grant
-plane (``interdc/replica.py``: ``bcounter.transfer``).
+``interdc.rpc``, and the partitions of ``sever``), the escrow grant plane
+and the follower's image shipping (``interdc/replica.py``:
+``bcounter.transfer``, ``ckpt.ship``) and the follower's proxy plane
+(``proto/proxy.py``: ``proxy.forward``).
 
 Usage::
 

@@ -169,6 +169,16 @@ class FaultPlan:
                                                        conn; truncate
                                                        keeps ``arg`` bytes;
                                                        delay sleeps)
+    proxy.forward       target "host:port"             a follower's proxy
+                                                       hop (delay slows
+                                                       it; any other
+                                                       action kills the
+                                                       hop before its
+                                                       send: a read fails
+                                                       over, a write
+                                                       redials within its
+                                                       budget, then a
+                                                       typed not_owner)
     ==================  =============================  =================
     """
 

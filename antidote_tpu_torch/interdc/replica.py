@@ -16,23 +16,28 @@ lose a whole batch, and the chain-clock duplicate suppression would make
 the loss permanent).  Remote effects reach the serving plane only through
 the serving-epoch ticker; the replica never publishes an epoch itself.
 
-The requests of the follower and anti-entropy plane (image shipping,
-shard digests, Merkle walks, follower reports, peer origins) and the
-live-shard-move seams (``adopt_shard``, ``export_shard_state``,
-``release_shard``, ``ingress_barrier``) come with the follower slice:
-each raises :class:`NotPortedError`.
+The request channel also carries the follower and anti-entropy plane:
+image shipping (``ckpt_meta``/``ckpt_fetch``, fault site ``ckpt.ship``),
+shard digests and Merkle walks (``shard_digest``, ``merkle_root``,
+``merkle_node``, ``merkle_leaf``), the origin lanes this endpoint carries
+(``peer_origins``) and the followers' liveness reports
+(``follower_report``), which feed the registry behind ``replica_status``
+and ``replica_admin``.  ``adopt_shard``, ``export_shard_state`` and
+``release_shard`` move a shard's chain state with the shard;
+``ingress_barrier`` excludes the fabric's request handlers for a reshard.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import errno
 import itertools
 import logging
 import random
 import threading
 import time
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -45,22 +50,6 @@ from antidote_tpu_torch.supervise import ThreadLoop
 from antidote_tpu_torch.txn.bcounter import TRANSFER_FREQ
 
 log = logging.getLogger(__name__)
-
-#: request kinds of the follower and anti-entropy plane
-FOLLOWER_KINDS = ("ckpt_meta", "ckpt_fetch", "shard_digest", "merkle_root",
-                  "merkle_node", "merkle_leaf", "peer_origins",
-                  "follower_report")
-
-
-class NotPortedError(NotImplementedError):
-    """A request or method of the follower and anti-entropy slice, which
-    the port does not have yet."""
-
-    def __init__(self, what: str):
-        super().__init__(
-            f"{what}: followers, anti-entropy and live shard moves come with "
-            "a later slice of the port (single-node DC replication only)")
-        self.what = what
 
 
 class DCReplica:
@@ -81,17 +70,31 @@ class DCReplica:
     #: ``last_seen`` and gets refetched).
     GATE_HWM = 1024
     PENDING_HWM = 256
+    #: follower liveness: a follower whose last report is older than this
+    #: is DOWN; one whose applied own-lane clock trails the owner's commit
+    #: counter by more than REPLICA_LAG_OPS is LAGGING (both surface typed
+    #: in node status and the console)
+    REPLICA_DOWN_S = 5.0
+    REPLICA_LAG_OPS = 1024
+    #: image-shipping chunk of ckpt_fetch (one request a chunk; the
+    #: ckpt.ship fault site is consulted a chunk)
+    CKPT_SHIP_CHUNK = 4 << 20
 
-    def __init__(self, node, hub, name: str = ""):
+    def __init__(self, node, hub, name: str = "",
+                 fabric_id: Optional[int] = None):
         self.node = node
         self.hub = hub
         self.name = name or f"dc{node.dc_id}"
         self.dc_id = node.dc_id
         #: a single-node DC publishes and ingests every shard's chain
         self.shards = set(range(node.cfg.n_shards))
-        #: the id this endpoint registers under on the fabric (a peer's
-        #: catch-up queries go to the origin DC's own endpoint)
-        self.fabric_id = self.dc_id
+        #: the id this endpoint registers under on the fabric: the DC id
+        #: for a DC (a peer's catch-up queries go to the origin DC's own
+        #: endpoint), its own id for a follower of that DC
+        self.fabric_id = self.dc_id if fabric_id is None else int(fabric_id)
+        #: (origin dc, shard) -> fabric id serving that chain's catch-up
+        #: and anti-entropy queries (the origin DC's endpoint)
+        self.route_query = lambda origin, shard: origin
         p = node.cfg.n_shards
         #: egress opid chain per shard (my origin)
         self.pub_opid = np.zeros(p, np.int64)
@@ -140,6 +143,14 @@ class DCReplica:
         #: causal gate has been
         self.catchups = 0
         self.max_gate_depth = 0
+        #: follower registry: name -> {addr, applied, state, at (monotonic
+        #: of the last report), boots}; reports arrive on the request
+        #: channel (follower_report), operators pre-register and
+        #: decommission through the wire's REPLICA_ADMIN
+        self.followers: Dict[str, dict] = {}
+        #: decommissioned follower names whose reports are refused
+        self._removed_followers: set = set()
+        self._followers_lock = threading.Lock()
 
     # ------------------------------------------------------------------
     # restart: chain positions from the WAL
@@ -241,19 +252,94 @@ class DCReplica:
                     self.last_seen[(origin, shard)] = n
 
     # ------------------------------------------------------------------
-    # live shard moves and ingress barriers: the follower slice
+    # live shard moves: a shard's replication chain state travels WITH
+    # the shard, so the new owner continues the (origin, shard) opid chain
+    # where the old one stopped — subscribers never see a chain restart
     # ------------------------------------------------------------------
     def adopt_shard(self, shard: int, extras=None) -> None:
-        raise NotPortedError("adopt_shard")
+        """Install a moved-in shard's chain state from the handoff
+        package's extras: the egress opid and the recent sent window
+        (catch-up keeps serving through the move) and the remote chains'
+        ingress positions (gap detection resumes where the old owner
+        stood).  Without extras, the egress opid is recounted from the
+        imported WAL as :meth:`restore_from_log` does — resuming at 0
+        would make every subscriber drop the new owner's first commits as
+        chain duplicates — and the ingress positions restart at 0, which
+        costs only an idempotent catch-up replay.  Monotone: a duplicate
+        delivery never rewinds a chain that advanced since."""
+        shard = int(shard)
+        extras = (extras or {}).get("interdc", {})
+        if "pub_opid" in extras:
+            opid = int(extras["pub_opid"])
+        elif self.node.store.log is not None:
+            opid = self.node.store.log.chain_base(shard, self.dc_id) + sum(
+                1 for origin, _vc, _effs in self._wal_txn_groups(
+                    shard, my_effects_after=1 << 62)
+                if origin == self.dc_id)
+        else:
+            opid = 0
+        if opid > int(self.pub_opid[shard]):
+            self.pub_opid[shard] = opid
+            with self._sent_lock:
+                self.sent[shard].clear()
+                for data in extras.get("sent", ()):
+                    self.sent[shard].append(
+                        TxnMessage.from_bytes(bytes(data)))
+        for o, v in extras.get("last_seen", ()):
+            key = (int(o), shard)
+            if int(v) > self.last_seen.get(key, 0):
+                self.last_seen[key] = int(v)
+        self._published_safe.pop(shard, None)
 
     def export_shard_state(self, shard: int) -> dict:
-        raise NotPortedError("export_shard_state")
+        """The extras counterpart of :meth:`adopt_shard`, taken under the
+        commit lock so it is one cut with the handoff package.  The
+        exported ingress position is the APPLIED-safe one: a dep-blocked
+        transaction can sit in the causal gate without its effects in the
+        package's table slice, so each chain's position is clamped below
+        its earliest queued transaction (the new owner's catch-up
+        refetches and re-gates the suffix; ``pending`` sits above a gap
+        and is refetched anyway)."""
+        shard = int(shard)
+        with self.node.txm.commit_lock:
+            with self._sent_lock:
+                sent = [m.to_bytes() for m in self.sent[shard]]
+            last_seen = []
+            for (o, s), v in self.last_seen.items():
+                if s != shard:
+                    continue
+                safe = int(v)
+                for m in self.gate.get((o, s), ()):
+                    if not m.is_ping:
+                        safe = min(safe, int(m.prev_opid))
+                        break  # the gate is FIFO in chain order
+                last_seen.append([int(o), safe])
+            return {"interdc": {"pub_opid": int(self.pub_opid[shard]),
+                                "sent": sent, "last_seen": last_seen}}
 
     def release_shard(self, shard: int) -> None:
-        raise NotPortedError("release_shard")
+        """Clear a relinquished shard's chain state at the OLD owner: its
+        egress chain now lives at the importer, and queued remote
+        transactions must never apply to the dropped slice (the new owner
+        replays them through catch-up)."""
+        shard = int(shard)
+        with self.node.txm.commit_lock:
+            self.pub_opid[shard] = 0
+            with self._sent_lock:
+                self.sent[shard].clear()
+            self._published_safe.pop(shard, None)
+            for table in (self.last_seen, self.pending, self.gate):
+                for key in [k for k in table if k[1] == shard]:
+                    del table[key]
 
     def ingress_barrier(self):
-        raise NotPortedError("ingress_barrier")
+        """A lock excluding the fabric's request handlers (a bounded-
+        counter grant commits on one) for the duration of a reshard; the
+        in-process hub delivers on the caller's thread and needs none."""
+        eps = getattr(self.hub, "endpoints", None)
+        if eps and self.fabric_id in eps:
+            return eps[self.fabric_id].lock
+        return contextlib.nullcontext()
 
     def descriptor(self) -> Descriptor:
         """Shareable connection descriptor.  Carries the
@@ -435,9 +521,7 @@ class DCReplica:
                 self._drain_gates()
 
     def _serve_request(self, kind: str, payload) -> object:
-        """Generic query-channel dispatch.  The follower plane's kinds
-        answer with :class:`NotPortedError` (the requester sees it typed
-        as a remote error)."""
+        """Generic query-channel dispatch."""
         if kind == "bcounter":
             return self._grant_one(payload)
         if kind == "bcounter_many":
@@ -461,8 +545,9 @@ class DCReplica:
             return out
         if kind == "check_up":
             return True
-        if kind in FOLLOWER_KINDS:
-            raise NotPortedError(f"request kind {kind!r}")
+        handler = self._FOLLOWER_PLANE.get(kind)
+        if handler is not None:
+            return handler(self, payload)
         raise ValueError(f"unknown request kind {kind!r}")
 
     def _grant_one(self, payload) -> int:
@@ -658,10 +743,242 @@ class DCReplica:
             "is attached to serve it"
         )
 
+    def _ingest_own_origin(self) -> bool:
+        """Whether this endpoint applies messages of its OWN dc lane:
+        False for a DC (it minted that chain), True for a follower, whose
+        whole data plane is the owner's own-origin chain."""
+        return False
+
+    def _route(self, origin: int, shard: int) -> int:
+        """Fabric id serving a chain's catch-up and anti-entropy queries."""
+        return self.route_query(origin, shard)
+
+    # ------------------------------------------------------------------
+    # follower plane: image shipping, digests, the liveness registry —
+    # all on the request channel
+    # ------------------------------------------------------------------
+    def _serve_ckpt_meta(self, payload=None) -> "dict | None":
+        """The newest published image's shippable metadata, or None (no
+        durable log, or nothing published: the follower catches the whole
+        chain up from the WAL).  ``before_id`` restricts to strictly older
+        retained images.  The reply carries the shards this endpoint owns
+        (a follower composing several owners' images installs each
+        restricted to them)."""
+        from antidote_tpu_torch.log import checkpoint as ckpt
+
+        wlog = self.node.store.log
+        if wlog is None:
+            return None
+        meta = ckpt.latest_image_meta(
+            wlog.dir, before_id=(payload or {}).get("before_id"))
+        if meta is not None:
+            meta["shards"] = sorted(int(s) for s in self.shards)
+        return meta
+
+    def _serve_ckpt_fetch(self, payload) -> dict:
+        """One chunk of a published image (``{id, off, n[, file]}`` ->
+        ``{data, eof}``; ``file="cold"`` ships the cold sidecar).  The
+        ``ckpt.ship`` fault site is consulted a chunk: delay holds the
+        shipper mid-image, error/io_error/enospc fail the fetch typed."""
+        from antidote_tpu_torch.log import checkpoint as ckpt
+
+        wlog = self.node.store.log
+        if wlog is None:
+            raise RuntimeError("ckpt_fetch on a node without a durable log")
+        ckpt_id = int(payload["id"])
+        d = faults.hit("ckpt.ship", key=f"ckpt_{ckpt_id}")
+        if d is not None:
+            if d.action == "delay" and d.arg:
+                time.sleep(float(d.arg))
+            elif d.action in ("error", "io_error", "enospc"):
+                raise OSError(errno.EIO,
+                              f"injected fault: ckpt.ship ckpt_{ckpt_id}")
+        path = (ckpt.cold_path(wlog.dir, ckpt_id)
+                if payload.get("file") == "cold"
+                else ckpt.image_path(wlog.dir, ckpt_id))
+        off = int(payload.get("off", 0))
+        n = int(payload.get("n", self.CKPT_SHIP_CHUNK))
+        with open(path, "rb") as f:
+            size = f.seek(0, 2)
+            f.seek(off)
+            data = f.read(max(0, n))
+        return {"data": data, "eof": off + len(data) >= size}
+
+    def _serve_shard_digest(self, payload) -> dict:
+        """One shard's (applied clock, content digest), one cut under the
+        commit lock: the comparison a follower checks its own against."""
+        from antidote_tpu_torch.store.kv import shard_digest
+
+        shard = int(payload["shard"])
+        store = self.node.store
+        with self.node.txm.commit_lock:
+            return {"vc": [int(x) for x in store.applied_vc[shard]],
+                    "digest": shard_digest(store, shard),
+                    "origins": self._known_origins()}
+
+    def _known_origins(self) -> List[int]:
+        """Origin lanes this endpoint carries chains for: a follower's
+        evidence for typing a lag ``unsubscribed`` (it was never given
+        that peer's descriptor) instead of ``skipped``."""
+        return sorted({o for (o, _s) in self.last_seen} | {self.dc_id})
+
+    def _serve_peer_origins(self, _payload=None) -> dict:
+        return {"origins": self._known_origins()}
+
+    def _serve_merkle_root(self, payload) -> dict:
+        """One shard's Merkle root at its applied clock (re-read from the
+        data: corruption bypasses the incremental marks)."""
+        from antidote_tpu_torch.store.merkle import get_merkle
+
+        shard = int(payload["shard"])
+        store = self.node.store
+        with self.node.txm.commit_lock:
+            mk = get_merkle(store)
+            mk.rescan(shard)
+            return {"vc": [int(x) for x in store.applied_vc[shard]],
+                    "root": mk.root(shard), "leaves": mk.n_leaves,
+                    "fanout": mk.fanout, "depth": mk.depth(),
+                    "origins": self._known_origins()}
+
+    def _serve_merkle_node(self, payload) -> dict:
+        """Child hashes of one tree node — a walk step."""
+        from antidote_tpu_torch.store.merkle import get_merkle
+
+        shard = int(payload["shard"])
+        store = self.node.store
+        with self.node.txm.commit_lock:
+            mk = get_merkle(store)
+            return {"vc": [int(x) for x in store.applied_vc[shard]],
+                    "hashes": mk.children(shard, int(payload["level"]),
+                                          int(payload["index"]))}
+
+    def _serve_merkle_leaf(self, payload) -> dict:
+        """One leaf's raw key states (head fields, head clock, slot
+        bound), one cut with the returned clock: the range-restricted
+        heal fetch.  A cold key faults in without admission."""
+        from antidote_tpu_torch.store.merkle import get_merkle
+
+        shard = int(payload["shard"])
+        leaf = int(payload["leaf"])
+        store = self.node.store
+        with self.node.txm.commit_lock:
+            mk = get_merkle(store)
+            rows = []
+            for key, bucket in sorted(mk.leaf_keys(shard, leaf), key=repr):
+                ent = store.directory.get((key, bucket))
+                if (ent is None and store.cold is not None
+                        and store.cold.is_cold((key, bucket))):
+                    ent = store.cold.fault_in((key, bucket), admit=False)
+                if ent is None:
+                    continue
+                tname, _s, row = ent
+                t = store.table(tname)
+                heads = {}
+                for f, x in t.head.items():
+                    arr = x[shard, row].cpu().numpy()
+                    heads[f] = {"b": arr.tobytes(), "dt": str(arr.dtype),
+                                "sh": list(arr.shape)}
+                rows.append([
+                    key, bucket, tname, int(t.slots_ub[shard, row]),
+                    [int(v) for v in t.head_vc[shard, row].cpu().numpy()],
+                    heads,
+                ])
+            return {"vc": [int(x) for x in store.applied_vc[shard]],
+                    "keys": rows}
+
+    def _serve_follower_report(self, payload) -> dict:
+        """A follower's periodic liveness and lag report.  Decommissioned
+        names are refused (``accepted: False``).  The ACK carries the
+        registry's serving-fleet snapshot, which feeds the followers'
+        proxy planes."""
+        name = str(payload.get("name", ""))
+        with self._followers_lock:
+            if name in self._removed_followers:
+                return {"accepted": False}
+            ent = self.followers.setdefault(name, {"boots": 0})
+            ent["applied"] = [int(x) for x in payload.get("applied") or []]
+            ent["addr"] = payload.get("addr")
+            ent["state"] = payload.get("state", "serving")
+            ent["boots"] = int(payload.get("boots", ent.get("boots", 0)))
+            ent["at"] = time.monotonic()
+            n_followers = len(self.followers)
+        m = self.node.metrics
+        if m is not None:
+            m.fleet_followers.set(n_followers)
+            if len(ent["applied"]) > self.dc_id:
+                m.follower_lag.set(
+                    max(0, int(self.node.txm.commit_counter)
+                        - int(ent["applied"][self.dc_id])), follower=name)
+        fleet = {fname: {"addr": fent.get("addr"), "state": fent["state"]}
+                 for fname, fent in self.replica_status()["followers"].items()}
+        return {"accepted": True,
+                "commit_counter": int(self.node.txm.commit_counter),
+                "fleet": fleet}
+
+    _FOLLOWER_PLANE = {
+        "ckpt_meta": _serve_ckpt_meta,
+        "ckpt_fetch": _serve_ckpt_fetch,
+        "shard_digest": _serve_shard_digest,
+        "merkle_root": _serve_merkle_root,
+        "merkle_node": _serve_merkle_node,
+        "merkle_leaf": _serve_merkle_leaf,
+        "peer_origins": _serve_peer_origins,
+        "follower_report": _serve_follower_report,
+    }
+
     def replica_status(self) -> dict:
-        """The node-status replication block of an owner: its followers
-        with their liveness (none until the follower slice lands)."""
-        return {"role": "owner", "followers": {}}
+        """The node-status / console ``replica-status`` block of an owner:
+        every known follower with its typed liveness (ok | lagging | down
+        | its self-reported bootstrapping/healing) and applied-VC lag."""
+        now = time.monotonic()
+        counter = int(self.node.txm.commit_counter)
+        out: Dict[str, dict] = {}
+        with self._followers_lock:
+            snap = {k: dict(v) for k, v in self.followers.items()}
+        for name, ent in sorted(snap.items()):
+            at = ent.get("at", 0.0)
+            applied = ent.get("applied") or []
+            lag = (max(0, counter - int(applied[self.dc_id]))
+                   if len(applied) > self.dc_id else None)
+            if not at or now - at > self.REPLICA_DOWN_S:
+                state = "down"
+            elif ent.get("state") not in (None, "serving"):
+                state = str(ent["state"])
+            elif lag is not None and lag > self.REPLICA_LAG_OPS:
+                state = "lagging"
+            else:
+                state = "ok"
+            out[name] = {"state": state, "lag": lag,
+                         "age_s": round(now - at, 2) if at else None,
+                         "addr": ent.get("addr"),
+                         "boots": ent.get("boots", 0)}
+        return {"role": "owner", "followers": out}
+
+    def replica_admin(self, body: dict) -> dict:
+        """The wire's REPLICA_ADMIN op: ``add`` pre-registers an expected
+        follower (``down`` until its first report; clears a remove's
+        tombstone), ``remove`` decommissions a name (its reports are
+        refused from then on), ``status`` is :meth:`replica_status`."""
+        op = body.get("op", "status")
+        if op == "status":
+            return self.replica_status()
+        name = str(body["name"])
+        if op == "add":
+            with self._followers_lock:
+                self._removed_followers.discard(name)
+                ent = self.followers.setdefault(name, {"boots": 0})
+                if body.get("addr"):
+                    ent["addr"] = list(body["addr"])
+            return self.replica_status()
+        if op == "remove":
+            with self._followers_lock:
+                self.followers.pop(name, None)
+                self._removed_followers.add(name)
+            m = self.node.metrics
+            if m is not None:
+                m.follower_lag.set(0, follower=name)
+            return self.replica_status()
+        raise ValueError(f"unknown replica admin op {op!r}")
 
     # ------------------------------------------------------------------
     # ingress
@@ -678,7 +995,7 @@ class DCReplica:
             log.warning("discarding undecodable inter-DC frame (%d bytes)",
                         len(data))
             return
-        if msg.origin == self.dc_id:
+        if msg.origin == self.dc_id and not self._ingest_own_origin():
             return  # a DC never applies its own origin's chain
         # INGRESS STATE DISCIPLINE: last_seen/pending/gate mutate only
         # under the node's commit lock — the same lock the gate drain
@@ -730,7 +1047,7 @@ class DCReplica:
 
     def _catch_up(self, key, from_opid) -> None:
         origin, shard = key
-        target = origin
+        target = self._route(origin, shard)
         self.catchups += 1
         try:
             msgs = self.hub.query_log(target, shard, origin, from_opid)

@@ -187,20 +187,33 @@ def load_chain(log_dir: str):
 
 def latest_image_meta(log_dir: str,
                       before_id: Optional[int] = None) -> Optional[dict]:
-    """Metadata of the newest published full image, from its manifest:
-    ``{id, image_bytes, image_crc32, stamp_vc_max, created_at}``.
-    ``before_id`` restricts to strictly older images."""
+    """Shippable metadata of the newest published full image, from its
+    manifest (the image is never decoded) — what an owner answers a
+    follower's ``ckpt_meta`` with: ``{id, image_bytes, image_crc32,
+    stamp_vc_max, created_at}``, plus, for an image with a cold sidecar,
+    ``cold_keys``, ``cold_bytes``, ``cold_crc32`` and ``cold_manifest``
+    (the follower fetches the sidecar only when it holds cold keys).
+    ``before_id`` restricts to strictly older images: a follower whose
+    fetch of the newest failed verification falls back through the
+    retention window as owner-side recovery does."""
     for _id, path in reversed(list_checkpoints(checkpoint_root(log_dir))):
         if before_id is not None and _id >= int(before_id):
             continue
         manifest = load_manifest(path)
         if manifest is None or manifest_kind(manifest) != "full":
-            continue
-        return {"id": int(manifest["id"]),
-                "image_bytes": int(manifest["image_bytes"]),
-                "image_crc32": int(manifest["image_crc32"]),
-                "stamp_vc_max": manifest.get("stamp_vc_max"),
-                "created_at": manifest.get("created_at")}
+            continue  # delta links are not shippable on their own
+        out = {"id": int(manifest["id"]),
+               "image_bytes": int(manifest["image_bytes"]),
+               "image_crc32": int(manifest["image_crc32"]),
+               "stamp_vc_max": manifest.get("stamp_vc_max"),
+               "created_at": manifest.get("created_at")}
+        cold = manifest.get("cold")
+        if cold is not None:
+            out["cold_keys"] = int(manifest.get("cold_keys", 0))
+            out["cold_bytes"] = int(cold["bytes"])
+            out["cold_crc32"] = int(cold["crc32"])
+            out["cold_manifest"] = cold
+        return out
     return None
 
 
@@ -253,7 +266,7 @@ def _freeze_entries(entries):
     return [(freeze_key(e[0]),) + tuple(e[1:]) for e in entries]
 
 
-def install_image(store, txm, image: dict) -> dict:
+def install_image(store, txm, image: dict, shards=None) -> dict:
     """Install a full image into a FRESH store/manager pair (recovery's
     first phase; the WAL tail replays afterwards and skips everything the
     installed floor covers).  Each table's rows are assembled full-extent
@@ -263,7 +276,13 @@ def install_image(store, txm, image: dict) -> dict:
     below surface the compaction horizon.  Shards truncated after the
     stamp are dropped.  The image's ``cold_directory`` keys get NO device
     row: they come back in the summary for the caller's cold tier, which
-    faults them in on demand.  Returns a summary dict."""
+    faults them in on demand.
+
+    ``shards`` RESTRICTS the install to that shard set and MERGES onto
+    what the store already holds instead of replacing it: the rows,
+    directory entries, clocks, floors and blob sets of the other shards
+    stay byte-intact (the composition primitive of a follower's
+    bootstrap).  Returns a summary dict."""
     from antidote_tpu_torch.store.kv import freeze_key
 
     logm = store.log
@@ -280,6 +299,9 @@ def install_image(store, txm, image: dict) -> dict:
         log.warning("checkpoint image predates truncation of shard(s) %s; "
                     "dropping them from the restore", sorted(stale))
     sl = sorted(stale)
+    #: restricted-merge mode: the shard rows this install may touch
+    rlist = (None if shards is None
+             else sorted({int(s) for s in shards} - stale))
     floors = np.asarray(image["floor_seqs"], np.int64).copy()
     chains = np.asarray(image["chain_floor"], np.int64).copy()
     op_ids = np.asarray(image["op_ids"], np.int64).copy()
@@ -304,13 +326,21 @@ def install_image(store, txm, image: dict) -> dict:
             t._grow()
 
         def full(dst, src, snap_slot=False):
-            # the store is fresh (all-zero tables): zeros + one slice
-            # assign on the host, then one copy to the device
-            arr = np.zeros(tuple(dst.shape), src.dtype)
-            if snap_slot:
-                arr[:, :u_cap, 0] = src
+            if rlist is None:
+                # the store is fresh (all-zero tables): zeros + one slice
+                # assign on the host, then one copy to the device
+                arr = np.zeros(tuple(dst.shape), src.dtype)
+                if snap_slot:
+                    arr[:, :u_cap, 0] = src
+                else:
+                    arr[:, :u_cap] = src
             else:
-                arr[:, :u_cap] = src
+                # restricted merge: the other shards' rows stay intact
+                arr = dst.cpu().numpy().copy()
+                if snap_slot:
+                    arr[rlist, :u_cap, 0] = src[rlist]
+                else:
+                    arr[rlist, :u_cap] = src[rlist]
             return torch.from_numpy(arr).to(device=dev, dtype=dst.dtype)
 
         for f in t.head:
@@ -321,38 +351,67 @@ def install_image(store, txm, image: dict) -> dict:
         seq_col = (np.arange(u_cap)[None, :] < used[:, None]).astype(np.int64)
         t.snap_seq = full(t.snap_seq, seq_col, snap_slot=True)
         t.next_seq = 2
-        t.used_rows[:] = used
-        t.slots_ub[:, :u_cap] = slots_ub
-        t.max_abs_delta = int(tb["max_abs_delta"])
-        if stale:
+        if rlist is None:
+            t.used_rows[:] = used
+            t.slots_ub[:, :u_cap] = slots_ub
+            t.max_abs_delta = int(tb["max_abs_delta"])
+        else:
+            t.used_rows[rlist] = used[rlist]
+            t.slots_ub[rlist, :u_cap] = slots_ub[rlist]
+            t.max_abs_delta = max(t.max_abs_delta, int(tb["max_abs_delta"]))
+            t.invalidate_epochs()  # out-of-band rows: frozen copies stale
+        if stale or rlist is not None:
             # a dropped shard may have held the table-wide max commit VC
-            t.max_commit_vc = (head_vc.reshape(-1, head_vc.shape[-1])
-                               .max(axis=0) if head_vc.size else
-                               np.zeros(cfg.max_dcs, np.int32)).astype(
-                                   np.int32)
+            # (a restricted merge folds its rows into the cap earlier
+            # installs established)
+            hv = head_vc if rlist is None else head_vc[rlist]
+            mcv = (hv.reshape(-1, head_vc.shape[-1]).max(axis=0)
+                   if hv.size else np.zeros(cfg.max_dcs, np.int32))
+            if rlist is not None:
+                mcv = np.maximum(mcv, np.asarray(t.max_commit_vc, np.int32))
+            t.max_commit_vc = mcv.astype(np.int32)
         else:
             t.max_commit_vc = np.asarray(tb["max_commit_vc"],
                                          np.int32).copy()
-        n_rows_installed += int(used.sum())
-    directory = [e for e in image["directory"] if int(e[3]) not in stale]
+        n_rows_installed += int(used.sum() if rlist is None
+                                else used[rlist].sum())
+    if rlist is not None:
+        keep = set(rlist)
+        directory = [e for e in image["directory"] if int(e[3]) in keep]
+    else:
+        directory = [e for e in image["directory"] if int(e[3]) not in stale]
     if directory:
-        keys, buckets, tnames, shards, rows = zip(*directory)
+        keys, buckets, tnames, shards_, rows = zip(*directory)
         if any(type(k) is list for k in keys):
             keys = tuple(freeze_key(k) for k in keys)
         store.directory.update(
-            zip(zip(keys, buckets), zip(tnames, shards, rows)))
+            zip(zip(keys, buckets), zip(tnames, shards_, rows)))
     for h, data in image.get("blobs", []):
         store.blobs.intern_bytes(int(h), bytes(data))
     for s, hashes in enumerate(image.get("blob_seen", [])):
-        if s < cfg.n_shards and s not in stale:
+        if (s < cfg.n_shards and s not in stale
+                and (rlist is None or s in rlist)):
             logm._blob_seen[s] = {int(h) for h in hashes}
-    np.maximum(store.applied_vc, stamp, out=store.applied_vc)
-    np.maximum(logm.op_ids, op_ids, out=logm.op_ids)
-    logm.set_floor(floors, chains)
+    if rlist is None:
+        np.maximum(store.applied_vc, stamp, out=store.applied_vc)
+        np.maximum(logm.op_ids, op_ids, out=logm.op_ids)
+        logm.set_floor(floors, chains)
+    else:
+        # merge only the restricted rows: the other shards' floors and
+        # clocks survive this install untouched
+        store.applied_vc[rlist] = np.maximum(store.applied_vc[rlist],
+                                             stamp[rlist])
+        logm.op_ids[rlist] = np.maximum(logm.op_ids[rlist], op_ids[rlist])
+        fl = logm.floor_seqs.copy()
+        ch = logm.chain_floor.copy()
+        fl[rlist] = floors[rlist]
+        ch[rlist] = chains[rlist]
+        logm.set_floor(fl, ch)
     cold_entries = [e for e in image.get("cold_directory", []) or []
-                    if int(e[3]) not in stale]
+                    if int(e[3]) not in stale
+                    and (rlist is None or int(e[3]) in rlist)]
     committed = image.get("committed_keys", [])
-    if committed and not stale and not txm.committed_keys:
+    if committed and not stale and rlist is None and not txm.committed_keys:
         # fresh manager, nothing dropped: bulk build
         ck, cb, cv = zip(*committed)
         if any(type(k) is list for k in ck):
@@ -364,9 +423,13 @@ def install_image(store, txm, image: dict) -> dict:
             if dk in store.directory:
                 txm.committed_keys[dk] = max(
                     txm.committed_keys.get(dk, 0), int(counter))
+    if store.merkle is not None:
+        for s in (range(cfg.n_shards) if rlist is None else rlist):
+            store.merkle.mark_all(s)
     return {"id": int(image["id"]), "keys": len(directory),
             "rows": n_rows_installed, "tables": len(image["tables"]),
-            "dropped_shards": sl, "cold_directory": cold_entries}
+            "dropped_shards": sl, "restricted_to": rlist,
+            "cold_directory": cold_entries}
 
 
 def install_delta(store, txm, delta: dict) -> dict:

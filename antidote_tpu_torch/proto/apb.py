@@ -28,9 +28,10 @@ import msgpack
 import numpy as np
 
 from antidote_tpu_torch.overload import (BusyError, ColdMiss,
-                                         DeadlineExceeded,
+                                         DeadlineExceeded, ForwardFailed,
                                          InsufficientRightsError,
-                                         ReadOnlyError, TenantBusyError,
+                                         NotOwnerError, ReadOnlyError,
+                                         ReplicaLagging, TenantBusyError,
                                          deadline_from_ms)
 
 # ---------------------------------------------------------------------------
@@ -597,10 +598,29 @@ def overload_error(kind: str, msg: str, retry_after_ms: int = 0) -> bytes:
     return _error(error_text(kind, msg, retry_after_ms))
 
 
-def _error_resp(e) -> Tuple[str, Dict[str, Any]]:
+def _fleet_hint(server):
+    """Errmsg ring-hint endpoints for a follower's typed redirect: the
+    live fleet's followers as space-free ``H:P`` pairs for
+    :func:`error_text`'s ``fleet=`` param (the owner rides the structured
+    ``redirect=`` param; mixing the two would put the owner on a session
+    client's read ring)."""
+    plane = getattr(server, "proxy", None) if server is not None else None
+    if plane is None:
+        return None
+    hint = plane.ring_hint()
+    if hint is None:
+        return None
+    return hint.get("followers") or None
+
+
+def _error_resp(e, server=None) -> Tuple[str, Dict[str, Any]]:
     """Map one exception to the typed ApbErrorResp reply — overload
-    sheds, deadlines, read-only mode, escrow and cold-tier refusals —
-    and the reference's catch-all shape for everything else."""
+    sheds, deadlines, read-only mode, escrow and cold-tier refusals,
+    follower redirects (lagging/not_owner, with the retry hint and owner
+    redirect in the errmsg), forwarding failures (``forward_failed``: the
+    owner may have executed) — and the reference's catch-all shape for
+    everything else.  ``server`` (fronting a follower) lets the
+    redirect-class errors carry the errmsg-encoded fleet hint."""
 
     if isinstance(e, TenantBusyError):
         # tenant-scoped refusal: checked BEFORE BusyError
@@ -621,9 +641,38 @@ def _error_resp(e) -> Tuple[str, Dict[str, Any]]:
         text = error_text("deadline", str(e))
     elif isinstance(e, ReadOnlyError):
         text = error_text("read_only", str(e))
+    elif isinstance(e, ReplicaLagging):
+        text = error_text("lagging", str(e), e.retry_after_ms,
+                          e.redirect, fleet=_fleet_hint(server))
+    elif isinstance(e, NotOwnerError):
+        text = error_text("not_owner", str(e), redirect=e.redirect,
+                          fleet=_fleet_hint(server))
+    elif isinstance(e, ForwardFailed):
+        text = error_text("forward_failed", str(e),
+                          fleet=_fleet_hint(server))
     else:
         text = f"{type(e).__name__}: {e}"
     return "ApbErrorResp", {"errmsg": to_bytes(text), "errcode": 0}
+
+
+#: apb requests a FOLLOWER refuses with a typed not_owner redirect when it
+#: has no proxy plane: writes and interactive transactions belong to the
+#: owner, and the DC mesh mutations would subscribe the follower to
+#: streams the owner never replicated (the native dialect's refusal set)
+FOLLOWER_REFUSED = frozenset((
+    "ApbStartTransaction", "ApbReadObjects", "ApbUpdateObjects",
+    "ApbCommitTransaction", "ApbStaticUpdateObjects",
+    "ApbConnectToDCs", "ApbCreateDC",
+))
+
+#: apb requests a follower with a proxy plane FORWARDS to the owner: the
+#: refusal set minus the DC-mesh mutations (which stay refused), plus
+#: abort (finishing a forwarded transaction must reach its owner)
+FOLLOWER_FORWARDED = frozenset((
+    "ApbStartTransaction", "ApbReadObjects", "ApbUpdateObjects",
+    "ApbCommitTransaction", "ApbAbortTransaction",
+    "ApbStaticUpdateObjects",
+))
 
 
 def handle_request(server, code: int, payload: bytes, conn_txns: set,
@@ -634,12 +683,30 @@ def handle_request(server, code: int, payload: bytes, conn_txns: set,
 
     ``lock`` (the server's dispatch lock) is held only around the
     node/_txns mutation — protobuf decode/encode run outside it, like the
-    native dialect."""
+    native dialect.
+
+    On a follower (``server.follower``) static reads pass the follower's
+    token gate and ring routing (in :func:`_dispatch_static`), writes and
+    transactions forward to the owner over the proxy plane, and without
+    one they — and the DC mesh mutations always — answer the typed
+    not_owner redirect, errmsg-encoded (proto2 ApbErrorResp has no
+    structured fields)."""
     name = CODE_TO_NAME[code]
+    fol = getattr(server, "follower", None)
+    plane = getattr(server, "proxy", None)
+    if fol is not None and name in FOLLOWER_REFUSED and (
+            plane is None or name not in FOLLOWER_FORWARDED):
+        server.metrics.session_redirects.inc(kind="not_owner",
+                                             dialect="apb")
+        return encode_frame_body(*_error_resp(
+            NotOwnerError(fol.owner_client_addr), server=server))
     try:
         req = decode_msg(name, payload)  # outside the lock
     except Exception as e:
         return _error(f"{type(e).__name__}: {e}")
+    if fol is not None and plane is not None and name in FOLLOWER_FORWARDED:
+        return encode_frame_body(
+            *_forward_apb(server, plane, name, req, conn_txns))
     if name in ("ApbStaticReadObjects", "ApbStaticUpdateObjects"):
         # static ops ride the server's gate helpers (batched: the gate's
         # dispatcher thread takes the lock; unbatched: they lock inline)
@@ -650,6 +717,90 @@ def handle_request(server, code: int, payload: bytes, conn_txns: set,
     with (lock if lock is not None else contextlib.nullcontext()):
         resp_name, resp = _dispatch(server, name, req, conn_txns)
     return encode_frame_body(resp_name, resp)  # outside the lock
+
+
+def _forward_apb(server, plane, name: str, req: Dict[str, Any],
+                 conn_txns: set) -> Tuple[str, Dict[str, Any]]:
+    """Forward one apb write or transaction request from a follower to
+    the owner's write plane: decoded once here, relayed over the plane's
+    native channels, the owner's reply re-encoded apb — so both dialects
+    share one failover loop, one at-most-once discipline and one
+    ``proxy.forward`` fault site."""
+    from antidote_tpu_torch.proto.codec import MessageCode, decode_value
+
+    node = server.node
+    my_dc = getattr(node, "dc_id", 0)
+    deadline = deadline_from_ms(None, server.default_deadline_ms)
+    try:
+        if name == "ApbStaticUpdateObjects":
+            clock = _dec_clock(req["transaction"].get("timestamp"))
+            vc = plane.forward_update(
+                updates_from_update_ops(req.get("updates", []), my_dc),
+                clock, deadline)
+            return "ApbCommitResp", {
+                "success": True, "commit_time": _enc_clock(vc),
+            }
+        if name == "ApbStartTransaction":
+            resp = plane.txn_call(MessageCode.START_TRANSACTION, {
+                "clock": _dec_clock(req.get("timestamp")),
+            })
+            txid = resp["txid"]
+            plane.forwarded_txns.add(txid)
+            conn_txns.add(txid)
+            return "ApbStartTransactionResp", {
+                "success": True,
+                "transaction_descriptor": str(txid).encode(),
+            }
+        txid = int(req["transaction_descriptor"])
+        if name == "ApbReadObjects":
+            objs = [_bound_object(bo) for bo in req["boundobjects"]]
+            resp = plane.txn_call(MessageCode.READ_OBJECTS, {
+                "txid": txid, "objects": [list(o) for o in objs],
+            })
+            vals = [decode_value(v) for v in resp["values"]]
+            return "ApbReadObjectsResp", {
+                "success": True,
+                "objects": [
+                    value_to_read_resp(t, v)
+                    for (_, t, _), v in zip(objs, vals)
+                ],
+            }
+        if name == "ApbUpdateObjects":
+            ups = updates_from_update_ops(req["updates"], my_dc)
+            try:
+                plane.txn_call(MessageCode.UPDATE_OBJECTS, {
+                    "txid": txid, "updates": [list(u) for u in ups],
+                })
+            except Exception:
+                # the owner aborted + unregistered the txn (its update
+                # failure discipline) — drop the forwarded bookkeeping
+                plane.forwarded_txns.discard(txid)
+                conn_txns.discard(txid)
+                raise
+            return "ApbOperationResp", {"success": True}
+        if name == "ApbCommitTransaction":
+            try:
+                resp = plane.txn_call(MessageCode.COMMIT_TRANSACTION,
+                                      {"txid": txid})
+            except BusyError:
+                raise  # txn stays OPEN at the owner — retryable
+            except Exception:
+                plane.forwarded_txns.discard(txid)
+                conn_txns.discard(txid)
+                raise
+            plane.forwarded_txns.discard(txid)
+            conn_txns.discard(txid)
+            return "ApbCommitResp", {
+                "success": True,
+                "commit_time": _enc_clock(resp["commit_clock"]),
+            }
+        # ApbAbortTransaction
+        plane.txn_call(MessageCode.ABORT_TRANSACTION, {"txid": txid})
+        plane.forwarded_txns.discard(txid)
+        conn_txns.discard(txid)
+        return "ApbOperationResp", {"success": True}
+    except Exception as e:
+        return _error_resp(e, server=server)
 
 
 def _dispatch_static(server, name: str, req: Dict[str, Any]):
@@ -671,8 +822,16 @@ def _dispatch_static(server, name: str, req: Dict[str, Any]):
             }
         clock = _dec_clock(req["transaction"].get("timestamp"))
         objs = [_bound_object(bo) for bo in req.get("objects", [])]
-        vals, vc = server.static_read(objs, clock, deadline=deadline)
-        return "ApbStaticReadObjectsResp", {
+        via_proxy = False
+        if getattr(server, "follower", None) is not None:
+            # the session token gate and ring routing, the native
+            # dialect's discipline (typed lagging only as the last
+            # resort, errmsg-encoded)
+            (vals, vc), via_proxy = server._follower_read(
+                objs, clock, deadline, dialect="apb")
+        else:
+            vals, vc = server.static_read(objs, clock, deadline=deadline)
+        resp = {
             "objects": {
                 "success": True,
                 "objects": [
@@ -682,8 +841,15 @@ def _dispatch_static(server, name: str, req: Dict[str, Any]):
             },
             "committime": {"success": True, "commit_time": _enc_clock(vc)},
         }
+        if via_proxy:
+            # teach capable clients the ring (proto2-safe: an unknown
+            # optional field, skipped by decoders that predate it)
+            hint = server.proxy.ring_hint()
+            if hint is not None:
+                resp["ring_hint"] = msgpack.packb(hint)
+        return "ApbStaticReadObjectsResp", resp
     except Exception as e:
-        return _error_resp(e)
+        return _error_resp(e, server=server)
 
 
 def _dispatch(server, name: str, req: Dict[str, Any],

@@ -27,9 +27,18 @@ run the same serving core as the socketserver handlers.
 
 ``interdc=`` attaches the node's inter-DC replica (``interdc.DCReplica``):
 the DC-management requests of both dialects (get the connection
-descriptor, connect to DCs) reach it, and the node status gains its
-replication block.  Read replicas and the follower's proxy plane come
-with a later slice: ``follower=`` raises.
+descriptor, connect to DCs) and the follower registry's REPLICA_ADMIN
+reach it, and the node status gains its replication block.
+
+``follower=`` fronts a read replica (``interdc.FollowerReplica``): session
+reads pass the follower's applied-clock gate (park, then a typed lagging
+redirect), reads outside this follower's ring arcs proxy one hop to the
+arc owner, and writes and transaction ops forward to the owner's write
+plane (``proto/proxy.py``; ``server_proxy=False`` answers them with typed
+not_owner redirects instead).  Replies that imply a mis-routed client
+carry the fleet's ring hint.  On a follower the native plane never serves
+reads itself (its mirror follows owner publishes only), and every epoch
+publish goes through the follower's applied-clock publish.
 """
 
 from __future__ import annotations
@@ -52,8 +61,11 @@ from antidote_tpu_torch.overload import (
     BusyError,
     ColdMiss,
     DeadlineExceeded,
+    ForwardFailed,
     InsufficientRightsError,
+    NotOwnerError,
     ReadOnlyError,
+    ReplicaLagging,
     TenantBusyError,
     check_deadline,
     deadline_from_ms,
@@ -70,6 +82,7 @@ from antidote_tpu_torch.proto.codec import (
     write_frame_body,
     write_message,
 )
+from antidote_tpu_torch.proto.proxy import ProxyExhausted, ProxyPlane
 from antidote_tpu_torch.txn.manager import AbortError, Transaction
 
 DEFAULT_PORT = 8087
@@ -168,11 +181,16 @@ class ProtocolServer:
                  snapshot_cache_size: Optional[int] = None,
                  group_commit_window_us: float = 0.0,
                  follower=None, native_frontend: bool = False,
-                 native_mirror_cap: int = 1 << 18, tenants=None):
-        if follower is not None:
-            raise NotImplementedError(
-                "follower: read replicas and the proxy plane come with a "
-                "later slice of the port")
+                 native_mirror_cap: int = 1 << 18, tenants=None,
+                 server_proxy: bool = True):
+        if follower is not None and not batch_static:
+            # the inline read path reads under the dispatch lock only, but
+            # a follower's pump thread writes the live heads: the commit-
+            # lock read discipline lives in the batch workers
+            raise ValueError(
+                "a follower server requires batch_static=True (the inline "
+                "read path bypasses the replica's commit-lock read "
+                "discipline)")
         # --- native serving front-end ----------------------------------
         #: a C++ epoll thread owning accept / framing / hot-read decode /
         #: admission / whole-batch cache hits on the ADVERTISED port;
@@ -193,6 +211,10 @@ class ProtocolServer:
         self.node = node
         #: the node's inter-DC replica (DCReplica) or None
         self.interdc = interdc
+        #: the FollowerReplica this server fronts, or None (an owner)
+        self.follower = follower
+        if follower is not None and interdc is None:
+            self.interdc = follower
         #: multi-tenant QoS: weights + caps for every tenant this node
         #: serves.  An untenanted node gets a registry holding only the
         #: default lane — every tenant code path then degenerates to the
@@ -202,6 +224,11 @@ class ProtocolServer:
         self._txns: Dict[int, Transaction] = {}
         #: metric sink for the overload planes: the node's own registry
         self.metrics = node.metrics
+        #: the proxy / forwarding plane of a follower (None on an owner
+        #: and with server_proxy=False)
+        self.proxy: Optional[ProxyPlane] = None
+        if follower is not None and server_proxy:
+            self.proxy = ProxyPlane(follower, self.metrics)
         #: overload admission: global + per-client (peer host)
         #: in-flight caps.  Past a cap, the request is answered with a
         #: typed busy error carrying a retry-after hint — never parked
@@ -362,7 +389,10 @@ class ProtocolServer:
             # forwards every frame (the JAX package rewires the store to
             # the newest server, and the older one's mirror then misses
             # invalidations)
-            if (self._epoch_reads
+            # On a follower the mirror would follow only owner publishes,
+            # never the applied clock, so the native plane forwards every
+            # frame there
+            if (self._epoch_reads and self.follower is None
                     and not _faults.armed_prefix("frontend.")
                     and store.native_mirror is None):
                 store.native_mirror = self.native
@@ -528,6 +558,16 @@ class ProtocolServer:
             resp_code, resp = MessageCode.ERROR_RESP, {
                 "error": "deadline", "detail": str(e)
             }
+        except ReplicaLagging as e:
+            # follower session gate: the read was NOT served — the
+            # client retries after the hint or fails over (the redirect
+            # names the owner)
+            resp_code, resp = MessageCode.ERROR_RESP, {
+                "error": "lagging", "detail": str(e),
+                "retry_after_ms": int(e.retry_after_ms),
+                "redirect": e.redirect,
+            }
+            self._attach_hint(resp)
         except ColdMiss as e:
             # cold-tier fault-in refused (rate cap / I/O fault / CRC
             # failure): the key's device row stays cold this round —
@@ -538,6 +578,21 @@ class ProtocolServer:
                 "retry_after_ms": int(e.retry_after_ms),
                 "permanent": bool(e.permanent),
             }
+        except NotOwnerError as e:
+            resp_code, resp = MessageCode.ERROR_RESP, {
+                "error": "not_owner", "detail": str(e),
+                "redirect": e.redirect,
+            }
+            self._attach_hint(resp)
+        except ForwardFailed as e:
+            # a forwarded write lost the owner connection AFTER the
+            # request left the socket: at-most-once forbids a resend, so
+            # the client learns the op may have executed
+            resp_code, resp = MessageCode.ERROR_RESP, {
+                "error": "forward_failed", "detail": str(e),
+                "maybe_executed": True,
+            }
+            self._attach_hint(resp)
         except ReadOnlyError as e:
             resp_code, resp = MessageCode.ERROR_RESP, {
                 "error": "read_only", "detail": str(e)
@@ -567,12 +622,27 @@ class ProtocolServer:
             time.sleep(float(d.arg or 0.01))
         return frame
 
+    def _attach_hint(self, resp: dict) -> None:
+        """Ring-hint header: follower replies that imply the client
+        mis-routed (proxied reads, typed redirects) carry the current
+        fleet and owner, so capable clients refresh their ring in place
+        and converge back to zero hops."""
+        if self.proxy is not None:
+            hint = self.proxy.ring_hint()
+            if hint is not None:
+                resp["ring_hint"] = hint
+
     def _abort_orphan(self, txid: int) -> None:
         """Roll back a transaction whose client connection died."""
         with self._lock:
             txn = self._txns.pop(txid, None)
             if txn is not None and txn.active:
                 self.node.abort_transaction(txn)
+        if (txn is None and self.proxy is not None
+                and txid in self.proxy.forwarded_txns):
+            # a FORWARDED transaction's edge client died: this node holds
+            # no Transaction, so the abort goes to the owner
+            self.proxy.abort_forwarded(txid)
 
     # ------------------------------------------------------------------
     # native front-end drain plane
@@ -1094,7 +1164,7 @@ class ProtocolServer:
             batch = q.get()
             if batch is _STOP:
                 return
-            store = self.node.txm.store
+            store = batch.pending.store or self.node.txm.store
             t0 = time.monotonic()
             try:
                 # the writeback stage owns the device sync
@@ -1146,7 +1216,10 @@ class ProtocolServer:
                 if self._epoch_reads else 0.5)
         while not self._ticker_stop.wait(tick):
             try:
-                if self._epoch_reads:
+                if self._epoch_reads and self.follower is not None:
+                    with txm.commit_lock:
+                        self.follower.publish_applied_epoch_locked()
+                elif self._epoch_reads:
                     # the publish advances the native mirror itself
                     txm.publish_serving_epoch()
                 self._publish_table_epochs_capped()
@@ -1328,6 +1401,123 @@ class ProtocolServer:
             pending = retry
 
     # ------------------------------------------------------------------
+    # ------------------------------------------------------------------
+    # follower entrypoints
+    # ------------------------------------------------------------------
+    def _follower_entry(self, code: MessageCode, body, deadline):
+        """Write and transaction traffic arriving at a follower.  Returns
+        ``(resp_code, resp)`` when the plane handled (forwarded or
+        refused) the request, None to continue the normal serving path.
+        DC-mesh mutations stay refused outright: CONNECT_TO_DCS would
+        subscribe the FOLLOWER to a stream its owner never replicated
+        (guaranteed divergence), and forwarding it would mutate the
+        owner's mesh behind the operator's back."""
+        fol = self.follower
+        plane = self.proxy
+        if code in (MessageCode.CONNECT_TO_DCS, MessageCode.CREATE_DC):
+            self.metrics.session_redirects.inc(kind="not_owner",
+                                               dialect="native")
+            raise NotOwnerError(fol.owner_client_addr)
+        if code == MessageCode.STATIC_UPDATE_OBJECTS:
+            if plane is None or body.get("proxied"):
+                # one hop at most: a FORWARDED write landing on a follower
+                # means the fleet disagrees about who owns the write plane
+                self.metrics.session_redirects.inc(kind="not_owner",
+                                                   dialect="native")
+                raise NotOwnerError(fol.owner_client_addr)
+            vc = plane.forward_update(
+                _decode_updates(body["updates"]), body.get("clock"),
+                deadline, tenant=body.get("tenant"))
+            return MessageCode.COMMIT_RESP, {
+                "commit_clock": [int(x) for x in vc]}
+        if code in (MessageCode.START_TRANSACTION,
+                    MessageCode.READ_OBJECTS,
+                    MessageCode.UPDATE_OBJECTS,
+                    MessageCode.COMMIT_TRANSACTION,
+                    MessageCode.ABORT_TRANSACTION):
+            if plane is None or body.get("proxied"):
+                if code in (MessageCode.START_TRANSACTION,
+                            MessageCode.UPDATE_OBJECTS,
+                            MessageCode.COMMIT_TRANSACTION):
+                    self.metrics.session_redirects.inc(kind="not_owner",
+                                                       dialect="native")
+                    raise NotOwnerError(fol.owner_client_addr)
+                return None  # READ/ABORT: the unknown-txn answers
+            return self._forward_txn_op(plane, code, body)
+        return None
+
+    def _forward_txn_op(self, plane: ProxyPlane, code: MessageCode, body):
+        """Relay one interactive-transaction op over the sticky owner
+        channel; the owner's reply bodies are relayed verbatim (the txid
+        is the OWNER's — this node keeps only the forwarded-txn
+        bookkeeping, so a dead edge connection still aborts its
+        orphans)."""
+        if code == MessageCode.START_TRANSACTION:
+            resp = plane.txn_call(code, body)
+            plane.forwarded_txns.add(resp["txid"])
+            return MessageCode.START_TRANSACTION_RESP, resp
+        if code == MessageCode.READ_OBJECTS:
+            return MessageCode.READ_OBJECTS_RESP, plane.txn_call(code, body)
+        if code == MessageCode.UPDATE_OBJECTS:
+            try:
+                resp = plane.txn_call(code, body)
+            except AbortError:
+                # the owner aborted and unregistered the txn
+                plane.forwarded_txns.discard(body.get("txid"))
+                raise
+            return MessageCode.OPERATION_RESP, resp
+        if code == MessageCode.COMMIT_TRANSACTION:
+            try:
+                resp = plane.txn_call(code, body)
+            except BusyError:
+                raise  # the txn stays OPEN at the owner: retryable
+            except BaseException:
+                plane.forwarded_txns.discard(body.get("txid"))
+                raise
+            plane.forwarded_txns.discard(body.get("txid"))
+            return MessageCode.COMMIT_RESP, resp
+        resp = plane.txn_call(code, body)  # ABORT_TRANSACTION
+        plane.forwarded_txns.discard(body.get("txid"))
+        return MessageCode.OPERATION_RESP, resp
+
+    def _follower_read(self, objs, clock, deadline, dialect: str = "native",
+                       proxied: bool = False, tenant=None):
+        """A session read at a follower.  Returns ``(out, via_proxy)``:
+        in-arc keys serve locally behind the token gate (a gate refusal
+        fails over server-side through the proxy plane), out-of-arc keys
+        proxy one hop to the arc owner.  A PROXIED request never
+        re-proxies, and typed lagging surfaces only when every avenue is
+        exhausted."""
+        fol = self.follower
+        plane = self.proxy
+        wants_bytes = dialect == "native"
+
+        def _local():
+            fol.gate_read(objs, _vc(clock), deadline, dialect=dialect)
+            return self.static_read(objs, clock, deadline=deadline,
+                                    wants_bytes=wants_bytes,
+                                    tenant=tenant), False
+
+        if plane is None or proxied:
+            return _local()
+        target = plane.route(objs)
+        if target is None:
+            try:
+                return _local()
+            except ReplicaLagging as gate_err:
+                try:
+                    return plane.proxy_read(objs, clock, deadline,
+                                            tenant=tenant), True
+                except ProxyExhausted:
+                    raise gate_err from None
+        try:
+            return plane.proxy_read(objs, clock, deadline, first=target,
+                                    tenant=tenant), True
+        except ProxyExhausted:
+            # every remote hop failed: the terminal local attempt's typed
+            # refusal is the honest last resort
+            return _local()
+
     def _process(self, code: MessageCode, body: Any):
         # per-request deadline: client-supplied relative ``deadline_ms``
         # (native dialect only), else the configured server default.
@@ -1336,17 +1526,38 @@ class ProtocolServer:
             body.get("deadline_ms") if isinstance(body, dict) else None,
             self.default_deadline_ms,
         )
+        # a follower forwards writes and transaction ops to the owner's
+        # write plane and answers like any node; typed errors surface only
+        # when forwarding is exhausted (or with server_proxy=False)
+        fol = self.follower
+        if fol is not None:
+            handled = self._follower_entry(code, body, deadline)
+            if handled is not None:
+                return handled
         # static ops route through the gate helpers OUTSIDE the lock (the
         # gate's dispatcher takes it; with batching off they lock inline)
         # — the ONLY static dispatch path, so it cannot drift from a
         # duplicate
         if code == MessageCode.STATIC_READ_OBJECTS:
             objs = _decode_objects(body["objects"])
-            out = self.static_read(
-                objs, body.get("clock"),
-                deadline=deadline, wants_bytes=True,
-                tenant=body.get("tenant"),
-            )
+            if fol is not None:
+                out, via_proxy = self._follower_read(
+                    objs, body.get("clock"), deadline,
+                    proxied=bool(body.get("proxied")),
+                    tenant=body.get("tenant"))
+                if via_proxy:
+                    vals, vc = out
+                    resp = {"values": [encode_value(v) for v in vals],
+                            "commit_clock": [int(x) for x in vc]}
+                    # teach the mis-routed client the ring
+                    self._attach_hint(resp)
+                    return MessageCode.READ_OBJECTS_RESP, resp
+            else:
+                out = self.static_read(
+                    objs, body.get("clock"),
+                    deadline=deadline, wants_bytes=True,
+                    tenant=body.get("tenant"),
+                )
             if isinstance(out, RawReply):
                 # batched reply serialization: the writeback stage framed
                 # the response; the handler sends the bytes as-is
@@ -1405,15 +1616,14 @@ class ProtocolServer:
                 "commit_clock": [int(x) for x in vc]
             }
         if code == MessageCode.REPLICA_ADMIN:
-            # the follower-replica registry lives on the replica plane:
-            # without one, the JAX server's reply word for word; with one,
-            # the follower slice's typed refusal
+            # replica registry op (console replica-add/-remove/-status),
+            # OUTSIDE the dispatch lock: registry bookkeeping on the
+            # replica plane, never a data-path call
             if self.interdc is None:
                 raise RuntimeError("no replica plane attached (start "
                                    "with --interdc or --follower-of)")
-            from antidote_tpu_torch.interdc.replica import NotPortedError
-
-            raise NotPortedError("replica admin")
+            return MessageCode.OPERATION_RESP, {
+                "replicas": self.interdc.replica_admin(body or {})}
         if code == MessageCode.CHECKPOINT_NOW:
             # admin op, OUTSIDE the dispatch lock: the checkpointer has
             # its own serialization, and streaming a multi-second image
@@ -1605,6 +1815,8 @@ class ProtocolServer:
         }
         if self.native is not None:
             out["native"] = self.native.stats()
+        if self.proxy is not None:
+            out["proxy"] = self.proxy.stats()
         store = self.node.txm.store
         out["snapshot_cache"]["size"] = len(store.snapshot_cache)
         out["snapshot_cache"]["cap"] = store.snapshot_cache_cap
@@ -1619,6 +1831,8 @@ class ProtocolServer:
     def close(self) -> None:
         self._closing = True
         self._ticker_stop.set()
+        if self.proxy is not None:
+            self.proxy.close()
         self._server.shutdown()
         self._server.server_close()
         if self.native is not None:

@@ -21,6 +21,7 @@ by either package decode in the other.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Dict, List, Optional
 
 import msgpack
@@ -198,6 +199,8 @@ def import_shard(store: KVStore, pkg: Dict[str, Any],
                 blob_refs=eff.blob_refs)
     if pkg["log"] and store.log is not None:
         store.log.commit_barrier([dst])
+    if store.merkle is not None:
+        store.merkle.mark_all(dst)
 
 
 def drop_shard(store: KVStore, shard: int) -> None:
@@ -222,17 +225,32 @@ def drop_shard(store: KVStore, shard: int) -> None:
     for dk in list(store.directory.shard_keys(shard)):
         del store.directory[dk]
     store.applied_vc[shard] = 0
+    if store.merkle is not None:
+        store.merkle.mark_all(shard)
     if store.log is not None:
         # the moved records must not resurrect here on the next recover
         store.log.truncate_shard(shard)
 
 
-def assert_replication_quiescent(store: KVStore, my_dc: int) -> None:
-    """Refuse to reshard a replica with replication in flight: every remote
-    origin's lane must be equal across all shard clocks (an unequal lane is
-    a remote commit some shards applied and others did not).  The form
-    that also checks an inter-DC replica's gated and pending transactions
-    comes with the inter-DC slice."""
+def assert_replication_quiescent(store: KVStore, my_dc: int,
+                                 replica=None) -> None:
+    """Refuse to reshard a replica with replication in flight.
+
+    Re-chaining splits the per-(origin, shard) opid chains; a remote
+    transaction buffered or gated when the chains renumber would be
+    dropped as a duplicate afterwards.  Quiescence means: no gated or
+    pending remote transactions (``replica``, an inter-DC replica), and
+    every remote origin's lane equal across all shard clocks — an unequal
+    lane is a remote commit some shards applied and others did not (or a
+    safe-time ping still in the fabric)."""
+    if replica is not None:
+        stuck = ([k for k, q in replica.gate.items() if len(q) > 0]
+                 + [k for k, buf in replica.pending.items() if len(buf) > 0])
+        if stuck:
+            raise RuntimeError(
+                f"reshard with replication in flight: gated/pending remote "
+                f"txns on (origin, shard) chains {sorted(set(stuck))}; "
+                "pump the fabric to quiescence first")
     vc = store.applied_vc
     for lane in range(store.cfg.max_dcs):
         if lane == my_dc:
@@ -241,27 +259,36 @@ def assert_replication_quiescent(store: KVStore, my_dc: int) -> None:
             raise RuntimeError(
                 f"reshard with replication in flight: origin lane {lane} "
                 f"differs across shards ({vc[:, lane].tolist()}); drain "
-                "replication to quiescence first")
+                "replication (pump + heartbeats) to quiescence first")
 
 
-def reshard(store: KVStore, new_cfg, log=None,
-            my_dc: Optional[int] = None) -> KVStore:
+def reshard(store: KVStore, new_cfg, log=None, my_dc: Optional[int] = None,
+            replica=None) -> KVStore:
     """Rebuild a replica onto a different shard count (ring resize).
 
     ``new_cfg`` may differ from ``store.cfg`` only in ``n_shards``.  Every
     key re-routes in one ``shard_batch`` pass; each table moves with one
     gather and one scatter a tensor on the store's device.  Returns the new
-    store (the old one keeps its tables).  With ``my_dc``, replication must
-    be quiescent (:func:`assert_replication_quiescent`).  Cold keys are
-    faulted in first: the directory the move walks holds resident keys
-    only.  The placement over a mesh comes with the multi-card slice."""
+    store (the old one keeps its tables).  Replication must be quiescent:
+    pass ``replica`` (and/or ``my_dc``) to have that asserted
+    (:func:`assert_replication_quiescent`) and to hold the replica's
+    ingress barrier for the duration — without it a remote transaction
+    delivered on a fabric thread mid-copy would land in the old store and
+    be lost.  Cold keys are faulted in first: the directory the move walks
+    holds resident keys only.  The placement over a mesh comes with the
+    multi-card slice."""
     old_cfg = store.cfg
     assert new_cfg.max_dcs == old_cfg.max_dcs
     assert new_cfg.ops_per_key == old_cfg.ops_per_key
     assert new_cfg.snap_versions == old_cfg.snap_versions
-    if my_dc is not None:
-        assert_replication_quiescent(store, my_dc)
-    return _reshard_locked(store, new_cfg, log)
+    if replica is not None and my_dc is None:
+        my_dc = replica.dc_id
+    barrier = (replica.ingress_barrier() if replica is not None
+               else contextlib.nullcontext())
+    with barrier:
+        if my_dc is not None:
+            assert_replication_quiescent(store, my_dc, replica)
+        return _reshard_locked(store, new_cfg, log)
 
 
 def _reshard_locked(store: KVStore, new_cfg, log) -> KVStore:

@@ -106,6 +106,88 @@ def stable_min_of(clock_rows: np.ndarray, device) -> np.ndarray:
     return cuda_kernels.stable_min(x.to(device)).cpu().numpy()
 
 
+def _canon(v: Any) -> Any:
+    """Canonical msgpack-able form of a client-visible value for digesting:
+    dicts become pair lists sorted by their packed keys (msgpack maps can't
+    carry tuple keys, and dict order is insertion order), numpy scalars
+    become Python numbers — so two replicas holding the same logical value
+    hash identically, in either package."""
+    if isinstance(v, dict):
+        import msgpack as _mp
+
+        pairs = [[_canon(k), _canon(x)] for k, x in v.items()]
+        pairs.sort(key=lambda p: _mp.packb(p[0], use_bin_type=True,
+                                           default=repr))
+        return ["\x00map", pairs]
+    if isinstance(v, (list, tuple)):
+        return [_canon(x) for x in v]
+    if isinstance(v, np.integer):
+        return int(v)
+    if isinstance(v, np.floating):
+        return float(v)
+    return v
+
+
+#: keys a digest reads per batch (one resolved read per table a chunk)
+DIGEST_CHUNK = 4096
+
+
+def digest_objects(store: "KVStore", dks) -> list:
+    """``(key, base type, bucket)`` for each directory or cold key of
+    ``dks``, in the digest's canonical order (packed ``[key, bucket,
+    type]``).  A cold key's type comes from its cold ref: nothing is
+    faulted in here."""
+    import msgpack as _mp
+
+    objs = []
+    cold = store.cold
+    for dk in dks:
+        ent = store.directory.get(dk)
+        if ent is not None:
+            tname = ent[0]
+        elif cold is not None and dk in cold.refs:
+            tname = cold.refs[dk].tname
+        else:
+            continue  # removed concurrently
+        objs.append((dk[0], split_tier(tname)[0], dk[1]))
+    objs.sort(key=lambda o: _mp.packb([o[0], o[2], o[1]],
+                                      use_bin_type=True, default=repr))
+    return objs
+
+
+def shard_digest(store: "KVStore", shard: int) -> str:
+    """Content digest of one shard's materialized state at its CURRENT
+    applied clock — the divergence-detection primitive of the follower
+    read tier.  Hashes the clock, then every key of the shard (resident
+    and cold, sorted canonically) with its decoded client-visible value at
+    ``applied_vc[shard]``: values, not raw rows, so slot-tier promotion
+    timing and row allocation order (which legitimately differ between a
+    replica applying commit batches and one applying drain batches) do not
+    matter.  Equal clocks mean equal applied prefixes, so the digests MUST
+    match; a mismatch is silent corruption.  Equal to the JAX package's
+    digest string for string.  Caller holds the commit lock."""
+    import hashlib
+
+    import msgpack as _mp
+
+    dks = list(store.directory.shard_keys(shard))
+    if store.cold is not None:
+        dks += list(store.cold.shard_cold_keys(shard))
+    objs = digest_objects(store, dks)
+    vc = store.applied_vc[shard]
+    h = hashlib.sha256()
+    h.update(np.ascontiguousarray(vc, dtype=np.int64).tobytes())
+    # chunked resolved reads: cold keys fault in chunk by chunk, and the
+    # read's post-batch eviction keeps the resident budget
+    for lo in range(0, len(objs), DIGEST_CHUNK):
+        chunk = objs[lo:lo + DIGEST_CHUNK]
+        vals = store.read_values_resolved(chunk, vc)
+        for (key, tname, bucket), v in zip(chunk, vals):
+            h.update(_mp.packb([_canon(key), bucket, tname, _canon(v)],
+                               use_bin_type=True, default=repr))
+    return h.hexdigest()
+
+
 def freeze_key(key: Any) -> Any:
     """Normalize a key after wire or log deserialization: msgpack returns
     tuples as lists, but directory keys must be hashable."""
@@ -271,9 +353,10 @@ class ServingEpoch:
     lock-free gather still reads."""
 
     __slots__ = ("id", "vc", "mut_epoch", "tables", "used_rows", "touched",
-                 "promoted", "pins")
+                 "promoted", "pins", "applied")
 
-    def __init__(self, id_, vc, mut_epoch, tables, used_rows, touched):
+    def __init__(self, id_, vc, mut_epoch, tables, used_rows, touched,
+                 applied=None):
         self.id = id_
         self.vc = vc
         self.mut_epoch = mut_epoch
@@ -282,19 +365,26 @@ class ServingEpoch:
         self.touched = touched
         self.promoted: set = set()
         self.pins = 0
+        #: the per-shard applied-clock cut at capture (i32[n_shards, D]):
+        #: a follower's session gate checks it covers a token on the
+        #: shards a read touches (the cross-shard max ``vc`` may claim it)
+        self.applied = applied
 
 
 class _EpochReadPending:
     """A launched epoch read batch: decoded values filled so far and the
     device handles of its per-table gathers (nothing materialized)."""
 
-    __slots__ = ("ep", "objects", "vals", "launches")
+    __slots__ = ("ep", "objects", "vals", "launches", "store")
 
-    def __init__(self, ep, objects, vals, launches):
+    def __init__(self, ep, objects, vals, launches, store=None):
         self.ep = ep
         self.objects = objects
         self.vals = vals
         self.launches = launches
+        #: the store that launched it (a follower's repair may swap the
+        #: node's store between the launch and the finish)
+        self.store = store
 
 
 class KVStore:
@@ -389,6 +479,9 @@ class KVStore:
         #: is on; pushed from the fill / invalidate / drop paths below so
         #: the native plane never serves a value Python would not.
         self.native_mirror = None
+        #: the divergence tree (``store/merkle.MerkleIndex``), built on
+        #: the first anti-entropy query; applies mark their keys' leaves
+        self.merkle = None
 
     #: dirty-key windows past this size stop tracking (rebase instead)
     _CKPT_KEYS_CAP = 262144
@@ -721,6 +814,10 @@ class KVStore:
             inval.extend(parents)
             lru.extend(touched)
         self.note_ckpt_dirty_many(written)
+        mk = self.merkle
+        if mk is not None:
+            for dk in written:
+                mk.mark(self.directory[dk][1], dk)
         ticket = None
         if logging and written:
             # group fsync: deferred acks wait on the ticket after the
@@ -813,7 +910,12 @@ class KVStore:
         publish)."""
         cur = self.serving_epoch
         if cur is not None and cur.mut_epoch == self.mutation_epoch:
-            return "noop"  # no data applied since
+            # no data applied since: only safe-time pings advanced the
+            # applied clocks, and the frozen slots still hold every
+            # applied op — refresh the epoch's applied cut, which a
+            # follower's session gate trusts (not the cross-shard max vc)
+            cur.applied = self.applied_vc.copy()
+            return "noop"
         m = self.metrics
         with self._epoch_lock:
             can_donate = all(e.pins == 0 for e in self._epoch_graveyard)
@@ -855,7 +957,8 @@ class KVStore:
             used[tname] = t.used_rows.copy()
         self._serving_seq += 1
         ep = ServingEpoch(self._serving_seq, np.asarray(vc, np.int32),
-                          self.mutation_epoch, slots, used, touched)
+                          self.mutation_epoch, slots, used, touched,
+                          applied=self.applied_vc.copy())
         with self._epoch_lock:
             old = self.serving_epoch
             self.serving_epoch = ep
@@ -1084,7 +1187,8 @@ class KVStore:
             launches.append((tname_t, items, resolved))
             if m is not None:
                 m.serving_reads.inc(len(items), path="gather")
-        return _EpochReadPending(ep, objects, vals, launches), fallback
+        return (_EpochReadPending(ep, objects, vals, launches, self),
+                fallback)
 
     def epoch_read_finish(self, pending: _EpochReadPending) -> List[Any]:
         """Materialize and decode a launched epoch read batch (the ONLY
@@ -1362,6 +1466,35 @@ class KVStore:
             get_type(type_name).value(states[i], self.blobs, self.cfg)
             for i, (_, type_name, _) in enumerate(objects)
         ]
+
+    def read_values_resolved(self, objects: Sequence[BoundObject],
+                             read_vc: np.ndarray) -> List[Any]:
+        """``read_values`` through the serving path's device resolve: one
+        ``read_resolved`` per table (a ``set_aw`` batch is one
+        ``orset_resolve`` launch, not one host decode of a full state per
+        key); a view truncated past ``resolve_top`` re-reads its full
+        state, and a row the log replay rebuilt decodes directly."""
+        replayed: Dict[int, Dict[str, Any]] = {}
+        resolved = self.read_resolved(objects, read_vc, full_out=replayed)
+        vals: List[Any] = [None] * len(objects)
+        refetch = []
+        for j, (_key, tname, _bucket) in enumerate(objects):
+            ty = get_type(tname)
+            if j in replayed or ty.resolve_spec(self.cfg) is None:
+                vals[j] = ty.value(replayed.get(j, resolved[j]),
+                                   self.blobs, self.cfg)
+                continue
+            v = ty.value_from_resolved(resolved[j], self.blobs, self.cfg)
+            if v is RESOLVE_OVERFLOW:
+                refetch.append(j)
+            else:
+                vals[j] = v
+        if refetch:
+            states = self.read_states([objects[j] for j in refetch], read_vc)
+            for j, st in zip(refetch, states):
+                vals[j] = get_type(objects[j][1]).value(st, self.blobs,
+                                                        self.cfg)
+        return vals
 
     @staticmethod
     def _wants_by_shard(objects, items, tname_t, idxs) -> Dict[int, list]:

@@ -55,7 +55,6 @@ import torch
 from antidote_tpu_torch.config import AntidoteConfig
 from antidote_tpu_torch.crdt import COMPOSITE_NAMES, get_type, is_type
 from antidote_tpu_torch.crdt import maps as maps_mod
-from antidote_tpu_torch.crdt.base import RESOLVE_OVERFLOW
 from antidote_tpu_torch.overload import (BusyError, DeadlineExceeded,
                                          InsufficientRightsError,
                                          ReadOnlyError, check_deadline)
@@ -411,6 +410,11 @@ class TransactionManager:
         return self._cached_values(
             objs, txn, lambda miss: self._values_resolved_uncached(miss, txn))
 
+    def _values_resolved_uncached(self, objs, txn: Transaction) -> List[Any]:
+        """The cache's misses, through the store's resolved read at the
+        transaction's snapshot (``KVStore.read_values_resolved``)."""
+        return self.store.read_values_resolved(objs, txn.snapshot_vc)
+
     def _cached_values(self, objs, txn: Transaction, compute) -> List[Any]:
         """The decoded-value-cache protocol of plain and composite reads:
         bulk probe, ``compute`` the misses, back-fill latest reads under
@@ -432,37 +436,6 @@ class TransactionManager:
         for j, gi in enumerate(miss_idx):
             allv[gi] = vals[j]
         return allv
-
-    def _values_resolved_uncached(self, objs, txn: Transaction) -> List[Any]:
-        """The compact resolved view decodes on the host; a truncated view
-        (count > resolve_top) re-fetches the full state.  A state the log
-        replay rebuilt decodes directly (no second log scan)."""
-        replayed: Dict[int, Dict[str, Any]] = {}
-        resolved = self.store.read_resolved(objs, txn.snapshot_vc,
-                                            full_out=replayed)
-        vals: List[Any] = [None] * len(objs)
-        refetch = []
-        for j, (_key, t, _bucket) in enumerate(objs):
-            ty = get_type(t)
-            if j in replayed:
-                vals[j] = ty.value(replayed[j], self.store.blobs, self.cfg)
-                continue
-            if ty.resolve_spec(self.cfg) is None:
-                vals[j] = ty.value(resolved[j], self.store.blobs, self.cfg)
-                continue
-            v = ty.value_from_resolved(resolved[j], self.store.blobs,
-                                       self.cfg)
-            if v is RESOLVE_OVERFLOW:
-                refetch.append(j)
-            else:
-                vals[j] = v
-        if refetch:
-            states = self.store.read_states([objs[j] for j in refetch],
-                                            txn.snapshot_vc)
-            for j, st in zip(refetch, states):
-                vals[j] = get_type(objs[j][1]).value(st, self.store.blobs,
-                                                     self.cfg)
-        return vals
 
     def update_objects(self, updates: Sequence[Update],
                        txn: Transaction) -> None:

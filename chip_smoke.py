@@ -27,9 +27,9 @@ Run from the root of a checkout on a machine with a CUDA card (one card;
    against a host oracle built from the op stream, then run an
    ``AntidoteNode`` workload on ``set_aw`` and ``counter_pn`` against a
    host model, historical reads included; then the serving read plane
-   (``serving``) on a 150,000-key ``set_aw`` store populated through
+   (``serving``) on a 100,000-key ``set_aw`` store populated through
    ``KVStore.apply_effect_groups``: two copy publishes and ten scatters of
-   serving epochs, 30 Zipf batches read through the epoch plane (pin,
+   serving epochs, 15 Zipf batches read through the epoch plane (pin,
    launch — one of them under the CUDA sync debug mode — finish, unpin)
    while a second thread commits through the manager, which publishes
    inline, every value held to the locked read at the epoch's clock (or,
@@ -38,7 +38,7 @@ Run from the root of a checkout on a machine with a CUDA card (one card;
    rung 2 (no fold) and rung 3 (``set_aw_fold``); a node's Zipf-hot
    reads through the value cache, warm and cold;
 4. drive a 4-member DC (``ClusterMember``/``ClusterNode`` over localhost
-   RPC, 2048 shards, all on the card): populate 50,000 ``set_aw`` keys
+   RPC, 2048 shards, all on the card): populate 25,000 ``set_aw`` keys
    from every member's coordinator, remove on 2,000 keys through the
    owners' downstream, run mixed transactions from every coordinator
    (every start launches ``stable_min`` on the 2048 x 4 clock matrix),
@@ -46,7 +46,7 @@ Run from the root of a checkout on a machine with a CUDA card (one card;
    every key against a host model, at the stable snapshot and at an
    older one;
 5. the other types (``types``): the nine device types other than set_aw
-   and counter_pn, one 12,000-key table each at BASELINE widths, filled
+   and counter_pn, one 8,000-key table each at BASELINE widths, filled
    by a seeded three-lane stream and read fresh and historical, equal to
    the same table built on the CPU; then a node session over them and the
    maps against a host model (``bench_suite.py``'s map and rga workloads,
@@ -56,7 +56,7 @@ Run from the root of a checkout on a machine with a CUDA card (one card;
    ``fold_batch`` on the card;
 6. durability (``durable``): an ``AntidoteNode`` with a log directory on
    the local disk (``tempfile``), at BASELINE's configuration with 30% of
-   its keys: 150,000 ``set_aw`` keys
+   its keys: 100,000 ``set_aw`` keys
    (2 adds each, removes on 10%) and 100,000 ``counter_pn`` keys (2
    increments) committed through the manager in groups; a full
    checkpoint (its stamp's time under the commit lock against its copy
@@ -72,8 +72,8 @@ Run from the root of a checkout on a machine with a CUDA card (one card;
    beside the card.  The node carries a cold tier with no budget, so its
    full image writes the cold sidecar, and the directory is kept for:
 7. the cold tier and shard handoff (``cold``) on that directory: a
-   recovery with 150,000 of its 250,000 rows resident (the rest evicted
-   to the sidecar), 3 Zipf(1.0) batches of 16,384 keys over every key
+   recovery with 150,000 of its 200,000 rows resident (the rest evicted
+   to the sidecar), 2 Zipf(1.0) batches of 16,384 keys over every key
    faulting cold keys in (every value equal to the durable phase's, beside
    the same batches on its all-resident node), writes to faulted-in keys
    and reads between them (``set_aw_fold``, ``counter_fold``), a burst of
@@ -137,19 +137,41 @@ Run from the root of a checkout on a machine with a CUDA card (one card;
    keys equal at all three DCs and to the host model; a causal chain
    across the three; concurrent counters summing exactly; an injected
    ``interdc.deliver`` drop repaired by catch-up; the flash sale of
-   ``bench_wire.py`` (10,000 ``counter_b`` SKUs, 50 units over two lanes, 8
+   ``bench_wire.py`` (5,000 ``counter_b`` SKUs, 50 units over two lanes, 8
    shoppers a DC, a 5 s storm) with zero oversell, then a grant that must
    arrive on a SKU whose rights lie on DC0's lane only;
    then a GentleRain pair whose reads at the GST fold the rings
    (``set_aw_fold``, ``counter_fold``).  Its figures print on an ``interdc:`` line beside the card;
-11. print one JSON line per kernel record, the card line, and last the
+11. follower read replicas (``follower``): one owner at BASELINE's widths
+   (a WAL, its own ``TcpFabric``, a ``DCReplica``, a
+   ``ProtocolServer(interdc=...)`` on the native front end) and two
+   followers (each a node with its own log directory and fabric, a
+   ``FollowerReplica`` attached by descriptor over TCP and a
+   ``ProtocolServer(follower=...)``); ``bench_wire.py`` config 3's 200,000
+   ``set_aw`` keys and 10,000 counters populated through the owner's
+   manager, a full image, a tail after it; both followers bootstrap by
+   image (the image's MB, the ship's seconds and MB/s, the install's and
+   the catch-up's seconds), the second through one injected ``ckpt.ship``
+   fault, retried; the config 3 mix over the fleet through session
+   clients whose writes a follower forwards (ops/s, read and update p50 /
+   p99, reads served locally, proxied and redirected, forwarded writes,
+   the card's busy share); every acknowledged write and 2,048 untouched
+   keys equal at both followers, the owner and the host model; reads at a
+   token inside the tail equal the owner's (they fold: ``set_aw_fold``,
+   ``counter_fold``); every shard's Merkle root ``ok``; one corrupted row
+   healed by fetching its leaf alone; a ``proxy.forward`` fault surfacing
+   typed; follower 1 restarted from its directory in mode ``tail`` while a
+   session keeps read-your-writes.  Its figures print on a ``follower:``
+   line beside the card;
+12. print one JSON line per kernel record, the card line, and last the
    ``{"ok": true, ...}`` line.
 
 The launch counts are reset just before the serve, the node workload, the
 serving plane, the cluster, the types phase, the durable phase, the cold
-phase, the wire phase, the native phase and the interdc phase, and read
-just after each; each must show the kernels that ``PATH_KERNELS`` names
-for it, and a kernel record's ``launches`` is the sum over the ten.
+phase, the wire phase, the native phase, the interdc phase and the
+follower phase, and read just after each; each must show the kernels that
+``PATH_KERNELS`` names for it, and a kernel record's ``launches`` is the
+sum over the eleven.
 The serve must launch ``orset_presence`` exactly once per
 ``SetAW.resolve``, and a resolve on a CUDA state must call no torch sort.
 Exits non-zero without a CUDA device, and outside a
@@ -189,8 +211,10 @@ SERVE_BATCHES, HIST_EVERY = 60, 5
 # with the interdc phase's arrival (the populate took 31.7 s of the phase's
 # 60.9 s at 100,000), and the mixed transactions halved again, to 64 a
 # coordinator (the whole script took 579 s on a slower host with them at
-# 128, 16.0 s of the phase's 49.5 s)
-CL_MEMBERS, CL_SHARDS, CL_KEYS, CL_ADDS = 4, 2048, 50_000, 3
+# 128, 16.0 s of the phase's 49.5 s); the keys halved again, to 25,000,
+# with the follower phase's arrival (the script took 553.5 s with it, the
+# populate 18.6 s of the phase's 38.2 s at 50,000)
+CL_MEMBERS, CL_SHARDS, CL_KEYS, CL_ADDS = 4, 2048, 25_000, 3
 CL_TXN, CL_REMOVES, CL_MIXED = 1024, 2000, 64
 # set_aw_fold's edge cases (K, E, D) at an odd B: the tier widths, widths
 # that fill no whole segment of lanes, 1 to 12 clock lanes, rings of one
@@ -216,20 +240,23 @@ COUNTER_CASES = [(1, 4), (16, 4), (33, 4), (16, 1), (16, 3), (33, 8)]
 # the first runs, 25,000 after the cold phase's arrival, halved again
 # after the interdc phase's (the script took 553 s with the interdc storm
 # cut to 5 s, which left its escrow transfers to chance; the types phase
-# took 70.2 s, and its populate and CPU twin scale with the keys)
-TY_KEYS, TY_ROUNDS, TY_CUT, TY_SHARDS = 12_000, 20, 18, 8
+# took 70.2 s, and its populate and CPU twin scale with the keys); 8,000
+# with the follower phase's arrival (the script took 553.5 s with it)
+TY_KEYS, TY_ROUNDS, TY_CUT, TY_SHARDS = 8_000, 20, 18, 8
 MV_SLOTS, RGA_SLOTS = 4, 64
 # the serving phase: keys (15% of BASELINE's 1M: halved with the cold
 # phase's arrival and again with the wire phase's, for the 600 s budget,
 # and 250,000 -> 150,000 with the interdc phase's, whose arrival left the
-# script at 550 s against its 560 s; the populate through the store
+# script at 550 s against its 560 s, and 150,000 -> 100,000 with the
+# follower phase's (553.5 s with it); the populate through the store
 # scales with them),
 # element pool, publish rounds of SV_ROUND_KEYS keys x 4 effects,
-# epoch-read batches (30: 60 until the script took 579 s with the interdc
-# phase on a slower host), the concurrent writer's round size, the hot
+# epoch-read batches (15: 60 until the script took 579 s with the interdc
+# phase on a slower host, 30 until it took 568 s with the follower phase),
+# the concurrent writer's round size, the hot
 # set; long logs of LL_OPS ops for LL_KEYS keys
-SV_KEYS = 150_000
-SV_POOL, SV_ROUNDS, SV_ROUND_KEYS, SV_BATCHES = 4096, 10, 4096, 30
+SV_KEYS = 100_000
+SV_POOL, SV_ROUNDS, SV_ROUND_KEYS, SV_BATCHES = 4096, 10, 4096, 15
 SV_WRITE_KEYS, SV_HOT = 256, 1024
 LL_KEYS, LL_OPS = 1024, 4096
 # the durable phase: set_aw and counter_pn keys, transactions per commit
@@ -243,20 +270,23 @@ LL_KEYS, LL_OPS = 1024, 4096
 # evictions and export on the same directory); 15% (150,000) since the
 # interdc phase came: at 300,000 the durable phase took 121.6 s (its
 # populate 47.4 s) and the cold phase 108.5 s, the whole script 700 s;
-# the delta rounds 32 -> 16 when the script took 579 s on a slower host
-DU_SET_KEYS, DU_CTR_KEYS, DU_GROUP = 150_000, 100_000, 4096
+# the delta rounds 32 -> 16 when the script took 579 s on a slower host;
+# 10% (100,000) since the follower phase came (the script took 568 s on a
+# slower host, the durable phase 81.2 s, its populate 32.0 s, and the cold
+# phase on its directory 59.7 s)
+DU_SET_KEYS, DU_CTR_KEYS, DU_GROUP = 100_000, 100_000, 4096
 DU_ROUNDS, DU_TAIL_ROUNDS, DU_LADDER_LONG = 16, 16, 1500
 # the cold phase, on the durable phase's directory: the resident budget
 # (about the rows the delta link and the WAL tail wrote, which cannot go
 # cold; a quarter of the 600,000 rows before the native phase's cut, now
-# 150,000 of 250,000), Zipf read batches (3: 20 in earlier runs, 10 after
-# the wire phase's arrival, 3 after the interdc phase's, ~1.6 s each on a
-# slower host), the faulted-in keys of
+# 150,000 of 200,000), Zipf read batches (2: 20 in earlier runs, 10 after
+# the wire phase's arrival, 3 after the interdc phase's, 2 after the
+# follower phase's, ~1.6 s each on a slower host), the faulted-in keys of
 # the write rounds, the rate cap's fault-ins a second and its burst, the
 # sample of keys checked after the second recovery, the budget the delta
 # link's evictions go down to, the shard moved by handoff and the
 # reshard's shard count
-CO_RESIDENT, CO_BATCHES, CO_ROUND_KEYS = 150_000, 3, 2048
+CO_RESIDENT, CO_BATCHES, CO_ROUND_KEYS = 150_000, 2, 2048
 CO_CAP, CO_BURST, CO_SAMPLE, CO_EVICT_TO = 10.0, 256, 2048, 100_000
 CO_SHARD, CO_NEW_SHARDS = 3, 16
 # the wire phase: bench_wire.py's set_aw_zipf_north_star (config 3) at its
@@ -285,12 +315,20 @@ NA_ROUTER_KEYS, NA_ROUTER_BATCH = 1_000_000, 16_384
 # GentleRain pair's keys and counters; bench_wire.py's FLASH_SALE (SKUs,
 # inventory across both lanes, shoppers a DC, storm seconds, mint batch).
 # The storm is cut to 5 s; a grant that must arrive is checked apart from
-# it, on a SKU whose rights lie on one lane only
+# it, on a SKU whose rights lie on one lane only.  The SKUs are cut to
+# 5,000 since the follower phase came (the mint of 10,000 took 9.5 s of
+# the phase's 155.8 s in a 568 s script on a slower host)
 IX_KEYS, IX_TXN_KEYS, IX_GROUP = 100_000, 256, 64
 IX_THREADS, IX_WARM_S, IX_WINDOW_S = 8, 2.0, 10.0
 IX_GR_KEYS, IX_GR_CTRS = 16_384, 1024
 FS_SKUS, FS_INVENTORY, FS_SHOPPERS, FS_STORM_S, FS_MINT_BATCH = (
-    10_000, 50, 8, 5.0, 200)
+    5_000, 50, 8, 5.0, 200)
+# the follower phase: one owner and two followers at BASELINE's widths,
+# bench_wire.py config 3's keyspace cut to 100,000 set_aw keys, the interdc
+# phase's floor (at its full 200,000 the phase took 101.5 s against its 90 s:
+# the populate 22.5 s, both followers' Merkle checks of every shard 21.0 s),
+# plus counters, the load's session workers, the tail's keys a round
+FO_KEYS, FO_CTRS, FO_THREADS, FO_TAIL_KEYS = 100_000, 10_000, 8, 2048
 # the kernels each path must launch: the serve resolves sets (presence)
 # and folds the historical batches; the node session folds a set and a
 # counter at older snapshots; every cluster transaction start merges the
@@ -309,7 +347,9 @@ FS_SKUS, FS_INVENTORY, FS_SHOPPERS, FS_STORM_S, FS_MINT_BATCH = (
 # ride the same epoch-read chunks, and its session folds as the wire's does;
 # the interdc phase's servers resolve sets the same way, and its GentleRain
 # reads at the GST fold the rings of the rows written past it (sets and
-# counters)
+# counters); the follower phase's servers resolve every set read and its
+# digests every chunk of sets, and its reads at a token inside the tail fold
+# the rings of the rows written after it (sets and counters)
 PATH_KERNELS = {"serve": ("orset_presence", "set_aw_fold"),
                 "node": ("counter_fold", "set_aw_fold"),
                 "serving": ("orset_presence", "set_aw_fold"),
@@ -321,7 +361,9 @@ PATH_KERNELS = {"serve": ("orset_presence", "set_aw_fold"),
                 "wire": ("orset_presence", "set_aw_fold", "counter_fold"),
                 "native": ("orset_presence", "set_aw_fold", "counter_fold"),
                 "interdc": ("orset_presence", "set_aw_fold",
-                            "counter_fold")}
+                            "counter_fold"),
+                "follower": ("orset_presence", "set_aw_fold",
+                             "counter_fold")}
 
 
 def log(msg: str) -> None:
@@ -4943,6 +4985,562 @@ def interdc_phase(torch, dev, n_keys=IX_KEYS, threads=IX_THREADS,
     return out
 
 
+# ---------------------------------------------------------------------------
+# the follower phase
+# ---------------------------------------------------------------------------
+def _fo_node(dev, cfg, log_dir, recover=False):
+    from antidote_tpu_torch.api import AntidoteNode
+
+    return AntidoteNode(cfg, dc_id=0, device=dev, log_dir=log_dir,
+                        recover=recover)
+
+
+def _fo_follower(dev, cfg, log_dir, owner_srv, desc, name, fid,
+                 recover=False) -> dict:
+    """One follower of the owner: an ``AntidoteNode`` on ``dev`` logging to
+    ``log_dir``, its own ``TcpFabric`` (the native pump) and pump loop, a
+    ``FollowerReplica`` with a ``ProtocolServer(follower=...)`` on the
+    native front end, attached by the owner's descriptor over TCP."""
+    from antidote_tpu_torch.interdc import FollowerReplica
+    from antidote_tpu_torch.interdc.tcp import TcpFabric
+    from antidote_tpu_torch.proto.server import ProtocolServer
+
+    node = _fo_node(dev, cfg, log_dir, recover=recover)
+    fabric = TcpFabric()
+    fol = FollowerReplica(node, fabric, name, fabric_id=fid,
+                          owner_client_addr=(owner_srv.host,
+                                             owner_srv.port))
+    srv = ProtocolServer(node, port=0, follower=fol, native_frontend=True)
+    fol.client_addr = (srv.host, srv.port)
+    t0 = time.perf_counter()
+    mode = fol.attach(desc)
+    attach_s = time.perf_counter() - t0
+    loop = fabric.start_pump_loop(f"follower-pump-{name}")
+    return {"node": node, "fab": fabric, "fol": fol, "srv": srv,
+            "loop": loop, "mode": mode, "attach_s": attach_s,
+            "addr": (srv.host, srv.port)}
+
+
+def _fo_close(f) -> None:
+    f["loop"].stop()
+    f["srv"].close()
+    f["fab"].close()
+    f["node"].close()
+
+
+def _fo_populate(node, n_keys, n_ctrs, seed) -> tuple:
+    """``n_keys`` ``set_aw`` keys (one add each from the ``SV_POOL``
+    values; a tenth of them get a second add and the first removed) and
+    ``n_ctrs`` ``counter_pn`` keys through the owner's manager, in
+    transactions of ``IX_TXN_KEYS`` keys and commit groups of
+    ``IX_GROUP``.  Returns the figures and the host model of the sets."""
+    rng = np.random.default_rng(seed)
+    vals = rng.integers(0, SV_POOL, (n_keys, 2))
+    model = [{int(v)} for v in vals[:, 0].tolist()]
+    re = rng.choice(n_keys, n_keys // 10, replace=False)
+    t0 = time.perf_counter()
+    records = 0
+    rounds = [[(int(k), "set_aw", "b", ("add", int(vals[k, 0])))
+               for k in rng.permutation(n_keys).tolist()],
+              [(int(k), "set_aw", "b", ("add", int(vals[k, 1])))
+               for k in re.tolist()],
+              [(int(k), "set_aw", "b", ("remove", int(vals[k, 0])))
+               for k in re.tolist()],
+              [(f"c{k}", "counter_pn", "b", ("increment", k % 97 + 1))
+               for k in range(n_ctrs)]]
+    for ups in rounds:
+        txns = [ups[lo:lo + IX_TXN_KEYS]
+                for lo in range(0, len(ups), IX_TXN_KEYS)]
+        for g in range(0, len(txns), IX_GROUP):
+            _commit_group(node, txns[g:g + IX_GROUP])
+        records += len(ups)
+    for k in re.tolist():
+        model[k] = {int(vals[k, 1])} | ({int(vals[k, 0])}
+                                       if vals[k, 0] == vals[k, 1] else set())
+    s = time.perf_counter() - t0
+    return {"set_keys": n_keys, "counter_keys": n_ctrs, "records": records,
+            "seconds": s, "records_s": records / s}, model
+
+
+def _fo_tail_keys(n_keys, n):
+    """The tail's ``set_aw`` keys: the Zipf ranking's coldest, which the
+    load seldom touches, so reads at a token inside the tail fold rings
+    that the load did not wrap."""
+    return list(range(n_keys - n, n_keys))
+
+
+def _fo_tail(node, model, keys, n_ctrs, r) -> None:
+    """One tail round, written after the image: each of ``keys`` gets an
+    add (into the host ``model`` too) and as many counters an increment."""
+    ups = [(k, "set_aw", "b", ("add", SV_POOL + r)) for k in keys]
+    for k in keys:
+        model[k].add(SV_POOL + r)
+    ups += [(f"c{k}", "counter_pn", "b", ("increment", r + 1))
+            for k in range(min(len(keys), n_ctrs))]
+    _commit_group(node, [ups[lo:lo + IX_TXN_KEYS]
+                         for lo in range(0, len(ups), IX_TXN_KEYS)])
+
+
+def _fo_wait(fs, clock, timeout=120.0) -> float:
+    """Seconds until every follower has applied ``clock`` on every shard
+    (bounded)."""
+    t0 = time.perf_counter()
+    want = np.asarray(clock, np.int64)
+    while not all((f["node"].store.applied_vc >= want).all() for f in fs):
+        if time.perf_counter() - t0 > timeout:
+            raise AssertionError(
+                f"followers never applied {clock}: "
+                f"{[f['node'].store.dc_max_vc().tolist() for f in fs]}")
+        time.sleep(0.01)
+    return time.perf_counter() - t0
+
+
+class _Local:
+    """A client whose reads a follower must serve itself: ``proxied``
+    marks them as having crossed one hop, so the follower answers from
+    its own tables (behind its token gate) and never proxies them."""
+
+    def __init__(self, c):
+        self.c = c
+
+    def read_objects(self, objs, clock=None):
+        return self.c.read_objects(objs, clock=clock, proxied=True)
+
+
+def _fo_load(torch, fs, owner_addr, n_keys, threads, warm_s,
+             window_s) -> tuple:
+    """``bench_wire.py`` config 3's mix (90% reads, Zipf(1.0), 80% of
+    updates adds) over the fleet: ``threads`` workers, each a
+    ``SessionClient`` whose write endpoint is a follower (the writes are
+    forwarded to the owner) and whose reads route over the two followers'
+    ring; an untimed round, a timed window, then (on a card) the card's
+    busy share over 2 s of the same load.  Every read must cover the
+    session's own writes (read-your-writes) — the session token rides
+    every request."""
+    import threading
+
+    from antidote_tpu_torch.proto.client import AntidoteClient, SessionClient
+
+    stop = threading.Event()
+    timing = threading.Event()
+    errs, acked, lat_r, lat_u = [], [], [], []
+    ryw = [0]
+
+    def counts():
+        return [dict(f["srv"].proxy.counts) for f in fs], [
+            (f["node"].metrics.session_redirects.value(
+                kind="lagging", dialect="native")) for f in fs]
+
+    def worker(w):
+        rng = np.random.default_rng(7000 + w)
+        # writes enter at a follower, which forwards them to the owner;
+        # their clocks fold into the session's token, which rides every
+        # read over the followers' ring
+        fc = AntidoteClient(*fs[w % len(fs)]["addr"], timeout=120)
+        sc = SessionClient(owner_addr, [f["addr"] for f in fs],
+                           timeout=120, seed=w)
+        mine: dict = {}
+        try:
+            while not stop.is_set():
+                k = int(zipf_keys(rng, n_keys, 1)[0])
+                t0 = time.monotonic()
+                if rng.random() < WI_READ_FRAC:
+                    v, _ = sc.read_objects([(k, "set_aw", "b")])
+                    if timing.is_set():
+                        lat_r.append((time.monotonic() - t0) * 1e3)
+                    if k in mine and mine[k][0] == "add" \
+                            and mine[k][1] not in v[0]:
+                        raise AssertionError(
+                            f"read-your-writes broken on key {k}")
+                    ryw[0] += k in mine
+                    continue
+                op = "add" if rng.random() < 0.8 else "remove"
+                elem = int(rng.integers(1 << 30))
+                vc = fc.update_objects([(k, "set_aw", "b", (op, elem))],
+                                       clock=sc.token)
+                sc.observe(vc)
+                if timing.is_set():
+                    lat_u.append((time.monotonic() - t0) * 1e3)
+                mine[k] = (op, elem)
+                acked.append((k, op, elem, [int(x) for x in vc]))
+        except Exception as e:  # noqa: BLE001 — fatal, raised below
+            errs.append(e)
+        finally:
+            sc.close()
+            fc.close()
+            with lock:
+                stats.append(sc.stats())
+
+    lock = threading.Lock()
+    stats: list = []
+    ws = [threading.Thread(target=worker, args=(w,), name=f"fo-load-{w}")
+          for w in range(threads)]
+    for t in ws:
+        t.start()
+    time.sleep(warm_s)
+    pre = counts()
+    n0 = len(lat_r) + len(lat_u)
+    timing.set()
+    time.sleep(window_s)
+    timing.clear()
+    post = counts()
+    n_ops = len(lat_r) + len(lat_u) - n0
+    busy = _busy_window(torch, 2.0) if fs[0]["node"].store.device.type \
+        == "cuda" else {}
+    stop.set()
+    for t in ws:
+        t.join(120)
+    if errs:
+        raise errs[0]
+    if any(t.is_alive() for t in ws):
+        raise AssertionError("a load worker never stopped")
+    proxied = sum(b["read"] - a["read"] for a, b in zip(pre[0], post[0]))
+    lagging = sum(b - a for a, b in zip(pre[1], post[1]))
+    reads = len(lat_r)
+    client_redirects = sum(s["redirects"] for s in stats)
+    load = {"threads": threads, "warm_s": warm_s, "window_s": window_s,
+            "ops_s": n_ops / window_s,
+            "read_ms": _ms_pcts(lat_r), "update_ms": _ms_pcts(lat_u),
+            "reads": reads, "updates": len(lat_u),
+            "reads_local": reads - proxied - client_redirects,
+            "reads_proxied": proxied,
+            "reads_redirected_lagging": lagging,
+            "client_redirects": client_redirects,
+            "client_failovers": sum(s["failovers"] for s in stats),
+            "writes_forwarded": sum(b["write"] - a["write"]
+                                    for a, b in zip(pre[0], post[0])),
+            "ryw_reads_checked": ryw[0]}
+    return load, busy, acked
+
+
+def _fo_session_reads(fs, owner, objs, token) -> dict:
+    """Reads at ``token`` (a clock between the image and the tail's end)
+    on each follower and on the owner, through a transaction whose
+    snapshot is the token: the rows written after it fold their rings
+    (``set_aw_fold``, ``counter_fold``) on every side, and each follower
+    answers what the owner does."""
+    want = _read_all(owner, objs, vc=token, batch=4096)
+    for i, f in enumerate(fs):
+        got = _read_all(f["node"], objs, vc=token, batch=4096)
+        if [sorted(v) if isinstance(v, list) else v for v in got] != [
+                sorted(v) if isinstance(v, list) else v for v in want]:
+            j = next(j for j, (a, b) in enumerate(zip(got, want)) if a != b)
+            raise AssertionError(
+                f"follower {i + 1} reads {objs[j]} at the token as "
+                f"{got[j]!r}, the owner {want[j]!r}")
+    return {"keys": len(objs), "token": [int(x) for x in token]}
+
+
+def _fo_divergence(fs, timeout=60.0) -> dict:
+    """``check_divergence`` on every shard of each follower until every
+    shard compares ``ok`` at equal clocks (a ``skipped`` shard — clocks
+    unequal while pings land — is retried; a ``mismatch`` fails)."""
+    out = {}
+    t0 = time.perf_counter()
+    for i, f in enumerate(fs):
+        todo = list(range(f["node"].cfg.n_shards))
+        while todo:
+            res = f["fol"].check_divergence(todo)
+            if "mismatch" in res.values():
+                raise AssertionError(f"follower {i + 1} diverged: {res}")
+            todo = [s for s, r in res.items() if r != "ok"]
+            if todo and time.perf_counter() - t0 > timeout:
+                raise AssertionError(
+                    f"follower {i + 1}: shards {todo} never compared ok")
+            if todo:
+                time.sleep(0.05)
+        out[f"f{i + 1}"] = dict(f["fol"].divergence_counts)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def _fo_heal(torch, f, owner_c) -> dict:
+    """One ``set_aw`` row corrupted on a follower's device: the Merkle walk
+    finds it, only its leaf is fetched and re-installed, and the follower
+    reads the owner's value again."""
+    from antidote_tpu_torch.store.merkle import LEAVES
+
+    node = f["node"]
+    dk = next(dk for dk, ent in node.store.directory.items()
+              if ent[0].startswith("set_aw") and isinstance(dk[0], int))
+    tname, shard, row = node.store.directory[dk]
+    t = node.store.tables[tname]
+    with node.txm.commit_lock:
+        t.head["addvc"][shard, row] = 0  # every element reads absent
+        node.store.drop_cached_value(dk)
+    before = f["fol"].healed_leaves
+    t0 = time.perf_counter()
+    deadline = t0 + 60
+    while True:
+        # a shard whose clock a ping is moving compares "skipped": retry
+        res = f["fol"].check_divergence([shard])
+        if res[shard] not in ("skipped", "unreachable") \
+                or time.perf_counter() > deadline:
+            break
+        time.sleep(0.05)
+    heal_s = time.perf_counter() - t0
+    obj = [(dk[0], "set_aw", dk[1])]
+    want, vc = owner_c.read_objects(obj)
+    got = _read_all(node, obj, vc=vc)
+    if res[shard] != "mismatch" or sorted(got[0]) != sorted(want[0]):
+        raise AssertionError(f"the corrupted row was not healed: {res}, "
+                             f"{got} against {want}")
+    m = node.metrics
+    return {"shard": shard, "result": res[shard],
+            "leaves_fetched": f["fol"].healed_leaves - before,
+            "leaves_per_shard": LEAVES, "seconds": heal_s,
+            "range_heals": m.divergence_heals.value(mode="range"),
+            "image_heals": m.divergence_heals.value(mode="image")}
+
+
+def _fo_forward_fault(f, owner_addr) -> dict:
+    """Every forwarding attempt of one write killed at the ``proxy.forward``
+    site: the client gets the typed not_owner redirect naming the owner —
+    and the write did not happen; with the plan gone it forwards again."""
+    from antidote_tpu_torch import faults
+    from antidote_tpu_torch.proto.client import (AntidoteClient,
+                                                 RemoteNotOwner)
+    from antidote_tpu_torch.proto.proxy import ProxyPlane
+
+    c = AntidoteClient(*f["addr"], timeout=120)
+    key = ("fo-fault", 0)
+    try:
+        faults.install(faults.FaultPlan(seed=5).error(
+            "proxy.forward", key=f"{owner_addr[0]}:{owner_addr[1]}",
+            times=ProxyPlane.FORWARD_ATTEMPTS))
+        try:
+            c.update_objects([(key, "counter_pn", "b", ("increment", 1))])
+        except RemoteNotOwner as e:
+            typed = {"error": "not_owner", "redirect": e.redirect}
+        else:
+            raise AssertionError("a forward with every attempt faulted "
+                                 "was acknowledged")
+        finally:
+            faults.uninstall()
+        vc = c.update_objects([(key, "counter_pn", "b", ("increment", 1))])
+        v, _ = c.read_objects([(key, "counter_pn", "b")], clock=vc)
+        if v != [1]:
+            raise AssertionError(f"the refused forward executed: {v}")
+    finally:
+        c.close()
+    if typed["redirect"] != list(owner_addr):
+        raise AssertionError(f"redirect {typed} is not the owner")
+    return typed
+
+
+def _fo_restart(dev, cfg, fs, owner_srv, desc, log_dirs, keys) -> tuple:
+    """Follower 1 closed and restarted from its own directory (it rejoins
+    in mode ``tail``) while a session client keeps writing at the owner
+    and reading over the fleet: every read covers the session's writes.
+    Returns the figures and the new follower."""
+    import threading
+
+    from antidote_tpu_torch.proto.client import SessionClient
+
+    from antidote_tpu_torch.proto.client import RemoteError
+
+    stop = threading.Event()
+    errs, pairs, retried = [], [0], [0]
+    sc = SessionClient((owner_srv.host, owner_srv.port),
+                       [f["addr"] for f in fs], timeout=120, seed=99)
+
+    def read(k):
+        for _attempt in range(3):
+            try:
+                return sc.read_objects([(k, "set_aw", "b")])[0]
+            except RemoteError as e:
+                # the closing follower answered an in-flight read with
+                # its shutdown error: reads are idempotent, read again
+                if "shutting down" not in str(e):
+                    raise
+                retried[0] += 1
+        raise AssertionError("a read failed three times across the "
+                             "restart")
+
+    def session():
+        n = 0
+        try:
+            while not stop.is_set():
+                k = keys[n % len(keys)]
+                sc.update_objects([(k, "set_aw", "b", ("add", n))])
+                v = read(k)
+                if n not in v[0]:
+                    raise AssertionError(
+                        f"read-your-writes broken across the restart: "
+                        f"{n} not in {k}")
+                n += 1
+                pairs[0] = n
+        except Exception as e:  # noqa: BLE001 — fatal, raised below
+            errs.append(e)
+
+    t = threading.Thread(target=session, name="fo-session")
+    t.start()
+    time.sleep(0.5)
+    t0 = time.perf_counter()
+    _fo_close(fs[0])
+    close_s = time.perf_counter() - t0
+    nf = _fo_follower(dev, cfg, log_dirs[0], owner_srv, desc, "f1", 401,
+                      recover=True)
+    rejoin_s = time.perf_counter() - t0 - close_s
+    # the session's reads come back to the rejoined follower
+    served0 = sc.served_by.get(nf["addr"], 0)
+    deadline = time.perf_counter() + 60
+    sc._set_fleet([nf["addr"], fs[1]["addr"]])
+    while sc.served_by.get(nf["addr"], 0) == served0 and not errs:
+        if time.perf_counter() > deadline:
+            break
+        time.sleep(0.05)
+    time.sleep(0.5)
+    stop.set()
+    t.join(120)
+    sc.close()
+    if errs:
+        raise errs[0]
+    if nf["mode"] != "tail":
+        raise AssertionError(f"the restarted follower bootstrapped in "
+                             f"mode {nf['mode']}, not tail")
+    return ({"mode": nf["mode"], "close_s": close_s, "rejoin_s": rejoin_s,
+             "session_pairs": pairs[0], "redirects": sc.redirects,
+             "failovers": sc.failovers, "reads_retried": retried[0],
+             "served_by_rejoined": sc.served_by.get(nf["addr"], 0),
+             "boot": dict(nf["fol"].boot_stats)}, nf)
+
+
+def follower_phase(torch, dev, n_keys=FO_KEYS, n_ctrs=FO_CTRS,
+                   threads=FO_THREADS, warm_s=IX_WARM_S,
+                   window_s=IX_WINDOW_S, sample=WI_SAMPLE,
+                   tail_keys=FO_TAIL_KEYS) -> dict:
+    """Follower read replicas of one owner on the card, at BASELINE's
+    widths: the owner an ``AntidoteNode`` with a WAL, its own
+    ``TcpFabric`` (the native pump), a ``DCReplica`` and a
+    ``ProtocolServer(interdc=...)`` on the native front end; two followers,
+    each a node with its own log directory and fabric, a
+    ``FollowerReplica`` attached by descriptor over TCP and a
+    ``ProtocolServer(follower=...)``.  ``bench_wire.py`` config 3's
+    keyspace (``n_keys`` ``set_aw`` keys) plus ``n_ctrs`` counters
+    populated through the owner's manager; a full image, a tail after it;
+    both followers bootstrap by image (one injected ``ckpt.ship`` fault on
+    the second's first chunk, retried); the config 3 mix over the fleet
+    through session clients; every acknowledged write and ``sample``
+    untouched keys equal at both followers, the owner and the host model;
+    session reads at a token inside the tail equal the owner's (they
+    fold); every shard's Merkle root ``ok``; a corrupted row healed by its
+    leaf; a ``proxy.forward`` fault surfacing typed; follower 1 restarted
+    from its directory in mode ``tail`` under a session."""
+    import shutil
+    import tempfile
+
+    from antidote_tpu_torch import faults
+    from antidote_tpu_torch.config import AntidoteConfig
+    from antidote_tpu_torch.interdc import DCReplica
+    from antidote_tpu_torch.interdc.tcp import TcpFabric
+    from antidote_tpu_torch.proto.client import AntidoteClient
+    from antidote_tpu_torch.proto.server import ProtocolServer
+
+    cfg = AntidoteConfig(n_shards=8, max_dcs=D, ops_per_key=K,
+                         snap_versions=2, set_slots=E,
+                         keys_per_table=max(1024, (n_keys + n_ctrs) // 8
+                                            + 1024))
+    root = tempfile.mkdtemp(prefix="antidote_follower_")
+    out: dict = {"config": "n_shards=8, max_dcs=4, ops_per_key=16, "
+                           "snap_versions=2, set_slots=16", "followers": 2}
+    owner = _fo_node(dev, cfg, os.path.join(root, "owner"))
+    ofab = TcpFabric()
+    orep = DCReplica(owner, ofab, "dc0")
+    osrv = ProtocolServer(owner, port=0, interdc=orep, native_frontend=True)
+    oloop = ofab.start_pump_loop("owner-pump")
+    oc = AntidoteClient(osrv.host, osrv.port, timeout=120)
+    fs: list = []
+    log_dirs = [os.path.join(root, f"f{i}") for i in (1, 2)]
+    try:
+        # ---- 1. populate, image, tail; both followers bootstrap --------
+        out["populate"], model = _fo_populate(owner, n_keys, n_ctrs, 211)
+        t0 = time.perf_counter()
+        man = owner.checkpoint_now(full=True)
+        out["image"] = {"id": man["id"], "mb": man["image_bytes"] / 1e6,
+                        "seconds": time.perf_counter() - t0}
+        tkeys = _fo_tail_keys(n_keys, tail_keys)
+        _fo_tail(owner, model, tkeys, n_ctrs, 0)
+        token = [int(x) for x in owner.store.dc_max_vc()]
+        _fo_tail(owner, model, tkeys, n_ctrs, 1)
+        log(f"follower: populate {json.dumps(out['populate'])}, image "
+            f"{json.dumps(out['image'])}")
+        desc = oc.get_connection_descriptor()
+        fs.append(_fo_follower(dev, cfg, log_dirs[0], osrv, desc, "f1", 301))
+        inj = faults.install(faults.FaultPlan(seed=11).error(
+            "ckpt.ship", key=f"ckpt_{man['id']}", times=1))
+        try:
+            fs.append(_fo_follower(dev, cfg, log_dirs[1], osrv, desc, "f2",
+                                   302))
+        finally:
+            faults.uninstall()
+        shipped_faults = inj.fired("ckpt.ship")
+        if shipped_faults != 1:
+            raise AssertionError(f"the ckpt.ship fault fired "
+                                 f"{shipped_faults} times, not once")
+        out["bootstrap"] = {}
+        for i, f in enumerate(fs):
+            b = dict(f["fol"].boot_stats)
+            out["bootstrap"][f"f{i + 1}"] = {
+                "mode": f["mode"], "attach_s": f["attach_s"],
+                "ship_mb": b["ship_bytes"] / 1e6, "ship_s": b["ship_s"],
+                "ship_mb_s": b["ship_bytes"] / 1e6 / b["ship_s"],
+                "install_s": b["install_s"],
+                "local_checkpoint_s": b["local_checkpoint_s"],
+                "catch_up_s": b["catch_up_s"]}
+            if f["mode"] != "image":
+                raise AssertionError(f"follower {i + 1} bootstrapped in "
+                                     f"mode {f['mode']}")
+        out["ckpt_ship_fault"] = {
+            "injected": 1, "fired": shipped_faults,
+            "retried_to": fs[1]["mode"]}
+        log(f"follower: bootstrap {json.dumps(out['bootstrap'])}")
+        # ---- 2. the config 3 mix over the fleet -------------------------
+        out["load"], out["busy"], acked = _fo_load(
+            torch, fs, (osrv.host, osrv.port), n_keys, threads, warm_s,
+            window_s)
+        log(f"follower: load {json.dumps(out['load'])}")
+        # ---- 3. checks ----------------------------------------------------
+        join = np.zeros(D, np.int64)
+        for a in acked:
+            join = np.maximum(join, np.asarray(a[3], np.int64))
+        out["converge_s"] = _fo_wait(fs, join)
+        peers = [AntidoteClient(*f["addr"], timeout=120) for f in fs]
+        try:
+            out["check"], _t, _j = _wire_readback(
+                oc, model, acked, (), np.zeros(D, np.int64), n_keys,
+                sample, 223, peers=[_Local(c) for c in peers])
+        finally:
+            for c in peers:
+                c.close()
+        objs = ([(k, "set_aw", "b") for k in tkeys]
+                + [(f"c{k}", "counter_pn", "b")
+                   for k in range(min(tail_keys, n_ctrs))])
+        out["session_reads"] = _fo_session_reads(fs, owner, objs, token)
+        out["divergence"] = _fo_divergence(fs)
+        # ---- 4. faults ------------------------------------------------------
+        out["heal"] = _fo_heal(torch, fs[1], oc)
+        out["proxy_forward_fault"] = _fo_forward_fault(
+            fs[0], (osrv.host, osrv.port))
+        out["restart"], nf = _fo_restart(
+            dev, cfg, fs, osrv, desc, log_dirs,
+            [("fo-ryw", i) for i in range(16)])
+        fs[0] = nf
+        log(f"follower: restart {json.dumps(out['restart'])}")
+        out["replicas"] = orep.replica_status()["followers"]
+    finally:
+        faults.uninstall()
+        oc.close()
+        for f in fs:
+            _fo_close(f)
+        oloop.stop()
+        osrv.close()
+        ofab.close()
+        owner.close()
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
 def count_resolves(fn):
     """``fn()`` with every ``SetAW.resolve`` call counted: (its result,
     the count)."""
@@ -5055,10 +5653,12 @@ def main() -> int:
     print(f"native: {json.dumps(native)} | card: {card}", flush=True)
     interdc = run_path(lambda: interdc_phase(torch, dev))
     print(f"interdc: {json.dumps(interdc)} | card: {card}", flush=True)
+    follower = run_path(lambda: follower_phase(torch, dev))
+    print(f"follower: {json.dumps(follower)} | card: {card}", flush=True)
     paths = {"serve": serve, "node": node, "serving": serving,
              "cluster": cluster, "types": types, "durable": durable,
              "cold": cold, "wire": wire, "native": native,
-             "interdc": interdc}
+             "interdc": interdc, "follower": follower}
     for path, res in paths.items():
         log(f"{path}: {json.dumps(res)}")
         missing = [n for n in PATH_KERNELS[path] if res["launches"][n] == 0]

@@ -8,7 +8,10 @@ subprocess: its ready line, the commands against it, and a durable serve
 stopped and restarted with recovery on the same log directory; the
 native front end as the serve default and ``--no-native-frontend``; and
 the offline ``inspect`` / ``inspect-checkpoint`` commands, whose JSON
-equals the JAX console's on one log directory written by either package.
+equals the JAX console's on one log directory written by either package;
+a follower served with ``--follower-of`` (its ready line's role and
+bootstrap mode, its refusals) and ``replica-status`` / ``replica-add`` /
+``replica-remove`` against the owner.
 """
 
 import json
@@ -210,8 +213,7 @@ def test_serve_subprocess_recovers_its_log_dir(tmp_path, capsys):
         _stop(proc)
 
 
-@pytest.mark.parametrize("flag", ["--pallas", "--mesh-devices=2",
-                                  "--follower-of=h:1"])
+@pytest.mark.parametrize("flag", ["--pallas", "--mesh-devices=2"])
 def test_serve_refuses_flags_without_a_port_meaning(flag, capsys):
     with pytest.raises(SystemExit) as ei:
         console.main(["serve", "--device", "cpu", flag])
@@ -292,3 +294,101 @@ def test_inspect_commands_print_the_jax_console_json(writer, tmp_path,
         theirs = json.loads(capsys.readouterr().out)
         assert ours == theirs, cmd
     assert ours["latest"]["verified"] is True and ours["published"]
+
+
+def _poll(fn, timeout=30.0, every=0.2):
+    """``fn()`` until it returns a truthy value, within ``timeout``."""
+    deadline = time.monotonic() + timeout
+    while True:
+        out = fn()
+        if out:
+            return out
+        assert time.monotonic() < deadline, "condition never held"
+        time.sleep(every)
+
+
+def test_serve_follower_of_an_owner_and_the_replica_commands(tmp_path,
+                                                             capsys):
+    """An owner served with ``--interdc``, a checkpoint, then a follower
+    served with ``--follower-of``: its ready line says ``role: follower``
+    and ``bootstrap: image``; it serves the owner's values and forwards a
+    write; ``replica-status`` shows it ``ok`` (exit 0), ``replica-add``
+    pre-registers a name that shows ``down`` (exit 1), ``replica-remove``
+    drops it again; restarted on its directory it rejoins in mode
+    ``tail``."""
+    owner, oinfo = _spawn_serve("--interdc", "--shards", "4", "--max-dcs",
+                                "2", "--log-dir", str(tmp_path / "o"))
+    procs = [owner]
+    try:
+        obase = ["--host", oinfo["host"], "--port", str(oinfo["port"])]
+        oc = AntidoteClient(oinfo["host"], oinfo["port"], timeout=30)
+        for i in range(5):
+            oc.update_objects([("k", "counter_pn", "b", ("increment", 1)),
+                               ("s", "set_aw", "b", ("add", i))])
+        assert oc.checkpoint_now()["id"] == 1
+        vc = oc.update_objects([("k", "counter_pn", "b", ("increment", 10))])
+        fargs = ("--follower-of", f"{oinfo['host']}:{oinfo['port']}",
+                 "--log-dir", str(tmp_path / "f"), "--replica-name", "f1",
+                 "--divergence-check-s", "0.5")
+        fol, finfo = _spawn_serve(*fargs)
+        procs.append(fol)
+        assert finfo["role"] == "follower" and finfo["bootstrap"] == "image"
+        assert finfo["name"] == "f1"
+        fc = AntidoteClient(finfo["host"], finfo["port"], timeout=30)
+        vals, _ = fc.read_objects([("k", "counter_pn", "b"),
+                                   ("s", "set_aw", "b")], clock=vc)
+        assert vals == [15, [0, 1, 2, 3, 4]]
+        vc = fc.update_objects([("k", "counter_pn", "b", ("increment", 1))])
+        assert oc.read_objects([("k", "counter_pn", "b")],
+                               clock=vc)[0] == [16]
+        st = fc.node_status()
+        assert st["n_shards"] == 4 and st["replicas"]["role"] == "follower"
+        fc.close()
+
+        def ok():
+            capsys.readouterr()
+            rc = console.main(["replica-status", *obase])
+            out = json.loads(capsys.readouterr().out)
+            return rc == 0 and out["followers"]["f1"]["state"] == "ok" \
+                and out
+
+        out = _poll(ok)
+        assert out["ring"]["size"] == 1
+        assert console.main(["replica-add", *obase, "--name", "f2",
+                             "--addr", "h:9"]) == 0
+        added = json.loads(capsys.readouterr().out)
+        assert added["followers"]["f2"]["state"] == "down"
+        assert console.main(["replica-status", *obase]) == 1
+        capsys.readouterr()
+        assert console.main(["replica-remove", *obase, "--name", "f2"]) == 0
+        assert "f2" not in json.loads(capsys.readouterr().out)["followers"]
+        # the follower's own view
+        fbase = ["--host", finfo["host"], "--port", str(finfo["port"])]
+        assert console.main(["replica-status", *fbase]) == 0
+        me = json.loads(capsys.readouterr().out)
+        assert me["role"] == "follower" and me["state"] == "serving"
+        # restart on its own directory: the local image and WAL carry it
+        _stop(fol)
+        procs.remove(fol)
+        fol, finfo = _spawn_serve(*fargs)
+        procs.append(fol)
+        assert finfo["bootstrap"] == "tail"
+        fc = AntidoteClient(finfo["host"], finfo["port"], timeout=30)
+        assert fc.read_objects([("k", "counter_pn", "b")],
+                               clock=vc)[0] == [16]
+        fc.close()
+        oc.close()
+    finally:
+        for p in procs:
+            _stop(p)
+
+
+def test_serve_follower_of_refusals(tmp_path, capsys):
+    assert console.main(["serve", "--device", "cpu", "--follower-of",
+                         "127.0.0.1:1"]) == 2  # no --log-dir
+    assert console.main(["serve", "--device", "cpu", "--follower-of",
+                         "127.0.0.1:1,127.0.0.1:2", "--log-dir",
+                         str(tmp_path / "a")]) == 2  # a clustered owner
+    assert console.main(["serve", "--device", "cpu", "--follower-of",
+                         "127.0.0.1:1", "--log-dir",
+                         str(tmp_path / "b")]) == 2  # nobody there

@@ -1182,3 +1182,145 @@ def test_native_pump_frames_equal_the_jax_sources_build(dev, tmp_path):
         jax_pump.close()
         port_pump.close()
     assert len(got["port"]) == 6 and got["port"] == got["jax"]
+
+
+def test_cuda_follower_of_a_cuda_owner_reads_equal_to_a_cpu_follower(
+        dev, tmp_path):
+    """A CUDA owner with a WAL; a CUDA follower and a CPU follower each
+    bootstrap by image over TcpFabric (the native pump) and follow the
+    tail; at the owner's clock both read what the owner reads, and their
+    Merkle checks against the owner come out ``ok``."""
+    import time
+
+    from antidote_tpu_torch.interdc import DCReplica, FollowerReplica
+    from antidote_tpu_torch.interdc.tcp import TcpFabric
+
+    cfg = AntidoteConfig(n_shards=8, max_dcs=4, ops_per_key=16,
+                         snap_versions=2, set_slots=16, keys_per_table=256)
+    fabrics = [TcpFabric() for _ in range(3)]
+    try:
+        owner = AntidoteNode(cfg, dc_id=0, device=dev,
+                             log_dir=str(tmp_path / "o"))
+        orep = DCReplica(owner, fabrics[0], "dc0")
+        rng = np.random.default_rng(5)
+        for r in range(40):
+            owner.update_objects([
+                (int(rng.integers(60)), "set_aw", "b",
+                 ("add" if rng.random() < 0.8 else "remove",
+                  int(rng.integers(9)))),
+                (f"c{r % 7}", "counter_pn", "b", ("increment", r))])
+        owner.checkpoint_now()
+        for r in range(10):
+            owner.update_objects([(r, "set_aw", "b", ("add", 100 + r))])
+        fols = []
+        for i, d in ((1, dev), (2, torch.device("cpu"))):
+            node = AntidoteNode(cfg, dc_id=0, device=d,
+                                log_dir=str(tmp_path / f"f{i}"))
+            fol = FollowerReplica(node, fabrics[i], f"f{i}",
+                                  fabric_id=300 + i)
+            assert fol.attach(orep.descriptor().to_wire()) == "image"
+            fols.append((node, fol, fabrics[i]))
+        target = owner.store.dc_max_vc()
+        deadline = time.monotonic() + 120
+        for node, _fol, fab in fols:
+            while not (node.store.stable_vc() >= target).all():
+                orep.heartbeat()
+                fab.pump(timeout=0.05)
+                assert time.monotonic() < deadline
+        objs = [(k, "set_aw", "b") for k in range(60)] + [
+            (f"c{r}", "counter_pn", "b") for r in range(7)]
+        want = owner.read_objects(objs, clock=target)[0]
+        for node, fol, _fab in fols:
+            got = node.read_objects(objs, clock=target)[0]
+            assert [sorted(v) if isinstance(v, list) else v for v in got] \
+                == [sorted(v) if isinstance(v, list) else v for v in want]
+            assert set(fol.check_divergence().values()) == {"ok"}
+        owner.close()
+        for node, _fol, _fab in fols:
+            node.close()
+    finally:
+        for f in fabrics:
+            f.close()
+
+
+def test_cuda_shard_digest_equals_the_cpu_digest(dev, tmp_path):
+    """One stream into a CUDA node and a CPU node: every shard's digest
+    and Merkle root are equal strings (the CUDA side resolves its sets
+    with ``orset_resolve``, the CPU side with the plain version)."""
+    from antidote_tpu_torch.store.kv import shard_digest
+    from antidote_tpu_torch.store.merkle import MerkleIndex
+
+    cfg = AntidoteConfig(n_shards=8, max_dcs=4, ops_per_key=16,
+                         snap_versions=2, set_slots=16, keys_per_table=256)
+    nodes = [AntidoteNode(cfg, dc_id=0, device=d)
+             for d in (dev, torch.device("cpu"))]
+    for node in nodes:
+        rng = np.random.default_rng(8)
+        for r in range(120):
+            node.update_objects([
+                (int(rng.integers(300)), "set_aw", "b",
+                 ("add" if rng.random() < 0.7 else "remove",
+                  int(rng.integers(20)))),
+                (f"c{r % 13}", "counter_pn", "b", ("increment", r - 50))])
+    for s in range(cfg.n_shards):
+        assert shard_digest(nodes[0].store, s) == shard_digest(
+            nodes[1].store, s)
+        assert MerkleIndex(nodes[0].store).root(s) == MerkleIndex(
+            nodes[1].store).root(s)
+
+
+def test_console_serve_follower_of_on_the_card(dev, tmp_path):
+    """``console serve --interdc`` on the card, a checkpoint, then ``console
+    serve --follower-of`` on the card: the follower's ready line says
+    ``role: follower`` and ``bootstrap: image``, and it serves the owner's
+    value at the owner's clock."""
+    import json
+    import os
+    import select
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    from antidote_tpu_torch.proto.client import AntidoteClient
+
+    root = Path(__file__).resolve().parent.parent
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(root) + os.pathsep + env.get("PYTHONPATH", "")
+    procs, cs = [], []
+
+    def spawn(*args):
+        p = subprocess.Popen(
+            [sys.executable, "-m", "antidote_tpu_torch.console", "serve",
+             "--port", "0", *args], cwd=root, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+        procs.append(p)
+        ready, _, _ = select.select([p.stdout], [], [], 900)
+        assert ready, "serve printed no ready line"
+        return json.loads(p.stdout.readline())
+
+    try:
+        oinfo = spawn("--interdc", "--shards", "4", "--max-dcs", "2",
+                      "--log-dir", str(tmp_path / "o"))
+        oc = AntidoteClient("127.0.0.1", oinfo["port"], timeout=120)
+        cs.append(oc)
+        vc = oc.update_objects([("k", "set_aw", "b", ("add", "x")),
+                                ("n", "counter_pn", "b", ("increment", 3))])
+        assert oc.checkpoint_now()["id"] == 1
+        finfo = spawn("--follower-of", f"127.0.0.1:{oinfo['port']}",
+                      "--log-dir", str(tmp_path / "f"))
+        assert finfo["role"] == "follower" and finfo["bootstrap"] == "image"
+        fc = AntidoteClient("127.0.0.1", finfo["port"], timeout=120)
+        cs.append(fc)
+        vals, _ = fc.read_objects([("k", "set_aw", "b"),
+                                   ("n", "counter_pn", "b")], clock=vc)
+        assert vals == [["x"], 3]
+    finally:
+        for c in cs:
+            c.close()
+        for p in procs:
+            p.terminate()
+            try:
+                p.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait(timeout=30)

@@ -295,3 +295,104 @@ def test_reshard_faults_cold_keys_in_first(tmp_path):
                                 log=LogManager(new_cfg, str(tmp_path / "n")))
     assert not a.store.cold.cold_set
     check(AntidoteNode(new_cfg, store=new_store), expect)
+
+
+# ---------------------------------------------------------------------------
+# with an inter-DC replica attached
+# ---------------------------------------------------------------------------
+def _replicated_pair():
+    from antidote_tpu_torch.interdc import DCReplica, LoopbackHub
+
+    hub = LoopbackHub()
+    nodes = [mk_node(mk_cfg()) for _ in range(2)]
+    for i, n in enumerate(nodes):
+        n.dc_id = n.txm.my_dc = i
+    reps = [DCReplica(n, hub, f"dc{i}") for i, n in enumerate(nodes)]
+    DCReplica.connect_all(reps)
+    return hub, nodes, reps
+
+
+def test_reshard_with_a_replica_refuses_gated_txns_and_holds_the_barrier(
+        monkeypatch):
+    """``reshard(replica=)`` refuses while a remote transaction sits in the
+    replica's causal gate or out-of-order buffer, and runs the move under
+    the replica's ingress barrier once replication is quiescent."""
+    import threading
+
+    from antidote_tpu_torch.interdc import TxnMessage
+
+    hub, (a, b), (ra, rb) = _replicated_pair()
+    b.update_objects([("x", "counter_pn", "bk", ("increment", 1))])
+    # dc1's transaction delivered but held in dc0's causal gate
+    msg = TxnMessage.from_bytes(hub.queues[0][2])
+    hub.queues.clear()
+    ra.gate[(msg.origin, msg.shard)].append(msg)
+    with pytest.raises(RuntimeError, match="gated/pending"):
+        handoff.reshard(a.store, mk_cfg(8), replica=ra)
+    ra.gate.clear()
+    held = []
+    lock = threading.RLock()
+    monkeypatch.setattr(ra, "ingress_barrier", lambda: lock)
+    real = handoff._reshard_locked
+
+    def spy(store, new_cfg, log):
+        held.append(lock._is_owned())
+        return real(store, new_cfg, log)
+
+    monkeypatch.setattr(handoff, "_reshard_locked", spy)
+    populate(a, n=4)
+    new = handoff.reshard(a.store, mk_cfg(8), replica=ra)
+    assert held == [True]
+    assert len(new.directory) == len(a.store.directory)
+
+
+def test_chain_state_moves_with_the_shard():
+    """``export_shard_state`` -> ``release_shard`` at the old owner ->
+    ``adopt_shard`` at the new one: the egress opid and its window travel,
+    the ingress positions are clamped below a gated transaction, and a
+    duplicate adoption never rewinds the chain."""
+    hub, (a, b), (ra, rb) = _replicated_pair()
+    for i in range(5):
+        a.update_objects([(f"k{i}", "counter_pn", "bk", ("increment", 1))])
+        b.update_objects([(f"k{i}", "counter_pn", "bk", ("increment", 2))])
+    hub.pump()
+    shard = max(range(4), key=lambda s: int(ra.pub_opid[s]))
+    assert ra.pub_opid[shard] > 0
+    extras = ra.export_shard_state(shard)
+    st = extras["interdc"]
+    assert st["pub_opid"] == int(ra.pub_opid[shard])
+    assert len(st["sent"]) == int(ra.pub_opid[shard])
+    assert dict(map(tuple, st["last_seen"])) == {
+        1: ra.last_seen[(1, shard)]}
+    ra.release_shard(shard)
+    assert ra.pub_opid[shard] == 0 and not ra.sent[shard]
+    assert not any(k[1] == shard for k in ra.last_seen)
+    # the new owner: another endpoint of the same DC
+    from antidote_tpu_torch.interdc import DCReplica
+
+    rc = DCReplica(mk_node(mk_cfg()), hub, "dc0-new", fabric_id=100)
+    rc.adopt_shard(shard, extras)
+    assert rc.pub_opid[shard] == st["pub_opid"]
+    assert [m.last_opid for m in rc.sent[shard]] == list(
+        range(1, st["pub_opid"] + 1))
+    assert rc.last_seen[(1, shard)] == dict(map(tuple, st["last_seen"]))[1]
+    rc.pub_opid[shard] += 1  # a commit landed since
+    rc.adopt_shard(shard, extras)  # duplicate delivery
+    assert rc.pub_opid[shard] == st["pub_opid"] + 1
+
+
+def test_handoff_dirties_the_merkle_tree():
+    from antidote_tpu_torch.store.merkle import MerkleIndex, get_merkle
+
+    cfg = mk_cfg()
+    a, b = mk_node(cfg), mk_node(cfg)
+    populate(a, n=12)
+    mk_a, mk_b = get_merkle(a.store), get_merkle(b.store)
+    roots = [mk_b.root(s) for s in range(4)]
+    for s in range(4):
+        mk_a.root(s)  # built before the move
+    b.receive_handoff(handoff.export_shard(a.store, 2), shard=2)
+    handoff.drop_shard(a.store, 2)
+    assert mk_b.root(2) == MerkleIndex(b.store).root(2) != roots[2]
+    assert mk_a.root(2) == MerkleIndex(a.store).root(2)
+    assert not mk_a.leaf_keys(2, 0)

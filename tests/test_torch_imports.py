@@ -51,16 +51,21 @@ def test_importing_every_module_loads_no_jax():
 def test_sources_cover_every_subpackage():
     """The walk above reaches every subpackage of the port, the cluster
     slice's, the metrics registry's, the durable log's, the wire front
-    end's, the native front end's and inter-DC replication's included."""
+    end's, the native front end's, inter-DC replication's and the
+    follower tier's (the follower replica, the Merkle tree and the proxy
+    plane) included."""
     pkgs = {p.parent.name for p in SOURCES if p.parent != ROOT}
     assert {"api", "clock", "cluster", "crdt", "faults", "interdc", "log",
             "materializer", "meta", "obs", "proto", "store", "txn"} <= pkgs
     assert {p.name for p in SOURCES if p.parent.name == "interdc"} >= {
         "__init__.py", "messages.py", "transport.py", "replica.py",
-        "tcp.py", "native_pump.py"}
+        "tcp.py", "native_pump.py", "follower.py"}
     assert {p.name for p in SOURCES if p.parent.name == "proto"} >= {
         "__init__.py", "apb.py", "client.py", "codec.py", "server.py",
-        "native_frontend.py"}
+        "native_frontend.py", "proxy.py"}
+    assert {p.name for p in SOURCES if p.parent.name == "store"} >= {
+        "kv.py", "typed_table.py", "coldtier.py", "handoff.py", "router.py",
+        "merkle.py"}
     assert {p.name for p in SOURCES
             if p.parent.name == "antidote_tpu_torch"} >= {
         "console.py", "overload.py", "supervise.py", "tenancy.py",
