@@ -505,6 +505,8 @@ class AntidoteNode:
         op)`` with ``op`` the origin lane, commit VC and decoded effect;
         an op is included iff its commit VC is NOT dominated by the clock.
         """
+        from antidote_tpu_torch.log import segment_index
+
         log = self.store.log
         if log is None:
             raise RuntimeError("get_log_operations requires a durable log "
@@ -523,11 +525,12 @@ class AntidoteNode:
             wanted.setdefault(shard, []).append(
                 (i, key, type_name, bucket, vc))
         out: list = [[] for _ in object_clock_pairs]
+        segments = segment_index(log.dir)  # one listing for every shard
         for shard, items in wanted.items():
             by_obj: dict = {}  # an object may be asked at several clocks
             for i, k, t, b, vc in items:
                 by_obj.setdefault((k, t, b), []).append((i, vc))
-            for rec in log.replay_shard(shard):  # one scan per shard
+            for rec in log.replay_shard(shard, index=segments):
                 hits = by_obj.get((freeze_key(rec["k"]), rec["t"], rec["b"]))
                 if hits is None:
                     continue

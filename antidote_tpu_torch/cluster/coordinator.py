@@ -26,6 +26,7 @@ members' transaction managers refuse GentleRain, as the node's does.
 from __future__ import annotations
 
 import itertools
+import os
 import time
 from typing import Any, Dict, List, Optional, Sequence
 
@@ -69,6 +70,13 @@ class ClusterNode:
         self.member = member
         self.cfg = member.cfg
         self.dc_id = member.dc_id
+        #: fault-injection seam for the takeover tests (the reference's
+        #: brutal_kill_nodes mid-stream): "after_seq" = die between
+        #: sequencing and the commit fan-out (wedges the chain),
+        #: "after_first_commit" = die mid-fan-out (a partial commit the
+        #: takeover must finish).  Both end the PROCESS with exit code
+        #: 137: arm them only in a member process of its own
+        self.failpoint: Optional[str] = None
         #: session floor: my own commits are in my snapshots even before
         #: the aggregated stable catches up (owner reads wait out in-flight
         #: commits below the requested own-lane ts, so the floor is safe)
@@ -300,23 +308,28 @@ class ClusterNode:
                 raise AbortError(str(e)) from e
             raise
         # one DC-wide timestamp + per-shard chains from the sequencer
-        ts, prev = self._seq(sorted(shards))
+        # (ledgered under the txid so takeover can find this txn)
+        ts, prev = self._seq(sorted(shards), txn.txid)
+        if self.failpoint == "after_seq":
+            os._exit(137)
         commit_vc = txn.snapshot_vc.copy()
         commit_vc[self.dc_id] = ts
         vc_wire = [int(x) for x in commit_vc]
-        for owner in by_owner:
+        for i, owner in enumerate(by_owner):
             if owner is None:
                 self.member.m_commit(txn.txid, vc_wire, prev)
             else:
                 self.member.peers[owner].call("m_commit", txn.txid, vc_wire,
                                               prev)
+            if i == 0 and self.failpoint == "after_first_commit":
+                os._exit(137)
         np.maximum(self.session_vc, commit_vc, out=self.session_vc)
         return commit_vc
 
-    def _seq(self, shards):
+    def _seq(self, shards, txid: int):
         if self.member.seq is not None:
-            return self.member.seq_ts(shards)
-        ts, prev = self.member.peers[0].call("m_seq", list(shards))
+            return self.member.seq_ts(shards, txid)
+        ts, prev = self.member.peers[0].call("m_seq", list(shards), txid)
         # we just observed the sequencer at ts: refresh the cached
         # frontier so our next snapshot/idle-advance need not wait for it
         if ts > self.member._seq_cache:
@@ -340,8 +353,11 @@ class ClusterNode:
 
     # ------------------------------------------------------------------
     def checkpoint_now(self) -> dict:
-        raise NotImplementedError(
-            "checkpoint_now: checkpoints are not ported yet (in-memory only)")
+        """One synchronous checkpoint cycle on THIS member's store: each
+        member of a clustered DC publishes its own image (its membership
+        rides in the image's extras), so the operator checkpoints members
+        one by one, as single-node owners."""
+        return self.member.node.checkpoint_now()
 
     def check_ready(self) -> Dict[str, bool]:
         probes = {"local": True}
@@ -352,8 +368,8 @@ class ClusterNode:
                 probes[f"member{mid}"] = False
         return probes
 
-    def status(self) -> Dict[str, Any]:
-        return {
+    def status(self, include_ready: bool = False) -> Dict[str, Any]:
+        out = {
             "dc_id": self.dc_id,
             "member": self.member.member_id,
             "members": self.member.n_members,
@@ -362,3 +378,6 @@ class ClusterNode:
             "owned_shards": sorted(self.member.shards),
             "stable_vc": [int(x) for x in self.member.stable_vc()],
         }
+        if include_ready:
+            out["ready"] = self.check_ready()
+        return out

@@ -1,4 +1,4 @@
-"""ClusterMember — one node of a multi-member DC, in memory.
+"""ClusterMember — one member of a multi-member DC.
 
 A DC's shards spread over N members joined by the intra-DC RPC:
 
@@ -6,7 +6,8 @@ A DC's shards spread over N members joined by the intra-DC RPC:
     the explicit ``shard_map`` (shard -> owner) is the routing truth;
   * member 0 is the DC's commit SEQUENCER: it mints the DC-wide own-lane
     commit timestamps, returning per-shard previous-ts chains so owners
-    apply own-DC commits gap-free in ts order;
+    apply own-DC commits gap-free in ts order, and keeps the ledger of
+    every issue (which txn holds which ts) that takeover consults;
   * owners certify at prepare (first-committer-wins per key + a prepared
     lock) and apply at commit;
   * stable time: each member gossips its owned shards' applied clock rows;
@@ -18,38 +19,74 @@ A DC's shards spread over N members joined by the intra-DC RPC:
 Coordinators (``cluster/coordinator.py``) run on any member and drive these
 handlers over the RPC.
 
-Not in this slice: the durable prepare log and recovery (with the
-durability slice), coordinator-crash takeover, live join/leave and shard
-handoff, the escrow-counter transfer handler, and metrics.
+Fault tolerance (the reference's supervised coordinators and vnode
+takeover):
+
+  * PREPARE LOG: with a ``log_dir``, every prepare, commit and abort and
+    every sequencer issue is appended to a durable ``prepare.wal`` beside
+    the shard WALs (the JAX package's records, byte for byte), so staged
+    write-sets and the ts ledger survive a member crash.
+  * TAKEOVER: a coordinator dying between sequencing and the commit
+    fan-out leaves a hole in a shard's ts chain.  Any member can call
+    ``resolve_wedged()``: the sequencer looks up the blocking txn, polls
+    every member for its outcome, and either completes the commit (someone
+    already applied it — atomicity) or aborts it everywhere after a block
+    barrier that shuts the door on a still-racing zombie coordinator.
+    Decisions are recorded at the sequencer, so re-resolution is
+    idempotent.
+  * REJOIN: boot with ``recover=True`` on the same ``log_dir`` — the store
+    replays its WAL onto the member's device, the prepare log restores
+    staged txns, prepared locks and the sequencer ledger, and
+    ``resolve_wedged()`` settles anything issued around the crash.
+
+Not in this slice: live join and leave (the shard-move handlers), which
+come with the cluster's live membership.
 """
 
 from __future__ import annotations
 
+import logging
+import os
 import threading
 import time
 import zlib
 from collections import OrderedDict
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
 from antidote_tpu_torch.api.node import AntidoteNode
-from antidote_tpu_torch.cluster.rpc import RpcClient, RpcServer, eff_from_wire
+from antidote_tpu_torch.cluster.rpc import (RpcClient, RpcServer,
+                                            eff_from_wire, eff_to_wire)
 from antidote_tpu_torch.config import AntidoteConfig
 from antidote_tpu_torch.crdt import get_type
+from antidote_tpu_torch.log.wal import ShardWAL, replay
 from antidote_tpu_torch.store.kv import (Effect, freeze_key, key_to_shard,
                                          stable_min_of)
 from antidote_tpu_torch.txn.bcounter import NoPermissionsError
-from antidote_tpu_torch.txn.manager import host_state, overlay_effects
+from antidote_tpu_torch.txn.manager import (AbortError, host_state,
+                                            overlay_effects)
 
-#: the RPC surface of a member in this slice
+log = logging.getLogger(__name__)
+
+#: the RPC surface of a member: the JAX member's handlers but the live
+#: join/leave ones
 HANDLERS = ("m_read_values", "m_downstream", "m_prepare", "m_commit",
-            "m_abort", "m_clocks", "m_seq", "m_seq_counter", "m_ready",
-            "m_shard_map", "m_membership")
+            "m_abort", "m_clocks", "m_seq", "m_ready", "m_seq_counter",
+            "m_txn_status", "m_block_txn", "m_forget_txn",
+            "m_resolve_chain", "m_txn_sequenced", "m_resolve_stale_txn",
+            "m_process_transfer", "m_shard_map", "m_membership")
 
 #: how long a read or downstream waits for its shard's own lane to reach
 #: the requested timestamp before it gives up (s)
 READ_SAFE_TIMEOUT_S = 30.0
+
+#: bound on remembered txn outcomes and ledger entries (GC floor)
+_LEDGER_CAP = 8192
+
+#: a live join or leave: not in this slice
+_LIVE_MEMBERSHIP = ("live join/leave is not ported yet (it comes with the "
+                    "cluster's live membership, ROADMAP 15b)")
 
 
 def owned_shards(cfg: AntidoteConfig, member_id: int, n_members: int):
@@ -66,18 +103,35 @@ def overlay_digest(seed: int, wires) -> int:
     return d
 
 
+def _int_map(m) -> Dict[int, int]:
+    """A prev-by-shard map off the wire or a log record, whose keys may be
+    ``str`` or ``int``."""
+    return {int(k): int(v) for k, v in m.items()}
+
+
 class Sequencer:
     """DC-wide commit-timestamp authority (member 0).
 
-    ``next_ts(shards)`` -> (ts, {shard: previous ts issued for it}) — the
-    per-shard chain lets owners apply own-DC commits contiguously."""
+    ``next_ts(shards, txid)`` -> (ts, {shard: previous ts issued for it}) —
+    the per-shard chain lets owners apply own-DC commits contiguously.  The
+    ledger (``issued`` + per-shard ``chain``) is what takeover consults to
+    identify the txn blocking a wedged chain."""
 
     def __init__(self):
         self._lock = threading.Lock()
         self.counter = 0
         self.last_ts: Dict[int, int] = {}
+        #: ts -> (txid, [shards], {shard: prev}, monotonic issue time)
+        self.issued: "OrderedDict[int, tuple]" = OrderedDict()
+        #: shard -> [(ts, txid)] ascending (bounded)
+        self.chain: Dict[int, List[Tuple[int, int]]] = {}
+        #: txid -> ts (was this txn ever issued a ts? bounded like issued)
+        self.txid_index: "OrderedDict[int, int]" = OrderedDict()
+        #: txid -> takeover decision tuple (idempotent re-resolution),
+        #: trimmed to _LEDGER_CAP like every other outcome ledger
+        self.resolutions: "OrderedDict[int, tuple]" = OrderedDict()
 
-    def next_ts(self, shards) -> Tuple[int, Dict[int, int]]:
+    def next_ts(self, shards, txid: int = 0) -> Tuple[int, Dict[int, int]]:
         with self._lock:
             self.counter += 1
             ts = self.counter
@@ -86,31 +140,85 @@ class Sequencer:
                 s = int(s)
                 prev[s] = self.last_ts.get(s, 0)
                 self.last_ts[s] = ts
+                self.chain.setdefault(s, []).append((ts, int(txid)))
+                if len(self.chain[s]) > _LEDGER_CAP:
+                    del self.chain[s][: -_LEDGER_CAP // 2]
+            self.issued[ts] = (int(txid), [int(s) for s in shards], prev,
+                               time.monotonic())
+            if txid:
+                self.txid_index[int(txid)] = ts
+            while len(self.issued) > _LEDGER_CAP:
+                self.issued.popitem(last=False)
+            while len(self.txid_index) > _LEDGER_CAP:
+                self.txid_index.popitem(last=False)
             return ts, prev
+
+    def trim_resolutions(self) -> None:
+        with self._lock:
+            while len(self.resolutions) > _LEDGER_CAP:
+                self.resolutions.popitem(last=False)
+
+    def restore_issue(self, ts: int, txid: int, shards, prev) -> None:
+        """Rebuild one ledger entry from the prepare log (recovery).
+        Restored entries carry issue time 0 — older than any grace."""
+        with self._lock:
+            self.counter = max(self.counter, int(ts))
+            for s in shards:
+                s = int(s)
+                self.last_ts[s] = max(self.last_ts.get(s, 0), int(ts))
+                self.chain.setdefault(s, []).append((int(ts), int(txid)))
+            self.issued[int(ts)] = (int(txid), [int(s) for s in shards],
+                                    _int_map(prev), 0.0)
+            if txid:
+                self.txid_index[int(txid)] = int(ts)
+
+    def entry_after(self, shard: int, after_ts: int):
+        """The earliest issued (ts, txid) on ``shard`` with ts > after_ts —
+        the txn a wedged chain is waiting for."""
+        with self._lock:
+            for ts, txid in self.chain.get(int(shard), ()):
+                if ts > after_ts:
+                    return ts, txid
+            return None
 
 
 class ClusterMember:
     """One member of a DC.  Its node's tables live on ``device`` ("cuda"
-    by default; "cpu" only when asked)."""
+    by default; "cpu" only when asked), recovery included."""
 
     def __init__(self, cfg: AntidoteConfig, dc_id: int, member_id: int,
-                 n_members: int, log_dir=None, host: str = "127.0.0.1",
-                 recover: bool = False, device="cuda"):
-        if log_dir is not None or recover:
+                 n_members: int, log_dir: Optional[str] = None,
+                 host: str = "127.0.0.1", shards=None,
+                 recover: bool = False, meta=None, device="cuda"):
+        if shards is not None and not list(shards):
             raise NotImplementedError(
-                "log_dir/recover: the prepare log and recovery are not "
-                "ported yet (in-memory only)")
+                f"an empty shard set boots a live-joining member: "
+                f"{_LIVE_MEMBERSHIP}")
         self.cfg = cfg
         self.dc_id = dc_id
         self.member_id = member_id
         self.n_members = n_members
-        self.shards = set(owned_shards(cfg, member_id, n_members))
+        modular = set(owned_shards(cfg, member_id, n_members))
+        self.shards = set(modular if shards is None else shards)
+        if n_members > 1 and self.shards != modular:
+            raise ValueError(
+                "multi-member DCs boot with the modular shard layout "
+                "(shard s owned by member s % n_members); ownership then "
+                "moves only through the live join/leave protocol so every "
+                "member's shard map stays consistent")
         #: shard -> owning member id (the riak_core ring analogue)
         self.shard_map: Dict[int, int] = {
             s: s % n_members for s in range(cfg.n_shards)}
-        self._owned = np.zeros(cfg.n_shards, bool)
-        self._owned[sorted(self.shards)] = True
-        self.node = AntidoteNode(cfg, dc_id=dc_id, device=device)
+        for s in self.shards:
+            self.shard_map[s] = member_id
+        #: per-shard ownership version: every completed move bumps it
+        #: (recovered from a directory whose history holds moves)
+        self.shard_epoch: Dict[int, int] = {
+            s: 0 for s in range(cfg.n_shards)}
+        #: member ids that live-left this cluster (durable): never reused
+        self.departed: set = set()
+        self.node = AntidoteNode(cfg, dc_id=dc_id, log_dir=log_dir,
+                                 recover=recover, meta=meta, device=device)
         self._coordinator = None
         #: sequencer lives on member 0 only
         self.seq = Sequencer() if member_id == 0 else None
@@ -119,12 +227,15 @@ class ClusterMember:
         #: peer member_id -> last gossiped [n_shards, D] clock rows (only
         #: the peer's owned rows are meaningful)
         self.peer_clocks: Dict[int, np.ndarray] = {}
+        # reentrant: m_commit holds it while its apply fires the inter-DC
+        # commit listeners, whose heartbeat path re-enters
+        # prepared_on_shard for the safe-time check
         self._lock = threading.RLock()
         #: (key, bucket) -> txid holding the prepare lock
         self.prepared: Dict[Tuple[Any, str], int] = {}
         #: txid -> (effects, [keys], snapshot own lane) between prepare
         #: and commit
-        self.staged: Dict[int, Tuple[list, list, int]] = {}
+        self.staged: Dict[int, Tuple[list, list, Optional[int]]] = {}
         #: (key, bucket) -> own-lane ts of its last commit (cert table)
         self.last_commit: Dict[Tuple[Any, str], int] = {}
         #: per owned shard: last own-DC ts applied (chain frontier)
@@ -132,20 +243,104 @@ class ClusterMember:
         #: per shard: {prev_ts: (ts, effects, commit_vc)} awaiting chain
         self.chain_wait: Dict[int, Dict[int, tuple]] = {
             s: {} for s in self.shards}
+        #: commit listeners (the inter-DC egress seam): (effects, vc, origin)
+        self.on_commit: List = []
+        #: live-move seams for the inter-DC plane, filled by
+        #: ``attach_interdc``: export_extras(shard) dicts merge into a
+        #: handoff package's "x" namespace, on_shard_import(shard, extras)
+        #: installs them at the destination, on_shard_relinquish(shard)
+        #: clears the source's chain state.  Their callers are the shard
+        #: moves of the live membership
+        self.export_extras: List = []
+        self.on_shard_import: List = []
+        self.on_shard_relinquish: List = []
+        #: txid -> (vc_wire, prev_wire) of applied commits (takeover polls)
+        self.committed_txns: "OrderedDict[int, tuple]" = OrderedDict()
+        #: txids barred from committing pending a takeover decision
+        self.blocked_txns: set = set()
+        #: txids resolved-aborted by takeover (bounded)
+        self.aborted_txns: "OrderedDict[int, bool]" = OrderedDict()
+        #: txid -> monotonic stage time (stale-prepare sweeps)
+        self.staged_at: Dict[int, float] = {}
         #: (key, bucket, tentative VC bytes, txid) -> (folded state
         #: tensors, n, prefix digest) — incremental overlay folds
         self._overlay_fold_cache: "OrderedDict[tuple, tuple]" = OrderedDict()
+        #: durable prepare log (staged txns + sequencer ledger).  Honors
+        #: cfg.sync_log like the shard WALs: fsync-per-commit off by
+        #: default (bounded loss on power failure, none on process kill)
+        self._prep_wal: Optional[ShardWAL] = None
+        self._prep_dir = log_dir
+        self._prep_appends = 0
+        if log_dir is not None:
+            os.makedirs(log_dir, exist_ok=True)
+            path = os.path.join(log_dir, "prepare.wal")
+            fresh = not os.path.exists(path)
+            self._prep_wal = ShardWAL(path, sync_on_commit=cfg.sync_log)
+            if fresh and not recover:
+                # durable boot layout: recovery derives ownership from THIS
+                # and the own-event trail, never from the member count
+                # passed at recover time
+                self._prep_append({"ev": "boot_layout", "txid": 0,
+                                   "n": int(n_members),
+                                   "member": int(member_id),
+                                   "shards": sorted(int(s)
+                                                    for s in self.shards)})
         self._seq_cache = 0
         self._seq_cache_at = 0.0
+        #: recovery's parts (seconds): the prepare log's fold and the
+        #: re-applied commits; the store's replay is the node's
+        self.recovery_s: Dict[str, float] = {}
+        if recover:
+            t0 = time.perf_counter()
+            pending = self._recover_prepare_log(log_dir)
+            # chain frontier = last own-DC ts applied per shard (the WAL
+            # replay rebuilt applied_vc; the own lane only advances by
+            # applied own-DC commits, so its value IS the frontier)
+            for s in self.shards:
+                self.applied_ts[s] = int(
+                    self.node.store.applied_vc[s, self.dc_id])
+            t1 = time.perf_counter()
+            self._replay_recovered_commits(pending)
+            self.recovery_s = {"prepare_log": t1 - t0,
+                               "reapplied": time.perf_counter() - t1}
+        self._owned = np.zeros(cfg.n_shards, bool)
+        self._owned[sorted(self.shards)] = True
+        # the membership rides in every checkpoint image this member's node
+        # publishes (informational: the prepare log stays the authoritative
+        # ownership record at recovery)
+        self.node.checkpoint_extras_providers["membership"] = (
+            self._checkpoint_membership)
         self.rpc = RpcServer(host=host)
         for name in HANDLERS:
             self.rpc.register(name, getattr(self, name))
 
+    def _checkpoint_membership(self) -> dict:
+        """Membership snapshot for the checkpoint image (called under the
+        commit lock by the checkpointer's stamp barrier)."""
+        with self._lock:
+            return {
+                "member_id": int(self.member_id),
+                "n_members": int(self.n_members),
+                "shards": sorted(int(s) for s in self.shards),
+                "shard_map": {str(s): int(o)
+                              for s, o in self.shard_map.items()},
+                "shard_epoch": {str(s): int(e)
+                                for s, e in self.shard_epoch.items()},
+                "departed": sorted(int(m) for m in self.departed),
+            }
+
     @property
     def _xlock(self):
-        """Cross-plane writer lock (the node's reentrant commit lock),
-        taken before ``self._lock`` by every path that mutates the store:
-        the store tolerates exactly one writer at a time."""
+        """Cross-plane writer lock (the node's reentrant commit lock).
+
+        The store tolerates exactly one writer at a time, and a clustered
+        member has two writer planes: own commits (RPC server threads,
+        ``m_commit``/``m_forget_txn``) and remote inter-DC ingress (the
+        fabric pump's gate drain, which already serializes under
+        ``node.txm.commit_lock``).  Every member path that mutates store
+        state takes THIS lock first, then ``self._lock`` — the one order
+        (nothing takes the commit lock while holding the member lock), so
+        a takeover never deadlocks against a drain."""
         return self.node.txm.commit_lock
 
     def coordinator(self):
@@ -156,6 +351,195 @@ class ClusterMember:
 
             self._coordinator = ClusterNode(self)
         return self._coordinator
+
+    # ------------------------------------------------------------------
+    # durable prepare log
+    # ------------------------------------------------------------------
+    def _prep_append(self, rec: dict) -> None:
+        if self._prep_wal is not None:
+            self._prep_wal.append(rec)
+            self._prep_wal.commit()
+            self._prep_appends += 1
+            if self._prep_appends >= _LEDGER_CAP * 2:
+                self._compact_prepare_log()
+
+    def _compact_prepare_log(self) -> None:
+        """Rewrite prepare.wal from live state: the membership, the
+        sequencer ledger, undecided preps and the outcome tails.  Bounds
+        disk use and recovery replay time to O(in-flight + LEDGER_CAP),
+        not O(all txns ever)."""
+        with self._lock:
+            path = os.path.join(self._prep_dir, "prepare.wal")
+            tmp = path + ".tmp"
+            if os.path.exists(tmp):
+                os.remove(tmp)  # reclaim-ok: stale compaction temp from
+                # a crashed rewrite; the live prepare.wal is untouched
+            w = ShardWAL(tmp, sync_on_commit=False)
+            # MEMBERSHIP STATE FIRST: without it a member would recover
+            # with the modular guess of its recover-time count
+            w.append({"ev": "boot_layout", "txid": 0,
+                      "n": int(self.n_members),
+                      "member": int(self.member_id),
+                      "shards": sorted(int(s) for s in self.shards)})
+            for s in range(self.cfg.n_shards):
+                w.append({"ev": "own", "txid": 0, "shard": int(s),
+                          "owner": int(self.shard_map.get(s, 0)),
+                          "epoch": int(self.shard_epoch.get(s, 0))})
+            w.append({"ev": "members", "txid": 0, "n": int(self.n_members)})
+            for mid in sorted(self.departed):
+                w.append({"ev": "departed", "txid": 0, "member": int(mid)})
+            if self.seq is not None:
+                for ts, (txid, shards, prev, _) in self.seq.issued.items():
+                    w.append({"ev": "seq", "ts": int(ts), "txid": int(txid),
+                              "shards": shards, "prev": _int_map(prev)})
+            for txid, (effects, _, snap_own) in self.staged.items():
+                rec = {"ev": "prep", "txid": int(txid),
+                       "effs": [eff_to_wire(e) for e in effects]}
+                if snap_own is not None:
+                    rec["snap"] = int(snap_own)
+                w.append(rec)
+            for txid, (vc, prev) in self.committed_txns.items():
+                w.append({"ev": "commit", "txid": int(txid), "vc": vc,
+                          "prev": _int_map(prev)})
+            for txid in self.aborted_txns:
+                w.append({"ev": "abort", "txid": int(txid)})
+            w.commit()
+            w.sync()
+            w.close()
+            self._prep_wal.close()
+            os.replace(tmp, path)
+            self._prep_wal = ShardWAL(path, sync_on_commit=self.cfg.sync_log)
+            self._prep_appends = 0
+
+    def _recover_prepare_log(self, log_dir: Optional[str]) -> list:
+        """Fold prepare.wal: staged-but-undecided txns come back with their
+        prepared locks; decided txns restore the outcome tables; sequencer
+        issues rebuild the ts ledger (member 0); the membership records
+        (``boot_layout``, and the live moves' ``own``, ``members`` and
+        ``departed``) restore ownership.
+
+        Returns the committed txns in log order WITHOUT dropping their
+        staged effects — a crash may have landed between the durable
+        commit record and the store apply, so the caller re-applies any
+        whose chain frontier shows them unapplied
+        (:meth:`_replay_recovered_commits`)."""
+        pending: list = []
+        if log_dir is None:
+            return pending
+        path = os.path.join(log_dir, "prepare.wal")
+        if not os.path.exists(path):
+            return pending
+        for rec in replay(path):
+            ev = rec.get("ev")
+            txid = int(rec.get("txid", 0))
+            if ev == "prep":
+                effects = [eff_from_wire(w) for w in rec["effs"]]
+                keys = [(e.key, e.bucket) for e in effects]
+                snap = rec.get("snap")
+                self.staged[txid] = (effects, keys,
+                                     None if snap is None else int(snap))
+                self.staged_at[txid] = 0.0  # older than any sweep grace
+                for dk in keys:
+                    self.prepared[dk] = txid
+            elif ev == "commit":
+                prev = _int_map(rec["prev"])
+                self.committed_txns[txid] = (rec["vc"], prev)
+                pending.append((txid, rec["vc"], prev))
+            elif ev == "abort":
+                self._drop_staged(txid)
+                self.aborted_txns[txid] = True
+            elif ev == "seq" and self.seq is not None:
+                self.seq.restore_issue(rec["ts"], txid, rec["shards"],
+                                       rec["prev"])
+            elif ev == "boot_layout":
+                # authoritative starting ownership (own events below
+                # adjust it); a record without the explicit set predates
+                # it — modular(n) then
+                n0 = int(rec["n"])
+                booted = rec.get("shards")
+                self.shards = (set(int(s) for s in booted)
+                               if booted is not None
+                               else set(owned_shards(self.cfg,
+                                                     self.member_id, n0)))
+                self.shard_map = {s: s % n0
+                                  for s in range(self.cfg.n_shards)}
+                for s in self.shards:
+                    self.shard_map[s] = self.member_id
+                self.shard_epoch = {s: 0 for s in range(self.cfg.n_shards)}
+                self.applied_ts = {s: 0 for s in self.shards}
+                self.chain_wait = {s: {} for s in self.shards}
+            elif ev == "own":
+                # a live ownership change (durable: a member crashing
+                # mid-move rejoins with the moved layout)
+                s, owner = int(rec["shard"]), int(rec["owner"])
+                self.shard_map[s] = owner
+                self.shard_epoch[s] = int(rec.get(
+                    "epoch", self.shard_epoch.get(s, 0) + 1))
+                if owner == self.member_id:
+                    self.shards.add(s)
+                    self.applied_ts.setdefault(s, 0)
+                    self.chain_wait.setdefault(s, {})
+                else:
+                    self.shards.discard(s)
+                    self.applied_ts.pop(s, None)
+                    self.chain_wait.pop(s, None)
+            elif ev == "members":
+                # monotone on replay too
+                self.n_members = max(self.n_members, int(rec["n"]))
+            elif ev == "departed":
+                self.departed.add(int(rec["member"]))
+        self._trim_ledgers()
+        return pending
+
+    def _replay_recovered_commits(self, pending: list) -> None:
+        """Finish commits whose durable decision preceded the crash but
+        whose effects never reached the store (still staged + frontier
+        below their ts).  Shards already at or past the ts are skipped —
+        their effects were applied and WAL-replayed."""
+        for txid, vc, prev in pending:
+            if txid not in self.staged:
+                continue  # applied before the crash (or compacted)
+            ts = int(np.asarray(vc)[self.dc_id])
+            effects, keys, snap_own = self.staged.pop(txid)
+            # snap_own None = a record predating overlay stamping: its
+            # effects carry no tentative dots, nothing to rewrite
+            if snap_own is not None and snap_own + 1 != ts:
+                self._restamp(effects, snap_own, ts)
+            by_shard: Dict[int, list] = {}
+            for eff in effects:
+                _, shard, _ = self.node.store.locate(eff.key, eff.type_name,
+                                                     eff.bucket)
+                if shard in self.shards and self.applied_ts[shard] < ts:
+                    by_shard.setdefault(shard, []).append(eff)
+            cvc = np.asarray(vc, np.int32)
+            self._chain_apply([(shard, int(prev.get(shard, 0)), ts, effs,
+                                cvc) for shard, effs in by_shard.items()])
+            for dk in keys:
+                if self.prepared.get(dk) == txid:
+                    del self.prepared[dk]
+                self.last_commit[dk] = max(self.last_commit.get(dk, 0), ts)
+            self.staged_at.pop(txid, None)
+
+    def _restamp(self, effects, snap_own: int, ts: int) -> None:
+        """Rewrite tentative own dots (overlay stamp = snapshot+1) to the
+        real commit ts."""
+        for eff in effects:
+            eff.eff_a, eff.eff_b = get_type(eff.type_name).restamp_own_dots(
+                self.cfg, eff.eff_a, eff.eff_b, self.dc_id, snap_own + 1, ts)
+
+    def _drop_staged(self, txid: int) -> None:
+        self.staged_at.pop(txid, None)
+        staged = self.staged.pop(txid, None)
+        if staged is not None:
+            for dk in staged[1]:
+                if self.prepared.get(dk) == txid:
+                    del self.prepared[dk]
+
+    def _trim_ledgers(self) -> None:
+        while len(self.committed_txns) > _LEDGER_CAP:
+            self.committed_txns.popitem(last=False)
+        while len(self.aborted_txns) > _LEDGER_CAP:
+            self.aborted_txns.popitem(last=False)
 
     # ------------------------------------------------------------------
     def connect(self, member_id: int, host: str, port: int) -> None:
@@ -172,18 +556,50 @@ class ClusterMember:
     def m_ready(self) -> bool:
         return True
 
-    def m_seq(self, shards) -> Tuple[int, Dict[int, int]]:
-        return self.seq_ts(shards)
+    def prepared_on_shard(self, shard: int) -> bool:
+        """Any prepared-but-uncommitted txn touching one of my keys on
+        ``shard`` (gates the inter-DC safe time)."""
+        with self._lock:
+            keys = list(self.prepared)
+        return any(key_to_shard(k, b, self.cfg.n_shards) == shard
+                   for k, b in keys)
 
-    def seq_ts(self, shards) -> Tuple[int, Dict[int, int]]:
-        """Issue a commit ts + per-shard prev chain (sequencer only)."""
-        assert self.seq is not None, "not the sequencer"
-        ts, prev = self.seq.next_ts(shards)
-        return ts, {int(k): int(v) for k, v in prev.items()}
+    def m_seq(self, shards, txid: int = 0) -> Tuple[int, Dict[int, int]]:
+        return self.seq_ts(shards, txid)
+
+    def seq_ts(self, shards, txid: int = 0) -> Tuple[int, Dict[int, int]]:
+        """Issue a commit ts + per-shard prev chain, durably ledgered —
+        every coordinator comes through here so takeover can find the txn
+        behind any issued ts.  The member lock serializes the ledger append
+        with the other prepare-log writers and keeps 'seq' records in ts
+        order."""
+        seq = self._sequencer()
+        with self._lock:
+            if txid and txid in seq.resolutions:
+                # the stale-prepare sweep already decided this txn's fate
+                # (its coordinator stalled before sequencing, then woke):
+                # a ts now would open a hole the sticky ts=0 resolution
+                # could never close
+                raise RuntimeError(
+                    f"abort: txn {txid} was resolved by takeover before "
+                    "sequencing")
+            ts, prev = seq.next_ts(shards, txid)
+            prev_wire = _int_map(prev)
+            self._prep_append({"ev": "seq", "ts": ts, "txid": int(txid),
+                               "shards": [int(s) for s in shards],
+                               "prev": prev_wire})
+        return ts, prev_wire
 
     def m_seq_counter(self) -> int:
-        assert self.seq is not None, "not the sequencer"
-        return self.seq.counter
+        return self._sequencer().counter
+
+    def _sequencer(self) -> Sequencer:
+        """This member's sequencer; a sequencer-only handler called on
+        another member (a misrouted RPC) is refused."""
+        if self.seq is None:
+            raise RuntimeError(f"member {self.member_id} is not the "
+                               "sequencer (member 0)")
+        return self.seq
 
     def m_clocks(self) -> list:
         """My owned shards' applied clock rows: [(shard, [D])]."""
@@ -216,7 +632,9 @@ class ClusterMember:
         prepared or chain-buffered txn touching a shard, every issued ts
         is already applied there (prepare precedes sequencing), so its
         own-lane clock may claim the sequencer frontier — what lets the
-        aggregated stable snapshot progress past untouched shards."""
+        aggregated stable snapshot progress past untouched shards.  A
+        wedged shard (prepared, or a link buffered behind a hole) does not
+        advance until takeover drains it."""
         ctr = self._seq_counter()
         if ctr == 0:
             return
@@ -350,8 +768,6 @@ class ClusterMember:
         the owner's replica: the lane must be this DC's and hold the
         rights; first-committer-wins certification closes the race
         between the check and the commit."""
-        from antidote_tpu_torch.cluster.rpc import eff_to_wire
-
         key = freeze_key(key)
         op = _freeze_op(op)
         ty = get_type(type_name)
@@ -394,6 +810,31 @@ class ClusterMember:
             raise RuntimeError(f"abort: {e}") from e
         bcm.satisfied(key, bucket)
 
+    def m_process_transfer(self, key, bucket, amount: int, to_dc: int
+                           ) -> int:
+        """Grant up to ``amount`` counter_b rights to ``to_dc`` from this
+        DC's lane — the clustered granter: runs at the key's owner member
+        and commits the transfer through the DC sequencer (this member's
+        coordinator), so the grant is certified like any other txn."""
+        key = freeze_key(key)
+        ty = get_type("counter_b")
+        with self._lock:
+            state = self.node.store.read_states(
+                [(key, "counter_b", bucket)],
+                self.node.store.dc_max_vc())[0]
+        if state is None:
+            return 0
+        grant = min(int(amount), ty.local_rights(state, self.dc_id))
+        if grant <= 0:
+            return 0
+        try:
+            self.coordinator().update_objects([
+                (key, "counter_b", bucket,
+                 ("transfer", (grant, int(to_dc), self.dc_id)))])
+        except AbortError:
+            return 0  # lost a race for the rights; the requester retries
+        return grant
+
     def _check_owner(self, shard: int) -> None:
         if shard not in self.shards:
             raise RuntimeError(
@@ -402,22 +843,22 @@ class ClusterMember:
                 f"(asked member {self.member_id})")
 
     def m_shard_map(self) -> dict:
-        """{shard: [owner, epoch]} — the JAX package's form, whose epochs
-        count completed moves; ownership never moves in this slice, so
-        every epoch is 0."""
-        return {int(s): [int(m), 0] for s, m in self.shard_map.items()}
+        """{shard: [owner, epoch]} — epochs count completed moves."""
+        return {int(s): [int(m), int(self.shard_epoch.get(int(s), 0))]
+                for s, m in self.shard_map.items()}
 
     def m_membership(self) -> dict:
-        """The member-id bound and the live member ids this member knows
-        (self + wired peers)."""
+        """The member-id bound, the live member ids this member knows
+        (self + wired peers) and the durable departed-id set."""
         with self._lock:
             return {"n_members": int(self.n_members),
-                    "members": sorted({self.member_id, *self.peers})}
+                    "members": sorted({self.member_id, *self.peers}),
+                    "departed": sorted(int(m) for m in self.departed)}
 
     def m_prepare(self, txid: int, effs_wire: list, snap_own: int) -> bool:
         """Certify + lock this txn's keys on my shards (first-committer-
-        wins against ``snap_own``).  Raises on conflict (the RPC surfaces
-        it as an error reply)."""
+        wins against ``snap_own``), durably staged.  Raises on conflict
+        (the RPC surfaces it as an error reply)."""
         effects = [eff_from_wire(w) for w in effs_wire]
         with self._lock:
             for eff in effects:
@@ -432,7 +873,8 @@ class ClusterMember:
                     raise RuntimeError(
                         f"abort: certification conflict on {eff.key!r}")
                 # type-binding check HERE, not at apply: a key bound to a
-                # different CRDT type must fail as a clean prepare abort
+                # different CRDT type must fail as a clean prepare abort —
+                # discovered at commit it would poison the ts chain
                 try:
                     self.node.store.locate(eff.key, eff.type_name,
                                            eff.bucket, create=False)
@@ -444,20 +886,26 @@ class ClusterMember:
                 self.prepared[dk] = txid
                 keys.append(dk)
             self.staged[txid] = (effects, keys, int(snap_own))
+            self.staged_at[txid] = time.monotonic()
+            self._prep_append({"ev": "prep", "txid": int(txid),
+                               "effs": effs_wire, "snap": int(snap_own)})
         return True
 
     def m_abort(self, txid: int) -> bool:
         with self._lock:
-            staged = self.staged.pop(txid, None)
-            if staged is not None:
-                for dk in staged[1]:
-                    if self.prepared.get(dk) == txid:
-                        del self.prepared[dk]
+            if txid in self.staged:
+                self._prep_append({"ev": "abort", "txid": int(txid)})
+            self._drop_staged(txid)
         return True
 
-    def m_commit(self, txid: int, commit_vc, prev_by_shard) -> bool:
+    def m_commit(self, txid: int, commit_vc, prev_by_shard,
+                 resolved: bool = False) -> bool:
         """Apply a staged txn at ts = commit_vc[own]; my shards' slices
-        apply in ts order via the sequencer's per-shard chain."""
+        apply in ts order via the sequencer's per-shard chain.
+
+        ``resolved`` marks a takeover-driven apply: it may pass a block
+        barrier.  A normal commit for a blocked or resolved-aborted txid
+        is refused — the door the takeover shut on a zombie coordinator."""
         commit_vc = np.asarray(commit_vc, np.int32)
         ts = int(commit_vc[self.dc_id])
         # an applied commit proves the sequencer reached ts: advance the
@@ -465,31 +913,275 @@ class ClusterMember:
         if self.seq is None and ts > self._seq_cache:
             self._seq_cache = ts
         with self._xlock, self._lock:
+            if txid in self.aborted_txns:
+                raise RuntimeError(
+                    f"abort: txn {txid} was resolved-aborted by takeover")
+            if not resolved and txid in self.blocked_txns:
+                raise RuntimeError(
+                    f"abort: txn {txid} is blocked pending takeover")
             effects, keys, snap_own = self.staged.pop(txid, (None, None, 0))
             if effects is None:
                 return True  # duplicate commit
-            # rewrite tentative own dots (overlay stamp = snapshot+1) to
-            # the real commit ts
-            if snap_own + 1 != ts:
-                for eff in effects:
-                    eff.eff_a, eff.eff_b = get_type(
-                        eff.type_name).restamp_own_dots(
-                            self.cfg, eff.eff_a, eff.eff_b, self.dc_id,
-                            snap_own + 1, ts)
+            self.staged_at.pop(txid, None)
+            self.blocked_txns.discard(txid)
+            if snap_own is not None and snap_own + 1 != ts:
+                self._restamp(effects, snap_own, ts)
+            vc_wire = [int(x) for x in commit_vc]
+            prev_wire = _int_map(prev_by_shard)
+            self._prep_append({"ev": "commit", "txid": int(txid),
+                               "vc": vc_wire, "prev": prev_wire})
+            self.committed_txns[txid] = (vc_wire, prev_wire)
+            self._trim_ledgers()
             by_shard: Dict[int, list] = {}
             for eff in effects:
                 _, shard, _ = self.node.store.locate(eff.key, eff.type_name,
                                                      eff.bucket)
                 by_shard.setdefault(shard, []).append(eff)
             self._chain_apply([
-                (shard, int(prev_by_shard.get(shard, 0)), ts, effs,
-                 commit_vc)
+                (shard, prev_wire.get(shard, 0), ts, effs, commit_vc)
                 for shard, effs in by_shard.items()])
             for dk in keys:
                 if self.prepared.get(dk) == txid:
                     del self.prepared[dk]
                 self.last_commit[dk] = ts
         return True
+
+    # ------------------------------------------------------------------
+    # coordinator-crash takeover
+    # ------------------------------------------------------------------
+    def m_txn_status(self, txid: int) -> list:
+        """What this member knows about a txn (takeover poll)."""
+        with self._lock:
+            ent = self.committed_txns.get(txid)
+            if ent is not None:
+                return ["committed", ent[0], _int_map(ent[1])]
+            if txid in self.aborted_txns:
+                return ["aborted"]
+            if txid in self.staged:
+                return ["staged"]
+            return ["unknown"]
+
+    def m_block_txn(self, txid: int) -> list:
+        """Block barrier: unless already committed here, bar the txid from
+        committing until the takeover decision lands.  Returns the
+        pre-block status so the resolver can detect a commit that raced
+        in."""
+        with self._lock:
+            st = self.m_txn_status(txid)
+            if st[0] != "committed":
+                self.blocked_txns.add(txid)
+            return st
+
+    def m_forget_txn(self, txid: int, ts: int, shards, prev_by_shard
+                     ) -> bool:
+        """Apply a takeover ABORT decision: release the txn's staged
+        write-set + locks and close its hole in my owned shards' ts chains
+        (a no-op link, so successors drain)."""
+        prev_by_shard = _int_map(prev_by_shard)
+        with self._xlock, self._lock:
+            self.blocked_txns.discard(txid)
+            if txid not in self.aborted_txns:
+                self.aborted_txns[txid] = True
+                self._trim_ledgers()
+                if txid in self.staged:
+                    self._prep_append({"ev": "abort", "txid": int(txid)})
+                self._drop_staged(txid)
+            self._chain_apply([
+                (int(s), prev_by_shard.get(int(s), 0), int(ts), [], None)
+                for s in shards
+                if int(s) in self.shards and self.applied_ts[int(s)] < int(ts)
+            ])
+        return True
+
+    def m_resolve_chain(self, shard: int, after_ts: int,
+                        grace_s: float = 0.0) -> Optional[list]:
+        """Takeover (on the sequencer member only): decide the fate of the
+        txn holding the earliest unapplied ts on ``shard``.
+
+        Decision rule: if ANY member applied it, the txn is committed —
+        return its commit VC + chains so stuck members can finish the
+        fan-out (atomicity).  Otherwise, after ``grace_s`` since issue,
+        block the txid at every reachable member (a late coordinator's
+        commit now refuses), re-check for a commit that raced in, and
+        failing that abort it everywhere.  Decisions are sticky."""
+        seq = self._sequencer()
+        ent = seq.entry_after(int(shard), int(after_ts))
+        if ent is None:
+            return None
+        ts, txid = ent
+        prior = seq.resolutions.get(txid)
+        if prior is not None:
+            if prior[0] == "abort" and int(prior[2]) != ts:
+                # stale-aborted before sequencing, yet a racing coordinator
+                # still got a ts (defence in depth beside the seq_ts
+                # refusal): close the hole at the REAL ts
+                issued = seq.issued.get(ts)
+                if issued is not None:
+                    _, tx_shards, prev, _ = issued
+                    self._broadcast("m_forget_txn", txid, ts, tx_shards,
+                                    _int_map(prev))
+                return ["abort", int(txid), int(ts)]
+            return list(prior)
+        issued = seq.issued.get(ts)
+        if issued is None:
+            # the ledger GC'd beneath a very old hole: nothing left to
+            # learn, and an abort with an empty shard set is unsafe
+            raise RuntimeError(
+                f"ts {ts} missing from sequencer ledger (GC'd); manual "
+                "intervention required")
+        _, tx_shards, prev, t_issued = issued
+        dec = self._decide(txid, ts, tx_shards, prev, t_issued, grace_s)
+        if dec[0] != "wait":
+            seq.resolutions[txid] = tuple(dec)
+            seq.trim_resolutions()
+            if dec[0] == "commit":
+                # complete the dead coordinator's fan-out: every member
+                # holding the staged write-set applies it now
+                self._broadcast("m_commit", txid, dec[2], _int_map(dec[3]),
+                                True)
+        return dec
+
+    def _broadcast(self, method: str, *args) -> None:
+        """Apply a takeover decision here and at every peer; a peer that
+        cannot be reached learns it when it resolves after rejoining."""
+        try:
+            getattr(self, method)(*args)
+        except (OSError, RuntimeError, ValueError):
+            log.warning("takeover: local %s%r failed", method, args[:1],
+                        exc_info=True)
+        for mid, cli in list(self.peers.items()):
+            try:
+                cli.call(method, *args)
+            except (OSError, RuntimeError) as e:
+                log.warning("takeover: %s of txn %d at member %d failed: %s",
+                            method, args[0], mid, e)
+
+    def _poll(self, method: str, txid: int) -> Dict[int, list]:
+        out = {self.member_id: getattr(self, method)(txid)}
+        for mid, cli in list(self.peers.items()):
+            try:
+                out[mid] = cli.call(method, txid)
+            except (OSError, RuntimeError):
+                out[mid] = ["unreachable"]
+        return out
+
+    def _decide(self, txid, ts, tx_shards, prev, t_issued,
+                grace_s) -> list:
+        """Takeover decision.  SAFETY RULE: a prepared participant may only
+        be aborted when every owner of the txn's shards is reachable and
+        reports not-committed — an unreachable owner may have applied and
+        logged the commit just before dying, and aborting behind its back
+        would diverge on rejoin (the 2PC blocking window; the reference
+        rides it out the same way by restarting the node).  The block
+        barrier shuts the door on a zombie coordinator racing the abort."""
+        involved = {self.shard_map.get(int(s), int(s) % self.n_members)
+                    for s in tx_shards}
+
+        def committed_or_wait(statuses):
+            for st in statuses.values():
+                if st[0] == "committed":
+                    return ["commit", int(txid), st[1], st[2]]
+            if any(statuses.get(mid, ["unreachable"])[0] == "unreachable"
+                   for mid in involved):
+                return ["wait", int(txid)]  # blocking: the owner may rejoin
+            return None
+
+        dec = committed_or_wait(self._poll("m_txn_status", txid))
+        if dec is not None:
+            return dec
+        if time.monotonic() - t_issued < grace_s:
+            return ["wait", int(txid)]
+        # block barrier everywhere, then re-check for a raced-in commit
+        dec = committed_or_wait(self._poll("m_block_txn", txid))
+        if dec is not None:
+            return dec
+        self._broadcast("m_forget_txn", txid, ts, tx_shards, _int_map(prev))
+        return ["abort", int(txid), int(ts)]
+
+    def m_txn_sequenced(self, txid: int) -> bool:
+        return int(txid) in self._sequencer().txid_index
+
+    def m_resolve_stale_txn(self, txid: int) -> list:
+        """Takeover for a txn whose coordinator died BEFORE sequencing: its
+        prepared locks would otherwise be held forever (no ts, so no chain
+        hole for m_resolve_chain to find).  Runs on the sequencer: if the
+        txid was never issued a ts — checked again after the block
+        barrier, so a racing coordinator that sequences late finds its
+        commit refused — abort it everywhere."""
+        self._sequencer()
+        txid = int(txid)
+        prior = self.seq.resolutions.get(txid)
+        if prior is not None:
+            return list(prior)
+        if txid in self.seq.txid_index:
+            return ["sequenced", self.seq.txid_index[txid]]
+        for st in self._poll("m_block_txn", txid).values():
+            if st[0] == "committed":
+                return ["commit", txid, st[1], st[2]]
+        if txid in self.seq.txid_index:
+            return ["sequenced", self.seq.txid_index[txid]]
+        self._broadcast("m_forget_txn", txid, 0, [], {})
+        dec = ["abort", txid, 0]
+        self.seq.resolutions[txid] = tuple(dec)
+        self.seq.trim_resolutions()
+        return dec
+
+    def sweep_stale_prepared(self, grace_s: float = 30.0) -> int:
+        """Release prepared locks of txns staged longer than ``grace_s``
+        whose coordinator never reached the sequencer.  Sequenced txns are
+        left to :meth:`resolve_wedged` (the chain protocol owns them).
+        Returns the number of txns resolved away."""
+        now = time.monotonic()
+        with self._lock:
+            stale = [txid for txid, t in self.staged_at.items()
+                     if now - t >= grace_s]
+        n = 0
+        for txid in stale:
+            if self.seq is not None:
+                dec = self.m_resolve_stale_txn(txid)
+            else:
+                dec = self.peers[0].call("m_resolve_stale_txn", txid)
+            if dec[0] == "abort":
+                n += 1
+        return n
+
+    def resolve_wedged(self, grace_s: float = 0.0, max_rounds: int = 64
+                       ) -> int:
+        """Settle every unapplied issued ts on my owned shards via the
+        sequencer's takeover protocol.  Returns the number of decisions
+        applied.  Any member may call this (on a timer, on a stuck-read
+        timeout, or after a rejoin)."""
+        applied = 0
+        for _ in range(max_rounds):
+            progress = False
+            for s in sorted(self.shards):
+                frontier = int(self.applied_ts[s])
+                if self.seq is not None:
+                    dec = self.m_resolve_chain(s, frontier, grace_s)
+                else:
+                    dec = self.peers[0].call("m_resolve_chain", s, frontier,
+                                             grace_s)
+                if dec is None or dec[0] == "wait":
+                    continue
+                if dec[0] == "commit":
+                    _, txid, vc, prevw = dec
+                    self.m_commit(int(txid), vc, _int_map(prevw),
+                                  resolved=True)
+                elif dec[0] == "abort" and self.applied_ts[s] < int(dec[2]):
+                    # m_forget_txn already ran here via the broadcast;
+                    # re-apply locally in case we were unreachable then
+                    _, txid, ts = dec
+                    issued = (self.seq.issued.get(int(ts))
+                              if self.seq is not None else None)
+                    shards_ = issued[1] if issued else [s]
+                    prev_ = issued[2] if issued else {s: self.applied_ts[s]}
+                    self.m_forget_txn(int(txid), int(ts), shards_, prev_)
+                if int(self.applied_ts[s]) > frontier:
+                    applied += 1
+                    progress = True
+            if not progress:
+                break
+        return applied
 
     def _chain_apply(self, links) -> None:
         """``links``: [(shard, prev, ts, effects, commit_vc)], at most one
@@ -498,7 +1190,8 @@ class ClusterMember:
         order from concurrent coordinators).  The ready links of different
         shards apply as ONE grouped store append, then the buffered
         successors they unblock, round by round: per shard the order is
-        the chain's, and shards share no keys."""
+        the chain's, and shards share no keys.  A link without effects is
+        a takeover's no-op: it only advances the frontier."""
         ready = []
         for shard, prev, ts, effects, commit_vc in links:
             if shard not in self.chain_wait:
@@ -523,6 +1216,10 @@ class ClusterMember:
             self.node.store.apply_effect_groups(groups)
         for shard, ts, _, _ in links:
             self.applied_ts[shard] = ts
+        for _, _, effs, vc in links:
+            if effs:
+                for listener in self.on_commit:
+                    listener(effs, vc, self.dc_id)
 
     # ------------------------------------------------------------------
     # stable-time aggregation (stable-time gossip between members)
@@ -564,9 +1261,15 @@ class ClusterMember:
         return stable_min_of(self.clock_matrix(), self.node.store.device)
 
     def close(self) -> None:
+        """Stop serving and close the logs (a clean shutdown; a crash is
+        closing the RPC server and dropping the member)."""
         self.rpc.close()
         for cli in list(self.peers.values()):
             cli.close()
+        if self._prep_wal is not None:
+            self._prep_wal.close()
+        if self.node.store.log is not None:
+            self.node.close()
 
 
 def _wire_value(v):

@@ -19,6 +19,10 @@ the client protocol.
     python -m antidote_tpu_torch.console replica-remove --port 8087 --name f2
     python -m antidote_tpu_torch.console inspect --log-dir /data/dc0
     python -m antidote_tpu_torch.console inspect-checkpoint --log-dir /data/dc0
+    python -m antidote_tpu_torch.console ringready --rpc host:port
+    python -m antidote_tpu_torch.console cluster-status --rpc host:port
+    python -m antidote_tpu_torch.console cluster-resolve --rpc host:port
+    python -m antidote_tpu_torch.console cluster-sweep --rpc host:port
 
 ``serve`` puts the node's tables on ``--device`` (``cuda`` by default; a
 machine without a card must ask for ``cpu``) and prints its ready line —
@@ -42,7 +46,11 @@ mode; ``--follower-peers`` names a geo owner's peer DCs, whose chains the
 follower subscribes to itself.  ``replica-status``, ``replica-add`` and
 ``replica-remove`` operate an owner's follower registry.
 ``inspect`` and ``inspect-checkpoint`` read a log directory offline, with
-no node.
+no node.  ``ringready``, ``cluster-status``, ``cluster-resolve`` (the
+takeover of wedged commit chains) and ``cluster-sweep`` (stale prepared
+locks) operate a multi-member DC through a member's control RPC
+(``python -m antidote_tpu_torch.cluster.boot``); ``cluster-join`` and
+``cluster-leave`` (live membership) are not ported yet.
 """
 
 from __future__ import annotations
@@ -456,7 +464,7 @@ def cmd_inspect(args) -> int:
     import glob
     import re
 
-    from antidote_tpu_torch.log import shard_segment_paths
+    from antidote_tpu_torch.log import segment_index, shard_segment_paths
     from antidote_tpu_torch.log.wal import replay_segments
 
     shards = sorted({
@@ -466,8 +474,10 @@ def cmd_inspect(args) -> int:
                           os.path.basename(p)))
     })
     out = {}
+    segments = segment_index(args.log_dir)
     for shard in shards:
-        paths = [p for p in shard_segment_paths(args.log_dir, shard)
+        paths = [p for p in shard_segment_paths(args.log_dir, shard, 1,
+                                                segments)
                  if os.path.exists(p)]
         recs = 0
         chains: dict = {}
@@ -522,6 +532,51 @@ def cmd_inspect_checkpoint(args) -> int:
             out["latest"]["membership"] = membership
     print(json.dumps(out, indent=2))
     return 0
+
+
+def _member_rpc(args):
+    from antidote_tpu_torch.cluster.rpc import RpcClient
+
+    host, port = args.rpc.rsplit(":", 1)
+    return RpcClient(host, int(port))
+
+
+def _member_call(args, method: str, *a):
+    cli = _member_rpc(args)
+    try:
+        return cli.call(method, *a)
+    finally:
+        cli.close()
+
+
+def cmd_ringready(args) -> int:
+    """All members of the DC up and answering (the riak_core ringready
+    probe)."""
+    probes = _member_call(args, "ctl_ready_all")
+    print(json.dumps(probes))
+    return 0 if all(probes.values()) else 1
+
+
+def cmd_cluster_status(args) -> int:
+    print(json.dumps(_member_call(args, "ctl_status")))
+    return 0
+
+
+def cmd_cluster_resolve(args) -> int:
+    print(json.dumps({"resolved": _member_call(args, "ctl_resolve",
+                                               args.grace)}))
+    return 0
+
+
+def cmd_cluster_sweep(args) -> int:
+    print(json.dumps({"swept": _member_call(args, "ctl_sweep", args.grace)}))
+    return 0
+
+
+def cmd_cluster_membership_change(args) -> int:
+    raise NotImplementedError(
+        f"{args.cmd}: live join/leave is not ported yet (it comes with the "
+        "cluster's live membership, ROADMAP 15b)")
 
 
 def main(argv=None) -> int:
@@ -744,6 +799,36 @@ def main(argv=None) -> int:
                              "membership extras)")
     ic.add_argument("--log-dir", required=True)
     ic.set_defaults(fn=cmd_inspect_checkpoint)
+
+    # a multi-member DC through a member's control RPC (antidote_console's
+    # ringready; rejoin a crashed member with `python -m
+    # antidote_tpu_torch.cluster.boot ... --recover`)
+    for name, fn, hlp in (
+        ("ringready", cmd_ringready,
+         "all cluster members up and answering (riak_core ringready)"),
+        ("cluster-status", cmd_cluster_status,
+         "member topology, owned shards, stable VC"),
+        ("cluster-resolve", cmd_cluster_resolve,
+         "takeover: settle wedged commit chains (dead coordinator)"),
+        ("cluster-sweep", cmd_cluster_sweep,
+         "release prepared locks of never-sequenced dead txns"),
+    ):
+        p = sub.add_parser(name, help=hlp)
+        p.add_argument("--rpc", required=True,
+                       help="member control RPC as host:port")
+        if name == "cluster-resolve":
+            p.add_argument("--grace", type=float, default=0.0)
+        if name == "cluster-sweep":
+            p.add_argument("--grace", type=float, default=30.0)
+        p.set_defaults(fn=fn)
+    for name, who in (("cluster-join", "--joiner"),
+                      ("cluster-leave", "--leaver")):
+        p = sub.add_parser(name, help="live membership change (not ported "
+                                      "yet)")
+        p.add_argument("--rpcs", required=True,
+                       help="member control RPCs as id=host:port,...")
+        p.add_argument(who, type=int, required=True)
+        p.set_defaults(fn=cmd_cluster_membership_change, cmd=name)
 
     args = ap.parse_args(argv)
     return args.fn(args)

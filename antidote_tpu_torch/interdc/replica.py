@@ -1,4 +1,5 @@
-"""DCReplica — the inter-DC replication endpoint of one single-node DC.
+"""DCReplica — the inter-DC replication endpoint of a DC, or of one
+member of a multi-member DC (``cluster.attach_interdc``).
 
   egress:  local commit → per-shard TxnMessage with (shard, origin) opid
            chaining → transport publish; a bounded window of recent
@@ -81,13 +82,17 @@ class DCReplica:
     CKPT_SHIP_CHUNK = 4 << 20
 
     def __init__(self, node, hub, name: str = "",
-                 fabric_id: Optional[int] = None):
+                 fabric_id: Optional[int] = None, shards=None):
         self.node = node
         self.hub = hub
         self.name = name or f"dc{node.dc_id}"
         self.dc_id = node.dc_id
-        #: a single-node DC publishes and ingests every shard's chain
-        self.shards = set(range(node.cfg.n_shards))
+        #: shards this endpoint publishes and ingests: every shard for a
+        #: single-node DC, a member's own for a multi-member DC (one
+        #: publisher per (origin, shard)).  Any container with membership
+        #: works: a cluster member passes a LIVE view of its owned set
+        self.shards = (set(range(node.cfg.n_shards)) if shards is None
+                       else shards)
         #: the id this endpoint registers under on the fabric: the DC id
         #: for a DC (a peer's catch-up queries go to the origin DC's own
         #: endpoint), its own id for a follower of that DC
@@ -95,6 +100,25 @@ class DCReplica:
         #: (origin dc, shard) -> fabric id serving that chain's catch-up
         #: and anti-entropy queries (the origin DC's endpoint)
         self.route_query = lambda origin, shard: origin
+        #: (origin dc, shard) -> (owner member id, ownership epoch) learned
+        #: from a clustered publisher's stamps (TxnMessage.owner/oepoch):
+        #: which member of the origin serves each chain.  Strictly newer
+        #: epochs win, so a stale router or a replayed frame never points
+        #: catch-up back at a previous owner; it takes precedence over
+        #: ``route_query``
+        self.shard_route: Dict[Tuple[int, int], Tuple[int, int]] = {}
+        #: shard -> (member id, ownership epoch) stamped into egress
+        #: messages; ``attach_interdc`` installs the member's.  None = a
+        #: single-member origin, nothing to stamp
+        self.owner_info = None
+        #: held (AFTER the commit lock) around the gate drain's store
+        #: apply: ``attach_interdc`` points it at the cluster member's
+        #: lock, the one its owner reads take, so an ingress apply never
+        #: writes the tables under a member's reader
+        self.store_lock = threading.RLock()
+        #: a clustered DC's route for a counter_b rights request to the
+        #: key's owner member (``attach_interdc``); None grants locally
+        self.transfer_handler = None
         p = node.cfg.n_shards
         #: egress opid chain per shard (my origin)
         self.pub_opid = np.zeros(p, np.int64)
@@ -206,11 +230,21 @@ class DCReplica:
         cvc = np.asarray(vc, np.int32)
         svc = cvc.copy()
         svc[self.dc_id] = 0
+        ow, oe = self._owner_stamp(shard)
         return TxnMessage(
             origin=self.dc_id, shard=shard, prev_opid=opid - 1,
             last_opid=opid, commit_vc=cvc, snapshot_vc=svc,
             effects=effects, timestamp=int(cvc[self.dc_id]),
+            owner=ow, oepoch=oe,
         )
+
+    def _owner_stamp(self, shard: int) -> tuple:
+        """(owner member id, ownership epoch) for egress gossip, or (None,
+        None) for a single-member origin."""
+        if self.owner_info is None:
+            return (None, None)
+        ow, oe = self.owner_info(shard)
+        return (int(ow), int(oe))
 
     def restore_from_log(self) -> None:
         """Rebuild replication chains after a node restart from its WAL.
@@ -399,12 +433,14 @@ class DCReplica:
         for shard, effs in by_shard.items():
             prev = int(self.pub_opid[shard])
             self.pub_opid[shard] += 1
+            ow, oe = self._owner_stamp(shard)
             msg = TxnMessage(
                 origin=origin, shard=shard, prev_opid=prev,
                 last_opid=prev + 1,
                 commit_vc=np.asarray(commit_vc, np.int32),
                 snapshot_vc=snapshot_vc, effects=effs,
                 timestamp=int(commit_vc[origin]),
+                owner=ow, oepoch=oe,
             )
             with self._sent_lock:
                 self.sent[shard].append(msg)
@@ -437,8 +473,16 @@ class DCReplica:
         if self._commits_since_hb > 0:
             self.heartbeat()
             return
-        safe = self.safe_time(0)
-        if any(safe > self._published_safe.get(s, 0) for s in self.shards):
+        if self.owner_info is None:
+            safe = self.safe_time(0)
+            if any(safe > self._published_safe.get(s, 0)
+                   for s in self.shards):
+                self.heartbeat()
+                return
+        elif any(int(self.safe_time(s)) > self._published_safe.get(s, 0)
+                 for s in list(self.shards)):
+            # a cluster member's safe times move with the DC sequencer
+            # even when this member saw no commit
             self.heartbeat()
             return
         # LIVENESS: re-ping on the wall-clock interval even with nothing
@@ -456,7 +500,8 @@ class DCReplica:
         chain-clock duplicate suppression would drop the txn as
         already-applied).  A single-node DC mints commits from one
         monotone counter applied synchronously, so the counter itself is
-        safe for every shard."""
+        safe for every shard.  A cluster member's endpoint replaces this
+        with its shard's own (``cluster.attach_interdc``)."""
         txm = self.node.txm
         with txm.commit_lock:
             return txm.commit_counter
@@ -471,15 +516,20 @@ class DCReplica:
         vc = self.node.store.applied_vc
         # stamp under the commit lock, once for every shard: the safe time
         # and the chain positions must belong to one cut (and a busy
-        # commit plane is waited for once, not once a shard)
+        # commit plane is waited for once, not once a shard).  A cluster
+        # member's safe time is its shard's own (the sequencer frontier,
+        # or the chain frontier while a txn is prepared there)
         with self.node.txm.commit_lock:
-            safe = int(self.safe_time(0))
-            prevs = {}
+            one = (int(self.safe_time(0)) if self.owner_info is None
+                   else None)
+            pings = {}
             for shard in sorted(self.shards):
+                safe = one if one is not None else int(self.safe_time(shard))
                 vc[shard, self.dc_id] = max(vc[shard, self.dc_id], safe)
                 self._published_safe[shard] = safe
-                prevs[shard] = int(self.pub_opid[shard])
-        for shard, prev in prevs.items():
+                pings[shard] = (int(self.pub_opid[shard]), safe,
+                                self._owner_stamp(shard))
+        for shard, (prev, safe, (ow, oe)) in pings.items():
             if shard in exclude:
                 continue
             msg = TxnMessage(
@@ -487,7 +537,7 @@ class DCReplica:
                 last_opid=prev,  # pings do not advance the chain
                 commit_vc=np.zeros(self.node.cfg.max_dcs, np.int32),
                 snapshot_vc=np.zeros(self.node.cfg.max_dcs, np.int32),
-                effects=[], timestamp=safe,
+                effects=[], timestamp=safe, owner=ow, oepoch=oe,
             )
             self.hub.publish(self.fabric_id, msg.to_bytes())
         self._drain_if_gated()
@@ -568,9 +618,14 @@ class DCReplica:
                     errno.EIO,
                     f"injected fault: bcounter.transfer "
                     f"{payload.get('key')!r}")
-        grant = self.node.txm.bcounters.process_transfer(
-            self.node.txm, payload["key"], payload["bucket"],
-            payload["amount"], payload["to_dc"])
+        if self.transfer_handler is not None:
+            # clustered DC: route to the key's owner member, whose
+            # coordinator commits the grant through the sequencer
+            grant = self.transfer_handler(payload)
+        else:
+            grant = self.node.txm.bcounters.process_transfer(
+                self.node.txm, payload["key"], payload["bucket"],
+                payload["amount"], payload["to_dc"])
         m = self.node.metrics
         if grant and m is not None:
             m.escrow_grants.inc(role="granter")
@@ -750,8 +805,30 @@ class DCReplica:
         return False
 
     def _route(self, origin: int, shard: int) -> int:
-        """Fabric id serving a chain's catch-up and anti-entropy queries."""
+        """Fabric id serving a chain's catch-up and anti-entropy queries:
+        the newest gossiped owner when one is known, else the configured
+        fallback router."""
+        ent = self.shard_route.get((origin, shard))
+        if ent is not None:
+            return (int(ent[0]) << 16) | int(origin)  # cluster.fabric_id_of
         return self.route_query(origin, shard)
+
+    def _learn_route(self, msg: TxnMessage) -> None:
+        """Adopt a clustered publisher's shard-ownership gossip: a strictly
+        newer epoch re-points this chain's catch-up at the new owner
+        (replayed or stale frames never resurrect a previous one)."""
+        if msg.owner is None:
+            return
+        rk = (msg.origin, msg.shard)
+        oe = int(msg.oepoch or 0)
+        cur = self.shard_route.get(rk)
+        if cur is not None and oe <= cur[1]:
+            return
+        self.shard_route[rk] = (int(msg.owner), oe)
+        if cur is not None and cur[0] != int(msg.owner):
+            net_metrics().route_updates.inc()
+            log.info("chain %s: catch-up re-routed to member %d (epoch %d, "
+                     "was member %d)", rk, msg.owner, oe, cur[0])
 
     # ------------------------------------------------------------------
     # follower plane: image shipping, digests, the liveness registry —
@@ -1005,8 +1082,9 @@ class DCReplica:
         key = (msg.origin, msg.shard)
         catchup_from = None
         with lock:
+            self._learn_route(msg)
             if msg.shard not in self.shards:
-                return  # another shard count: not a chain of this store
+                return  # another member's chain, or another shard count
             last = self.last_seen.get(key, 0)
             if msg.is_ping:
                 if msg.last_opid <= last:
@@ -1249,7 +1327,8 @@ class DCReplica:
                 # messages are consumed from the queues only AFTER the
                 # apply succeeds — an exception leaves everything queued
                 # for the next drain instead of silently dropping txns
-                store.apply_effects(effects, vcs, origins)
+                with self.store_lock:
+                    store.apply_effects(effects, vcs, origins)
             for gk, n in taken.items():
                 q = self.gate[gk]
                 for _ in range(n):

@@ -11,7 +11,6 @@ written by either package opens in the other.
 
 from __future__ import annotations
 
-import glob as _glob
 import json
 import os
 import re
@@ -158,22 +157,43 @@ def _validate_dir(cfg: AntidoteConfig, directory: str) -> None:
     os.replace(tmp, os.path.join(directory, _META_FILE))
 
 
-def shard_segment_paths(directory: str, shard: int,
-                        n_segments: int = 1) -> List[str]:
+_SEGMENT_FILE = re.compile(r"shard_(\d+)\.s.*\.wal")
+
+
+def _configured_paths(directory: str, shard: int,
+                      n_segments: int) -> List[str]:
+    """A shard's generation-0 segment files (``shard_P.wal`` +
+    ``shard_P.sN.wal``), whether or not they exist yet."""
+    return [os.path.join(directory, f"shard_{shard}.wal")] + [
+        os.path.join(directory, f"shard_{shard}.s{i}.wal")
+        for i in range(1, max(1, n_segments))
+    ]
+
+
+def segment_index(directory: str) -> Dict[int, List[str]]:
+    """shard -> its ``shard_P.s*.wal`` files on disk, from ONE directory
+    listing (a glob a shard lists the whole directory each time: at 2048
+    shards that was 8M entries scanned to open or recover a log)."""
+    out: Dict[int, List[str]] = {}
+    for name in os.listdir(directory):
+        m = _SEGMENT_FILE.fullmatch(name)
+        if m:
+            out.setdefault(int(m.group(1)), []).append(
+                os.path.join(directory, name))
+    return out
+
+
+def shard_segment_paths(directory: str, shard: int, n_segments: int,
+                        index: Dict[int, List[str]]) -> List[str]:
     """Every segment file a shard's records may live in: the configured
     segment set UNION whatever extra ``shard_P.sN.wal`` files exist on
     disk (including checkpoint-generation files ``shard_P.sN.gG.wal``) —
     a directory written with more segments (or a different generation)
-    and opened with fewer must still replay everything."""
-    paths = [os.path.join(directory, f"shard_{shard}.wal")] + [
-        os.path.join(directory, f"shard_{shard}.s{i}.wal")
-        for i in range(1, max(1, n_segments))
-    ]
-    extra = sorted(
-        set(_glob.glob(os.path.join(directory, f"shard_{shard}.s*.wal")))
-        - set(paths)
-    )
-    return paths + extra
+    and opened with fewer must still replay everything.  ``index`` is the
+    directory's :func:`segment_index`, listed once for a pass over many
+    shards."""
+    paths = _configured_paths(directory, shard, n_segments)
+    return paths + sorted(set(index.get(shard, ())) - set(paths))
 
 
 def gen_segment_paths(directory: str, shard: int, n_segments: int,
@@ -185,8 +205,7 @@ def gen_segment_paths(directory: str, shard: int, n_segments: int,
     ones so the post-publish reclaim can delete them wholesale once their
     records are covered by the image."""
     if gen == 0:
-        return shard_segment_paths(directory, shard,
-                                   n_segments)[:max(1, n_segments)]
+        return _configured_paths(directory, shard, n_segments)
     return [
         os.path.join(directory, f"shard_{shard}.s{i}.g{gen}.wal")
         for i in range(max(1, n_segments))
@@ -212,8 +231,7 @@ class SegmentedShardWAL:
         self.n_segments = max(1, int(n_segments))
         self.segs = [
             ShardWAL(p, sync_on_commit=sync_on_commit)
-            for p in shard_segment_paths(directory, shard,
-                                         self.n_segments)[:self.n_segments]
+            for p in _configured_paths(directory, shard, self.n_segments)
         ]
         self._cur = 0
 
@@ -538,6 +556,16 @@ class LogManager:
         # covers even before any tail record is replayed
         np.maximum(self.seqs, self.floor_seqs, out=self.seqs)
 
+    def segment_paths(self, shard: int,
+                      index: Optional[Dict[int, List[str]]] = None
+                      ) -> List[str]:
+        """``shard_segment_paths`` of one shard of this log.  A pass over
+        many shards lists the directory once (:func:`segment_index`) and
+        hands the listing to each call; a lone call lists it itself."""
+        if index is None:
+            index = segment_index(self.dir)
+        return shard_segment_paths(self.dir, shard, self.n_segments, index)
+
     def rotate_generation(self) -> List[ShardWAL]:
         """Swap every shard onto a fresh segment-file generation (the
         checkpoint stamp's WAL barrier).  Caller must hold the commit
@@ -601,14 +629,14 @@ class LogManager:
         floors = np.asarray(floors, np.int64)
         self.drain_retired()
         reclaimed = 0
+        index = segment_index(self.dir)
         for shard in range(self.cfg.n_shards):
             floor = int(floors[shard])
             if floor <= 0:
                 continue
             active = set(gen_segment_paths(self.dir, shard,
                                            self.n_segments, self.gen))
-            for path in shard_segment_paths(self.dir, shard,
-                                            self.n_segments):
+            for path in self.segment_paths(shard, index):
                 if path in active or not os.path.exists(path):
                     continue
                 d = _faults.hit("wal.truncate_below",
@@ -643,7 +671,7 @@ class LogManager:
         for s in [s for s in self._retired if s.path.startswith(prefix)]:
             s.close()
             self._retired.remove(s)
-        for path in shard_segment_paths(self.dir, shard, self.n_segments):
+        for path in self.segment_paths(shard):
             if os.path.exists(path):
                 os.remove(path)  # reclaim-ok: whole-shard handoff drop —
                 # the records live on at the new owner
@@ -662,8 +690,9 @@ class LogManager:
         _set_dir_meta_key(self.dir, "shard_resets",
                           {str(k): v for k, v in self.shard_resets.items()})
 
-    def replay_shard(self, shard: int,
-                     floor: Optional[int] = None) -> Iterator[dict]:
+    def replay_shard(self, shard: int, floor: Optional[int] = None,
+                     index: Optional[Dict[int, List[str]]] = None
+                     ) -> Iterator[dict]:
         """Replay one shard's records in exact append order, merged
         across its segments by the ``"q"`` sequence.  Records at or
         below the shard's checkpoint floor are SKIPPED — they are
@@ -676,11 +705,12 @@ class LogManager:
         so a concurrent publish can't split them.  Side effect: the
         shard's append-sequence counter resumes past every replayed
         record, so a recovered node's fresh appends never reuse a
-        sequence (recovery always replays every shard)."""
+        sequence (recovery always replays every shard).  ``index`` is
+        :meth:`segment_paths`'s: a pass over every shard lists the
+        directory once."""
         if floor is None:
             floor = int(self.floor_seqs[shard])
-        for rec in replay_segments(
-                shard_segment_paths(self.dir, shard, self.n_segments)):
+        for rec in replay_segments(self.segment_paths(shard, index)):
             q = rec.get("q")
             if q is not None and q > self.seqs[shard]:
                 self.seqs[shard] = int(q)

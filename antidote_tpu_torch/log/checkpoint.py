@@ -991,18 +991,18 @@ class Checkpointer:
         """Replication txn-group counts at the new floor = counts at the
         previous floor + groups in the (prev, new] sequence window, by
         (origin, commit VC) identity."""
-        from antidote_tpu_torch.log import shard_segment_paths
+        from antidote_tpu_torch.log import segment_index
 
         logm = self.log
         chains = cap["prev_chain_floor"].copy()
+        segments = segment_index(logm.dir)
         for shard in range(cap["n_shards"]):
             lo = int(cap["prev_floor"][shard])
             hi = int(cap["floor_seqs"][shard])
             if hi <= lo:
                 continue
             seen: set = set()
-            for rec in replay_segments(shard_segment_paths(
-                    logm.dir, shard, logm.n_segments)):
+            for rec in replay_segments(logm.segment_paths(shard, segments)):
                 q = rec.get("q")
                 if q is None:
                     if lo > 0:

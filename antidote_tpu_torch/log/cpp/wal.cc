@@ -3,17 +3,20 @@
 //
 // Native replacement for the reference's OTP disk_log usage
 // (AntidoteDB src/logging_vnode.erl:896-919): one log file per shard,
-// buffered appends, an explicit commit barrier, and an optional background
-// fsync thread reproducing the sync_log=false default (async flush,
-// AntidoteDB src/antidote.app.src:44-48) without losing group-commit
-// durability when sync_log=true.
+// buffered appends, an explicit commit barrier, and background fsyncs
+// reproducing the sync_log=false default (async flush, AntidoteDB
+// src/antidote.app.src:44-48) without losing group-commit durability when
+// sync_log=true.  The background fsyncs of every open log of the process
+// run on ONE syncer thread: a thread a file (the JAX package's copy) is
+// 2,048 threads a node at 2,048 shards.
 //
 // Record framing (read side is implemented in Python):
 //   u32 magic 0xA17D07E1 | u32 payload_len | u32 crc32(payload) | payload
 //
 // C ABI for ctypes. Thread-safety: one writer per WAL handle (matches the
-// single-commit-stream-per-shard architecture); the fsync thread only
-// calls fdatasync on the fd.
+// single-commit-stream-per-shard architecture); the syncer thread only
+// calls fdatasync on registered fds, and a handle leaves the registry
+// before its fd closes.
 
 #include <cerrno>
 #include <cstdint>
@@ -24,6 +27,8 @@
 #include <condition_variable>
 #include <mutex>
 #include <thread>
+#include <unordered_set>
+#include <vector>
 
 #include <fcntl.h>
 #include <unistd.h>
@@ -47,43 +52,122 @@ uint32_t crc32(const uint8_t* data, size_t len) {
   return c ^ 0xFFFFFFFFu;
 }
 
+using Clock = std::chrono::steady_clock;
+
 struct Wal {
   int fd = -1;
   bool sync_on_commit = false;
-  // group-commit state
-  std::mutex mu;
-  std::condition_variable cv;
-  std::atomic<bool> stop{false};
   std::atomic<uint64_t> appended_bytes{0};
-  uint64_t synced_bytes = 0;
-  std::thread syncer;
+  // appended bytes an fdatasync covered, and whether the file held bytes
+  // at open that no fdatasync of this handle covered yet: a log with
+  // neither is durable as it stands, and its close() or sync() skips the
+  // fdatasync (a 2048-shard member closes 2,048 mostly idle files)
+  std::atomic<uint64_t> synced_bytes{0};
+  std::atomic<bool> dirty_at_open{false};
   int sync_interval_ms = 0;
+  // the syncer's next due time for this log, and whether the syncer holds
+  // it for an fdatasync outside the registry lock (both under that lock)
+  Clock::time_point due;
+  bool syncing = false;
 
   ~Wal() { close(); }
 
-  void close() {
-    if (syncer.joinable()) {
-      stop.store(true);
-      cv.notify_all();
-      syncer.join();
-    }
-    if (fd >= 0) {
-      ::fdatasync(fd);
-      ::close(fd);
-      fd = -1;
-    }
+  bool dirty() const {
+    return dirty_at_open.load() ||
+           appended_bytes.load() != synced_bytes.load();
   }
+
+  // fdatasync covering every byte appended before the call; false on error
+  bool sync() {
+    uint64_t cur = appended_bytes.load();
+    if (::fdatasync(fd) != 0) return false;
+    dirty_at_open.store(false);
+    uint64_t prev = synced_bytes.load();
+    while (prev < cur && !synced_bytes.compare_exchange_weak(prev, cur)) {
+    }
+    return true;
+  }
+
+  void close();
 };
 
-void sync_loop(Wal* w) {
-  std::unique_lock<std::mutex> lk(w->mu);
-  while (!w->stop.load()) {
-    w->cv.wait_for(lk, std::chrono::milliseconds(w->sync_interval_ms));
-    uint64_t cur = w->appended_bytes.load();
-    if (cur != w->synced_bytes && w->fd >= 0) {
-      ::fdatasync(w->fd);
-      w->synced_bytes = cur;
+// The process's syncer: the registered logs with a sync interval, and the
+// one thread that fdatasyncs each dirty one once its interval passed.  The
+// thread runs while any log is registered and exits when the last leaves;
+// the registry lives for the process (never destroyed: a syncer parked in
+// wait_for at exit must not find its mutex gone).
+struct Syncer {
+  std::mutex mu;
+  std::condition_variable cv;
+  std::unordered_set<Wal*> wals;
+  bool running = false;
+};
+
+Syncer& syncer() {
+  static Syncer* s = new Syncer();
+  return *s;
+}
+
+void sync_loop() {
+  Syncer& s = syncer();
+  std::unique_lock<std::mutex> lk(s.mu);
+  std::vector<Wal*> due;
+  while (!s.wals.empty()) {
+    auto now = Clock::now();
+    due.clear();
+    for (Wal* w : s.wals) {
+      if (w->due <= now) {
+        w->due = now + std::chrono::milliseconds(w->sync_interval_ms);
+        if (w->dirty()) {
+          w->syncing = true;  // close() waits for it
+          due.push_back(w);
+        }
+      }
     }
+    // the fdatasyncs run outside the lock: opening and closing other logs
+    // (a checkpoint rotates every shard's files) never waits behind them
+    for (Wal* w : due) {
+      lk.unlock();
+      w->sync();
+      lk.lock();
+      w->syncing = false;
+      s.cv.notify_all();  // a close() waits for its own log's fsync only
+    }
+    auto next = Clock::now() + std::chrono::milliseconds(100);
+    for (Wal* w : s.wals) {
+      if (w->due < next) next = w->due;
+    }
+    s.cv.wait_until(lk, next);
+  }
+  s.running = false;
+}
+
+void register_wal(Wal* w) {
+  Syncer& s = syncer();
+  std::lock_guard<std::mutex> lk(s.mu);
+  w->due = Clock::now() + std::chrono::milliseconds(w->sync_interval_ms);
+  s.wals.insert(w);
+  if (!s.running) {
+    s.running = true;
+    std::thread(sync_loop).detach();
+  }
+  s.cv.notify_all();
+}
+
+void Wal::close() {
+  if (sync_interval_ms > 0) {
+    // out of the registry before the fd goes, once no fdatasync of this
+    // fd is in flight (the syncer marks what it syncs outside the lock)
+    Syncer& s = syncer();
+    std::unique_lock<std::mutex> lk(s.mu);
+    s.cv.wait(lk, [this] { return !syncing; });
+    s.wals.erase(this);
+    sync_interval_ms = 0;
+  }
+  if (fd >= 0) {
+    if (dirty()) ::fdatasync(fd);
+    ::close(fd);
+    fd = -1;
   }
 }
 
@@ -100,15 +184,17 @@ extern "C" {
 const char* wal_src_sha() { return ANTIDOTE_SRC_SHA; }
 
 // sync_on_commit: fdatasync inside every commit barrier (sync_log=true).
-// sync_interval_ms > 0: background fsync thread (async durability).
+// sync_interval_ms > 0: background fsyncs on the process's syncer thread
+// (async durability).
 void* wal_open(const char* path, int sync_on_commit, int sync_interval_ms) {
   int fd = ::open(path, O_WRONLY | O_CREAT | O_APPEND, 0644);
   if (fd < 0) return nullptr;
   Wal* w = new Wal();
   w->fd = fd;
+  w->dirty_at_open.store(::lseek(fd, 0, SEEK_END) != 0);
   w->sync_on_commit = sync_on_commit != 0;
   w->sync_interval_ms = sync_interval_ms;
-  if (sync_interval_ms > 0) w->syncer = std::thread(sync_loop, w);
+  if (sync_interval_ms > 0) register_wal(w);
   return w;
 }
 
@@ -166,10 +252,7 @@ int64_t wal_append_raw(void* handle, const uint8_t* buf, uint64_t len) {
 // the background syncer).
 int wal_commit(void* handle) {
   Wal* w = static_cast<Wal*>(handle);
-  if (w->sync_on_commit) {
-    if (::fdatasync(w->fd) != 0) return -1;
-    w->synced_bytes = w->appended_bytes.load();
-  }
+  if (w->sync_on_commit && !w->sync()) return -1;
   return 0;
 }
 
@@ -182,8 +265,7 @@ void wal_set_sync(void* handle, int sync_on_commit) {
 
 int wal_sync(void* handle) {
   Wal* w = static_cast<Wal*>(handle);
-  if (::fdatasync(w->fd) != 0) return -1;
-  w->synced_bytes = w->appended_bytes.load();
+  if (w->dirty() && !w->sync()) return -1;
   return 0;
 }
 

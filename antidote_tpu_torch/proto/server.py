@@ -222,8 +222,15 @@ class ProtocolServer:
         self.tenants: TenantRegistry = tenants or TenantRegistry()
         self._lock = threading.Lock()
         self._txns: Dict[int, Transaction] = {}
-        #: metric sink for the overload planes: the node's own registry
-        self.metrics = node.metrics
+        #: metric sink for the overload planes: the node's own registry,
+        #: or a cluster coordinator's member node's
+        self.metrics = getattr(node, "metrics", None)
+        if self.metrics is None:
+            self.metrics = node.member.node.metrics
+        #: the node's transaction manager; None for a cluster coordinator
+        #: (``ClusterNode``), whose commits are a 2PC across its members:
+        #: no epoch plane, no ticker, no commit merge point then
+        self._txm = getattr(node, "txm", None)
         #: the proxy / forwarding plane of a follower (None on an owner
         #: and with server_proxy=False)
         self.proxy: Optional[ProxyPlane] = None
@@ -265,14 +272,19 @@ class ProtocolServer:
         # --- staged serving pipeline ---------------------------------
         #: serving-epoch publication cadence for the dedicated ticker
         self.epoch_tick_ms = epoch_tick_ms
-        txm = node.txm
-        # the group-commit merge point caps any single tenant's share of
-        # one merged batch (weight-proportional rounds)
-        txm.tenants = self.tenants
-        #: lock-split epoch reads need the batch dispatcher;
-        #: epoch_tick_ms <= 0 disables the whole epoch plane (operator
-        #: escape hatch back to the locked serving path)
-        self._epoch_reads = bool(batch_static and epoch_tick_ms > 0)
+        txm = self._txm
+        if txm is None and native_frontend:
+            raise ValueError("the native front end serves a node's epoch "
+                             "plane; a cluster coordinator has none")
+        if txm is not None:
+            # the group-commit merge point caps any single tenant's share
+            # of one merged batch (weight-proportional rounds)
+            txm.tenants = self.tenants
+        #: lock-split epoch reads need the batch dispatcher and a local
+        #: transaction manager; epoch_tick_ms <= 0 disables the whole
+        #: epoch plane (operator escape hatch back to the locked path)
+        self._epoch_reads = bool(batch_static and txm is not None
+                                 and epoch_tick_ms > 0)
         if self._epoch_reads:
             txm.enable_serving_epochs()
             self._epoch_reads = txm.serving_epochs  # clocksi-only
@@ -318,9 +330,11 @@ class ProtocolServer:
                 name="antidote-proto-locked",
             )
             self._locked_worker.start()
-            # the ticker runs with the batch pipeline — even with the
-            # epoch plane disabled (epoch_tick_ms <= 0) it still drives
-            # the LOCKED path's per-table epoch ladder
+        #: the ticker runs with the batch pipeline on a node — even with
+        #: the epoch plane disabled (epoch_tick_ms <= 0) it still drives
+        #: the LOCKED path's per-table epoch ladder
+        self._ticker_runs = bool(batch_static and txm is not None)
+        if self._ticker_runs:
             self._ticker = threading.Thread(
                 target=self._epoch_ticker, daemon=True,
                 name="antidote-epoch-ticker",
@@ -1303,8 +1317,11 @@ class ProtocolServer:
             w.event.set()
 
     def _covered_vc(self):
-        """Freshest locally-covered clock (entry-wise)."""
-        txm = self.node.txm
+        """Freshest locally-covered clock (entry-wise); a cluster
+        coordinator's is its member's stable snapshot."""
+        txm = self._txm
+        if txm is None:
+            return np.asarray(self.node.member.stable_vc())
         vc = txm.store.dc_max_vc().copy()
         vc[txm.my_dc] = max(int(vc[txm.my_dc]), txm.commit_counter)
         return vc
@@ -1317,7 +1334,18 @@ class ProtocolServer:
         certification pass, one WAL append, one device scatter — with
         per-source results fanned back out (a member's failure-atomic
         rollback rolls back only its own sub-group)."""
-        txm = self.node.txm
+        txm = self._txm
+        if txm is None:
+            # a cluster coordinator (2PC): one update at a time (commit
+            # works are never routed here without a manager)
+            for w in ups:
+                try:
+                    w.result = self.node.update_objects(w.updates,
+                                                        clock=w.clock)
+                except Exception as e:  # noqa: BLE001 — the work's reply
+                    w.error = e
+                w.event.set()
+            return
         # resolve interactive commit works to their registered txns
         # (self._lock is held by the locked worker)
         inter: List = []
@@ -1575,7 +1603,8 @@ class ProtocolServer:
             return MessageCode.COMMIT_RESP, {
                 "commit_clock": [int(x) for x in vc]
             }
-        if code == MessageCode.COMMIT_TRANSACTION and self.batch_static:
+        if (code == MessageCode.COMMIT_TRANSACTION and self.batch_static
+                and self._txm is not None):
             # interactive commits join the cross-connection merge point:
             # instead of serializing through the dispatch
             # lock one at a time, the commit parks at the locked
@@ -1817,10 +1846,11 @@ class ProtocolServer:
             out["native"] = self.native.stats()
         if self.proxy is not None:
             out["proxy"] = self.proxy.stats()
-        store = self.node.txm.store
-        out["snapshot_cache"]["size"] = len(store.snapshot_cache)
-        out["snapshot_cache"]["cap"] = store.snapshot_cache_cap
-        out["materializer"] = store.materializer_status()
+        if self._txm is not None:
+            store = self._txm.store
+            out["snapshot_cache"]["size"] = len(store.snapshot_cache)
+            out["snapshot_cache"]["cap"] = store.snapshot_cache_cap
+            out["materializer"] = store.materializer_status()
         return out
 
     # ------------------------------------------------------------------
@@ -1875,5 +1905,6 @@ class ProtocolServer:
             # the dispatcher's stop path forwarded _STOP to the locked
             # worker; it drains whatever raced in behind the sentinel
             self._locked_worker.join(timeout=5)
+        if self._ticker_runs:
             self._ticker.join(timeout=5)
         self._thread.join(timeout=5)

@@ -60,10 +60,13 @@ def _table_slice(t, shard: int, used: int) -> Dict[str, Any]:
     }
 
 
-def export_shard(store: KVStore, shard: int,
-                 include_log: bool = True) -> Dict[str, Any]:
+def export_shard(store: KVStore, shard: int, include_log: bool = True,
+                 segments: Optional[Dict[int, List[str]]] = None
+                 ) -> Dict[str, Any]:
     """Package one shard of a replica for transfer: a dict of host arrays
-    and metadata (``pack``/``unpack`` turn it into wire bytes)."""
+    and metadata (``pack``/``unpack`` turn it into wire bytes).  An export
+    of many shards passes one listing of the log directory as ``segments``
+    (``log.segment_index``)."""
     if store.cold is not None:
         # a whole-shard export works on device state: every cold key of the
         # shard faults back in first (operator-paced: no rate cap)
@@ -102,7 +105,7 @@ def export_shard(store: KVStore, shard: int,
         tname, _s, row = store.directory[(key, bucket)]
         pkg["directory"].append((key, bucket, tname, int(row)))
     if with_log:
-        pkg["log"] = list(store.log.replay_shard(shard))
+        pkg["log"] = list(store.log.replay_shard(shard, index=segments))
     return pkg
 
 
@@ -346,8 +349,11 @@ def _reshard_locked(store: KVStore, new_cfg, log) -> KVStore:
     new.blobs = store.blobs
     # re-chain the durable log onto the new ring
     if log is not None and store.log is not None:
+        from antidote_tpu_torch.log import segment_index
+
+        segments = segment_index(store.log.dir)
         for s in range(store.cfg.n_shards):
-            for rec in store.log.replay_shard(s):
+            for rec in store.log.replay_shard(s, index=segments):
                 eff = effect_from_rec(rec)
                 ent = new.directory.get((eff.key, eff.bucket))
                 if ent is None:

@@ -1662,11 +1662,14 @@ class KVStore:
         return last_commit
 
     def _recover_inner(self, track_origin, last_commit) -> None:
+        from antidote_tpu_torch.log import segment_index
+
+        segments = segment_index(self.log.dir)
         for shard in range(self.cfg.n_shards):
             batch: List[Effect] = []
             vcs: List[np.ndarray] = []
             orgs: List[int] = []
-            for rec in self.log.replay_shard(shard):
+            for rec in self.log.replay_shard(shard, index=segments):
                 self.last_recovery_records += 1
                 eff = effect_from_rec(rec)
                 for h, data in eff.blob_refs:

@@ -27,9 +27,9 @@ Run from the root of a checkout on a machine with a CUDA card (one card;
    against a host oracle built from the op stream, then run an
    ``AntidoteNode`` workload on ``set_aw`` and ``counter_pn`` against a
    host model, historical reads included; then the serving read plane
-   (``serving``) on a 100,000-key ``set_aw`` store populated through
+   (``serving``) on a 50,000-key ``set_aw`` store populated through
    ``KVStore.apply_effect_groups``: two copy publishes and ten scatters of
-   serving epochs, 15 Zipf batches read through the epoch plane (pin,
+   serving epochs, 8 Zipf batches read through the epoch plane (pin,
    launch — one of them under the CUDA sync debug mode — finish, unpin)
    while a second thread commits through the manager, which publishes
    inline, every value held to the locked read at the epoch's clock (or,
@@ -38,7 +38,7 @@ Run from the root of a checkout on a machine with a CUDA card (one card;
    rung 2 (no fold) and rung 3 (``set_aw_fold``); a node's Zipf-hot
    reads through the value cache, warm and cold;
 4. drive a 4-member DC (``ClusterMember``/``ClusterNode`` over localhost
-   RPC, 2048 shards, all on the card): populate 25,000 ``set_aw`` keys
+   RPC, 2048 shards, all on the card): populate 12,500 ``set_aw`` keys
    from every member's coordinator, remove on 2,000 keys through the
    owners' downstream, run mixed transactions from every coordinator
    (every start launches ``stable_min`` on the 2048 x 4 clock matrix),
@@ -46,7 +46,7 @@ Run from the root of a checkout on a machine with a CUDA card (one card;
    every key against a host model, at the stable snapshot and at an
    older one;
 5. the other types (``types``): the nine device types other than set_aw
-   and counter_pn, one 8,000-key table each at BASELINE widths, filled
+   and counter_pn, one 4,000-key table each at BASELINE widths, filled
    by a seeded three-lane stream and read fresh and historical, equal to
    the same table built on the CPU; then a node session over them and the
    maps against a host model (``bench_suite.py``'s map and rga workloads,
@@ -73,7 +73,7 @@ Run from the root of a checkout on a machine with a CUDA card (one card;
    full image writes the cold sidecar, and the directory is kept for:
 7. the cold tier and shard handoff (``cold``) on that directory: a
    recovery with 150,000 of its 200,000 rows resident (the rest evicted
-   to the sidecar), 2 Zipf(1.0) batches of 16,384 keys over every key
+   to the sidecar), 1 Zipf(1.0) batch of 16,384 keys over every key
    faulting cold keys in (every value equal to the durable phase's, beside
    the same batches on its all-resident node), writes to faulted-in keys
    and reads between them (``set_aw_fold``, ``counter_fold``), a burst of
@@ -137,7 +137,7 @@ Run from the root of a checkout on a machine with a CUDA card (one card;
    keys equal at all three DCs and to the host model; a causal chain
    across the three; concurrent counters summing exactly; an injected
    ``interdc.deliver`` drop repaired by catch-up; the flash sale of
-   ``bench_wire.py`` (5,000 ``counter_b`` SKUs, 50 units over two lanes, 8
+   ``bench_wire.py`` (2,500 ``counter_b`` SKUs, 50 units over two lanes, 8
    shoppers a DC, a 5 s storm) with zero oversell, then a grant that must
    arrive on a SKU whose rights lie on DC0's lane only;
    then a GentleRain pair whose reads at the GST fold the rings
@@ -163,15 +163,32 @@ Run from the root of a checkout on a machine with a CUDA card (one card;
    typed; follower 1 restarted from its directory in mode ``tail`` while a
    session keeps read-your-writes.  Its figures print on a ``follower:``
    line beside the card;
-12. print one JSON line per kernel record, the card line, and last the
+12. the cluster's durability and crash takeover (``takeover``): the
+   cluster phase's deployment (4 members, 2048 shards, on the card) with a
+   log directory a member, 12,500 ``set_aw`` and 2,048 ``counter_pn``
+   keys; a transaction wedged after the sequencer with 64 commits
+   buffered behind it, aborted by ``resolve_wedged`` (the zombie's late
+   commit refused); a partial fan-out completed at every owner; member 2
+   crashed with an undecided prep and a commit logged but not applied,
+   recovered on the card; a never-sequenced prepare swept; a checkpoint
+   on every member, member 1 recovered from its image and its compacted
+   ``prepare.wal``; the DC resized 4 -> 3 offline (a member on a retired
+   directory refuses); every key against a host model after the wedge,
+   the rejoin, the image recovery and the resize, at the stable snapshot
+   and an older one (the older reads fold; the cluster's own reads
+   decode sets on the host, so ``orset_presence`` launches only in the
+   check that reads each member's store through the serving path's
+   resolve).  Its figures print on a
+   ``takeover:`` line beside the card;
+13. print one JSON line per kernel record, the card line, and last the
    ``{"ok": true, ...}`` line.
 
 The launch counts are reset just before the serve, the node workload, the
 serving plane, the cluster, the types phase, the durable phase, the cold
-phase, the wire phase, the native phase, the interdc phase and the
-follower phase, and read just after each; each must show the kernels that
-``PATH_KERNELS`` names for it, and a kernel record's ``launches`` is the
-sum over the eleven.
+phase, the wire phase, the native phase, the interdc phase, the follower
+phase and the takeover phase, and read just after each; each must show
+the kernels that ``PATH_KERNELS`` names for it, and a kernel record's
+``launches`` is the sum over the twelve.
 The serve must launch ``orset_presence`` exactly once per
 ``SetAW.resolve``, and a resolve on a CUDA state must call no torch sort.
 Exits non-zero without a CUDA device, and outside a
@@ -213,8 +230,9 @@ SERVE_BATCHES, HIST_EVERY = 60, 5
 # coordinator (the whole script took 579 s on a slower host with them at
 # 128, 16.0 s of the phase's 49.5 s); the keys halved again, to 25,000,
 # with the follower phase's arrival (the script took 553.5 s with it, the
-# populate 18.6 s of the phase's 38.2 s at 50,000)
-CL_MEMBERS, CL_SHARDS, CL_KEYS, CL_ADDS = 4, 2048, 25_000, 3
+# populate 18.6 s of the phase's 38.2 s at 50,000), and again, to 12,500,
+# with the takeover phase's (the phase took 28.7-37.4 s on two hosts)
+CL_MEMBERS, CL_SHARDS, CL_KEYS, CL_ADDS = 4, 2048, 12_500, 3
 CL_TXN, CL_REMOVES, CL_MIXED = 1024, 2000, 64
 # set_aw_fold's edge cases (K, E, D) at an odd B: the tier widths, widths
 # that fill no whole segment of lanes, 1 to 12 clock lanes, rings of one
@@ -241,22 +259,26 @@ COUNTER_CASES = [(1, 4), (16, 4), (33, 4), (16, 1), (16, 3), (33, 8)]
 # after the interdc phase's (the script took 553 s with the interdc storm
 # cut to 5 s, which left its escrow transfers to chance; the types phase
 # took 70.2 s, and its populate and CPU twin scale with the keys); 8,000
-# with the follower phase's arrival (the script took 553.5 s with it)
-TY_KEYS, TY_ROUNDS, TY_CUT, TY_SHARDS = 8_000, 20, 18, 8
+# with the follower phase's arrival (the script took 553.5 s with it);
+# 4,000 with the takeover phase's (the script took 796.6 s with it on a
+# slow host of an NVIDIA H100 80GB HBM3 at 700 W, the types phase 47.0-57.9
+# s on two hosts)
+TY_KEYS, TY_ROUNDS, TY_CUT, TY_SHARDS = 4_000, 20, 18, 8
 MV_SLOTS, RGA_SLOTS = 4, 64
 # the serving phase: keys (15% of BASELINE's 1M: halved with the cold
 # phase's arrival and again with the wire phase's, for the 600 s budget,
 # and 250,000 -> 150,000 with the interdc phase's, whose arrival left the
 # script at 550 s against its 560 s, and 150,000 -> 100,000 with the
-# follower phase's (553.5 s with it); the populate through the store
-# scales with them),
+# follower phase's (553.5 s with it), and 100,000 -> 50,000 with the
+# takeover phase's; the populate through the store scales with them),
 # element pool, publish rounds of SV_ROUND_KEYS keys x 4 effects,
-# epoch-read batches (15: 60 until the script took 579 s with the interdc
-# phase on a slower host, 30 until it took 568 s with the follower phase),
+# epoch-read batches (8: 60 until the script took 579 s with the interdc
+# phase on a slower host, 30 until it took 568 s with the follower phase,
+# 15 until the takeover phase came),
 # the concurrent writer's round size, the hot
 # set; long logs of LL_OPS ops for LL_KEYS keys
-SV_KEYS = 100_000
-SV_POOL, SV_ROUNDS, SV_ROUND_KEYS, SV_BATCHES = 4096, 10, 4096, 15
+SV_KEYS = 50_000
+SV_POOL, SV_ROUNDS, SV_ROUND_KEYS, SV_BATCHES = 4096, 10, 4096, 8
 SV_WRITE_KEYS, SV_HOT = 256, 1024
 LL_KEYS, LL_OPS = 1024, 4096
 # the durable phase: set_aw and counter_pn keys, transactions per commit
@@ -280,8 +302,10 @@ DU_ROUNDS, DU_TAIL_ROUNDS, DU_LADDER_LONG = 16, 16, 1500
 # (about the rows the delta link and the WAL tail wrote, which cannot go
 # cold; a quarter of the 600,000 rows before the native phase's cut, now
 # 150,000 of 200,000), Zipf read batches (2: 20 in earlier runs, 10 after
-# the wire phase's arrival, 3 after the interdc phase's, 2 after the
-# follower phase's, ~1.6 s each on a slower host), the faulted-in keys of
+# the wire phase's arrival, 3 after the interdc phase's, 2 since the
+# follower phase's, ~1.6 s each on a slower host; their p50 / p99 is
+# over these batches, so fewer than 2 gives no percentile), the
+# faulted-in keys of
 # the write rounds, the rate cap's fault-ins a second and its burst, the
 # sample of keys checked after the second recovery, the budget the delta
 # link's evictions go down to, the shard moved by handoff and the
@@ -317,18 +341,28 @@ NA_ROUTER_KEYS, NA_ROUTER_BATCH = 1_000_000, 16_384
 # The storm is cut to 5 s; a grant that must arrive is checked apart from
 # it, on a SKU whose rights lie on one lane only.  The SKUs are cut to
 # 5,000 since the follower phase came (the mint of 10,000 took 9.5 s of
-# the phase's 155.8 s in a 568 s script on a slower host)
+# the phase's 155.8 s in a 568 s script on a slower host), and to 2,500
+# since the takeover phase came
 IX_KEYS, IX_TXN_KEYS, IX_GROUP = 100_000, 256, 64
 IX_THREADS, IX_WARM_S, IX_WINDOW_S = 8, 2.0, 10.0
 IX_GR_KEYS, IX_GR_CTRS = 16_384, 1024
 FS_SKUS, FS_INVENTORY, FS_SHOPPERS, FS_STORM_S, FS_MINT_BATCH = (
-    5_000, 50, 8, 5.0, 200)
+    2_500, 50, 8, 5.0, 200)
 # the follower phase: one owner and two followers at BASELINE's widths,
 # bench_wire.py config 3's keyspace cut to 100,000 set_aw keys, the interdc
 # phase's floor (at its full 200,000 the phase took 101.5 s against its 90 s:
 # the populate 22.5 s, both followers' Merkle checks of every shard 21.0 s),
 # plus counters, the load's session workers, the tail's keys a round
 FO_KEYS, FO_CTRS, FO_THREADS, FO_TAIL_KEYS = 100_000, 10_000, 8, 2048
+# the takeover phase: the cluster phase's deployment (4 members, 2048
+# shards) with a log directory a member — its set keys (3 adds each;
+# 12,500, cut from 25,000: at 25,000 the phase took 86.9 s against its
+# 80 s, the populate 13.6 s of it), a counter key a shard (2 increments),
+# updates a populate txn, the commits buffered behind the wedged hole, the
+# timed mixed txns before and after the resize, untouched keys read at the
+# older snapshot, and the members the DC resizes to
+TK_SET_KEYS, TK_CTR_KEYS, TK_TXN = 12_500, 2048, 1024
+TK_CHAIN, TK_MIXED, TK_SAMPLE, TK_NEW_MEMBERS = 64, 64, 2048, 3
 # the kernels each path must launch: the serve resolves sets (presence)
 # and folds the historical batches; the node session folds a set and a
 # counter at older snapshots; every cluster transaction start merges the
@@ -349,7 +383,11 @@ FO_KEYS, FO_CTRS, FO_THREADS, FO_TAIL_KEYS = 100_000, 10_000, 8, 2048
 # reads at the GST fold the rings of the rows written past it (sets and
 # counters); the follower phase's servers resolve every set read and its
 # digests every chunk of sets, and its reads at a token inside the tail fold
-# the rings of the rows written after it (sets and counters)
+# the rings of the rows written after it (sets and counters); the takeover
+# phase's transaction starts merge the 2048 shards' clock rows, and its
+# reads at the older snapshot fold (sets and counters); its sets resolve
+# on the card only in the check that reads each member's store through
+# the serving path (the owners' reads decode sets on the host)
 PATH_KERNELS = {"serve": ("orset_presence", "set_aw_fold"),
                 "node": ("counter_fold", "set_aw_fold"),
                 "serving": ("orset_presence", "set_aw_fold"),
@@ -363,7 +401,9 @@ PATH_KERNELS = {"serve": ("orset_presence", "set_aw_fold"),
                 "interdc": ("orset_presence", "set_aw_fold",
                             "counter_fold"),
                 "follower": ("orset_presence", "set_aw_fold",
-                             "counter_fold")}
+                             "counter_fold"),
+                "takeover": ("stable_min", "set_aw_fold", "counter_fold",
+                             "orset_presence")}
 
 
 def log(msg: str) -> None:
@@ -3346,14 +3386,17 @@ def _counter_deltas(pre, post, blk) -> dict:
             if isinstance(v, (int, float)) and k not in ("size", "cap")}
 
 
-def _busy_window(torch, seconds) -> dict:
+def _busy_window(torch, seconds, quiesce=None) -> dict:
     """The card's busy share over ``seconds`` of wall time while other
     threads (the server's) and processes (the clients) run the load, two
     ways: ``torch.profiler`` (CPU and CUDA activities) summing the device
     time of the kernels it traced, and ``nvidia-smi``'s ``utilization.gpu``
     (the share of each sample period in which a kernel ran) sampled every
-    100 ms beside it.  An observation: a profiler or sampler that fails is
-    reported, not fatal."""
+    100 ms beside it.  ``quiesce()``, where given, stops the load at the
+    window's end, before the profiler's stop digests its trace (seconds
+    under the interpreter lock, which a load in the same process would
+    see as a stalled server).  An observation: a profiler or sampler that
+    fails is reported, not fatal."""
     from torch.profiler import ProfilerActivity, profile
 
     out: dict = {}
@@ -3371,6 +3414,8 @@ def _busy_window(torch, seconds) -> dict:
     t0 = time.perf_counter()
     time.sleep(seconds)
     wall_us = (time.perf_counter() - t0) * 1e6
+    if quiesce is not None:
+        quiesce()
     smi.terminate()
     try:
         samples = [float(x) for x in smi.communicate(timeout=30)[0].split()]
@@ -5185,11 +5230,17 @@ def _fo_load(torch, fs, owner_addr, n_keys, threads, warm_s,
     timing.clear()
     post = counts()
     n_ops = len(lat_r) + len(lat_u) - n0
-    busy = _busy_window(torch, 2.0) if fs[0]["node"].store.device.type \
-        == "cuda" else {}
-    stop.set()
-    for t in ws:
-        t.join(120)
+
+    def quiesce():
+        # the workers' forwarded writes wait at most the proxy's 5 s for
+        # the owner, which shares this interpreter with the profiler
+        stop.set()
+        for t in ws:
+            t.join(120)
+
+    busy = (_busy_window(torch, 2.0, quiesce)
+            if fs[0]["node"].store.device.type == "cuda" else {})
+    quiesce()
     if errs:
         raise errs[0]
     if any(t.is_alive() for t in ws):
@@ -5541,6 +5592,513 @@ def follower_phase(torch, dev, n_keys=FO_KEYS, n_ctrs=FO_CTRS,
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the cluster's durability and crash takeover
+# ---------------------------------------------------------------------------
+def _tk_crash(m) -> None:
+    """A member's death inside this process: its RPC server stops and its
+    logs close without a clean shutdown (a failpoint's ``os._exit`` would
+    end the script itself; those run only in member processes)."""
+    m.rpc.close()
+    if m.node.checkpointer is not None:
+        m.node.checkpointer.stop()
+    m.node.store.log.close()
+    m._prep_wal.close()
+
+
+def _tk_wire(members) -> None:
+    for m in members:
+        for p in members:
+            if p is not m:
+                m.connect(p.member_id, *p.address)
+
+
+def _tk_wedge(coord, updates, seq=True):
+    """A coordinator that dies after sequencing (``seq``) or before it:
+    prepare at every owner, take the ts, stop — the crash of
+    ``tests/test_takeover.py``'s helper.  Returns (txn, ts, prev)."""
+    from antidote_tpu_torch.cluster.rpc import eff_to_wire
+    from antidote_tpu_torch.store.kv import key_to_shard
+
+    coord.member.invalidate_seq_cache()
+    txn = coord.start_transaction()
+    coord._update(updates, txn)
+    by_owner, shards = {}, set()
+    for eff in txn.writeset:
+        shard = key_to_shard(eff.key, eff.bucket, coord.cfg.n_shards)
+        shards.add(shard)
+        by_owner.setdefault(coord._owner_of_shard(shard), []).append(eff)
+    snap = int(txn.snapshot_vc[coord.dc_id])
+    for owner, effs in by_owner.items():
+        wires = [eff_to_wire(e) for e in effs]
+        if owner is None:
+            coord.member.m_prepare(txn.txid, wires, snap)
+        else:
+            coord.member.peers[owner].call("m_prepare", txn.txid, wires,
+                                           snap)
+    if not seq:
+        return txn, None, None
+    ts, prev = coord._seq(sorted(shards), txn.txid)
+    return txn, int(ts), {int(k): int(v) for k, v in prev.items()}
+
+
+def takeover_phase(torch, dev, n_set=TK_SET_KEYS, n_ctr=TK_CTR_KEYS,
+                   n_shards=CL_SHARDS, chain_txns=TK_CHAIN,
+                   mixed=TK_MIXED, sample=TK_SAMPLE) -> dict:
+    """The cluster phase's deployment with durability: 4 members over
+    localhost RPC, each an ``AntidoteNode`` on ``dev`` with a log directory
+    (``sync_log=False``), ``n_set`` ``set_aw`` keys (3 adds each) and
+    ``n_ctr`` ``counter_pn`` keys (2 increments) populated through the
+    coordinators in transactions of TK_TXN updates.  Then: a transaction
+    spanning all four members wedged after the sequencer with
+    ``chain_txns`` commits buffered behind its hole, aborted by member 0's
+    ``resolve_wedged`` (the buffered commits drain, the zombie's late
+    commit refused); a commit delivered to one owner only, completed at
+    every owner by the takeover; member 2 crashed with one undecided
+    sequenced prep and one commit logged but not applied, recovered on
+    ``dev`` (the prep's lock back, the torn commit re-applied, the prep
+    settled); a never-sequenced prepare swept; a checkpoint on every
+    member, ``mixed`` timed transactions, member 1's prepare log compacted
+    and the member crashed and recovered from its image, the tail and the
+    compacted log; the 4 members closed and resized to 3 (``resize_dc``),
+    the 3 booted with ``recover=True`` (a member on a retired directory
+    refuses) and ``mixed`` timed transactions on them.  After the wedge,
+    the rejoin, the image recovery and the resize, every key equals the
+    host model at the stable snapshot (through the coordinators), and the
+    keys written since the older snapshot plus ``sample`` others at it
+    (through the coordinators, whose older reads fold, and, as a check of
+    the members' tables on the card, through each member's own store by
+    the serving path's resolve); the older snapshot is taken after the
+    populate and again after each image (a read below an image's stamp is
+    refused).  No entry point of the cluster resolves a set on the card:
+    the owners' reads (``m_read_values``) decode sets on the host, as the
+    JAX package's do, so the phase's ``orset_presence`` launches are that
+    check's, one a member and a check."""
+    import gc
+    import resource
+    import shutil
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    from antidote_tpu_torch.api import AbortError
+    from antidote_tpu_torch.cluster import ClusterMember
+    from antidote_tpu_torch.cluster.resize import resize_dc
+    from antidote_tpu_torch.config import AntidoteConfig
+    from antidote_tpu_torch.log import LogDirMismatch
+    from antidote_tpu_torch.log.wal import replay
+    from antidote_tpu_torch.materializer import cuda_kernels as ck
+    from antidote_tpu_torch.store.kv import key_to_shard
+
+    on_card = torch.device(dev).type == "cuda"
+    n_mem, n_new = CL_MEMBERS, TK_NEW_MEMBERS
+    # every member's log holds one WAL file a shard: the old members and
+    # the new nodes of the resize are open at once
+    need = n_shards * (n_mem + n_new) + 4096
+    soft, hard = resource.getrlimit(resource.RLIMIT_NOFILE)
+    if soft < need:
+        if hard != resource.RLIM_INFINITY and hard < need:
+            raise RuntimeError(f"the takeover phase needs {need} open "
+                               f"files; the hard limit is {hard}")
+        resource.setrlimit(resource.RLIMIT_NOFILE, (need, hard))
+    cfg = AntidoteConfig(n_shards=n_shards, max_dcs=D, ops_per_key=K,
+                         snap_versions=2, set_slots=E, keys_per_table=128)
+    S, C, Bs, Bc = "set_aw", "counter_pn", "b", "c"
+    root = tempfile.mkdtemp(prefix="antidote_takeover_")
+    dirs = [os.path.join(root, f"m{i}") for i in range(n_mem)]
+    new_dirs = [os.path.join(root, f"n{i}") for i in range(n_new)]
+    rng = np.random.default_rng(23)
+    smodel = {k: set() for k in range(n_set)}
+    cmodel = {k: 0 for k in range(n_ctr)}
+    ops = {}  # (key, bucket) -> ring ops written (a full ring is GC'd)
+    touched = set()  # (key, bucket) written after the older snapshot
+    st = {"aborts_retried": 0, "checks": 0, "old_reads": 0,
+          "member_reads": 0, "checks_s": 0.0}
+    start_ms, lat_before, lat_after = [], [], []
+    members: list = []
+    coords: list = []
+
+    def note(k, b):
+        ops[(k, b)] = ops.get((k, b), 0) + 1
+        if old:
+            touched.add((k, b))
+
+    def snap_old():
+        """Take the older snapshot the checks read at (again after each
+        image: a read below an image's stamp is refused by the
+        checkpoint's contract), with the host model as of it."""
+        settle()
+        t = start(0)
+        old["vc"] = t.snapshot_vc.copy()
+        coords[0].abort_transaction(t)
+        old["s"] = {k: set(v) for k, v in smodel.items()}
+        old["c"] = dict(cmodel)
+        touched.clear()
+
+    def start(c):
+        before = ck.LAUNCHES["stable_min"]
+        t1 = time.perf_counter()
+        t = coords[c].start_transaction()
+        start_ms.append((time.perf_counter() - t1) * 1e3)
+        if on_card and n_shards >= 2048 and (
+                ck.LAUNCHES["stable_min"] == before):
+            raise AssertionError("a transaction start did not launch "
+                                 "stable_min")
+        return t
+
+    def static(c, updates):
+        while True:
+            t = start(c)
+            try:
+                coords[c].update_objects(updates, txn=t)
+                return coords[c].commit_transaction(t)
+            except AbortError:
+                st["aborts_retried"] += 1
+                coords[c].member.invalidate_seq_cache()
+
+    def settle():
+        for m in members:
+            m.invalidate_seq_cache()
+            m.refresh_peer_clocks()
+
+    def want_of(k, b, model_s, model_c):
+        return sorted(model_s[k]) if b == Bs else model_c[k]
+
+    def got_of(v):
+        return sorted(v) if isinstance(v, list) else v
+
+    def check(tag):
+        """Every key at the stable snapshot through the coordinators; the
+        keys written since the older snapshot plus ``sample`` others at
+        it, through the coordinators and the owning members."""
+        t_check = time.perf_counter()
+        settle()
+        objs = ([(k, S, Bs) for k in range(n_set)]
+                + [(k, C, Bc) for k in range(n_ctr)])
+        for i, lo in enumerate(range(0, len(objs), 8192)):
+            batch = objs[lo:lo + 8192]
+            c = i % len(coords)
+            t = start(c)
+            vals = coords[c].read_objects(batch, txn=t)
+            coords[c].commit_transaction(t)
+            for (k, _, b), v in zip(batch, vals):
+                if got_of(v) != want_of(k, b, smodel, cmodel):
+                    raise AssertionError(
+                        f"{tag}: {(k, b)} = {v!r}, model "
+                        f"{want_of(k, b, smodel, cmodel)!r}")
+        st["checks"] += 1
+        hist = sorted(kb for kb in touched if ops[kb] <= K)
+        rest = [kb for kb in ((int(k), Bs) for k in
+                              rng.choice(n_set, sample, replace=False))
+                if kb not in touched]
+        hist_objs = [(k, S if b == Bs else C, b) for k, b in hist + rest]
+        old_vc, old_s, old_c = old["vc"], old["s"], old["c"]
+        t = start(0)
+        t.snapshot_vc = old_vc.copy()
+        vals = coords[0].read_objects(hist_objs, txn=t)
+        coords[0].abort_transaction(t)
+        for (k, _, b), v in zip(hist_objs, vals):
+            if got_of(v) != want_of(k, b, old_s, old_c):
+                raise AssertionError(f"{tag} at the older snapshot: "
+                                     f"{(k, b)} = {v!r}")
+        st["old_reads"] += len(hist_objs)
+        for m in members:
+            # the member's own store, through the serving path's device
+            # resolve: a check, not the cluster's read path (which decodes
+            # sets on the host); its set batch is one orset_presence launch
+            own = [o for o in hist_objs
+                   if key_to_shard(o[0], o[2], n_shards) in m.shards]
+            with m._lock:
+                got = m.node.store.read_values_resolved(own, old_vc)
+            for (k, _, b), v in zip(own, got):
+                if got_of(v) != want_of(k, b, old_s, old_c):
+                    raise AssertionError(f"{tag} at member {m.member_id}: "
+                                         f"{(k, b)} = {v!r}")
+            st["member_reads"] += len(own)
+        st["checks_s"] += time.perf_counter() - t_check
+
+    def mixed_txns(n, lat):
+        for i in range(n):
+            c, kind = i % len(coords), i % 4
+            t1 = time.perf_counter()
+            if kind == 0:
+                kk = rng.choice(n_set, 4, replace=False).tolist()
+                ee = rng.integers(3000, 4000, 4).tolist()
+                static(c, [(k, S, Bs, ("add", e)) for k, e in zip(kk, ee)])
+                for k, e in zip(kk, ee):
+                    smodel[k].add(e)
+                    note(k, Bs)
+            elif kind == 1:
+                kk = [k for k in rng.choice(n_set, 2, replace=False).tolist()
+                      if smodel[k]]
+                ups = [(k, S, Bs, ("remove", max(smodel[k]))) for k in kk]
+                static(c, ups)
+                for k, _, _, (_, e) in ups:
+                    smodel[k].discard(e)
+                    note(k, Bs)
+            elif kind == 2:
+                kk = rng.choice(n_ctr, 2, replace=False).tolist()
+                static(c, [(k, C, Bc, ("increment", 3)) for k in kk])
+                for k in kk:
+                    cmodel[k] += 3
+                    note(k, Bc)
+            else:
+                kk = rng.choice(n_set, 8, replace=False).tolist()
+                t = start(c)
+                vals = coords[c].read_objects([(k, S, Bs) for k in kk],
+                                              txn=t)
+                coords[c].commit_transaction(t)
+                for k, v in zip(kk, vals):
+                    if sorted(v) != sorted(smodel[k]):
+                        raise AssertionError(f"mixed read of {k}: {v!r}")
+            lat.append((time.perf_counter() - t1) * 1e3)
+
+    def recover(i, n):
+        """Member ``i`` of ``n`` back on its directory: (member, parts)."""
+        t1 = time.perf_counter()
+        m = ClusterMember(cfg, 0, i, n, log_dir=dirs[i], recover=True,
+                          device=dev)
+        total = time.perf_counter() - t1
+        parts = dict(m.recovery_s)
+        parts["store"] = total - sum(parts.values())
+        parts["total"] = total
+        return m, parts
+
+    def replace(i, m):
+        """Member ``i`` rejoined as ``m``: rewire, drop the dead one."""
+        members[i] = m
+        for p in members:
+            if p is not m:
+                m.connect(p.member_id, *p.address)
+                p.connect(i, *m.address)
+        coords[i] = m.coordinator()
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+
+    old: dict = {}
+    res: dict = {"members": n_mem, "shards": n_shards, "set_keys": n_set,
+                 "counter_keys": n_ctr}
+    try:
+        t0 = time.perf_counter()
+        members = [ClusterMember(cfg, 0, i, n_mem, log_dir=dirs[i],
+                                 device=dev) for i in range(n_mem)]
+        _tk_wire(members)
+        coords = [m.coordinator() for m in members]
+        res["boot_s"] = time.perf_counter() - t0
+        # ---- 1. populate ------------------------------------------------
+        t0 = time.perf_counter()
+        stream = []
+        for _ in range(3):
+            elems = rng.integers(0, 1000, n_set)
+            stream += [(int(k), S, Bs, ("add", int(elems[k])))
+                       for k in rng.permutation(n_set)]
+        for _ in range(2):
+            stream += [(int(k), C, Bc, ("increment", int(k % 7 + 1)))
+                       for k in rng.permutation(n_ctr)]
+        n_txn = 0
+        for lo in range(0, len(stream), TK_TXN):
+            chunk = stream[lo:lo + TK_TXN]
+            static(n_txn % n_mem, chunk)
+            n_txn += 1
+            for k, _, b, (op, x) in chunk:
+                if b == Bs:
+                    smodel[k].add(x)
+                else:
+                    cmodel[k] += x
+                note(k, b)
+        res["populate_s"] = time.perf_counter() - t0
+        res["populate_txns"] = n_txn
+        res["populate_records_per_s"] = len(stream) / res["populate_s"]
+        recs = [sum(1 for _ in replay(os.path.join(d, "prepare.wal")))
+                for d in dirs]
+        res["prepare_wal_records"] = recs
+        res["prepare_wal_bytes"] = [
+            os.path.getsize(os.path.join(d, "prepare.wal")) for d in dirs]
+        log(f"takeover populate: {n_txn} txns, {len(stream)} updates in "
+            f"{res['populate_s']:.2f} s; prepare.wal records {recs}")
+        # ---- 2. the older snapshot --------------------------------------
+        snap_old()
+        # four shards, one a member, with a counter key and set keys each
+        by_shard: dict = {}
+        for k in range(n_set):
+            by_shard.setdefault(key_to_shard(k, Bs, n_shards), []).append(k)
+        ctr_on: dict = {}
+        for k in range(n_ctr):
+            ctr_on.setdefault(key_to_shard(k, Bc, n_shards), []).append(k)
+        wsh = [next(s for s in range(m, n_shards, n_mem)
+                    if len(by_shard.get(s, ())) >= 2 and s in ctr_on)
+               for m in range(n_mem)]
+        wck = [ctr_on[s][0] for s in wsh]
+        # ---- 3. wedged after the sequencer ------------------------------
+        txw, tsw, prevw = _tk_wedge(coords[1], [
+            (k, C, Bc, ("increment", 1000)) for k in wck])
+        for i in range(chain_txns):
+            kk = [by_shard[s][i % len(by_shard[s])] for s in wsh]
+            static(i % n_mem, [(k, S, Bs, ("add", 10_000 + i)) for k in kk])
+            for k in kk:
+                smodel[k].add(10_000 + i)
+                note(k, Bs)
+        buffered = sum(len(members[s % n_mem].chain_wait[s]) for s in wsh)
+        if buffered < chain_txns:
+            raise AssertionError(f"only {buffered} links buffered behind "
+                                 "the hole")
+        t0 = time.perf_counter()
+        members[0].resolve_wedged()
+        res["abort_decision_ms"] = (time.perf_counter() - t0) * 1e3
+        if members[0].seq.resolutions[txw.txid][0] != "abort":
+            raise AssertionError("the wedged txn was not aborted")
+        for s in wsh:
+            m = members[s % n_mem]
+            if m.chain_wait[s] or m.applied_ts[s] <= tsw:
+                raise AssertionError(f"shard {s}'s chain did not drain")
+        res["chains_drained"] = buffered
+        vc = txw.snapshot_vc.copy()
+        vc[0] = tsw
+        try:
+            members[2].m_commit(txw.txid, [int(x) for x in vc], prevw)
+            raise AssertionError("the zombie's late commit was applied")
+        except RuntimeError as e:
+            if "resolved-aborted" not in str(e):
+                raise
+        log(f"takeover: wedge aborted in {res['abort_decision_ms']:.1f} ms,"
+            f" {buffered} buffered links drained")
+        check("wedge")
+        # ---- 4. a partial fan-out ---------------------------------------
+        txp, tsp, prevp = _tk_wedge(coords[2], [
+            (k, C, Bc, ("increment", 7)) for k in wck])
+        vc = txp.snapshot_vc.copy()
+        vc[0] = tsp
+        members[3].m_commit(txp.txid, [int(x) for x in vc], prevp)
+        t0 = time.perf_counter()
+        members[1].resolve_wedged()
+        res["commit_decision_ms"] = (time.perf_counter() - t0) * 1e3
+        for k in wck:
+            cmodel[k] += 7
+            note(k, Bc)
+        for s in wsh:
+            if members[s % n_mem].applied_ts[s] < tsp:
+                raise AssertionError(f"shard {s} missed the completion")
+        # ---- 5. crash and rejoin member 2 -------------------------------
+        s_a, s_b = [s for s in sorted(ctr_on) if s % n_mem == 2][:2]
+        ck_a, ck_b = ctr_on[s_a][0], ctr_on[s_b][0]
+        txu, _, _ = _tk_wedge(coords[0], [(ck_a, C, Bc, ("increment", 500))])
+        txt, tst, prevt = _tk_wedge(coords[0],
+                                    [(ck_b, C, Bc, ("increment", 33))])
+        vc = txt.snapshot_vc.copy()
+        vc[0] = tst
+        members[2]._prep_append({"ev": "commit", "txid": int(txt.txid),
+                                 "vc": [int(x) for x in vc],
+                                 "prev": prevt})
+        _tk_crash(members[2])
+        m2, res["recovery_s"] = recover(2, n_mem)
+        replace(2, m2)
+        if txu.txid not in m2.staged or m2.applied_ts[s_b] < tst:
+            raise AssertionError("the rejoin lost the prep or the torn "
+                                 "commit")
+        cmodel[ck_b] += 33
+        note(ck_b, Bc)
+        t = start(1)
+        coords[1].update_objects([(ck_a, C, Bc, ("increment", 1))], txn=t)
+        try:
+            coords[1].commit_transaction(t)
+            raise AssertionError("the recovered prepare lock let a write "
+                                 "through")
+        except AbortError:
+            pass
+        res["rejoin_resolved"] = m2.resolve_wedged()
+        if txu.txid in m2.staged:
+            raise AssertionError("the recovered prep was not settled")
+        static(1, [(ck_a, C, Bc, ("increment", 1))])
+        cmodel[ck_a] += 1
+        note(ck_a, Bc)
+        log(f"takeover: member 2 rejoined ({res['recovery_s']})")
+        check("rejoin")
+        # ---- 6. a never-sequenced prepare, swept ------------------------
+        s_c = next(s for s in sorted(ctr_on) if s % n_mem == 3)
+        ck_s = ctr_on[s_c][0]
+        _tk_wedge(coords[1], [(ck_s, C, Bc, ("increment", 900))], seq=False)
+        t0 = time.perf_counter()
+        swept = members[3].sweep_stale_prepared(grace_s=0.0)
+        res["sweep_ms"] = (time.perf_counter() - t0) * 1e3
+        if swept != 1:
+            raise AssertionError(f"the sweep settled {swept} txns")
+        static(0, [(ck_s, C, Bc, ("increment", 1))])
+        cmodel[ck_s] += 1
+        note(ck_s, Bc)
+        # ---- 7. checkpoint, compact, crash, recover member 1 ------------
+        # the members checkpoint at once, as member processes would
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(n_mem) as ex:
+            ids = [m["id"] for m in ex.map(
+                lambda m: m.coordinator().checkpoint_now(), members)]
+        res["checkpoint_s"] = time.perf_counter() - t0
+        if ids != [1] * n_mem:
+            raise AssertionError(f"checkpoint ids {ids}")
+        snap_old()
+        mixed_txns(mixed, lat_before)
+        path = os.path.join(dirs[1], "prepare.wal")
+        before = os.path.getsize(path)
+        t0 = time.perf_counter()
+        members[1]._compact_prepare_log()
+        res["compaction_s"] = time.perf_counter() - t0
+        res["compaction_bytes"] = [before, os.path.getsize(path)]
+        _tk_crash(members[1])
+        m1, res["image_recovery_s"] = recover(1, n_mem)
+        replace(1, m1)
+        log(f"takeover: member 1 recovered from its image "
+            f"({res['image_recovery_s']})")
+        check("image")
+        # ---- 8. resize 4 -> 3 -------------------------------------------
+        t0 = time.perf_counter()
+        for m in members:
+            m.close()
+        members, coords = [], []
+        gc.collect()
+        res["close_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        res["resize_parts_s"] = resize_dc(dirs, new_dirs, cfg=cfg,
+                                          device=dev)
+        res["resize_s"] = time.perf_counter() - t0
+        res["resize_ms_per_shard"] = res["resize_s"] / n_shards * 1e3
+        try:
+            ClusterMember(cfg, 0, 0, n_mem, log_dir=dirs[0], recover=True,
+                          device=dev)
+            raise AssertionError("a member booted on a retired directory")
+        except LogDirMismatch:
+            res["retired_refused"] = True
+        # the new members boot at once, as member processes would
+        t0 = time.perf_counter()
+        dirs = new_dirs
+        with ThreadPoolExecutor(n_new) as ex:
+            members = list(ex.map(
+                lambda i: ClusterMember(cfg, 0, i, n_new, log_dir=dirs[i],
+                                        recover=True, device=dev),
+                range(n_new)))
+        _tk_wire(members)
+        coords = [m.coordinator() for m in members]
+        res["resize_boot_s"] = time.perf_counter() - t0
+        snap_old()
+        mixed_txns(mixed, lat_after)
+        check("resize")
+        log(f"takeover: resized 4 -> 3 in {res['resize_s']:.1f} s "
+            f"({res['resize_parts_s']})")
+        res["txn_ms_before_resize"] = _ms_pcts(lat_before)
+        res["txn_ms_after_resize"] = _ms_pcts(lat_after)
+        res["start_ms"] = _ms_pcts(start_ms)
+        res["sequencer_ts"] = members[0].seq.counter
+        res["resident_gib"] = (torch.cuda.memory_allocated(dev) / 2**30
+                               if on_card else None)
+        res.update(st)
+        return res
+    finally:
+        for m in members:
+            try:
+                m.close()
+            except (OSError, RuntimeError) as e:
+                log(f"takeover: closing member {m.member_id}: {e}")
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def count_resolves(fn):
     """``fn()`` with every ``SetAW.resolve`` call counted: (its result,
     the count)."""
@@ -5655,10 +6213,13 @@ def main() -> int:
     print(f"interdc: {json.dumps(interdc)} | card: {card}", flush=True)
     follower = run_path(lambda: follower_phase(torch, dev))
     print(f"follower: {json.dumps(follower)} | card: {card}", flush=True)
+    takeover = run_path(lambda: takeover_phase(torch, dev))
+    print(f"takeover: {json.dumps(takeover)} | card: {card}", flush=True)
     paths = {"serve": serve, "node": node, "serving": serving,
              "cluster": cluster, "types": types, "durable": durable,
              "cold": cold, "wire": wire, "native": native,
-             "interdc": interdc, "follower": follower}
+             "interdc": interdc, "follower": follower,
+             "takeover": takeover}
     for path, res in paths.items():
         log(f"{path}: {json.dumps(res)}")
         missing = [n for n in PATH_KERNELS[path] if res["launches"][n] == 0]

@@ -393,24 +393,37 @@ def test_wide_cluster_stable_vc_through_the_wrapper(monkeypatch):
 
 
 def test_unported_cluster_options_raise():
+    """What stays unported — the live join (an empty shard set, the member
+    process's ``--joining``, the console's ``cluster-join`` and
+    ``cluster-leave``) — refuses; the durability slice's log directory,
+    recovery and checkpoint work, and the member serves the JAX member's
+    handlers but the live join/leave ones."""
+    from antidote_tpu_torch import console
+    from antidote_tpu_torch.cluster import boot
+
     cfg = AntidoteConfig(**KW)
-    with pytest.raises(NotImplementedError, match="prepare log"):
-        ClusterMember(cfg, 0, 0, 1, log_dir="x", device="cpu")
+    with pytest.raises(NotImplementedError, match="live join"):
+        ClusterMember(cfg, 0, 0, 1, shards=[], device="cpu")
+    with pytest.raises(NotImplementedError, match="live join"):
+        boot.main(["--dc-id", "0", "--joining", "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="live join"):
+        console.main(["cluster-join", "--rpcs", "0=h:1", "--joiner", "1"])
+    with pytest.raises(NotImplementedError, match="live join"):
+        console.main(["cluster-leave", "--rpcs", "0=h:1", "--leaver", "1"])
     m = ClusterMember(cfg, 0, 0, 1, device="cpu")
     try:
         n = ClusterNode(m)
-        with pytest.raises(NotImplementedError):
-            n.checkpoint_now()
         assert n.check_ready() == {"local": True}
         assert set(m.rpc.handlers) == {
             "m_read_values", "m_downstream", "m_prepare", "m_commit",
             "m_abort", "m_clocks", "m_seq", "m_seq_counter", "m_ready",
-            "m_shard_map", "m_membership"}
-        assert m.m_membership() == {"n_members": 1, "members": [0]}
-        # the granter side is ported with inter-DC replication: a member
-        # holding no rights grants none (routing a DC's grant to the key's
-        # owner member, ``m_process_transfer``, is not in the handlers)
-        assert m.node.txm.bcounters.process_transfer(
-            m.node.txm, 1, B, 1, 1) == 0
+            "m_txn_status", "m_block_txn", "m_forget_txn",
+            "m_resolve_chain", "m_txn_sequenced", "m_resolve_stale_txn",
+            "m_process_transfer", "m_shard_map", "m_membership"}
+        assert m.m_membership() == {"n_members": 1, "members": [0],
+                                    "departed": []}
+        # a member holding no rights grants none
+        assert m.m_process_transfer(1, B, 1, 1) == 0
+        assert n.status(include_ready=True)["ready"] == {"local": True}
     finally:
         m.close()

@@ -1324,3 +1324,35 @@ def test_console_serve_follower_of_on_the_card(dev, tmp_path):
             except subprocess.TimeoutExpired:
                 p.kill()
                 p.wait(timeout=30)
+
+
+def test_takeover_phase_on_the_card_at_a_small_depth(dev):
+    """``chip_smoke.py``'s takeover phase on the card at 2048 shards and a
+    small depth: every check of the phase holds (wedge abort, completion,
+    rejoin, sweep, image recovery, resize), and the path launched all four
+    kernels."""
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+    import chip_smoke
+
+    ck.reset_launches()
+    res = chip_smoke.takeover_phase(torch, dev, n_set=6000, n_ctr=2048,
+                                    chain_txns=16, mixed=16, sample=512)
+    assert res["retired_refused"] and res["checks"] == 4
+    assert res["chains_drained"] >= 16
+    for name in chip_smoke.PATH_KERNELS["takeover"]:
+        assert ck.LAUNCHES[name] > 0, name
+
+
+def test_kill9_across_boot_processes_on_the_card(dev, tmp_path):
+    """``python -m antidote_tpu_torch.cluster.boot --device cuda``: a
+    2-member DC0 and a 1-member DC1; a coordinator killed mid fan-out
+    (exit 137), the survivor's takeover completing its commit, the member
+    rejoining with ``--recover``, DC1 reading the transaction whole, and an
+    ``after_seq`` kill aborted by the survivor
+    (``tests/test_torch_cluster_processes.kill9_story``)."""
+    from test_torch_cluster_processes import kill9_story
+
+    kill9_story("cuda", tmp_path)

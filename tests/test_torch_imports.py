@@ -51,9 +51,10 @@ def test_importing_every_module_loads_no_jax():
 def test_sources_cover_every_subpackage():
     """The walk above reaches every subpackage of the port, the cluster
     slice's, the metrics registry's, the durable log's, the wire front
-    end's, the native front end's, inter-DC replication's and the
-    follower tier's (the follower replica, the Merkle tree and the proxy
-    plane) included."""
+    end's, the native front end's, inter-DC replication's, the follower
+    tier's (the follower replica, the Merkle tree and the proxy plane) and
+    the cluster's durability slice's (resize, the member process)
+    included."""
     pkgs = {p.parent.name for p in SOURCES if p.parent != ROOT}
     assert {"api", "clock", "cluster", "crdt", "faults", "interdc", "log",
             "materializer", "meta", "obs", "proto", "store", "txn"} <= pkgs
@@ -71,4 +72,27 @@ def test_sources_cover_every_subpackage():
         "console.py", "overload.py", "supervise.py", "tenancy.py",
         "native_build.py"}
     assert {p.name for p in SOURCES if p.parent.name == "cluster"} >= {
-        "__init__.py", "rpc.py", "member.py", "coordinator.py"}
+        "__init__.py", "rpc.py", "member.py", "coordinator.py", "resize.py",
+        "boot.py"}
+
+
+@pytest.mark.parametrize("module", ["antidote_tpu_torch.cluster.boot",
+                                    "antidote_tpu_torch.cluster.resize"])
+def test_cluster_entry_points_load_no_jax(module):
+    """The member process and the resize tool, as a user runs them: their
+    ``--help`` loads neither JAX nor the JAX package."""
+    code = (
+        "import runpy, sys\n"
+        f"sys.argv = [{module!r}, '--help']\n"
+        "try:\n"
+        f"    runpy.run_module({module!r}, run_name='__main__')\n"
+        "except SystemExit:\n"
+        "    pass\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN!r}]\n"
+        "assert not bad, bad\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert "--device" in res.stdout

@@ -274,3 +274,85 @@ def test_replay_read_below_coverage(tmp_path):
     assert node.store.materializer_status()["replay_folds"] == {"assoc": 2}
     assert node.metrics.fold_dispatch.value(strategy="assoc") == 2
     node.close()
+
+
+@pytest.mark.parametrize("segments", [1, 3])
+def test_segment_paths_list_the_directory_once(tmp_path, monkeypatch,
+                                               segments):
+    """A log's segment files come from one listing of its directory, not
+    a glob a shard (at 2048 shards the globs scanned the directory 4,096
+    times to open and recover a member's log).  The listed paths equal the
+    globbed ones for every shard — the configured segments, a wider
+    directory's extra segments and a checkpoint generation's files, before
+    and after a rotation — and a recovery of every shard lists the
+    directory once."""
+    import glob as glob_mod
+
+    from antidote_tpu_torch import log as port_log
+
+    cfg, _ = _cfgs(n_shards=64, wal_segments=segments)
+    d = str(tmp_path / "listed")
+    os.makedirs(d)
+    logm = LogManager(cfg, d, segments=segments)
+    # a directory once written with more segments keeps their files
+    open(os.path.join(d, "shard_5.s7.wal"), "wb").close()
+
+    def globbed(shard):
+        conf = [os.path.join(d, f"shard_{shard}.wal")] + [
+            os.path.join(d, f"shard_{shard}.s{i}.wal")
+            for i in range(1, segments)]
+        return conf + sorted(set(glob_mod.glob(
+            os.path.join(d, f"shard_{shard}.s*.wal"))) - set(conf))
+
+    def check():
+        index = port_log.segment_index(d)
+        for s in range(cfg.n_shards):
+            assert port_log.shard_segment_paths(
+                d, s, logm.n_segments, index) == globbed(s)
+            assert logm.segment_paths(s) == globbed(s)
+
+    check()
+    logm.rotate_generation()
+    check()
+    assert any(".g1." in p for p in logm.segment_paths(3))
+    logm.close()
+
+    r = str(tmp_path / "recovered")
+    node = AntidoteNode(cfg, log_dir=r, device="cpu")
+    for i in range(8):
+        node.update_objects([(f"k{i}", "counter_pn", "b",
+                              ("increment", i + 1))])
+    node.close()
+    listed = []
+    real = port_log.segment_index
+    monkeypatch.setattr(port_log, "segment_index", lambda dd: (
+        listed.append(dd), real(dd))[1])
+    again = AntidoteNode(cfg, log_dir=r, recover=True, device="cpu")
+    assert again.store.last_recovery_records == 8
+    values, _ = again.read_objects([(f"k{i}", "counter_pn", "b")
+                                    for i in range(8)])
+    assert values == list(range(1, 9))
+    again.close()
+    assert listed.count(r) == 1
+
+
+def test_open_logs_share_one_syncer_thread(tmp_path):
+    """The native writer's background fsyncs run on one thread for every
+    open log of the process (a 2048-shard member holds 2,048 of them), and
+    the logs still replay every record after closing."""
+    import threading
+
+    before = threading.active_count()
+    tasks = lambda: len(os.listdir(f"/proc/{os.getpid()}/task"))  # noqa
+    t0 = tasks()
+    ws = [wal.ShardWAL(str(tmp_path / f"s{i}.wal")) for i in range(256)]
+    assert all(w.native for w in ws)
+    for i, w in enumerate(ws):
+        w.append({"i": i})
+        w.commit()
+    assert tasks() <= t0 + 1
+    for w in ws:
+        w.close()
+    assert threading.active_count() == before
+    assert [next(wal.replay(str(tmp_path / f"s{i}.wal")))["i"]
+            for i in range(256)] == list(range(256))
