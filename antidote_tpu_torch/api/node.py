@@ -247,18 +247,15 @@ class AntidoteNode:
         return self._metrics_server
 
     def receive_handoff(self, pkg, shard: Optional[int] = None) -> None:
-        """Install an exported shard package (``store/handoff.py``) and
-        raise the commit counter above every imported clock, so this
-        node's own-lane snapshots cover the moved commits.  A package from
-        a checkpoint-compacted source carries only its log's tail, so a
-        durable node takes a local checkpoint before returning: the import
-        is not done until an image covers the moved rows."""
-        from antidote_tpu_torch.store import handoff
-
-        handoff.import_shard(self.store, pkg, shard)
+        """Install an exported shard package (:meth:`install_handoff`).  A
+        package from a checkpoint-compacted source carries only its log's
+        tail, so a durable node seals the import (:meth:`seal_import`)
+        before returning: the import is not done until an image covers
+        the moved rows."""
+        self.install_handoff(pkg, shard)
         if pkg.get("compacted"):
             if self.store.log is not None:
-                summary = self.checkpoint_now()
+                summary = self.seal_import()
                 logging.getLogger("antidote_tpu_torch").info(
                     "compacted-source shard import sealed by local "
                     "checkpoint %s", summary.get("id"))
@@ -267,19 +264,46 @@ class AntidoteNode:
                     "imported a shard from a checkpoint-compacted source "
                     "into a node without a log: the moved rows have no "
                     "durable history at all")
+
+    def install_handoff(self, pkg, shard: Optional[int] = None) -> None:
+        """The package's rows, clocks and log records in the store
+        (``store/handoff.py``), the commit counter raised above every
+        imported clock, so this node's own-lane snapshots cover the moved
+        commits, and the moved keys' certification stamps.  A package
+        from a compacted source still waits for :meth:`seal_import`."""
+        from antidote_tpu_torch.store import handoff
+
+        handoff.import_shard(self.store, pkg, shard)
         self.txm.commit_counter = max(
             self.txm.commit_counter,
             int(self.store.dc_max_vc()[self.dc_id]))
         # the certification table for the moved keys: their last own-lane
         # commit is the head clock's own lane, or a transaction whose
         # snapshot predates the import could overwrite a moved commit
-        # unchecked
+        # unchecked (noted in the checkpoint window the seal reads)
+        own = {tname: np.asarray(tb["head_vc"])[:, self.dc_id]
+               for tname, tb in pkg["tables"].items()}
+        ckd = self.txm.ckpt_dirty_committed
         for key, bucket, tname, row in pkg["directory"]:
-            lane = int(pkg["tables"][tname]["head_vc"][row][self.dc_id])
+            lane = int(own[tname][row])
             if lane:
                 dk = (freeze_key(key), bucket)
                 self.txm.committed_keys[dk] = max(
                     self.txm.committed_keys.get(dk, 0), lane)
+                if ckd is not None:
+                    ckd.add(dk)
+
+    def seal_import(self) -> dict:
+        """The local checkpoint a compacted shard import waits for, at the
+        least cost (:meth:`Checkpointer.seal`: a delta link of the imported
+        keys without a WAL rotation, or a full image when no published
+        image can parent one).  A node without a log has nothing to
+        seal."""
+        if self.store.log is None:
+            return {}
+        if self.checkpointer is None:
+            self.start_checkpointer(interval_s=0.0)
+        return self.checkpointer.seal()
 
     # --- readiness (the reference's wait_init) ----------------------------
     def check_ready(self) -> dict:

@@ -6,9 +6,10 @@ own inter-DC endpoint for exactly its shards' chains (``attach_interdc``).
 
 Members log to a durable prepare log beside their shard WALs, recover from
 it (``recover=True``), and settle a dead coordinator's transactions through
-the takeover protocol (``ClusterMember.resolve_wedged``).  ``resize``
-changes the member count offline; ``boot`` runs a member as a process of
-its own.  Live join and leave come with a later slice.
+the takeover protocol (``ClusterMember.resolve_wedged``).  ``join`` adds
+and removes members while the DC serves (``live_join``/``live_leave``: one
+two-phase shard move at a time); ``resize`` changes the member count
+offline; ``boot`` runs a member as a process of its own.
 """
 
 from __future__ import annotations
@@ -47,21 +48,29 @@ def cluster_query_router(members_by_dc: Dict[int, int], n_shards: int):
 
 
 class _LiveShards:
-    """A live view of a member's owned-shard set for its inter-DC endpoint:
-    the member reassigns its set (recovery, live moves), so a frozen copy
-    would keep heartbeating shards that moved away."""
+    """A live view of the shards a member's inter-DC endpoint ingests and
+    pings: the member's owned set (recovery and live moves reassign it, so
+    a frozen copy would keep heartbeating shards that moved away) less the
+    shards mid-move.  A shard mid-move stays at the export's cut: remote
+    transactions applied to the source's copy would raise its clock row
+    past the importer's, a transaction started from that row and committed
+    at the importer would raise the importer's row past them, and the
+    importer's catch-up would then drop them as duplicates.  The importer
+    replays them from the cut (the JAX endpoint keeps applying)."""
 
     def __init__(self, member: ClusterMember):
         self._member = member
 
     def __contains__(self, s) -> bool:
-        return s in self._member.shards
+        m = self._member
+        return s in m.shards and s not in m.moving
 
     def __iter__(self):
-        return iter(self._member.shards)
+        m = self._member
+        return iter([s for s in m.shards if s not in m.moving])
 
     def __len__(self) -> int:
-        return len(self._member.shards)
+        return sum(1 for _ in self)
 
 
 def attach_interdc(member: ClusterMember, fabric, name: str = ""):
@@ -74,7 +83,8 @@ def attach_interdc(member: ClusterMember, fabric, name: str = ""):
     holds no prepared or chain-buffered txn touching s (any future
     commit's ts will exceed the counter), else the shard's applied chain
     frontier (an outstanding prepared txn may already hold a smaller
-    issued ts).
+    issued ts, and a shard mid-move may already take commits at its
+    importer).
 
     Lock order: the pump's gate drain holds the node's commit lock, then
     ``replica.store_lock`` — the member lock — around its apply, the same
@@ -96,11 +106,23 @@ def attach_interdc(member: ClusterMember, fabric, name: str = ""):
     member.on_shard_relinquish.append(replica.release_shard)
 
     def safe_time(shard: int) -> int:
-        if (shard not in member.shards
+        # the frontier is read BEFORE the checks: every ts at or below it
+        # was issued to a transaction already prepared, so the checks
+        # below see it (or it is applied and published).  Read after them,
+        # a transaction prepared and sequenced in between would be claimed
+        # unpublished, and remote DCs would drop it as a duplicate (the
+        # JAX endpoint reads it after them)
+        frontier = member._seq_counter()
+        # a shard mid-move (exported, not yet relinquished) is frozen at
+        # its applied frontier: the importer may already commit on it, and
+        # a ping claiming the sequencer frontier on the moved chain would
+        # make remote DCs drop the importer's commits below it as
+        # duplicates (the JAX endpoint still claims the frontier)
+        if (shard not in member.shards or shard in member.moving
                 or member.prepared_on_shard(shard)
                 or member.chain_wait.get(shard)):
             return member.applied_ts.get(shard, 0)
-        return max(member._seq_counter(), member.applied_ts.get(shard, 0))
+        return max(frontier, member.applied_ts.get(shard, 0))
 
     replica.safe_time = safe_time
     member.on_commit.append(replica._on_local_commit)

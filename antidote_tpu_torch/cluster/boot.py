@@ -2,7 +2,7 @@
 
     python -m antidote_tpu_torch.cluster.boot --dc-id 0 --member 1 \
         --members 2 --shards 4 --max-dcs 3 [--log-dir DIR] [--recover] \
-        [--device cuda]
+        [--joining] [--device cuda]
 
 The member's tables live on ``--device`` (``cuda`` by default; the process
 exits 2 without a card unless given ``--device cpu``).  Prints one JSON
@@ -24,6 +24,11 @@ then exchange descriptors and observe the DCs).  The other controls:
 there), ``ctl_resolve`` (takeover of wedged chains), ``ctl_sweep`` (stale
 prepared locks), ``ctl_ready_all``, ``ctl_status`` and
 ``ctl_repl_status``.
+
+``--joining`` boots the member owning nothing, for a live join: wire it
+(``ctl_wire`` on every member, the joiner included), then run ``console
+cluster-join``, which streams its share of the shards over while the DC
+serves.
 """
 
 from __future__ import annotations
@@ -46,7 +51,9 @@ def _build(args, device):
     cfg = AntidoteConfig(n_shards=args.shards, max_dcs=args.max_dcs)
     member = ClusterMember(cfg, dc_id=args.dc_id, member_id=args.member,
                            n_members=args.members, log_dir=args.log_dir,
-                           recover=args.recover, device=device)
+                           recover=args.recover,
+                           shards=[] if args.joining else None,
+                           device=device)
     fabric = TcpFabric()
     replica = attach_interdc(member, fabric)
     if args.recover:
@@ -147,16 +154,14 @@ def main(argv=None) -> int:
     ap.add_argument("--recover", action="store_true",
                     help="rejoin: replay the WAL + prepare log")
     ap.add_argument("--joining", action="store_true",
-                    help="boot owning nothing for a live join (not ported "
-                         "yet)")
+                    help="boot OWNING NOTHING: the live-join protocol "
+                         "(cluster.join.live_join, console cluster-join) "
+                         "streams this member's shard share over while the "
+                         "cluster serves")
     ap.add_argument("--device", default="cuda",
                     help="torch device of the member's tables (default "
                          "cuda; cpu only when asked)")
     args = ap.parse_args(argv)
-    if args.joining:
-        raise NotImplementedError(
-            "--joining: live join/leave is not ported yet (it comes with "
-            "the cluster's live membership, ROADMAP 15b)")
     from antidote_tpu_torch.config import resolve_device
 
     try:

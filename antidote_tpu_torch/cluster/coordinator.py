@@ -2,8 +2,10 @@
 
 The AntidoteNode-shaped facade a member serves clients from: any member
 coordinates any transaction, routing per-key work to shard owners over the
-intra-DC RPC (ownership never moves in this slice: the re-route after a
-``not_owner`` reply comes with live join/leave):
+intra-DC RPC by the member's shard map.  A live join or leave moves shards
+under it: an owner answers a retryable ``not_owner:`` or ``busy:``, and the
+coordinator refreshes its map from a peer (strictly newer epochs only) and
+retries, for up to ``MOVE_WAIT_S``:
 
   reads      -> owner's read at the snapshot VC; maps assemble from one
                 membership read per batch and one field read per nesting
@@ -81,12 +83,77 @@ class ClusterNode:
         #: the aggregated stable catches up (owner reads wait out in-flight
         #: commits below the requested own-lane ts, so the floor is safe)
         self.session_vc = np.zeros(self.cfg.max_dcs, np.int32)
+        #: retries after an owner's ``busy``/``not_owner`` reply (a live
+        #: shard move under this coordinator), by kind
+        self.move_retries = {"busy": 0, "not_owner": 0}
+
+    #: how long a coordinator rides out one shard's move window before
+    #: giving up.  Time-based, not attempt-based: an import can sit in a
+    #: checkpoint seal, and a fixed retry count shrinks with RPC latency
+    MOVE_WAIT_S = 30.0
 
     # ------------------------------------------------------------------
     def _owner_of_shard(self, shard: int) -> Optional[int]:
         """Peer member id owning a shard; None when it is mine."""
-        owner = self.member.shard_map[shard]
+        if shard in self.member.shards:
+            return None
+        owner = self.member.shard_map.get(shard,
+                                          shard % self.member.n_members)
+        # a live import updates the shard set and the map in two steps;
+        # "the map says me" is the local member either way
         return None if owner == self.member.member_id else owner
+
+    def _refresh_shard_map(self) -> None:
+        """Pull the ownership map from a peer (after a not_owner or busy
+        reply: a live join or leave moved a shard under us).  Only
+        STRICTLY NEWER epochs are adopted — a peer whose map predates a
+        move must never clobber what the move's broadcast taught us."""
+        for cli in list(self.member.peers.values()):
+            try:
+                m = cli.call("m_shard_map")
+            except (OSError, RuntimeError):
+                continue
+            with self.member._lock:
+                for s, ent in m.items():
+                    s = int(s)
+                    owner, epoch = int(ent[0]), int(ent[1])
+                    if (s not in self.member.shards
+                            and epoch > self.member.shard_epoch.get(s, 0)):
+                        self.member.shard_map[s] = owner
+                        self.member.shard_epoch[s] = epoch
+            return
+
+    def _call(self, owner: int, method: str, *args):
+        """An owner's RPC.  A call that fails because its member left the
+        DC (the leave's ``m_forget_member`` closed the client mid-call, or
+        the process is gone) is that member's ``not_owner``: a departed
+        member owns no shard, so it holds nothing of this transaction."""
+        try:
+            return self.member.peers[owner].call(method, *args)
+        except (KeyError, OSError, RuntimeError) as e:
+            if owner in self.member.departed:
+                raise RuntimeError(
+                    f"not_owner: member {owner} left the DC") from e
+            raise
+
+    def _moved(self, e: BaseException) -> bool:
+        """Is ``e`` an owner's retryable move refusal?  Counts it."""
+        text = str(e)
+        for kind in ("not_owner", "busy"):
+            if kind in text:
+                self.move_retries[kind] += 1
+                return True
+        return False
+
+    def _reroute(self, e: BaseException, t0: float, what: str) -> None:
+        """After a move refusal: give up ``MOVE_WAIT_S`` after ``t0``, else
+        refresh the map and pause briefly before the caller retries."""
+        if time.monotonic() > t0 + self.MOVE_WAIT_S:
+            raise RuntimeError(
+                f"shard ownership unstable: {what} retries exhausted after "
+                f"{time.monotonic() - t0:.2f}s (last: {e})") from e
+        self._refresh_shard_map()
+        time.sleep(0.02)
 
     def _owner_of(self, key, bucket) -> Optional[int]:
         return self._owner_of_shard(key_to_shard(key, bucket,
@@ -130,6 +197,19 @@ class ClusterNode:
         return self._read(objects, txn)
 
     def _read(self, objects, txn: ClusterTxn) -> list:
+        # a live move lands between routing and the owner call as a
+        # retryable not_owner/busy reply: refresh the map and re-read the
+        # batch at the same snapshot, for up to MOVE_WAIT_S
+        t0 = time.monotonic()
+        while True:
+            try:
+                return self._read_routed(objects, txn)
+            except RuntimeError as e:
+                if not self._moved(e):
+                    raise
+                self._reroute(e, t0, "read")
+
+    def _read_routed(self, objects, txn: ClusterTxn) -> list:
         assert txn.active
         out: List[Any] = [None] * len(objects)
         comp = [(i, (freeze_key(k), t, b))
@@ -164,8 +244,8 @@ class ClusterNode:
                         wvals = self.member.m_read_values(
                             objs, txn.snapshot_vc, overlays)
                     else:
-                        wvals = self.member.peers[owner].call(
-                            "m_read_values", objs,
+                        wvals = self._call(
+                            owner, "m_read_values", objs,
                             [int(x) for x in txn.snapshot_vc], overlays)
                 except RuntimeError as e:
                     if not full and "overlay-resync" in str(e):
@@ -242,8 +322,10 @@ class ClusterNode:
             # the owner generates against its replica's state, with the
             # txn's own pending effects for the key overlaid; incremental
             # shipping with a full resend on overlay-resync
-            owner = self._owner_of(key, bucket)
-            for full in (False, True):
+            full = False
+            t0 = time.monotonic()
+            while True:
+                owner = self._owner_of(key, bucket)
                 overlay = self._overlay_payload(txn, key, bucket, full=full)
                 try:
                     if owner is None:
@@ -251,12 +333,19 @@ class ClusterNode:
                             key, type_name, bucket, op, txn.snapshot_vc,
                             overlay)
                     else:
-                        wires = self.member.peers[owner].call(
-                            "m_downstream", key, type_name, bucket, op,
+                        wires = self._call(
+                            owner, "m_downstream", key, type_name, bucket, op,
                             [int(x) for x in txn.snapshot_vc], overlay)
                 except RuntimeError as e:
                     if (not full and overlay is not None
                             and "overlay-resync" in str(e)):
+                        full = True
+                        continue
+                    if self._moved(e):
+                        # the new owner has no overlay prefix: resend in
+                        # full
+                        self._reroute(e, t0, "downstream")
+                        full = True
                         continue
                     if "abort" in str(e):
                         self.abort_transaction(txn)
@@ -280,33 +369,42 @@ class ClusterNode:
         if not txn.writeset:
             return txn.snapshot_vc.copy()
         snap_own = int(txn.snapshot_vc[self.dc_id])
-        by_owner: Dict[Optional[int], list] = {}
-        shards = set()
-        for eff in txn.writeset:
-            shard = key_to_shard(eff.key, eff.bucket, self.cfg.n_shards)
-            shards.add(shard)
-            by_owner.setdefault(self._owner_of_shard(shard), []).append(eff)
-        prepared: List[Optional[int]] = []
-        try:
-            for owner, effs in by_owner.items():
-                wires = [eff_to_wire(e) for e in effs]
-                if owner is None:
-                    self.member.m_prepare(txn.txid, wires, snap_own)
-                else:
-                    self.member.peers[owner].call("m_prepare", txn.txid,
-                                                  wires, snap_own)
-                prepared.append(owner)
-        except BaseException as e:
-            self._abort_prepared(txn.txid, prepared)
-            # cert conflicts raise "abort: ..." — locally as RuntimeError,
-            # remotely through RpcError (a subclass)
-            if isinstance(e, RuntimeError) and "abort" in str(e):
-                # another coordinator committed past our snapshot: refresh
-                # the cached frontier so the client's retry starts from a
-                # snapshot that can pass certification
-                self.member.invalidate_seq_cache()
-                raise AbortError(str(e)) from e
-            raise
+        t0 = time.monotonic()
+        while True:
+            by_owner: Dict[Optional[int], list] = {}
+            shards = set()
+            for eff in txn.writeset:
+                shard = key_to_shard(eff.key, eff.bucket, self.cfg.n_shards)
+                shards.add(shard)
+                by_owner.setdefault(self._owner_of_shard(shard),
+                                    []).append(eff)
+            prepared: List[Optional[int]] = []
+            try:
+                for owner, effs in by_owner.items():
+                    wires = [eff_to_wire(e) for e in effs]
+                    if owner is None:
+                        self.member.m_prepare(txn.txid, wires, snap_own)
+                    else:
+                        self._call(owner, "m_prepare", txn.txid, wires,
+                                   snap_own)
+                    prepared.append(owner)
+                break
+            except BaseException as e:
+                # the owners already prepared release their locks first,
+                # whatever comes next: a move's retry re-prepares them all
+                self._abort_prepared(txn.txid, prepared)
+                if isinstance(e, RuntimeError) and self._moved(e):
+                    self._reroute(e, t0, "prepare")
+                    continue
+                # cert conflicts raise "abort: ..." — locally as
+                # RuntimeError, remotely through RpcError (a subclass)
+                if isinstance(e, RuntimeError) and "abort" in str(e):
+                    # another coordinator committed past our snapshot:
+                    # refresh the cached frontier so the client's retry
+                    # starts from a snapshot that can pass certification
+                    self.member.invalidate_seq_cache()
+                    raise AbortError(str(e)) from e
+                raise
         # one DC-wide timestamp + per-shard chains from the sequencer
         # (ledgered under the txid so takeover can find this txn)
         ts, prev = self._seq(sorted(shards), txn.txid)

@@ -39,8 +39,13 @@ takeover):
     staged txns, prepared locks and the sequencer ledger, and
     ``resolve_wedged()`` settles anything issued around the crash.
 
-Not in this slice: live join and leave (the shard-move handlers), which
-come with the cluster's live membership.
+LIVE MEMBERSHIP (``cluster/join.py``): shards move one at a time between
+members while the DC serves — a two-phase move (export a copy, import,
+relinquish, broadcast the move's epoch).  A shard mid-move refuses new work
+with retryable ``not_owner:``/``busy:`` errors, which the coordinators ride
+out by refreshing their map; ownership changes are durable ``own`` records
+of the prepare log, so a member crashing mid-move rejoins with the moved
+layout.
 """
 
 from __future__ import annotations
@@ -60,6 +65,7 @@ from antidote_tpu_torch.cluster.rpc import (RpcClient, RpcServer,
                                             eff_from_wire, eff_to_wire)
 from antidote_tpu_torch.config import AntidoteConfig
 from antidote_tpu_torch.crdt import get_type
+from antidote_tpu_torch.log import segment_index
 from antidote_tpu_torch.log.wal import ShardWAL, replay
 from antidote_tpu_torch.store.kv import (Effect, freeze_key, key_to_shard,
                                          stable_min_of)
@@ -69,13 +75,15 @@ from antidote_tpu_torch.txn.manager import (AbortError, host_state,
 
 log = logging.getLogger(__name__)
 
-#: the RPC surface of a member: the JAX member's handlers but the live
-#: join/leave ones
+#: the RPC surface of a member (the JAX member's handlers)
 HANDLERS = ("m_read_values", "m_downstream", "m_prepare", "m_commit",
             "m_abort", "m_clocks", "m_seq", "m_ready", "m_seq_counter",
             "m_txn_status", "m_block_txn", "m_forget_txn",
             "m_resolve_chain", "m_txn_sequenced", "m_resolve_stale_txn",
-            "m_process_transfer", "m_shard_map", "m_membership")
+            "m_process_transfer", "m_shard_map", "m_membership",
+            "m_join_begin", "m_seed_map", "m_export_shard",
+            "m_import_shard", "m_relinquish_shard", "m_cancel_export",
+            "m_set_owner", "m_forget_member")
 
 #: how long a read or downstream waits for its shard's own lane to reach
 #: the requested timestamp before it gives up (s)
@@ -84,14 +92,24 @@ READ_SAFE_TIMEOUT_S = 30.0
 #: bound on remembered txn outcomes and ledger entries (GC floor)
 _LEDGER_CAP = 8192
 
-#: a live join or leave: not in this slice
-_LIVE_MEMBERSHIP = ("live join/leave is not ported yet (it comes with the "
-                    "cluster's live membership, ROADMAP 15b)")
 
 
 def owned_shards(cfg: AntidoteConfig, member_id: int, n_members: int):
-    """The modular layout: member ``i`` owns the shards ``s % n == i``."""
+    """The INITIAL (boot-time) modular layout: member ``i`` owns the shards
+    ``s % n == i``.  Ownership afterwards is the explicit shard map's,
+    changed only by live join/leave moves."""
     return [s for s in range(cfg.n_shards) if s % n_members == member_id]
+
+
+def _count_shard_move(role: str) -> None:
+    """One completed shard move at this member (``role``: ``import`` or
+    ``relinquish``), on the process' net metrics."""
+    try:
+        from antidote_tpu_torch.obs.metrics import net_metrics
+
+        net_metrics().shard_moves.inc(role=role)
+    except Exception:  # noqa: BLE001 — metrics never break a move
+        log.debug("shard move metric failed", exc_info=True)
 
 
 def overlay_digest(seed: int, wires) -> int:
@@ -190,25 +208,33 @@ class ClusterMember:
                  n_members: int, log_dir: Optional[str] = None,
                  host: str = "127.0.0.1", shards=None,
                  recover: bool = False, meta=None, device="cuda"):
-        if shards is not None and not list(shards):
-            raise NotImplementedError(
-                f"an empty shard set boots a live-joining member: "
-                f"{_LIVE_MEMBERSHIP}")
         self.cfg = cfg
         self.dc_id = dc_id
         self.member_id = member_id
         self.n_members = n_members
         modular = set(owned_shards(cfg, member_id, n_members))
         self.shards = set(modular if shards is None else shards)
-        if n_members > 1 and self.shards != modular:
+        if n_members > 1 and self.shards and self.shards != modular:
             raise ValueError(
                 "multi-member DCs boot with the modular shard layout "
-                "(shard s owned by member s % n_members); ownership then "
-                "moves only through the live join/leave protocol so every "
-                "member's shard map stays consistent")
-        #: shard -> owning member id (the riak_core ring analogue)
+                "(shard s owned by member s % n_members, or an empty set "
+                "for a live-joining member); ownership then moves only "
+                "through the live join/leave protocol so every member's "
+                "shard map stays consistent")
+        #: shard -> owning member id (the riak_core ring analogue) and the
+        #: single routing truth: modular at boot, then moved by live
+        #: join/leave.  ``n_members`` is the member-id-space BOUND (max
+        #: assigned id + 1), not a live count.  A live-joining member (an
+        #: explicit EMPTY set) boots with a guess of the CURRENT layout,
+        #: modular over the pre-join count: epoch-guarded refreshes never
+        #: downgrade an entry, so a guess of the future layout would route
+        #: to not-yet-owners for the whole join; ``live_join`` then
+        #: seeds the real map (``m_seed_map``)
+        layout_n = n_members
+        if shards is not None and not self.shards and n_members > 1:
+            layout_n = n_members - 1
         self.shard_map: Dict[int, int] = {
-            s: s % n_members for s in range(cfg.n_shards)}
+            s: s % layout_n for s in range(cfg.n_shards)}
         for s in self.shards:
             self.shard_map[s] = member_id
         #: per-shard ownership version: every completed move bumps it
@@ -238,6 +264,20 @@ class ClusterMember:
         self.staged: Dict[int, Tuple[list, list, Optional[int]]] = {}
         #: (key, bucket) -> own-lane ts of its last commit (cert table)
         self.last_commit: Dict[Tuple[Any, str], int] = {}
+        #: shards mid-move (exported, not yet relinquished): prepares and
+        #: reads refuse retryably so the in-flight package stays exact.
+        #: Volatile on purpose: a crash clears it and reopens the shard
+        #: (ownership flips durably only at the relinquish)
+        self.moving: set = set()
+        #: shard mid-move -> (log generation, listing of the log directory)
+        #: the export took: the relinquish deletes the shard's files
+        #: without a second listing of a 2048-shard directory, unless a
+        #: checkpoint rotated the log in between
+        self._export_files: Dict[int, tuple] = {}
+        #: serializes imports (taken before the commit lock): a package
+        #: resent while the first delivery is still sealing waits for it
+        #: and finds the shard owned
+        self._import_lock = threading.Lock()
         #: per owned shard: last own-DC ts applied (chain frontier)
         self.applied_ts: Dict[int, int] = {s: 0 for s in self.shards}
         #: per shard: {prev_ts: (ts, effects, commit_vc)} awaiting chain
@@ -303,8 +343,7 @@ class ClusterMember:
             self._replay_recovered_commits(pending)
             self.recovery_s = {"prepare_log": t1 - t0,
                                "reapplied": time.perf_counter() - t1}
-        self._owned = np.zeros(cfg.n_shards, bool)
-        self._owned[sorted(self.shards)] = True
+        self._set_shards(self.shards)
         # the membership rides in every checkpoint image this member's node
         # publishes (informational: the prepare log stays the authoritative
         # ownership record at recovery)
@@ -313,6 +352,14 @@ class ClusterMember:
         self.rpc = RpcServer(host=host)
         for name in HANDLERS:
             self.rpc.register(name, getattr(self, name))
+
+    def _set_shards(self, shards) -> None:
+        """Replace the owned set and its mask (copy-on-write: lock-free
+        readers keep iterating the set they took)."""
+        owned = np.zeros(self.cfg.n_shards, bool)
+        owned[sorted(int(s) for s in shards)] = True
+        self.shards = set(int(s) for s in shards)
+        self._owned = owned
 
     def _checkpoint_membership(self) -> dict:
         """Membership snapshot for the checkpoint image (called under the
@@ -461,7 +508,13 @@ class ClusterMember:
                                if booted is not None
                                else set(owned_shards(self.cfg,
                                                      self.member_id, n0)))
-                self.shard_map = {s: s % n0
+                # a joiner booted empty guessed the PRE-join layout (its
+                # seeded entries ride as own records below); the JAX
+                # member recovers modular over the post-join count, which
+                # strands every unmoved epoch-0 entry on a wrong owner
+                layout_n = (n0 - 1 if booted is not None and not booted
+                            and n0 > 1 else n0)
+                self.shard_map = {s: s % layout_n
                                   for s in range(self.cfg.n_shards)}
                 for s in self.shards:
                     self.shard_map[s] = self.member_id
@@ -664,7 +717,7 @@ class ClusterMember:
         shards = {key_to_shard(k, b, self.cfg.n_shards) for k, _, b in objs}
         for s in shards:
             self._check_owner(s)
-            self._wait_read_safe(s, want)
+        self._wait_read_safe(shards, want)
         with self._lock:
             if not overlays or not any(overlays):
                 vals = self.node.store.read_values(objs, read_vc)
@@ -742,7 +795,9 @@ class ClusterMember:
             vals[i] = get_type(type_name).value(state, store.blobs, cfg_k)
         return vals
 
-    def _wait_read_safe(self, shard: int, want_ts: int) -> None:
+    def _wait_read_safe(self, shards, want_ts: int) -> None:
+        """Wait until every shard of ``shards`` has applied its own lane up
+        to ``want_ts`` (one idle advance a round for them all)."""
         # the requested own-lane ts was derived from the sequencer
         # (stable/session/frontier), so it IS a frontier lower bound:
         # adopt it instead of waiting out the cache-refresh window
@@ -751,11 +806,19 @@ class ClusterMember:
         deadline = time.monotonic() + READ_SAFE_TIMEOUT_S
         while True:
             self.advance_idle_shards()
-            if int(self.node.store.applied_vc[shard, self.dc_id]) >= want_ts:
+            for shard in shards:
+                if shard not in self.shards:
+                    # a live move took the shard mid-wait: its frozen
+                    # clock would never reach want_ts — the retryable
+                    # error instead of a 30 s timeout
+                    self._check_owner(shard)
+            col = self.node.store.applied_vc[:, self.dc_id]
+            behind = [s for s in shards if int(col[s]) < want_ts]
+            if not behind:
                 return
             if time.monotonic() > deadline:
                 raise TimeoutError(
-                    f"shard {shard} own-lane stuck below {want_ts} "
+                    f"shard {behind[0]} own-lane stuck below {want_ts} "
                     "(in-flight commit never arrived?)")
             time.sleep(0.001)
 
@@ -777,7 +840,7 @@ class ClusterMember:
         # would break observed-remove semantics
         shard = key_to_shard(key, bucket, self.cfg.n_shards)
         self._check_owner(shard)
-        self._wait_read_safe(shard, int(read_vc[self.dc_id]))
+        self._wait_read_safe((shard,), int(read_vc[self.dc_id]))
         with self._lock:
             store = self.node.store
             state = store.read_states([(key, type_name, bucket)], read_vc)[0]
@@ -835,12 +898,23 @@ class ClusterMember:
             return 0  # lost a race for the rights; the requester retries
         return grant
 
+    # ------------------------------------------------------------------
+    # live membership (the riak_core staged join/leave and ownership
+    # handoff): shards move one at a time between members while the DC
+    # serves — a move refuses new work on that one shard with retryable
+    # "busy"/"not_owner" errors, never the cluster
+    # ------------------------------------------------------------------
     def _check_owner(self, shard: int) -> None:
         if shard not in self.shards:
             raise RuntimeError(
                 f"not_owner: shard {shard} owner "
                 f"{self.shard_map.get(shard, -1)} "
                 f"(asked member {self.member_id})")
+        if shard in self.moving:
+            # exported, not yet relinquished: new work would make the
+            # in-flight package stale — retryable for the import's round
+            # trip
+            raise RuntimeError(f"busy: shard {shard} mid-move")
 
     def m_shard_map(self) -> dict:
         """{shard: [owner, epoch]} — epochs count completed moves."""
@@ -854,6 +928,275 @@ class ClusterMember:
             return {"n_members": int(self.n_members),
                     "members": sorted({self.member_id, *self.peers}),
                     "departed": sorted(int(m) for m in self.departed)}
+
+    def m_join_begin(self, new_id: int, new_addr, n_members_new: int
+                     ) -> bool:
+        """Learn a joining member: wire its RPC and grow the id-space
+        bound (durable ``members`` record).  Ownership is untouched —
+        shards move one by one afterwards."""
+        with self._lock:
+            self.n_members = max(self.n_members, int(n_members_new))
+            if new_id != self.member_id and new_id not in self.peers:
+                self.connect(int(new_id), new_addr[0], int(new_addr[1]))
+            self._prep_append({"ev": "members", "txid": 0,
+                               "n": int(self.n_members)})
+        return True
+
+    def m_seed_map(self, entries, n_members: Optional[int] = None) -> bool:
+        """Adopt an authoritative map snapshot ``{shard: [owner, epoch]}``
+        (``live_join`` seeds the joiner, whose boot-time modular guess
+        may predate earlier joins and leaves).  Entries at or above the
+        local epoch are adopted for shards not owned here — an equal-epoch
+        entry from a live member is at least as right as any guess, and a
+        moved shard always carries a strictly higher epoch.  Each change is
+        a durable ``own`` record: a joiner crashing mid-join recovers the
+        seeded layout."""
+        with self._lock:
+            if n_members is not None:
+                self.n_members = max(self.n_members, int(n_members))
+            for s, ent in entries.items():
+                s = int(s)
+                owner, epoch = int(ent[0]), int(ent[1])
+                if s in self.shards or epoch < self.shard_epoch.get(s, 0):
+                    continue
+                if (self.shard_map.get(s) == owner
+                        and self.shard_epoch.get(s, 0) == epoch):
+                    continue
+                self.shard_map[s] = owner
+                self.shard_epoch[s] = epoch
+                self._prep_append({"ev": "own", "txid": 0, "shard": s,
+                                   "owner": owner, "epoch": epoch})
+        return True
+
+    def m_set_owner(self, shard: int, owner: int,
+                    n_members: Optional[int] = None,
+                    epoch: Optional[int] = None) -> bool:
+        """Record a completed move (the mover's broadcast to the members
+        neither side of it).  A broadcast older than what this member
+        knows (its epoch) is a no-op: replays and races never resurrect a
+        previous owner.  The id-space bound only grows."""
+        with self._lock:
+            shard, owner = int(shard), int(owner)
+            if n_members is not None:
+                self.n_members = max(self.n_members, int(n_members))
+            if epoch is not None and int(epoch) < self.shard_epoch.get(
+                    shard, 0):
+                return True  # stale replay of an older move
+            self.shard_map[shard] = owner
+            if epoch is not None:
+                self.shard_epoch[shard] = int(epoch)
+            if owner != self.member_id and shard in self.shards:
+                self._set_shards(self.shards - {shard})
+            self._prep_append({"ev": "own", "txid": 0, "shard": shard,
+                               "owner": owner,
+                               "epoch": int(self.shard_epoch.get(shard, 0))})
+        return True
+
+    def m_export_shard(self, shard: int, target: int) -> bytes:
+        """Phase 1 of a move: package a COPY of the shard and mark it
+        mid-move.
+
+        Refuses (``busy``, retryable) while a staged txn or a chain hole
+        touches the shard — the prepare-to-commit window pins ownership,
+        so no coordinator chases a staged txn across members.  Nothing is
+        dropped here: new prepares and reads of the shard get ``busy``
+        until :meth:`m_relinquish_shard` (after the target confirmed the
+        import) or :meth:`m_cancel_export`; a crash of the mover in between
+        leaves the source the owner of the only live copy (a restart
+        clears the volatile mark).  Both locks are held, so the package,
+        its ``applied_ts``, its ``owner_epoch`` (the epoch the move will
+        have) and the planes' ``export_extras`` are one cut."""
+        from antidote_tpu_torch.store import handoff
+
+        shard, target = int(shard), int(target)
+        with self._xlock, self._lock:
+            if shard not in self.shards:
+                # not _check_owner: a shard mid-move is still owned here,
+                # and the mover's retry may re-export it
+                raise RuntimeError(
+                    f"not_owner: shard {shard} owner "
+                    f"{self.shard_map.get(shard, -1)}")
+            n = self.cfg.n_shards
+            for txid, st in self.staged.items():
+                if any(key_to_shard(e.key, e.bucket, n) == shard
+                       for e in st[0]):
+                    raise RuntimeError(
+                        f"busy: txn {txid} staged on shard {shard}")
+            if self.chain_wait.get(shard):
+                raise RuntimeError(f"busy: chain holes on shard {shard}")
+            log_ = self.node.store.log
+            listed = (None if log_ is None
+                      else (log_.gen, segment_index(log_.dir)))
+            pkg = handoff.export_shard(
+                self.node.store, shard,
+                segments=None if listed is None else listed[1])
+            self._export_files[shard] = listed
+            pkg["applied_ts"] = int(self.applied_ts.get(shard, 0))
+            pkg["owner_epoch"] = int(self.shard_epoch.get(shard, 0)) + 1
+            for fn in self.export_extras:
+                pkg.setdefault("x", {}).update(fn(shard))
+            # the package's plain lists (a compacted source ships its
+            # whole blob dictionary) cross the wire as one msgpack node
+            # each, decoded by either package's unpack
+            for name in ("blobs", "directory", "log"):
+                pkg[name] = handoff.opaque(pkg[name])
+            data = handoff.pack(pkg)
+            self.moving.add(shard)
+        return data
+
+    def m_relinquish_shard(self, shard: int, target: int) -> int:
+        """Phase 2 of a move: the import at ``target`` is confirmed — drop
+        the source copy and durably record the new owner.  Idempotent (a
+        repeat after the mover's retry changes nothing, but its hooks re-run:
+        the retry may exist because a hook failed after the durable
+        flip).  The ``on_shard_relinquish`` hooks run under the commit
+        lock, outside the member lock, serialized against the inter-DC
+        drain.  Returns the move's epoch for the mover's broadcast."""
+        from antidote_tpu_torch.store import handoff
+
+        shard, target = int(shard), int(target)
+        with self._xlock:
+            with self._lock:
+                self.moving.discard(shard)
+                dup = shard not in self.shards
+                if dup:
+                    epoch = int(self.shard_epoch.get(shard, 0))
+                else:
+                    # the target's gossip may not carry the shard yet:
+                    # keep this member's view of its clock row where the
+                    # export left it (the target starts from that row),
+                    # so the aggregated stable snapshot never goes back
+                    peer = self.peer_clocks.setdefault(
+                        target, np.zeros((self.cfg.n_shards,
+                                          self.cfg.max_dcs), np.int32))
+                    np.maximum(peer[shard],
+                               self.node.store.applied_vc[shard],
+                               out=peer[shard])
+                    log_ = self.node.store.log
+                    gen, index = (self._export_files.pop(shard, None)
+                                  or (None, None))
+                    if log_ is None or gen != log_.gen:
+                        index = None
+                    handoff.drop_shard(self.node.store, shard, index)
+                    self._set_shards(self.shards - {shard})
+                    self.shard_map[shard] = target
+                    epoch = int(self.shard_epoch.get(shard, 0)) + 1
+                    self.shard_epoch[shard] = epoch
+                    self.applied_ts.pop(shard, None)
+                    self.chain_wait.pop(shard, None)
+                    self._prep_append({"ev": "own", "txid": 0,
+                                       "shard": shard, "owner": target,
+                                       "epoch": epoch})
+            # queued remote txns for a shard this member no longer holds
+            # must never apply to the dropped slice
+            for fn in self.on_shard_relinquish:
+                fn(shard)
+            if not dup:
+                _count_shard_move("relinquish")
+        return epoch
+
+    def m_cancel_export(self, shard: int) -> bool:
+        """Abort phase 1 (the import failed for good, or a mover cleans
+        up after a crashed one): reopen the shard.  Nothing was dropped."""
+        with self._lock:
+            self.moving.discard(int(shard))
+            self._export_files.pop(int(shard), None)
+        return True
+
+    def m_import_shard(self, data: bytes) -> bool:
+        """Install a moved shard and take ownership.  Idempotent: a
+        re-sent package for a shard already owned installs nothing, but
+        the ``on_shard_import`` hooks re-run (the resend may exist because
+        a hook failed on the first delivery; adopting is monotone).
+
+        Three steps under the import lock: the package's data on the
+        device (under both locks); for a package from a compacted source,
+        the local checkpoint that covers its rows (``seal_import``, which
+        takes the commit lock only for its capture); then the ownership
+        and its durable ``own`` record.  The shard serves here only after
+        the seal, and the source relinquishes only after this returns.  A
+        failed install or seal drops what it installed before the error
+        goes back to the mover, which resends the same package or cancels
+        the export (the source then serves and commits on): nothing of a
+        failed import is left to be taken for a later one."""
+        from antidote_tpu_torch.store import handoff
+
+        pkg = handoff.unpack(bytes(data))
+        shard = int(pkg["shard"])
+        with self._import_lock:
+            with self._xlock, self._lock:
+                dup = shard in self.shards
+                if not dup:
+                    try:
+                        self.node.install_handoff(pkg)
+                    except BaseException:
+                        handoff.drop_shard(self.node.store, shard)
+                        raise
+            if not dup and pkg.get("compacted"):
+                try:
+                    self.node.seal_import()
+                except BaseException:
+                    with self._xlock, self._lock:
+                        handoff.drop_shard(self.node.store, shard)
+                    raise
+            with self._xlock:
+                # the ownership and the planes' adoption in one section of
+                # the commit lock: the inter-DC drain sees the shard owned
+                # only with its chain state in place
+                if not dup:
+                    self._take_shard_locked(shard, pkg)
+                extras = pkg.get("x", {})
+                for fn in self.on_shard_import:
+                    fn(shard, extras)
+        if not dup:
+            _count_shard_move("import")
+        return True
+
+    def _take_shard_locked(self, shard: int, pkg: dict) -> None:
+        """Take ownership of an installed package's shard (the caller
+        holds the commit lock), with certification continuity: each
+        moved key's last own-lane commit is its head clock's own lane,
+        read from the package's host copy of the clocks (one array a
+        table)."""
+        with self._lock:
+            self._set_shards(self.shards | {shard})
+            self.shard_map[shard] = self.member_id
+            self.shard_epoch[shard] = int(pkg.get(
+                "owner_epoch", self.shard_epoch.get(shard, 0) + 1))
+            self.applied_ts[shard] = int(pkg.get("applied_ts", 0))
+            self.chain_wait[shard] = {}
+            own = {tname: np.asarray(tb["head_vc"])[:, self.dc_id]
+                   for tname, tb in pkg["tables"].items()}
+            for key, bucket, tname, row in pkg["directory"]:
+                lane = int(own[tname][row])
+                if lane:
+                    dk = (freeze_key(key), bucket)
+                    self.last_commit[dk] = max(self.last_commit.get(dk, 0),
+                                               lane)
+            self._prep_append({"ev": "own", "txid": 0, "shard": shard,
+                               "owner": self.member_id,
+                               "epoch": int(self.shard_epoch[shard])})
+
+    def m_forget_member(self, member_id: int, n_members_new: int) -> bool:
+        """Drop a departed member (live leave): close its peer client and
+        drop its gossip rows; durable ``members`` and ``departed``
+        records.  The id-space bound only grows, so a departed id is
+        never handed out again."""
+        with self._lock:
+            member_id = int(member_id)
+            self.n_members = max(self.n_members, int(n_members_new))
+            # departed before the client closes: a coordinator whose call
+            # dies with it reads the failure as the member's not_owner
+            self.departed.add(member_id)
+            cli = self.peers.pop(member_id, None)
+            if cli is not None:
+                cli.close()
+            self.peer_clocks.pop(member_id, None)
+            self._prep_append({"ev": "members", "txid": 0,
+                               "n": int(self.n_members)})
+            self._prep_append({"ev": "departed", "txid": 0,
+                               "member": member_id})
+        return True
 
     def m_prepare(self, txid: int, effs_wire: list, snap_own: int) -> bool:
         """Certify + lock this txn's keys on my shards (first-committer-
@@ -1237,6 +1580,10 @@ class ClusterMember:
             idx = np.asarray([s for s, _ in rows], np.int64)
             vals = np.asarray([r for _, r in rows], np.int32)
             with self._lock:
+                if mid not in self.peers:
+                    # forgotten while the call was in flight (a live
+                    # leave): its rows must not come back
+                    continue
                 mat = self.peer_clocks.get(mid)
                 if mat is None:
                     mat = np.zeros((self.cfg.n_shards, self.cfg.max_dcs),
@@ -1249,9 +1596,10 @@ class ClusterMember:
         the other rows from gossip (one masked max per peer)."""
         mat = self.node.store.applied_vc.copy()
         foreign = ~self._owned[:, None]
-        with self._lock:
-            for peer in self.peer_clocks.values():
-                np.maximum(mat, peer, out=mat, where=foreign)
+        # a snapshot of the rows without the member lock: gossip only
+        # raises them, so a stale or half-raised row only lags (mins lag)
+        for peer in list(self.peer_clocks.values()):
+            np.maximum(mat, peer, out=mat, where=foreign)
         return mat
 
     def stable_vc(self) -> np.ndarray:

@@ -23,6 +23,10 @@ the client protocol.
     python -m antidote_tpu_torch.console cluster-status --rpc host:port
     python -m antidote_tpu_torch.console cluster-resolve --rpc host:port
     python -m antidote_tpu_torch.console cluster-sweep --rpc host:port
+    python -m antidote_tpu_torch.console cluster-join \
+        --rpcs 0=host:port,1=host:port,2=host:port --joiner 2
+    python -m antidote_tpu_torch.console cluster-leave \
+        --rpcs 0=host:port,1=host:port,2=host:port --leaver 1
 
 ``serve`` puts the node's tables on ``--device`` (``cuda`` by default; a
 machine without a card must ask for ``cpu``) and prints its ready line —
@@ -49,8 +53,10 @@ follower subscribes to itself.  ``replica-status``, ``replica-add`` and
 no node.  ``ringready``, ``cluster-status``, ``cluster-resolve`` (the
 takeover of wedged commit chains) and ``cluster-sweep`` (stale prepared
 locks) operate a multi-member DC through a member's control RPC
-(``python -m antidote_tpu_torch.cluster.boot``); ``cluster-join`` and
-``cluster-leave`` (live membership) are not ported yet.
+(``python -m antidote_tpu_torch.cluster.boot``); ``cluster-join`` streams
+a booted-empty member's (``cluster.boot --joining``) share of the shards
+over while the DC serves, and ``cluster-leave`` drains any member but the
+sequencer (member 0) out of it, each with per-shard progress on stderr.
 """
 
 from __future__ import annotations
@@ -573,10 +579,44 @@ def cmd_cluster_sweep(args) -> int:
     return 0
 
 
-def cmd_cluster_membership_change(args) -> int:
-    raise NotImplementedError(
-        f"{args.cmd}: live join/leave is not ported yet (it comes with the "
-        "cluster's live membership, ROADMAP 15b)")
+def _parse_member_rpcs(spec: str):
+    """``0=host:port,1=host:port,...`` -> {member_id: (host, port)}."""
+    out = {}
+    for part in spec.split(","):
+        mid, addr = part.split("=", 1)
+        host, port = addr.rsplit(":", 1)
+        out[int(mid)] = (host, int(port))
+    return out
+
+
+def _move_progress(shard, src, dst, done, total):
+    log(f"[{done}/{total}] shard {shard}: member {src} -> member {dst}")
+
+
+def cmd_cluster_join(args) -> int:
+    """Live-join a booted-empty member into a serving DC (the staged join
+    and ownership handoff), with per-shard progress on stderr.  The joiner
+    must already run (``cluster.boot --joining``) and be wired
+    (``ctl_wire``)."""
+    from antidote_tpu_torch.cluster.join import live_join
+
+    rpcs = _parse_member_rpcs(args.rpcs)
+    moved = live_join(rpcs, new_id=args.joiner, progress=_move_progress)
+    print(json.dumps({"joined": args.joiner, "moved": moved}))
+    return 0
+
+
+def cmd_cluster_leave(args) -> int:
+    """Live-drain any member but member 0 (the sequencer) out of a serving
+    DC: its shards stream to the least-loaded survivors, then every
+    survivor forgets it.  Shut the leaver down afterwards."""
+    from antidote_tpu_torch.cluster.join import live_leave
+
+    rpcs = _parse_member_rpcs(args.rpcs)
+    moved = live_leave(rpcs, leaving_id=args.leaver,
+                       progress=_move_progress)
+    print(json.dumps({"left": args.leaver, "moved": moved}))
+    return 0
 
 
 def main(argv=None) -> int:
@@ -821,14 +861,29 @@ def main(argv=None) -> int:
         if name == "cluster-sweep":
             p.add_argument("--grace", type=float, default=30.0)
         p.set_defaults(fn=fn)
-    for name, who in (("cluster-join", "--joiner"),
-                      ("cluster-leave", "--leaver")):
-        p = sub.add_parser(name, help="live membership change (not ported "
-                                      "yet)")
-        p.add_argument("--rpcs", required=True,
-                       help="member control RPCs as id=host:port,...")
-        p.add_argument(who, type=int, required=True)
-        p.set_defaults(fn=cmd_cluster_membership_change, cmd=name)
+
+    # live membership change (staged join/leave while the DC serves)
+    cj = sub.add_parser(
+        "cluster-join",
+        help="live-join a booted-empty member (shards stream over while "
+             "the cluster serves; per-shard progress on stderr)")
+    cj.add_argument("--rpcs", required=True,
+                    help="member control RPCs incl. the joiner, as "
+                         "id=host:port,id=host:port,...")
+    cj.add_argument("--joiner", type=int, required=True,
+                    help="joining member id (fresh, highest)")
+    cj.set_defaults(fn=cmd_cluster_join)
+
+    cl = sub.add_parser(
+        "cluster-leave",
+        help="live-drain any member but the sequencer (member 0) out of "
+             "a serving DC, then forget it everywhere")
+    cl.add_argument("--rpcs", required=True,
+                    help="member control RPCs incl. the leaver, as "
+                         "id=host:port,...")
+    cl.add_argument("--leaver", type=int, required=True,
+                    help="departing member id (any id except 0)")
+    cl.set_defaults(fn=cmd_cluster_leave)
 
     args = ap.parse_args(argv)
     return args.fn(args)

@@ -201,7 +201,8 @@ class FollowerReplica(DCReplica):
         if len(by_dc[self.dc_id]) > 1:
             raise ValueError(
                 "a clustered owner (several endpoints for the owner DC) is "
-                "not supported: a follower shadows a single-node owner")
+                "not supported yet (followers of a clustered owner, "
+                "ROADMAP 15c): a follower shadows a single-node owner")
         self.fleet = fleet
         self.fleet_by_dc = by_dc
         self.owner_fid = by_dc[self.dc_id][0]

@@ -1255,6 +1255,10 @@ class DCReplica:
                 progressed = False
                 for gk, q in self.gate.items():
                     origin, shard = gk
+                    if shard not in self.shards:
+                        # a cluster member's shard mid-move: it stays at
+                        # the export's cut (cluster._LiveShards)
+                        continue
                     i = taken.get(gk, 0)
                     for msg in itertools.islice(q, i, None):
                         if msg.is_ping:

@@ -655,10 +655,14 @@ class LogManager:
                 reclaimed += size
         return reclaimed
 
-    def truncate_shard(self, shard: int) -> None:
+    def truncate_shard(self, shard: int,
+                       index: Optional[Dict[int, List[str]]] = None) -> None:
         """Discard one shard's log — ALL its segments, including frozen
         checkpoint generations (post-handoff cleanup: the records now
-        live in the receiver's chain).  Resets the shard's op-id chains,
+        live in the receiver's chain).  ``index`` is a listing of the
+        directory taken at this generation (no file of a shard is created
+        without a rotation), else the directory is listed here.  Resets
+        the shard's op-id chains,
         append sequence, compaction floors and blob-dedup memory along
         with the files, and durably bumps the shard's truncation epoch
         so a checkpoint image written before this call can never
@@ -671,7 +675,7 @@ class LogManager:
         for s in [s for s in self._retired if s.path.startswith(prefix)]:
             s.close()
             self._retired.remove(s)
-        for path in self.segment_paths(shard):
+        for path in self.segment_paths(shard, index):
             if os.path.exists(path):
                 os.remove(path)  # reclaim-ok: whole-shard handoff drop —
                 # the records live on at the new owner

@@ -652,6 +652,9 @@ class Checkpointer:
         #: True while a generation rotation of a FAILED attempt is still
         #: unpublished: the retry reuses it instead of rotating again
         self._rotated_unpublished = False
+        #: a checkpoint published by this writer since the log opened:
+        #: every record above the floors was appended by this process
+        self._published_here = False
         self.reclaimed_total = 0
         #: manifest of the last published checkpoint (seeded from disk)
         self.last: Optional[dict] = None
@@ -759,9 +762,15 @@ class Checkpointer:
         locally."""
         if full is not None:
             return bool(full)
-        if self.force_rebase or self.last is None:
-            return True
         if self.rebase_every <= 1 or self.chain_len + 1 >= self.rebase_every:
+            return True
+        return self._windows_broken()
+
+    def _windows_broken(self) -> bool:
+        """No delta link can cover the store: no published parent, a
+        forced rebase, an overflowed or invalidated window, or a staged
+        cold source waiting to be persisted locally."""
+        if self.force_rebase or self.last is None:
             return True
         if (self.store.ckpt_dirty_keys is None
                 or self.store._ckpt_dirty_blobs is None
@@ -796,7 +805,18 @@ class Checkpointer:
             t.take_ckpt_dirty()
         return dirty, evicted, blob_hashes, committed
 
-    def checkpoint_now(self, full: Optional[bool] = None) -> dict:
+    def seal(self) -> dict:
+        """A checkpoint covering what the store holds now, at the least
+        cost: a delta link of the dirty windows when they can make one,
+        else a full image — either without rotating the WAL onto a new
+        generation (the floors alone separate image from tail; a rotation
+        opens a file a shard).  What a shard import from a compacted
+        source waits for."""
+        return self.checkpoint_now(full=self._windows_broken(),
+                                   rotate=False)
+
+    def checkpoint_now(self, full: Optional[bool] = None,
+                       rotate: bool = True) -> dict:
         with self._lock:
             t0 = time.monotonic()
             with self.txm.checkpoint_barrier:
@@ -809,6 +829,15 @@ class Checkpointer:
                     if cap is None:
                         want_full = True
                         cap, frozen = self._capture_locked()
+                if rotate:
+                    self._rotate_locked()
+                # without a rotation, after a checkpoint this writer
+                # published, the records above the previous floors were
+                # appended to the active segment files since then: the
+                # chain scan reads those and lists no directory
+                cap["active_only"] = (not rotate
+                                      and not self._rotated_unpublished
+                                      and self._published_here)
             barrier_s = time.monotonic() - t0
             held_s = time.monotonic() - t_held
             try:
@@ -852,6 +881,7 @@ class Checkpointer:
             self.reclaimed_total += reclaimed
             manifest["reclaimed_bytes"] = reclaimed
             self.last = manifest
+            self._published_here = True
             if self.metrics is not None:
                 kind = manifest["kind"]
                 self.metrics.checkpoint_total.inc(status="ok")
@@ -894,13 +924,20 @@ class Checkpointer:
                               "(omitted from the image)", name)
         return cap
 
-    def _rotate_locked(self, cap: dict) -> None:
-        """Rotate the WAL onto a fresh segment generation — unless a
-        FAILED attempt already did and never published — so the floor
-        cleanly separates image from tail."""
+    def _rotate_locked(self) -> None:
+        """Rotate the WAL onto a fresh segment generation (under the
+        stamp barrier, after the capture) — unless a FAILED attempt
+        already did and never published — so the floor cleanly separates
+        image from tail.  Replays skip records at or below the floor
+        either way, so a checkpoint without a rotation (``seal``) is just
+        as recoverable."""
         if not self._rotated_unpublished:
             self.log.rotate_generation()
             self._rotated_unpublished = True
+
+    def _stamp_floor_locked(self, cap: dict) -> None:
+        """The capture's WAL floors (the append sequences at the cut)
+        and its id."""
         cap["floor_seqs"] = self.log.seqs.copy()
         self._next_id += 1
 
@@ -933,7 +970,7 @@ class Checkpointer:
                 "max_abs_delta": int(t.max_abs_delta),
                 "max_commit_vc": t.max_commit_vc.copy(),
             }
-        self._rotate_locked(cap)
+        self._stamp_floor_locked(cap)
         return cap, frozen
 
     def _capture_delta_locked(self):
@@ -984,7 +1021,7 @@ class Checkpointer:
                 "max_abs_delta": int(t.max_abs_delta),
                 "max_commit_vc": t.max_commit_vc.copy(),
             }
-        self._rotate_locked(cap)
+        self._stamp_floor_locked(cap)
         return cap, frozen
 
     def _scan_chains(self, cap: dict) -> None:
@@ -995,14 +1032,17 @@ class Checkpointer:
 
         logm = self.log
         chains = cap["prev_chain_floor"].copy()
-        segments = segment_index(logm.dir)
+        active = cap.get("active_only")
+        segments = None if active else segment_index(logm.dir)
         for shard in range(cap["n_shards"]):
             lo = int(cap["prev_floor"][shard])
             hi = int(cap["floor_seqs"][shard])
             if hi <= lo:
                 continue
             seen: set = set()
-            for rec in replay_segments(logm.segment_paths(shard, segments)):
+            paths = ([w.path for w in logm.wals[shard].segs] if active
+                     else logm.segment_paths(shard, segments))
+            for rec in replay_segments(paths):
                 q = rec.get("q")
                 if q is None:
                     if lo > 0:

@@ -73,8 +73,14 @@ def export_shard(store: KVStore, shard: int, include_log: bool = True,
         store.cold.fault_in_shard(int(shard))
     with_log = include_log and store.log is not None
     # a checkpoint-truncated source: the ride-along log is only the tail
-    # above the compaction floor
-    compacted = bool(with_log and int(store.log.floor_seqs[int(shard)]) > 0)
+    # above the compaction floor.  A shard whose rows came from an image
+    # alone (a resize's new member after a checkpointed source) has a
+    # floor of 0 and no records, but its chain floor counts the history
+    # the image covers (the JAX package tests the floor only, so such a
+    # shard's package is refused by a durable importer)
+    compacted = bool(with_log and (
+        int(store.log.floor_seqs[int(shard)]) > 0
+        or store.log.chain_floor[int(shard)].any()))
     pkg: Dict[str, Any] = {
         "shard": int(shard),
         "applied_vc": store.applied_vc[shard].copy(),
@@ -149,6 +155,10 @@ def import_shard(store: KVStore, pkg: Dict[str, Any],
             t._grow()
         bases[tname] = base
         end = base + used
+        # the imported rows join the checkpoint window the out-of-band
+        # install below would otherwise void, so a delta link after the
+        # import covers them (a window a growth already voided stays so)
+        window = t._ckpt_dirty
 
         def put(x, arr):
             x[dst, base:end] = torch.as_tensor(np.asarray(arr), device=dev)
@@ -164,6 +174,9 @@ def import_shard(store: KVStore, pkg: Dict[str, Any],
         for name in _ROW_ARRAYS:
             put(getattr(t, name), seq if name == "snap_seq" else sl[name])
         t.invalidate_epochs()  # out-of-band mutation: frozen copies stale
+        if window is not None:
+            window.update((dst, r) for r in range(base, end))
+            t._ckpt_dirty = window
         t.n_ops[dst, base:end] = sl["n_ops"]
         # packages without the slot bound get the conservative default
         # (capacity): the next add promotes rather than risking a drop
@@ -179,11 +192,16 @@ def import_shard(store: KVStore, pkg: Dict[str, Any],
                               np.full_like(t.max_commit_vc, 2**31 - 1)),
                        np.int32),
             out=t.max_commit_vc)
+    dks = []
     for key, bucket, tname, row in pkg["directory"]:
-        store.directory[(freeze_key(key), bucket)] = (
-            tname, dst, bases[tname] + int(row))
+        dk = (freeze_key(key), bucket)
+        store.directory[dk] = (tname, dst, bases[tname] + int(row))
+        dks.append(dk)
+    store.note_ckpt_dirty_many(dks)
+    hashes = []
     for h, data in pkg.get("blobs", []):
         store.blobs.intern_bytes(int(h), bytes(data))
+        hashes.append(int(h))
     np.maximum(store.applied_vc[dst], pkg["applied_vc"],
                out=store.applied_vc[dst])
     if pkg.get("chain_floor") and store.log is not None:
@@ -195,6 +213,7 @@ def import_shard(store: KVStore, pkg: Dict[str, Any],
         eff = effect_from_rec(rec)
         for h, data in eff.blob_refs:
             store.blobs.intern_bytes(int(h), bytes(data))
+            hashes.append(int(h))
         if store.log is not None:
             store.log.log_effect(
                 dst, eff.key, eff.type_name, eff.bucket, eff.eff_a,
@@ -202,13 +221,21 @@ def import_shard(store: KVStore, pkg: Dict[str, Any],
                 blob_refs=eff.blob_refs)
     if pkg["log"] and store.log is not None:
         store.log.commit_barrier([dst])
+    bl = store._ckpt_dirty_blobs
+    if bl is not None:
+        bl.update(hashes)
+        if len(bl) > store._CKPT_KEYS_CAP:
+            store._ckpt_dirty_blobs = None
     if store.merkle is not None:
         store.merkle.mark_all(dst)
 
 
-def drop_shard(store: KVStore, shard: int) -> None:
+def drop_shard(store: KVStore, shard: int,
+               segments: Optional[Dict[int, List[str]]] = None) -> None:
     """Clear a shard after a successful handoff (source side): its rows,
-    directory entries, clock, cold refs and log."""
+    directory entries, clock, cold refs and log (``segments``: a listing
+    of the log directory at the log's current generation, as the export
+    took it)."""
     if store.cold is not None:
         # the cold refs travel with the shard (the export faulted them
         # in); local refs must not linger
@@ -232,7 +259,7 @@ def drop_shard(store: KVStore, shard: int) -> None:
         store.merkle.mark_all(shard)
     if store.log is not None:
         # the moved records must not resurrect here on the next recover
-        store.log.truncate_shard(shard)
+        store.log.truncate_shard(shard, segments)
 
 
 def assert_replication_quiescent(store: KVStore, my_dc: int,

@@ -363,6 +363,9 @@ FO_KEYS, FO_CTRS, FO_THREADS, FO_TAIL_KEYS = 100_000, 10_000, 8, 2048
 # older snapshot, and the members the DC resizes to
 TK_SET_KEYS, TK_CTR_KEYS, TK_TXN = 12_500, 2048, 1024
 TK_CHAIN, TK_MIXED, TK_SAMPLE, TK_NEW_MEMBERS = 64, 64, 2048, 3
+# its live segment, on the resized members: the workers committing the
+# phase's mixed transactions while member 3 joins and member 1 leaves
+TK_LIVE_THREADS = 4
 # the kernels each path must launch: the serve resolves sets (presence)
 # and folds the historical batches; the node session folds a set and a
 # counter at older snapshots; every cluster transaction start merges the
@@ -387,7 +390,10 @@ TK_CHAIN, TK_MIXED, TK_SAMPLE, TK_NEW_MEMBERS = 64, 64, 2048, 3
 # phase's transaction starts merge the 2048 shards' clock rows, and its
 # reads at the older snapshot fold (sets and counters); its sets resolve
 # on the card only in the check that reads each member's store through
-# the serving path (the owners' reads decode sets on the host)
+# the serving path (the owners' reads decode sets on the host); its live
+# segment's starts merge the clock rows during and after the moves, and
+# its reads at the snapshot before the join fold the moved rings on their
+# new owners (sets and counters); the check's resolves are counted apart
 PATH_KERNELS = {"serve": ("orset_presence", "set_aw_fold"),
                 "node": ("counter_fold", "set_aw_fold"),
                 "serving": ("orset_presence", "set_aw_fold"),
@@ -403,7 +409,8 @@ PATH_KERNELS = {"serve": ("orset_presence", "set_aw_fold"),
                 "follower": ("orset_presence", "set_aw_fold",
                              "counter_fold"),
                 "takeover": ("stable_min", "set_aw_fold", "counter_fold",
-                             "orset_presence")}
+                             "orset_presence"),
+                "live": ("stable_min", "set_aw_fold", "counter_fold")}
 
 
 def log(msg: str) -> None:
@@ -5100,8 +5107,9 @@ def _fo_populate(node, n_keys, n_ctrs, seed) -> tuple:
             _commit_group(node, txns[g:g + IX_GROUP])
         records += len(ups)
     for k in re.tolist():
-        model[k] = {int(vals[k, 1])} | ({int(vals[k, 0])}
-                                       if vals[k, 0] == vals[k, 1] else set())
+        # the remove observes every tag of the first add's element, the
+        # second add's too when both adds drew the same element
+        model[k] = {int(vals[k, 1])} - {int(vals[k, 0])}
     s = time.perf_counter() - t0
     return {"set_keys": n_keys, "counter_keys": n_ctrs, "records": records,
             "seconds": s, "records_s": records / s}, model
@@ -5644,7 +5652,7 @@ def _tk_wedge(coord, updates, seq=True):
 
 def takeover_phase(torch, dev, n_set=TK_SET_KEYS, n_ctr=TK_CTR_KEYS,
                    n_shards=CL_SHARDS, chain_txns=TK_CHAIN,
-                   mixed=TK_MIXED, sample=TK_SAMPLE) -> dict:
+                   mixed=TK_MIXED, sample=TK_SAMPLE, live=True) -> dict:
     """The cluster phase's deployment with durability: 4 members over
     localhost RPC, each an ``AntidoteNode`` on ``dev`` with a log directory
     (``sync_log=False``), ``n_set`` ``set_aw`` keys (3 adds each) and
@@ -5673,7 +5681,9 @@ def takeover_phase(torch, dev, n_set=TK_SET_KEYS, n_ctr=TK_CTR_KEYS,
     refused).  No entry point of the cluster resolves a set on the card:
     the owners' reads (``m_read_values``) decode sets on the host, as the
     JAX package's do, so the phase's ``orset_presence`` launches are that
-    check's, one a member and a check."""
+    check's, one a member and a check.  Last (``live``), the live segment
+    (``live_segment``): its launches are counted from 0, and the result's
+    ``takeover_launches`` are the phase's before it."""
     import gc
     import resource
     import shutil
@@ -5716,6 +5726,7 @@ def takeover_phase(torch, dev, n_set=TK_SET_KEYS, n_ctr=TK_CTR_KEYS,
     start_ms, lat_before, lat_after = [], [], []
     members: list = []
     coords: list = []
+    member_check_launches: dict = {}
 
     def note(k, b):
         ops[(k, b)] = ops.get((k, b), 0) + 1
@@ -5766,10 +5777,12 @@ def takeover_phase(torch, dev, n_set=TK_SET_KEYS, n_ctr=TK_CTR_KEYS,
     def got_of(v):
         return sorted(v) if isinstance(v, list) else v
 
-    def check(tag):
+    def check(tag, extra_old=()):
         """Every key at the stable snapshot through the coordinators; the
-        keys written since the older snapshot plus ``sample`` others at
-        it, through the coordinators and the owning members."""
+        keys written since the older snapshot plus ``sample`` others (and
+        ``extra_old``) at it, through the coordinators and the owning
+        members.  The launches of the members' own reads are counted in
+        ``member_check_launches``: they are the check's, not the path's."""
         t_check = time.perf_counter()
         settle()
         objs = ([(k, S, Bs) for k in range(n_set)]
@@ -5790,6 +5803,10 @@ def takeover_phase(torch, dev, n_set=TK_SET_KEYS, n_ctr=TK_CTR_KEYS,
         rest = [kb for kb in ((int(k), Bs) for k in
                               rng.choice(n_set, sample, replace=False))
                 if kb not in touched]
+        seen = set(rest)
+        # (the touched ones are in hist already, when their ring holds)
+        rest += [kb for kb in extra_old if kb not in touched
+                 and kb not in seen]
         hist_objs = [(k, S if b == Bs else C, b) for k, b in hist + rest]
         old_vc, old_s, old_c = old["vc"], old["s"], old["c"]
         t = start(0)
@@ -5801,6 +5818,7 @@ def takeover_phase(torch, dev, n_set=TK_SET_KEYS, n_ctr=TK_CTR_KEYS,
                 raise AssertionError(f"{tag} at the older snapshot: "
                                      f"{(k, b)} = {v!r}")
         st["old_reads"] += len(hist_objs)
+        before = dict(ck.LAUNCHES)
         for m in members:
             # the member's own store, through the serving path's device
             # resolve: a check, not the cluster's read path (which decodes
@@ -5814,6 +5832,9 @@ def takeover_phase(torch, dev, n_set=TK_SET_KEYS, n_ctr=TK_CTR_KEYS,
                     raise AssertionError(f"{tag} at member {m.member_id}: "
                                          f"{(k, b)} = {v!r}")
             st["member_reads"] += len(own)
+        for n, v in ck.LAUNCHES.items():
+            member_check_launches[n] = (member_check_launches.get(n, 0)
+                                        + v - before[n])
         st["checks_s"] += time.perf_counter() - t_check
 
     def mixed_txns(n, lat):
@@ -5851,6 +5872,188 @@ def takeover_phase(torch, dev, n_set=TK_SET_KEYS, n_ctr=TK_CTR_KEYS,
                     if sorted(v) != sorted(smodel[k]):
                         raise AssertionError(f"mixed read of {k}: {v!r}")
             lat.append((time.perf_counter() - t1) * 1e3)
+
+    def live_segment(threads=TK_LIVE_THREADS) -> dict:
+        """Member 3 boots empty on ``dev`` with its own log and joins, then
+        member 1 (a middle id) leaves, one two-phase shard move at a time
+        (``cluster/join.py``), while ``threads`` workers commit the phase's
+        mixed transactions through coordinators 0-2, each on its own keys
+        (no certification conflict between them), every acknowledgement
+        in the host model.  Then the refusals (a departed id, member 0's
+        leave), one map on every member with owned sets partitioning the
+        shards, and the phase's check through the survivors' coordinators,
+        the joiner's included, with every key of a moved shard read at the
+        snapshot before the join."""
+        import threading
+
+        nonlocal members, coords
+        from antidote_tpu_torch.cluster.join import live_join, live_leave
+
+        out: dict = {}
+        t0 = time.perf_counter()
+        joiner = ClusterMember(cfg, 0, n_new, n_new + 1,
+                               log_dir=os.path.join(root, "j"), shards=[],
+                               device=dev)
+        out["joiner_boot_s"] = time.perf_counter() - t0
+        members = members + [joiner]
+        _tk_wire(members)
+        snap_old()
+        lock = threading.Lock()
+        stop, moving = threading.Event(), threading.Event()
+        acked_ms, errs = [], []
+
+        def worker(w):
+            wr = np.random.default_rng(500 + w)
+            mine_s = np.arange(w, n_set, threads)
+            mine_c = np.arange(w, n_ctr, threads)
+            c = w % n_new
+            i = 0
+            while not stop.is_set():
+                kind, i = i % 4, i + 1
+                t1 = time.perf_counter()
+                try:
+                    if kind == 0:
+                        kk = wr.choice(mine_s, 4, replace=False).tolist()
+                        ee = wr.integers(20_000, 30_000, 4).tolist()
+                        static(c, [(k, S, Bs, ("add", e))
+                                   for k, e in zip(kk, ee)])
+                        with lock:
+                            for k, e in zip(kk, ee):
+                                smodel[k].add(e)
+                                note(k, Bs)
+                    elif kind == 1:
+                        kk = wr.choice(mine_s, 2, replace=False).tolist()
+                        with lock:
+                            ups = [(k, S, Bs, ("remove", max(smodel[k])))
+                                   for k in kk if smodel[k]]
+                        static(c, ups)
+                        with lock:
+                            for k, _, _, (_, e) in ups:
+                                smodel[k].discard(e)
+                                note(k, Bs)
+                    elif kind == 2:
+                        kk = wr.choice(mine_c, 2, replace=False).tolist()
+                        static(c, [(k, C, Bc, ("increment", 3))
+                                   for k in kk])
+                        with lock:
+                            for k in kk:
+                                cmodel[k] += 3
+                                note(k, Bc)
+                    else:
+                        kk = wr.choice(mine_s, 8, replace=False).tolist()
+                        t = start(c)
+                        vals = coords[c].read_objects(
+                            [(k, S, Bs) for k in kk], txn=t)
+                        coords[c].commit_transaction(t)
+                        with lock:
+                            want = [sorted(smodel[k]) for k in kk]
+                        if [sorted(v) for v in vals] != want:
+                            raise AssertionError(
+                                f"live read of {kk}: {vals!r}")
+                except Exception as e:  # noqa: BLE001 — raised below
+                    errs.append(f"worker {w}: {e!r}")
+                    return
+                if moving.is_set():
+                    with lock:
+                        acked_ms.append((time.perf_counter() - t1) * 1e3)
+
+        move_ms, moved = [], set()
+        last = [0.0]
+
+        def progress(shard, _src, _dst, _done, _total):
+            now = time.perf_counter()
+            move_ms.append((now - last[0]) * 1e3)
+            last[0] = now
+            moved.add(int(shard))
+
+        # the mover's calls by handler (its thread's only): a move's
+        # export, import with its seal, relinquish and broadcasts
+        from antidote_tpu_torch.cluster.rpc import RpcClient
+
+        mover = threading.get_ident()
+        rpc_ms: dict = {}
+        plain_call = RpcClient.call
+
+        def timed_call(cli, method, *args):
+            t1 = time.perf_counter()
+            try:
+                return plain_call(cli, method, *args)
+            finally:
+                if threading.get_ident() == mover:
+                    rpc_ms.setdefault(method, []).append(
+                        (time.perf_counter() - t1) * 1e3)
+
+        rpcs = {m.member_id: tuple(m.address) for m in members}
+        ths = [threading.Thread(target=worker, args=(w,), name=f"live{w}")
+               for w in range(threads)]
+        for t in ths:
+            t.start()
+        RpcClient.call = timed_call
+        try:
+            moving.set()
+            for what, fn, arg in (("join", live_join, n_new),
+                                  ("leave", live_leave, 1)):
+                t1 = last[0] = time.perf_counter()
+                out[f"{what}_moves"] = fn(rpcs, arg, progress=progress)
+                out[f"{what}_s"] = time.perf_counter() - t1
+                log(f"takeover live: {what} moved {out[f'{what}_moves']} "
+                    f"shards in {out[f'{what}_s']:.1f} s")
+            moving.clear()
+        finally:
+            RpcClient.call = plain_call
+            stop.set()
+            for t in ths:
+                t.join(timeout=120)
+        out["move_rpc_ms"] = {
+            m: _ms_pcts(v) for m, v in sorted(rpc_ms.items())
+            if m in ("m_export_shard", "m_import_shard",
+                     "m_relinquish_shard", "m_set_owner")}
+        if errs:
+            raise AssertionError(f"live load failed: {errs[:3]}")
+        # a departed id is never reused; the sequencer cannot leave
+        for fn, args, want in (
+                (live_join, ({0: rpcs[0], 1: ("127.0.0.1", 1)}, 1),
+                 "never be reused"),
+                (live_leave, ({m: a for m, a in rpcs.items() if m != 1}, 0),
+                 "sequencer")):
+            try:
+                fn(*args)
+                raise AssertionError(f"{fn.__name__}{args[1:]} was let "
+                                     "through")
+            except ValueError as e:
+                if want not in str(e):
+                    raise
+        leaver = members[1]
+        members = [m for m in members if m is not leaver]
+        leaver.close()
+        maps = [m.shard_map for m in members]
+        if any(mp != maps[0] for mp in maps):
+            raise AssertionError("the members' shard maps differ")
+        owned = sorted(s for m in members for s in m.shards)
+        if owned != list(range(n_shards)):
+            raise AssertionError("the owned sets do not partition the "
+                                 "shards")
+        if {o for o in maps[0].values()} != {m.member_id for m in members}:
+            raise AssertionError("the map names a member that left")
+        out["retries"] = {k: sum(c.move_retries[k] for c in coords)
+                          for k in ("busy", "not_owner")}
+        coords = [m.coordinator() for m in members]
+        moved_keys = ([(k, Bs) for k in range(n_set)
+                       if key_to_shard(k, Bs, n_shards) in moved]
+                      + [(k, Bc) for k in range(n_ctr)
+                         if key_to_shard(k, Bc, n_shards) in moved])
+        check("live", extra_old=moved_keys)
+        out["moved_shards"] = len(moved)
+        out["moved_keys_read_old"] = len(moved_keys)
+        out["move_ms"] = _ms_pcts(move_ms)
+        out["moves"] = len(move_ms)
+        out["acked_during_moves"] = len(acked_ms)
+        out["acked_ms"] = _ms_pcts(acked_ms) if acked_ms else None
+        out["seals"] = {m.member_id: m.node.checkpointer.last["id"]
+                        for m in members if m.node.checkpointer is not None
+                        and m.node.checkpointer.last is not None}
+        out["member_ids"] = [m.member_id for m in members]
+        return out
 
     def recover(i, n):
         """Member ``i`` of ``n`` back on its directory: (member, parts)."""
@@ -6082,6 +6285,21 @@ def takeover_phase(torch, dev, n_set=TK_SET_KEYS, n_ctr=TK_CTR_KEYS,
         check("resize")
         log(f"takeover: resized 4 -> 3 in {res['resize_s']:.1f} s "
             f"({res['resize_parts_s']})")
+        # ---- 9. live join and leave under load --------------------------
+        # the takeover path's launches end here; the live segment counts
+        # its own from 0, and the members' own reads of its check apart
+        res["takeover_launches"] = dict(ck.LAUNCHES)
+        res["member_check_launches"] = dict(member_check_launches)
+        if live:
+            member_check_launches.clear()
+            ck.reset_launches()
+            t0 = time.perf_counter()
+            seg = live_segment()
+            seg["check_launches"] = dict(member_check_launches)
+            seg["launches"] = {n: v - member_check_launches.get(n, 0)
+                               for n, v in ck.LAUNCHES.items()}
+            seg["seconds"] = time.perf_counter() - t0
+            res["live"] = seg
         res["txn_ms_before_resize"] = _ms_pcts(lat_before)
         res["txn_ms_after_resize"] = _ms_pcts(lat_after)
         res["start_ms"] = _ms_pcts(start_ms)
@@ -6214,12 +6432,18 @@ def main() -> int:
     follower = run_path(lambda: follower_phase(torch, dev))
     print(f"follower: {json.dumps(follower)} | card: {card}", flush=True)
     takeover = run_path(lambda: takeover_phase(torch, dev))
+    # the takeover phase ran its live segment last, with the launches
+    # counted from 0 just before it: two paths
+    live = takeover.pop("live")
+    takeover["launches"] = takeover.pop("takeover_launches")
+    takeover["seconds"] -= live["seconds"]
     print(f"takeover: {json.dumps(takeover)} | card: {card}", flush=True)
+    print(f"live: {json.dumps(live)} | card: {card}", flush=True)
     paths = {"serve": serve, "node": node, "serving": serving,
              "cluster": cluster, "types": types, "durable": durable,
              "cold": cold, "wire": wire, "native": native,
              "interdc": interdc, "follower": follower,
-             "takeover": takeover}
+             "takeover": takeover, "live": live}
     for path, res in paths.items():
         log(f"{path}: {json.dumps(res)}")
         missing = [n for n in PATH_KERNELS[path] if res["launches"][n] == 0]

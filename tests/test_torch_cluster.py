@@ -392,24 +392,36 @@ def test_wide_cluster_stable_vc_through_the_wrapper(monkeypatch):
     assert calls and all(tuple(s) == (2048, 3) for s in calls)
 
 
-def test_unported_cluster_options_raise():
-    """What stays unported — the live join (an empty shard set, the member
-    process's ``--joining``, the console's ``cluster-join`` and
-    ``cluster-leave``) — refuses; the durability slice's log directory,
-    recovery and checkpoint work, and the member serves the JAX member's
-    handlers but the live join/leave ones."""
+def test_empty_member_boots_and_serves_every_handler():
+    """The live join's entry points on the port: an empty shard set boots a
+    joiner with the JAX member's guess of the pre-join layout and no clock
+    rows; the console's ``cluster-join`` and ``cluster-leave`` refuse what
+    the JAX ``live_join``/``live_leave`` refuse before any RPC; and a
+    member serves the JAX member's handlers, the live join/leave ones
+    included."""
     from antidote_tpu_torch import console
-    from antidote_tpu_torch.cluster import boot
 
     cfg = AntidoteConfig(**KW)
-    with pytest.raises(NotImplementedError, match="live join"):
-        ClusterMember(cfg, 0, 0, 1, shards=[], device="cpu")
-    with pytest.raises(NotImplementedError, match="live join"):
-        boot.main(["--dc-id", "0", "--joining", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="live join"):
-        console.main(["cluster-join", "--rpcs", "0=h:1", "--joiner", "1"])
-    with pytest.raises(NotImplementedError, match="live join"):
-        console.main(["cluster-leave", "--rpcs", "0=h:1", "--leaver", "1"])
+    jcfg = JaxConfig(**KW, batch_buckets=(16, 64))
+    joiners = [ClusterMember(cfg, 0, 2, 3, shards=[], device="cpu"),
+               JaxMember(jcfg, 0, 2, 3, shards=[])]
+    try:
+        port, jax = joiners
+        assert port.shards == jax.shards == set()
+        assert port.shard_map == jax.shard_map == {0: 0, 1: 1, 2: 0, 3: 1}
+        assert port.m_clocks() == jax.m_clocks() == []
+        assert port.m_membership() == jax.m_membership() == {
+            "n_members": 3, "members": [2], "departed": []}
+        assert set(port.rpc.handlers) == set(jax.rpc.handlers)
+    finally:
+        for m in joiners:
+            m.close()
+    with pytest.raises(ValueError, match="sequencer"):
+        console.main(["cluster-leave", "--rpcs", "0=h:1,1=h:2",
+                      "--leaver", "0"])
+    with pytest.raises(ValueError, match="highest"):
+        console.main(["cluster-join", "--rpcs", "0=h:1,1=h:2,2=h:3",
+                      "--joiner", "1"])
     m = ClusterMember(cfg, 0, 0, 1, device="cpu")
     try:
         n = ClusterNode(m)
@@ -419,7 +431,10 @@ def test_unported_cluster_options_raise():
             "m_abort", "m_clocks", "m_seq", "m_seq_counter", "m_ready",
             "m_txn_status", "m_block_txn", "m_forget_txn",
             "m_resolve_chain", "m_txn_sequenced", "m_resolve_stale_txn",
-            "m_process_transfer", "m_shard_map", "m_membership"}
+            "m_process_transfer", "m_shard_map", "m_membership",
+            "m_join_begin", "m_seed_map", "m_export_shard",
+            "m_import_shard", "m_relinquish_shard", "m_cancel_export",
+            "m_set_owner", "m_forget_member"}
         assert m.m_membership() == {"n_members": 1, "members": [0],
                                     "departed": []}
         # a member holding no rights grants none

@@ -11,8 +11,8 @@ commit, the member rejoining from its logs with ``--recover`` and
 converging; and a kill between sequencing and the fan-out, which the
 survivor's takeover aborts.  The operator console's cluster commands
 (``ringready``, ``cluster-status``, ``cluster-resolve``, ``cluster-sweep``)
-run against the processes; ``cluster-join``/``cluster-leave`` and
-``--joining`` refuse (live membership is not ported yet).  Last, the
+run against the processes, and ``cluster-join``/``cluster-leave`` move
+shards to a ``--joining`` process and off a leaving one.  Last, the
 whole story with a remote DC watching (``kill9_story``, which the card
 test runs with ``--device cuda``): DC1 reads the completed transaction
 whole from the rejoined member's clock.  Every spawn, ``readline`` and
@@ -213,17 +213,79 @@ def test_console_cluster_commands(procs, capsys):
     assert json.loads(capsys.readouterr().out) == {"swept": 0}
 
 
-def test_unported_membership_commands_refuse(procs):
-    spec = f"0={_rpc_spec(procs[0])},1={_rpc_spec(procs[1])}"
-    for argv in (["cluster-join", "--rpcs", spec, "--joiner", "2"],
-                 ["cluster-leave", "--rpcs", spec, "--leaver", "1"]):
-        with pytest.raises(NotImplementedError, match="live join"):
-            console.main(argv)
+def test_joining_member_process_announces_owning_nothing(procs):
+    """``cluster.boot --joining`` boots a member owning no shard: its ports
+    line, then its status over the control RPC."""
     p = _spawn(0, 2, 3, extra=("--joining",))
     try:
-        assert p.wait(timeout=BOOT_S) != 0
+        info = _announce(p)
+        assert set(info) == {"rpc", "client", "fabric", "fabric_id"}
+        assert info["fabric_id"] == (2 << 16) | 0
+        ctl = RpcClient(*info["rpc"])
+        try:
+            st = ctl.call("ctl_status")
+        finally:
+            ctl.close()
+        assert st["member"] == 2 and st["owned_shards"] == []
+        assert st["members"] == 3
     finally:
         _stop([p])
+
+
+def test_membership_commands_move_shards_between_processes(tmp_path,
+                                                           capsys):
+    """The console's ``cluster-join`` streams shards to a ``--joining``
+    process and ``cluster-leave`` drains a member out, each printing the
+    JAX console's line (the moves the JAX planner makes); the values stay
+    exact and the sequencer may not leave."""
+    from antidote_tpu.cluster.join import plan_join_moves, plan_leave_moves
+
+    spawned, infos = _spawn_duo(tmp_path)
+    try:
+        p = _spawn(0, 2, 3, log_dir=tmp_path / "m2", max_dcs=2,
+                   extra=("--joining",))
+        spawned.append(p)
+        infos.append(_announce(p))
+        trio = DUO + [(0, 2, 3)]
+        _wire(trio, infos, {0: 3})
+        c0 = _client(infos[0])
+        objs = [(k, "counter_pn", "b") for k in range(8)]
+        c0.update_objects([(k, "counter_pn", "b", ("increment", k + 1))
+                           for k in range(8)])
+        spec = ",".join(f"{m}={_rpc_spec(i)}"
+                        for (_d, m, _n), i in zip(trio, infos))
+        capsys.readouterr()
+        assert console.main(["cluster-join", "--rpcs", spec,
+                             "--joiner", "2"]) == 0
+        moves = plan_join_moves({s: s % 2 for s in range(4)}, 2)
+        assert json.loads(capsys.readouterr().out) == {
+            "joined": 2, "moved": len(moves)}
+        after = {s: s % 2 for s in range(4)}
+        for s, _src, dst in moves:
+            after[s] = dst
+        ctl = RpcClient(*infos[2]["rpc"])
+        try:
+            assert ctl.call("ctl_status")["owned_shards"] == sorted(
+                s for s, o in after.items() if o == 2)
+        finally:
+            ctl.close()
+        with pytest.raises(ValueError, match="sequencer"):
+            console.main(["cluster-leave", "--rpcs", spec, "--leaver", "0"])
+        capsys.readouterr()
+        assert console.main(["cluster-leave", "--rpcs", spec,
+                             "--leaver", "1"]) == 0
+        assert json.loads(capsys.readouterr().out) == {
+            "left": 1, "moved": len(plan_leave_moves(after, 1))}
+        spawned[1].kill()
+        spawned[1].wait(timeout=30)
+        c0.update_objects([(1, "counter_pn", "b", ("increment", 10))])
+        c2 = _client(infos[2])
+        for c in (c0, c2):
+            vals, _ = c.read_objects(objs)
+            assert vals == [k + 1 + (10 if k == 1 else 0) for k in range(8)]
+        c0.close(), c2.close()
+    finally:
+        _stop(spawned)
 
 
 # ---------------------------------------------------------------------------

@@ -1339,11 +1339,49 @@ def test_takeover_phase_on_the_card_at_a_small_depth(dev):
 
     ck.reset_launches()
     res = chip_smoke.takeover_phase(torch, dev, n_set=6000, n_ctr=2048,
-                                    chain_txns=16, mixed=16, sample=512)
+                                    chain_txns=16, mixed=16, sample=512,
+                                    live=False)
     assert res["retired_refused"] and res["checks"] == 4
     assert res["chains_drained"] >= 16
     for name in chip_smoke.PATH_KERNELS["takeover"]:
-        assert ck.LAUNCHES[name] > 0, name
+        assert res["takeover_launches"][name] > 0, name
+
+
+def test_live_segment_on_the_card_at_a_small_depth(dev):
+    """The takeover phase's live segment on the card at 2048 shards and a
+    small depth: member 3 joins and member 1 leaves under load (512 moves
+    each), the refusals hold, the maps agree and partition the shards,
+    every key equals the host model through the survivors' coordinators
+    (the joiner's included) and the moved keys at the snapshot before the
+    join; the segment launched the kernels of its path."""
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+    import chip_smoke
+
+    ck.reset_launches()
+    res = chip_smoke.takeover_phase(torch, dev, n_set=6000, n_ctr=2048,
+                                    chain_txns=16, mixed=16, sample=512)
+    live = res["live"]
+    assert res["checks"] == 5
+    assert live["join_moves"] == 512 and live["leave_moves"] == 512
+    assert live["member_ids"] == [0, 2, 3]
+    assert live["moved_shards"] == 1024
+    for name in chip_smoke.PATH_KERNELS["live"]:
+        assert live["launches"][name] > 0, name
+
+
+def test_geo_membership_across_boot_processes_on_the_card(dev, tmp_path):
+    """``tests/test_torch_geo_membership.geo_story`` with ``--device cuda``:
+    a member joins DC0 through ``cluster-join``, a middle member leaves
+    through ``cluster-leave`` and is killed, and both DCs converge on the
+    acknowledged totals through the catch-up the ownership epochs
+    re-route."""
+    from test_torch_geo_membership import geo_story
+
+    reads, _repl = geo_story("cuda", tmp_path)
+    assert len({tuple(v) for v in reads.values()}) == 1
 
 
 def test_kill9_across_boot_processes_on_the_card(dev, tmp_path):

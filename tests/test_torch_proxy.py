@@ -482,3 +482,63 @@ def test_forwarded_bcounter_refusal_is_typed_and_at_most_once(cfg,
         assert esc["refused_total"] == 1
         assert "escrow" in fc.node_status()  # surfaced on the wire too
         fc.close()
+
+
+def _hold_interpreter_lock(seconds: int) -> None:
+    """One C call that keeps the interpreter lock for ``seconds``: libc's
+    ``sleep`` through ``ctypes.PyDLL``, which (unlike ``CDLL``) does not
+    release the lock around the call — what a profiler digesting its trace
+    does to every other thread of its process."""
+    import ctypes
+
+    ctypes.PyDLL(None).sleep(int(seconds))
+
+
+@pytest.mark.parametrize("hold_s,fails", [(2, False), (7, True)],
+                         ids=["inside", "past"])
+def test_interpreter_lock_held_past_the_dial_timeout_fails_a_forward(
+        cfg, tmp_path, hold_s, fails):
+    """A forwarded write waits for its owner's reply for at most
+    ``ProxyPlane.DIAL_TIMEOUT_S``.  The interpreter lock held in one C call
+    while the owner handles the write (the owner and its follower share
+    the process, as in ``chip_smoke.py``'s follower phase) stops every
+    thread: held past the timeout, the follower's wait ends first and the
+    client gets the typed ``ForwardFailed`` although the owner commits the
+    write; held inside it, the write is acknowledged."""
+    from antidote_tpu_torch.proto.client import RemoteForwardFailed
+
+    assert ProxyPlane.DIAL_TIMEOUT_S < 7
+    with _cluster(cfg, tmp_path, followers=1) as cl:
+        fc = AntidoteClient(cl["fs"][0]["srv"].host,
+                            cl["fs"][0]["srv"].port)
+        fc.update_objects([("g", "counter_pn", "b", ("increment", 1))])
+        # the owner's write plane stages every static write through its
+        # manager's update_objects
+        owner = cl["owner"].txm
+        plain = owner.update_objects
+        armed = [True]
+
+        def stalled(*a, **kw):
+            if armed[0]:
+                armed[0] = False
+                _hold_interpreter_lock(hold_s)
+            return plain(*a, **kw)
+
+        owner.update_objects = stalled
+        try:
+            if fails:
+                with pytest.raises(RemoteForwardFailed):
+                    fc.update_objects(
+                        [("g", "counter_pn", "b", ("increment", 1))])
+            else:
+                fc.update_objects([("g", "counter_pn", "b",
+                                    ("increment", 1))])
+        finally:
+            owner.update_objects = plain
+        assert not armed[0]
+        # either way the owner executed the write exactly once
+        deadline = time.monotonic() + 10
+        while cl["oc"].read_objects([("g", "counter_pn", "b")])[0] != [2]:
+            assert time.monotonic() < deadline
+            time.sleep(0.05)
+        fc.close()
