@@ -1553,16 +1553,30 @@ class ClusterMember:
                      if self.applied_ts[s] in self.chain_wait[s]]
 
     def _apply_now(self, links) -> None:
+        """Apply ready links as one grouped store append, then publish
+        them.  Every link's shard clock moves before the first message
+        goes out, so while more than one link publishes, the listeners
+        send no safe-time ping (``txm._publishing_group``): a ping between
+        them would claim a later link's ts before its message, and the
+        subscribers would drop that message as a duplicate (the JAX
+        member applies and publishes link by link).  The deferred pings
+        go out at the next tick or commit."""
         groups = [(effs, [vc] * len(effs), [self.dc_id] * len(effs))
                   for _, _, effs, vc in links if effs]
         if groups:
             self.node.store.apply_effect_groups(groups)
         for shard, ts, _, _ in links:
             self.applied_ts[shard] = ts
-        for _, _, effs, vc in links:
-            if effs:
-                for listener in self.on_commit:
-                    listener(effs, vc, self.dc_id)
+        txm = self.node.txm
+        outer = txm._publishing_group
+        txm._publishing_group = outer or len(groups) > 1
+        try:
+            for _, _, effs, vc in links:
+                if effs:
+                    for listener in self.on_commit:
+                        listener(effs, vc, self.dc_id)
+        finally:
+            txm._publishing_group = outer
 
     # ------------------------------------------------------------------
     # stable-time aggregation (stable-time gossip between members)

@@ -43,11 +43,13 @@ recovery), and the replication and escrow loops as supervised children;
 other DCs bootstrap a mesh through ``get_connection_descriptor`` and
 ``connect_to_dcs``.  A pump that cannot be built stops the boot (exit 2).
 ``--follower-of HOST:PORT`` boots a follower read replica of that owner
-instead: it adopts the owner's shape and dc id, needs ``--log-dir``,
-ships and installs the owner's image (or catches its tail up), and only
-then prints its ready line, with ``role: follower`` and the bootstrap
-mode; ``--follower-peers`` names a geo owner's peer DCs, whose chains the
-follower subscribes to itself.  ``replica-status``, ``replica-add`` and
+instead (a clustered owner: every member's endpoint, comma-separated, the
+first named in redirects): it adopts the owner's shape and dc id, needs
+``--log-dir``, ships and installs the owner's image — a composition of
+the members' images — (or catches its tail up), and only then prints its
+ready line, with ``role: follower``, the bootstrap mode and the owner's
+member count; ``--follower-peers`` names a geo owner's peer DCs, whose
+chains the follower subscribes to itself.  ``replica-status``, ``replica-add`` and
 ``replica-remove`` operate an owner's follower registry.
 ``inspect`` and ``inspect-checkpoint`` read a log directory offline, with
 no node.  ``ringready``, ``cluster-status``, ``cluster-resolve`` (the
@@ -112,8 +114,10 @@ def _parse_endpoints(csv: str):
 
 def _owner_shape(args):
     """A follower adopts its owner's shape and dc lane (set on ``args``).
-    Returns the owner's endpoints from --follower-of, or an exit code
-    when they are unusable (the caller returns it)."""
+    Returns the owner's endpoints from --follower-of — a clustered owner's
+    members as a comma-separated list, the first the write endpoint named
+    in typed redirects — or an exit code when they are unusable (the
+    caller returns it)."""
     from antidote_tpu_torch.proto.client import AntidoteClient
 
     if args.log_dir is None:
@@ -124,9 +128,8 @@ def _owner_shape(args):
         owner_addrs = _parse_endpoints(args.follower_of)
     except ValueError:
         owner_addrs = []
-    if len(owner_addrs) != 1:
-        log("--follower-of needs exactly one HOST:PORT endpoint (a "
-            "single-node owner)")
+    if not owner_addrs:
+        log("--follower-of needs at least one HOST:PORT endpoint")
         return 2
     try:
         oc = AntidoteClient(*owner_addrs[0], timeout=30)
@@ -314,9 +317,11 @@ def cmd_serve(args) -> int:
         ready["tenants"] = list(tenants.names)
     if follower is not None:
         # attach AFTER the pump and the server are supervised: the
-        # bootstrap ships the owner's image and catches the tail up, then
-        # subscribes — only then is the ready line printed, so whoever
-        # waits for it meets a SERVING follower
+        # bootstrap ships the owner fleet's images and catches the tails
+        # up, then subscribes — only then is the ready line printed, so
+        # whoever waits for it meets a SERVING follower.  Every owner-DC
+        # member's descriptor is fetched (a clustered owner), plus any
+        # --follower-peers (a geo owner's peer DCs)
         from antidote_tpu_torch.proto.client import AntidoteClient
 
         peer_addrs = (_parse_endpoints(args.follower_peers)
@@ -339,10 +344,10 @@ def cmd_serve(args) -> int:
             return 2
         ready.update({"role": "follower", "bootstrap": mode,
                       "name": follower.name,
-                      "fleet": {"owner_members": 1,
+                      "fleet": {"owner_members": len(owner_addrs),
                                 "peer_dcs": len(peer_addrs)}})
         log(f"follower {follower.name} of {args.follower_of} serving "
-            f"(bootstrap mode={mode})")
+            f"(bootstrap mode={mode}, owner members={len(owner_addrs)})")
     if interdc is not None:
         # the escrow plane armed at boot: the rights-transfer loop runs
         ready["escrow"] = dict(node.txm.bcounters.status(), loop=True)
@@ -640,10 +645,14 @@ def main(argv=None) -> int:
                     help="host advertised in connection descriptors "
                          "(defaults to --host unless it is a wildcard)")
     sv.add_argument("--follower-of", default=None,
-                    help="boot a follower read replica of the single-node "
-                         "owner at HOST:PORT (its client endpoint): adopts "
-                         "the owner's shape and dc id, ships its image; "
-                         "requires --log-dir")
+                    metavar="HOST:PORT[,HOST:PORT...]",
+                    help="boot a follower read replica of the owner at "
+                         "HOST:PORT (its client endpoint): adopts the "
+                         "owner's shape and dc id, ships its image; a "
+                         "clustered owner is the comma-separated list of "
+                         "all its members' client endpoints (their images "
+                         "compose the store; the first is named in "
+                         "redirects); requires --log-dir")
     sv.add_argument("--follower-peers", default=None,
                     help="with --follower-of against a geo-replicated "
                          "owner: the peer DCs' client endpoints "

@@ -28,10 +28,18 @@ reads and applies launch the kernels there and never carry on on the CPU.
     on the PER-SHARD applied clocks of the shards they touch: the follower
     parks briefly, then answers a typed ``ReplicaLagging`` redirect.
 
-A geo-replicated owner's peer chains replicate through the follower's own
-subscriptions: ``attach`` takes the owner's descriptor and the peer DCs'.
-A clustered owner (several members' descriptors for the owner DC) is not
-supported: ``attach`` refuses it.
+A follower can shadow a clustered (multi-member) owner and a
+geo-replicated one.  ``attach`` takes a list of descriptors: every member
+of the owner DC, plus, for a geo owner, the peer DCs' endpoints, and opens
+one subscription an endpoint.  Requests about a shard (catch-up,
+divergence roots, Merkle walks) go to the member that owns it: the
+ownership gossip every member stamps on its frames
+(``DCReplica.shard_route``) takes precedence over the modular layout, so
+a live shard move re-points them with no reconnect.  A bootstrap or an
+image repair composes the members' images: each installs restricted to
+the shards its member owns (``install_image(shards=)``).  A geo owner's
+peer chains replicate through the follower's own subscriptions to the
+peer DCs.
 
 Every serving-epoch publish on a follower goes through
 :meth:`FollowerReplica.publish_applied_epoch_locked`, which slaves the
@@ -98,13 +106,18 @@ class FollowerReplica(DCReplica):
         self.park_s = self.PARK_S if park_s is None else float(park_s)
         #: <= 0 disables the periodic divergence sweep
         self.digest_every_s = float(digest_every_s)
-        #: the owner's fabric id (set by attach)
+        #: the owner's fabric id (set by attach; for a clustered owner
+        #: the lowest member id's, the sequencer's)
         self.owner_fid: Optional[int] = None
-        #: the subscribed fleet: fabric id -> Descriptor (the owner and,
-        #: for a geo owner, its peer DCs)
+        #: the subscribed fleet: fabric id -> Descriptor (the owner DC's
+        #: members and, for a geo owner, its peer DCs)
         self.fleet: Dict[int, Descriptor] = {}
-        #: dc id -> fabric ids of that DC's endpoints
+        #: dc id -> sorted fabric ids of that DC's endpoints (the modular
+        #: catch-up route before any ownership gossip arrives)
         self.fleet_by_dc: Dict[int, List[int]] = {}
+        #: the owner DC's member fabric ids (image sources and report
+        #: targets)
+        self.member_fids: List[int] = []
         #: session-gate refusals since the last admitted read: the
         #: pressure signal behind the redirect's retry hint
         self._gate_streak = 0
@@ -175,12 +188,13 @@ class FollowerReplica(DCReplica):
 
     # -- attach / bootstrap -----------------------------------------------
     def attach(self, desc) -> str:
-        """Wire this follower to its owner from connection descriptor(s)
-        (``GET_CONNECTION_DESCRIPTOR`` replies): the owner's, plus, for a
-        geo-replicated owner, the peer DCs'.  Bootstraps (image / delta /
-        tail), subscribes to every stream and closes the
-        bootstrap-to-subscribe window with one more catch-up.  Returns the
-        bootstrap mode."""
+        """Wire this follower to its owner fleet from connection
+        descriptor(s) (``GET_CONNECTION_DESCRIPTOR`` replies): one for a
+        single-member owner, or every member's of a clustered owner DC,
+        plus, for a geo-replicated owner, the peer DCs'.  Bootstraps (a
+        composition of the members' images / delta / tail), subscribes to
+        every stream and closes the bootstrap-to-subscribe window with one
+        more catch-up.  Returns the bootstrap mode."""
         descs = list(desc) if isinstance(desc, (list, tuple)) else [desc]
         descs = [Descriptor.from_wire(d) if isinstance(d, dict) else d
                  for d in descs]
@@ -194,20 +208,29 @@ class FollowerReplica(DCReplica):
         by_dc: Dict[int, List[int]] = {}
         for fid, d in fleet.items():
             by_dc.setdefault(int(d.dc_id), []).append(fid)
+        for fids in by_dc.values():
+            # a member's fabric id grows with its member id (member 0
+            # keeps the bare dc id): sorted ids are member-id order
+            fids.sort()
         if self.dc_id not in by_dc:
             raise ValueError(
                 f"no descriptor for the owner DC (dc_id={self.dc_id}) in "
                 "the fleet — a follower shadows that exact store")
-        if len(by_dc[self.dc_id]) > 1:
-            raise ValueError(
-                "a clustered owner (several endpoints for the owner DC) is "
-                "not supported yet (followers of a clustered owner, "
-                "ROADMAP 15c): a follower shadows a single-node owner")
         self.fleet = fleet
         self.fleet_by_dc = by_dc
-        self.owner_fid = by_dc[self.dc_id][0]
-        self.route_query = lambda origin, shard: by_dc.get(origin,
-                                                           [origin])[0]
+        self.member_fids = list(by_dc[self.dc_id])
+        self.owner_fid = self.member_fids[0]
+
+        def route(origin: int, shard: int) -> int:
+            # the modular layout over the origin's known members; a
+            # gossip-learned shard_route (newer epochs win) takes
+            # precedence in DCReplica._route
+            fids = by_dc.get(origin)
+            if not fids:
+                return origin
+            return fids[shard % len(fids)]
+
+        self.route_query = route
         connect = getattr(self.hub, "connect_remote", None)
         for fid, d in fleet.items():
             if d.address is not None and connect is not None:
@@ -261,9 +284,10 @@ class FollowerReplica(DCReplica):
                               or bool(self.last_seen))
                 mode = "tail"
                 if not have_local:
-                    meta = self._owner_image_meta()
-                    if meta is not None:
-                        self._reinstall(meta)
+                    metas = {fid: self._owner_image_meta(fid=fid)
+                             for fid in self._image_fids()}
+                    if any(m is not None for m in metas.values()):
+                        self._reinstall(metas)
                         mode = "image"
                 t0 = time.monotonic()
                 if self._catch_up_all_repairing() and mode != "image":
@@ -334,9 +358,12 @@ class FollowerReplica(DCReplica):
         """Reseed the CONSUMED chain positions from the local WAL and the
         installed chain floors (a follower consumes the owner's own-origin
         chain too, and never rebuilds an egress window)."""
+        from antidote_tpu_torch.log import segment_index
+
         store = self.node.store
         if store.log is None:
             return
+        segments = segment_index(store.log.dir)  # one listing a pass
         for shard in sorted(self.shards):
             counts: Dict[int, int] = {}
             for origin in range(self.node.cfg.max_dcs):
@@ -344,7 +371,7 @@ class FollowerReplica(DCReplica):
                 if base:
                     counts[origin] = base
             for origin, _vc, _effs in self._wal_txn_groups(
-                    shard, my_effects_after=1 << 62):
+                    shard, my_effects_after=1 << 62, segments=segments):
                 counts[origin] = counts.get(origin, 0) + 1
             for origin, n in counts.items():
                 key = (origin, shard)
@@ -352,22 +379,30 @@ class FollowerReplica(DCReplica):
                     self.last_seen[key] = n
 
     # -- image shipping ---------------------------------------------------
-    def _owner_image_meta(self, before_id: Optional[int] = None):
-        body = {} if before_id is None else {"before_id": int(before_id)}
-        return self.hub.request(self.owner_fid, "ckpt_meta", body)
+    def _image_fids(self) -> List[int]:
+        """Fabric ids to ship images from: every member of the owner DC
+        (their images compose the whole store); a single-member owner is
+        ``[owner_fid]``."""
+        return list(self.member_fids) or [self.owner_fid]
 
-    def _fetch_file(self, meta: dict, file: str, size: int,
+    def _owner_image_meta(self, before_id: Optional[int] = None,
+                          fid: Optional[int] = None):
+        body = {} if before_id is None else {"before_id": int(before_id)}
+        return self.hub.request(self.owner_fid if fid is None else fid,
+                                "ckpt_meta", body)
+
+    def _fetch_file(self, meta: dict, fid: int, file: str, size: int,
                     crc: int) -> bytes:
-        """Ship one published checkpoint file in chunks over the request
-        channel and verify its size and CRC: a truncated or bit-rotted
-        ship fails loudly and never installs."""
+        """Ship one published checkpoint file of endpoint ``fid`` in
+        chunks over the request channel and verify its size and CRC: a
+        truncated or bit-rotted ship fails loudly and never installs."""
         buf = bytearray()
         while len(buf) < size:
             req = {"id": int(meta["id"]), "off": len(buf),
                    "n": DCReplica.CKPT_SHIP_CHUNK}
             if file != "image":
                 req["file"] = file
-            r = self.hub.request(self.owner_fid, "ckpt_fetch", req)
+            r = self.hub.request(fid, "ckpt_fetch", req)
             data = bytes(r["data"])
             if not data:
                 break
@@ -381,67 +416,92 @@ class FollowerReplica(DCReplica):
                 f"verification ({len(data)}/{size} bytes)")
         return data
 
-    def _fetch_image(self, meta: dict) -> dict:
-        """Ship and decode the owner's image (and, when the image holds
+    def _fetch_image(self, meta: dict, fid: Optional[int] = None) -> dict:
+        """Ship and decode one member's image (and, when the image holds
         cold keys, its cold sidecar, carried back under ``_cold_bytes``
         for the reinstall to stage)."""
         from antidote_tpu_torch.store.handoff import unpack
 
-        t0 = time.monotonic()
-        data = self._fetch_file(meta, "image", int(meta["image_bytes"]),
+        fid = self.owner_fid if fid is None else fid
+        data = self._fetch_file(meta, fid, "image",
+                                int(meta["image_bytes"]),
                                 int(meta["image_crc32"]))
-        self.boot_stats.update(ship_bytes=len(data),
-                               ship_s=time.monotonic() - t0)
         image = unpack(data)
         if meta.get("cold_bytes") and meta.get("cold_keys"):
             image["_cold_bytes"] = self._fetch_file(
-                meta, "cold", int(meta["cold_bytes"]),
+                meta, fid, "cold", int(meta["cold_bytes"]),
                 int(meta["cold_crc32"]))
             image["_cold_manifest"] = meta.get("cold_manifest")
         return image
 
-    def _fetch_owner_image(self, meta: Optional[dict] = None):
-        """Resolve and fetch the owner's newest verifiable image, falling
-        back to the next OLDER retained image on a failed fetch (else
-        re-resolving the newest).  Returns ``(image, meta)`` or ``(None,
-        None)`` when the owner has published nothing."""
+    def _fetch_member_image(self, fid: int, meta: Optional[dict] = None):
+        """Resolve and fetch member ``fid``'s newest verifiable image,
+        falling back to the next OLDER retained image on a failed fetch
+        (else re-resolving the newest).  Returns ``(image, meta)``, or
+        ``(None, None)`` when the member has published nothing (a member
+        that never checkpointed never compacted: the catch-up replays its
+        shards' whole chains)."""
         last: Optional[BaseException] = None
         for _attempt in range(3):
             if meta is None:
-                meta = self._owner_image_meta()
+                meta = self._owner_image_meta(fid=fid)
             if meta is None:
                 return None, None
             try:
-                return self._fetch_image(meta), meta
+                return self._fetch_image(meta, fid=fid), meta
             except (RuntimeError, OSError) as e:
-                log.warning("follower %s: image ckpt_%s fetch failed (%s); "
-                            "falling back to an older retained image "
-                            "(else re-resolving the newest)", self.name,
-                            meta.get("id"), e)
+                log.warning("follower %s: image ckpt_%s fetch from endpoint "
+                            "%d failed (%s); falling back to an older "
+                            "retained image (else re-resolving the newest)",
+                            self.name, meta.get("id"), fid, e)
                 last = e
                 try:
-                    meta = self._owner_image_meta(before_id=meta.get("id"))
+                    meta = self._owner_image_meta(before_id=meta.get("id"),
+                                                  fid=fid)
                 except (ConnectionError, OSError, RuntimeError):
                     meta = None
         raise RuntimeError(
             "checkpoint image shipping failed repeatedly") from last
 
-    def _reinstall(self, meta: Optional[dict] = None) -> None:
-        """Discard the local state and install the owner's newest image.
+    def _reinstall(self, metas: Optional[Dict[int, dict]] = None) -> None:
+        """Discard the local state and install the owner fleet's newest
+        images: one a member, each restricted to the shards that member
+        owns (``install_image(shards=)``), which compose the whole DC
+        store; a single-member owner installs one unrestricted image.
 
         The store is REPLACED by a fresh one on the same device and log:
         the old tables may be arbitrarily wrong (that is why we are here)
         and a reader may still pin one of their serving epochs, so nothing
         is written into them; local WAL records and local images derived
         from them must not resurrect; the epoch-id sequence continues so
-        snapshot-cache stamps never repeat.  The image is fetched BEFORE
+        snapshot-cache stamps never repeat.  Every image is fetched BEFORE
         the wipe (a failed fetch leaves the local state untouched), and
         the install ends with a LOCAL checkpoint so the follower's own
-        recovery covers the installed prefix."""
+        recovery covers the installed prefix.  ``metas``: the
+        ``ckpt_meta`` replies already resolved, by fabric id."""
         from antidote_tpu_torch.log import checkpoint as ckpt
 
-        image, meta = self._fetch_owner_image(meta)
-        if image is None:
+        fids = self._image_fids()
+        multi = len(fids) > 1
+        # (fabric id, image, restricted shards or None); per member: the
+        # image's id and bytes, its ship and install seconds
+        images: List[tuple] = []
+        members: Dict[int, dict] = {}
+        for fid in fids:
+            t0 = time.monotonic()
+            image, meta = self._fetch_member_image(fid,
+                                                   (metas or {}).get(fid))
+            if image is None:
+                continue
+            images.append((fid, image, meta.get("shards") if multi else None))
+            members[fid] = {"id": int(meta["id"]),
+                            "bytes": int(meta["image_bytes"]),
+                            "ship_s": time.monotonic() - t0}
+        self.boot_stats.update(
+            members=members,
+            ship_bytes=sum(m["bytes"] for m in members.values()),
+            ship_s=sum(m["ship_s"] for m in members.values()))
+        if not images:
             raise RuntimeError(
                 "owner has no published checkpoint image to bootstrap from "
                 "(run checkpoint-now on the owner, or size its "
@@ -457,14 +517,19 @@ class FollowerReplica(DCReplica):
                 raise RuntimeError("a follower needs a durable log "
                                    "(log_dir) to bootstrap")
             ckpt.discard_all(logm.dir)
-            for shard in range(cfg.n_shards):
-                logm.truncate_shard(shard)
+            logm.truncate_shards(range(cfg.n_shards))
             # adopt the OWNER's truncation epochs: ours were just bumped
             # by the truncations, and the install would drop every shard
-            # as stale against them
-            logm.adopt_shard_resets({
-                int(k): int(v)
-                for k, v in (image.get("shard_resets") or {}).items()})
+            # as stale against them.  A member's image gives the epochs
+            # of the shards it installs only
+            resets: Dict[int, int] = {}
+            for _fid, image, restrict in images:
+                allowed = (None if restrict is None
+                           else {int(s) for s in restrict})
+                for k, v in (image.get("shard_resets") or {}).items():
+                    if allowed is None or int(k) in allowed:
+                        resets[int(k)] = int(v)
+            logm.adopt_shard_resets(resets)
             store = KVStore(cfg, device=old.device, log=logm)
             store.metrics = node.metrics
             store.snapshot_cache_cap = old.snapshot_cache_cap
@@ -476,10 +541,15 @@ class FollowerReplica(DCReplica):
             txm.commit_counter = 0
             txm.epoch_lag_counter = 0
             old_cold = old.cold
-            summary = ckpt.install_image(store, txm, image)
-            cold_entries = summary.get("cold_directory") or []
-            if cold_entries:
-                # the owner's cold keys: stage its sidecar so they stay
+            for idx, (fid, image, restrict) in enumerate(images):
+                t1 = time.monotonic()
+                summary = ckpt.install_image(store, txm, image,
+                                             shards=restrict)
+                members[fid]["install_s"] = time.monotonic() - t1
+                cold_entries = summary.get("cold_directory") or []
+                if not cold_entries:
+                    continue
+                # the member's cold keys: stage its sidecar so they stay
                 # fault-able; the local rebase below re-emits them into
                 # our own image, after which the staging file goes
                 if store.cold is None:
@@ -488,9 +558,8 @@ class FollowerReplica(DCReplica):
                         old_cold.fault_rate_cap if old_cold else 0.0)
                 root = ckpt.checkpoint_root(logm.dir)
                 os.makedirs(root, exist_ok=True)
-                token = f"import.{image['id']}"
-                path = os.path.join(root,
-                                    f"tmp.{os.getpid()}.{token}.bin")
+                token = f"import.{idx}.{image['id']}"
+                path = os.path.join(root, f"tmp.{os.getpid()}.{token}.bin")
                 with open(path, "wb") as f:
                     f.write(image.pop("_cold_bytes"))
                 staged.append(path)
@@ -928,22 +997,29 @@ class FollowerReplica(DCReplica):
                 "applied": [int(x) for x in self.node.store.dc_max_vc()],
                 "addr": list(self.client_addr) if self.client_addr else None,
                 "state": self.state, "boots": self.boots}
-        try:
-            reply = self.hub.request(self.owner_fid, "follower_report", body)
-        except (ConnectionError, OSError, RuntimeError, KeyError):
+        # every member of the owner DC keeps a registry, so replica-status
+        # answers against any of them
+        fids = self.member_fids or [self.owner_fid]
+        failed = 0
+        for fid in fids:
+            try:
+                reply = self.hub.request(fid, "follower_report", body)
+            except (ConnectionError, OSError, RuntimeError, KeyError):
+                failed += 1
+                continue
+            # the member piggybacks its registry's serving-fleet snapshot
+            # on the ACK: the proxy plane's health table learns membership
+            # with no extra round trip
+            fleet = (reply or {}).get("fleet")
+            if fleet is not None and fleet != self.fleet_table:
+                self.fleet_table = fleet
+                self.fleet_table_v += 1
+        if failed == len(fids):
             now = time.monotonic()
             if now - getattr(self, "_last_report_warn", 0.0) > 5.0:
                 self._last_report_warn = now
                 log.warning("follower %s: liveness report to the owner "
                             "failed; will keep retrying", self.name)
-            return
-        # the owner piggybacks its registry's serving-fleet snapshot on
-        # the ACK: the proxy plane's health table learns membership with
-        # no extra round trip
-        fleet = (reply or {}).get("fleet")
-        if fleet is not None and fleet != self.fleet_table:
-            self.fleet_table = fleet
-            self.fleet_table_v += 1
 
     def replica_status(self) -> dict:
         return {
@@ -956,7 +1032,7 @@ class FollowerReplica(DCReplica):
             "boots": self.boots,
             "last_bootstrap_mode": self.last_bootstrap_mode,
             "divergence": dict(self.divergence_counts),
-            "fleet": {"owner_members": 1,
+            "fleet": {"owner_members": max(1, len(self.member_fids)),
                       "peer_dcs": sorted(d for d in self.fleet_by_dc
                                          if d != self.dc_id)},
         }

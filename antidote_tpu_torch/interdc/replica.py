@@ -180,7 +180,8 @@ class DCReplica:
     # restart: chain positions from the WAL
     # ------------------------------------------------------------------
     def _wal_txn_groups(self, shard: int, my_effects_after: int = 0,
-                        snap: "Tuple[int, int] | None" = None):
+                        snap: "Tuple[int, int] | None" = None,
+                        segments: "Dict[int, List[str]] | None" = None):
         """One shard's WAL records grouped into transactions, in apply
         order.  Grouping key is the (origin, commit VC) IDENTITY over the
         whole replay — commit VCs are unique per origin — never record
@@ -196,7 +197,8 @@ class DCReplica:
         log's CHAIN FLOOR: a checkpoint-truncated WAL holds
         only the tail groups, and the floor records how many own-origin
         groups the image covers, so numbering stays continuous across
-        compaction."""
+        compaction.  ``segments``: one listing of the log directory
+        (``log.segment_index``) for a pass over many shards."""
         store = self.node.store
         index: Dict[Tuple[int, tuple], int] = {}
         out: List[list] = []
@@ -211,7 +213,8 @@ class DCReplica:
                 snap = (store.log.chain_base(shard, self.dc_id),
                         int(store.log.floor_seqs[shard]))
         my_count, floor = snap
-        for rec in store.log.replay_shard(shard, floor=floor):
+        for rec in store.log.replay_shard(shard, floor=floor,
+                                          index=segments):
             ident = (int(rec["o"]), tuple(int(x) for x in rec["vc"]))
             at = index.get(ident)
             if at is None:
@@ -257,9 +260,12 @@ class DCReplica:
         from the log.  Both resume at ``LogManager.chain_base`` (the
         checkpoint's chain floor), and catch-up below it is refused.
         """
+        from antidote_tpu_torch.log import segment_index
+
         store = self.node.store
         if store.log is None:
             raise RuntimeError("restore_from_log needs a node with a WAL")
+        segments = segment_index(store.log.dir)  # one listing a pass
         for shard in sorted(self.shards):
             # chain positions resume at the checkpoint's chain floor
             # (groups the image covers but the truncated WAL no longer
@@ -272,7 +278,8 @@ class DCReplica:
                 if base:
                     counts[origin] = base
             self.pub_opid[shard] = store.log.chain_base(shard, self.dc_id)
-            for origin, vc, effs in self._wal_txn_groups(shard):
+            for origin, vc, effs in self._wal_txn_groups(
+                    shard, segments=segments):
                 counts[origin] += 1
                 if origin != self.dc_id:
                     continue
@@ -840,14 +847,22 @@ class DCReplica:
         chain up from the WAL).  ``before_id`` restricts to strictly older
         retained images.  The reply carries the shards this endpoint owns
         (a follower composing several owners' images installs each
-        restricted to them)."""
+        restricted to them).
+
+        A shard import sealed by a delta link is in no full image yet, so
+        no image this endpoint could ship covers every shard it owns: a
+        request for the newest publishes a full image first (without a WAL
+        rotation).  The JAX member's imports are full images already."""
         from antidote_tpu_torch.log import checkpoint as ckpt
 
         wlog = self.node.store.log
         if wlog is None:
             return None
-        meta = ckpt.latest_image_meta(
-            wlog.dir, before_id=(payload or {}).get("before_id"))
+        before = (payload or {}).get("before_id")
+        cp = self.node.checkpointer
+        if before is None and cp is not None and cp.sealed_links:
+            cp.checkpoint_now(full=True, rotate=False)
+        meta = ckpt.latest_image_meta(wlog.dir, before_id=before)
         if meta is not None:
             meta["shards"] = sorted(int(s) for s in self.shards)
         return meta
@@ -1236,12 +1251,12 @@ class DCReplica:
         plane and the local-commit plane are mutually exclusive
         writers."""
         with self.node.txm.commit_lock:
-            depth = sum(len(g) for g in self.gate.values())
+            depth = sum(map(len, self.gate.values()))
             self.max_gate_depth = max(self.max_gate_depth, depth)
             self._drain_gates_locked()
             if self.node.metrics is not None:
                 self.node.metrics.interdc_gate_depth.set(
-                    sum(len(g) for g in self.gate.values()))
+                    sum(map(len, self.gate.values())))
 
     def _drain_gates_locked(self) -> None:
         store = self.node.store
@@ -1254,6 +1269,10 @@ class DCReplica:
             while progressed:
                 progressed = False
                 for gk, q in self.gate.items():
+                    if not q:
+                        # an idle chain (a subscriber of thousands of
+                        # shards keeps one a shard): nothing to examine
+                        continue
                     origin, shard = gk
                     if shard not in self.shards:
                         # a cluster member's shard mid-move: it stays at

@@ -43,9 +43,13 @@ K_SUB, K_PUSH, K_LOGQ, K_REQ, K_REPLY, K_ERR = 1, 2, 3, 4, 5, 6
 K_CONN_DROP = 0
 
 
-def _send(sock, kind: int, body) -> None:
+def _frame(kind: int, body) -> bytes:
     payload = msgpack.packb(body, use_bin_type=True)
-    sock.sendall(_HDR.pack(len(payload) + 1, kind) + payload)
+    return _HDR.pack(len(payload) + 1, kind) + payload
+
+
+def _send(sock, kind: int, body) -> None:
+    sock.sendall(_frame(kind, body))
 
 
 def _recv(sock) -> Tuple[int, object]:
@@ -112,15 +116,30 @@ class _Subscriber:
             name=f"interdc-egress:{self.sock.fileno()}")
         self._thread.start()
 
+    #: frames one send carries at most: a heartbeat's burst (a ping for
+    #: every shard of the publisher) leaves in a few system calls, not in
+    #: one a frame
+    SEND_BATCH = 256
+
     def _writer(self, on_dead) -> None:
         while True:
-            data = self.outbox.get()
-            if data is self._CLOSE:
-                return
-            try:
-                _send(self.sock, K_PUSH, data)
-            except OSError:  # dead, or stalled past SO_SNDTIMEO
-                on_dead(self)
+            item = self.outbox.get()
+            frames = []
+            while item is not self._CLOSE:
+                frames.append(_frame(K_PUSH, item))
+                if len(frames) >= self.SEND_BATCH:
+                    break
+                try:
+                    item = self.outbox.get_nowait()
+                except queue.Empty:
+                    break
+            if frames:
+                try:
+                    self.sock.sendall(b"".join(frames))
+                except OSError:  # dead, or stalled past SO_SNDTIMEO
+                    on_dead(self)
+                    return
+            if item is self._CLOSE:
                 return
 
     def offer(self, data: bytes) -> bool:

@@ -655,8 +655,20 @@ class LogManager:
                 reclaimed += size
         return reclaimed
 
+    def truncate_shards(self, shards) -> None:
+        """:meth:`truncate_shard` of every shard in ``shards``, on one
+        listing of the directory and one durable write of the truncation
+        epochs (a follower's reinstall wipes every shard of its log)."""
+        shards = list(shards)
+        index = segment_index(self.dir)
+        for shard in shards:
+            self.truncate_shard(shard, index, write_resets=False)
+        _set_dir_meta_key(self.dir, "shard_resets",
+                          {str(k): v for k, v in self.shard_resets.items()})
+
     def truncate_shard(self, shard: int,
-                       index: Optional[Dict[int, List[str]]] = None) -> None:
+                       index: Optional[Dict[int, List[str]]] = None,
+                       write_resets: bool = True) -> None:
         """Discard one shard's log — ALL its segments, including frozen
         checkpoint generations (post-handoff cleanup: the records now
         live in the receiver's chain).  ``index`` is a listing of the
@@ -666,7 +678,8 @@ class LogManager:
         append sequence, compaction floors and blob-dedup memory along
         with the files, and durably bumps the shard's truncation epoch
         so a checkpoint image written before this call can never
-        resurrect the relinquished shard at recovery."""
+        resurrect the relinquished shard at recovery (``write_resets``
+        False leaves that write to the caller: :meth:`truncate_shards`)."""
         sync = self.wals[shard].sync_on_commit
         self.wals[shard].close()
         # retired (previous-generation) segments of THIS shard lose their
@@ -691,8 +704,10 @@ class LogManager:
         self.chain_floor[shard] = 0
         self._blob_seen[shard].clear()
         self.shard_resets[shard] = self.shard_resets.get(shard, 0) + 1
-        _set_dir_meta_key(self.dir, "shard_resets",
-                          {str(k): v for k, v in self.shard_resets.items()})
+        if write_resets:
+            _set_dir_meta_key(
+                self.dir, "shard_resets",
+                {str(k): v for k, v in self.shard_resets.items()})
 
     def replay_shard(self, shard: int, floor: Optional[int] = None,
                      index: Optional[Dict[int, List[str]]] = None

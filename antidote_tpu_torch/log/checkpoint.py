@@ -639,6 +639,11 @@ class Checkpointer:
         self.force_rebase = False
         #: delta links since the last full image
         self.chain_len = 0
+        #: seals since the last full image that published a delta link:
+        #: the shards they imported are in no full image yet, and a
+        #: follower bootstraps from full images only
+        #: (``DCReplica._serve_ckpt_meta`` publishes one first)
+        self.sealed_links = 0
         self.scrub_counts = {"ok": 0, "corrupt": 0}
         self._last_scrub = 0.0
         self.root = checkpoint_root(self.log.dir)
@@ -806,14 +811,18 @@ class Checkpointer:
         return dirty, evicted, blob_hashes, committed
 
     def seal(self) -> dict:
-        """A checkpoint covering what the store holds now, at the least
-        cost: a delta link of the dirty windows when they can make one,
-        else a full image — either without rotating the WAL onto a new
-        generation (the floors alone separate image from tail; a rotation
-        opens a file a shard).  What a shard import from a compacted
+        """A checkpoint covering what the store holds now, without
+        rotating the WAL onto a new generation (the floors alone separate
+        image from tail; a rotation opens a file a shard).  The chain
+        cadence decides its kind as for any other stamp: a delta link of
+        the dirty windows, or a full image when the windows cannot make
+        one or the chain reached ``rebase_every`` — so a run of seals
+        keeps the chain bounded.  What a shard import from a compacted
         source waits for."""
-        return self.checkpoint_now(full=self._windows_broken(),
-                                   rotate=False)
+        man = self.checkpoint_now(rotate=False)
+        if man["kind"] == "delta":
+            self.sealed_links += 1
+        return man
 
     def checkpoint_now(self, full: Optional[bool] = None,
                        rotate: bool = True) -> dict:
@@ -864,6 +873,7 @@ class Checkpointer:
             self._rotated_unpublished = False
             if want_full:
                 self.chain_len = 0
+                self.sealed_links = 0
                 self.force_rebase = False
                 cold = self.store.cold
                 if cold is not None:

@@ -35,6 +35,8 @@ import numpy as np
 #: leaves with the defaults: depth 2)
 LEAVES = 256
 FANOUT = 16
+#: the hash of a leaf without keys
+_EMPTY_LEAF = hashlib.sha256().digest()
 
 
 def leaf_of(key, bucket: str, n_leaves: int = LEAVES) -> int:
@@ -177,6 +179,11 @@ class MerkleIndex:
             if mem[leaf] is None:
                 mem[leaf] = self._leaf_members(shard, leaf)
                 cache[leaf] = None
+            if not mem[leaf]:
+                # an empty leaf hashes nothing (most of a shard's 256
+                # leaves when it holds a few keys)
+                leaves[leaf] = _EMPTY_LEAF
+                continue
             if cache[leaf] is None:
                 cache[leaf] = self._leaf_objs(shard, leaf, mem[leaf])
             objs, pre = cache[leaf]

@@ -179,16 +179,29 @@ Run from the root of a checkout on a machine with a CUDA card (one card;
    decode sets on the host, so ``orset_presence`` launches only in the
    check that reads each member's store through the serving path's
    resolve).  Its figures print on a
-   ``takeover:`` line beside the card;
+   ``takeover:`` line beside the card.  Its last segment (``live``, its
+   launches counted from 0): every member's inter-DC endpoint on one
+   ``TcpFabric``; member 3 boots empty and joins, then member 1 leaves,
+   512 two-phase shard moves each while 2 workers commit; between the
+   two, a follower of the clustered owner on the card attaches to the four
+   members' descriptors (it composes their images: each one's ship and
+   install seconds) and shadows the leave; after it the refusals, one map
+   partitioning the shards, the check through the survivors'
+   coordinators (the moved keys also at the snapshot before the join),
+   the follower's digest clean on every shard against the shard's owner
+   and its reads of every key of a shard moved in the leave and of the
+   phase's sample equal to the owners' at their applied clock; the import
+   seals' seconds and kind by member.  Its figures print on a ``live:``
+   line beside the card;
 13. print one JSON line per kernel record, the card line, and last the
    ``{"ok": true, ...}`` line.
 
 The launch counts are reset just before the serve, the node workload, the
 serving plane, the cluster, the types phase, the durable phase, the cold
 phase, the wire phase, the native phase, the interdc phase, the follower
-phase and the takeover phase, and read just after each; each must show
-the kernels that ``PATH_KERNELS`` names for it, and a kernel record's
-``launches`` is the sum over the twelve.
+phase, the takeover phase and its live segment, and read just after
+each; each must show the kernels that ``PATH_KERNELS`` names for it, and
+a kernel record's ``launches`` is the sum over the thirteen.
 The serve must launch ``orset_presence`` exactly once per
 ``SetAW.resolve``, and a resolve on a CUDA state must call no torch sort.
 Exits non-zero without a CUDA device, and outside a
@@ -364,8 +377,11 @@ FO_KEYS, FO_CTRS, FO_THREADS, FO_TAIL_KEYS = 100_000, 10_000, 8, 2048
 TK_SET_KEYS, TK_CTR_KEYS, TK_TXN = 12_500, 2048, 1024
 TK_CHAIN, TK_MIXED, TK_SAMPLE, TK_NEW_MEMBERS = 64, 64, 2048, 3
 # its live segment, on the resized members: the workers committing the
-# phase's mixed transactions while member 3 joins and member 1 leaves
-TK_LIVE_THREADS = 4
+# phase's mixed transactions while member 3 joins and member 1 leaves (cut
+# from 4 once the follower of the clustered owner came: with 4 the segment
+# took 507.0 s against 223.2 s before the follower and the import seals'
+# chain bound, over the 150 s more they were given)
+TK_LIVE_THREADS = 2
 # the kernels each path must launch: the serve resolves sets (presence)
 # and folds the historical batches; the node session folds a set and a
 # counter at older snapshots; every cluster transaction start merges the
@@ -393,7 +409,9 @@ TK_LIVE_THREADS = 4
 # the serving path (the owners' reads decode sets on the host); its live
 # segment's starts merge the clock rows during and after the moves, and
 # its reads at the snapshot before the join fold the moved rings on their
-# new owners (sets and counters); the check's resolves are counted apart
+# new owners (sets and counters), and the follower of the clustered owner's
+# digest resolves the sets of every shard on both sides (the owner's and
+# its own); the check's resolves are counted apart
 PATH_KERNELS = {"serve": ("orset_presence", "set_aw_fold"),
                 "node": ("counter_fold", "set_aw_fold"),
                 "serving": ("orset_presence", "set_aw_fold"),
@@ -410,7 +428,8 @@ PATH_KERNELS = {"serve": ("orset_presence", "set_aw_fold"),
                              "counter_fold"),
                 "takeover": ("stable_min", "set_aw_fold", "counter_fold",
                              "orset_presence"),
-                "live": ("stable_min", "set_aw_fold", "counter_fold")}
+                "live": ("stable_min", "set_aw_fold", "counter_fold",
+                         "orset_presence")}
 
 
 def log(msg: str) -> None:
@@ -3327,22 +3346,29 @@ def wire_worker(argv) -> int:
     return 0
 
 
+def _readable(stream, timeout: float) -> bool:
+    """Whether ``stream`` has input within ``timeout`` seconds (``poll``:
+    the takeover phase holds descriptors past ``select``'s limit)."""
+    import select
+
+    p = select.poll()
+    p.register(stream, select.POLLIN)
+    return bool(p.poll(int(timeout * 1000)))
+
+
 def _read_line(proc, timeout):
     """One stdout line of a child, or an AssertionError after ``timeout``
     seconds or at the child's exit."""
-    import select
-
     deadline = time.monotonic() + timeout
     while True:
         left = deadline - time.monotonic()
         if left <= 0:
-            raise AssertionError("a wire worker went silent")
-        ready, _, _ = select.select([proc.stdout], [], [], min(left, 1.0))
-        if ready:
+            raise AssertionError("a worker process went silent")
+        if _readable(proc.stdout, min(left, 1.0)):
             line = proc.stdout.readline()
             if not line:
                 raise AssertionError(
-                    f"a wire worker exited (rc {proc.wait(10)})")
+                    f"a worker process exited (rc {proc.wait(10)})")
             return json.loads(line)
 
 
@@ -5650,6 +5676,213 @@ def _tk_wedge(coord, updates, seq=True):
     return txn, int(ts), {int(k): int(v) for k, v in prev.items()}
 
 
+def _tk_cfg(n_shards):
+    """The takeover phase's configuration: the cluster phase's widths."""
+    from antidote_tpu_torch.config import AntidoteConfig
+
+    return AntidoteConfig(n_shards=n_shards, max_dcs=D, ops_per_key=K,
+                          snap_versions=2, set_slots=E, keys_per_table=128)
+
+
+def live_follower_worker(argv) -> int:
+    """The live segment's follower of the clustered owner, in a process of
+    its own as a deployment runs one: an ``AntidoteNode`` on ``device``
+    logging to ``log_dir``, its own ``TcpFabric`` and pump loop, and a
+    ``FollowerReplica`` attached to the members' descriptors (it composes
+    their images), its catch-up requests counted by the member they went
+    to.  Prints the attach as one JSON line; then, for the request line on
+    stdin (``{"target", "objs", "owners"}``), waits until it has applied
+    ``target``, runs its digest on every shard against the shard's owner
+    (clock mismatches retried until the deadline), reads ``objs`` at
+    ``target`` and checks its routes against ``owners``, and prints that
+    as one JSON line with its values and every launch of this process.
+    Any error is fatal."""
+    import torch
+
+    from antidote_tpu_torch.api import AntidoteNode
+    from antidote_tpu_torch.interdc import FollowerReplica
+    from antidote_tpu_torch.interdc.messages import Descriptor
+    from antidote_tpu_torch.interdc.tcp import TcpFabric
+    from antidote_tpu_torch.materializer import cuda_kernels as ck
+
+    device, n_shards, log_dir, descs, timeout = argv
+    n_shards, timeout = int(n_shards), float(timeout)
+    node = AntidoteNode(_tk_cfg(n_shards), dc_id=0,
+                        device=torch.device(device), log_dir=log_dir)
+    fabric = TcpFabric()
+    fol = FollowerReplica(node, fabric, "live-follower",
+                          fabric_id=FollowerReplica.FID_BASE + 1)
+    routed: dict = {}
+    plain = fabric.query_log
+
+    def counted(target, shard, origin, from_opid):
+        routed[target >> 16] = routed.get(target >> 16, 0) + 1
+        return plain(target, shard, origin, from_opid)
+
+    fabric.query_log = counted
+    t0 = time.perf_counter()
+    mode = fol.attach([Descriptor.from_wire(d) for d in json.loads(descs)])
+    attach_s = time.perf_counter() - t0
+    loop = fabric.start_pump_loop("live-follower-pump")
+    at_attach = dict(routed)
+    print(json.dumps({"mode": mode, "attach_s": attach_s,
+                      "boot": fol.boot_stats, "routed_at_attach": at_attach},
+                     default=float), flush=True)
+    try:
+        req = json.loads(sys.stdin.readline())
+        target = np.asarray(req["target"], np.int64)
+        out: dict = {"routed_during_leave": {
+            m: n - at_attach.get(m, 0) for m, n in sorted(routed.items())}}
+        t0 = time.perf_counter()
+        while not (node.store.stable_vc() >= target).all():
+            if time.perf_counter() - t0 > timeout:
+                raise AssertionError(
+                    f"the live follower never applied {target.tolist()}: "
+                    f"{node.store.stable_vc().tolist()}")
+            time.sleep(0.05)
+        out["catch_up_s"] = time.perf_counter() - t0
+        before = dict(ck.LAUNCHES)
+        t0 = time.perf_counter()
+        pending, rounds = list(range(n_shards)), 0
+        while pending:
+            rounds += 1
+            res = fol.check_divergence(pending)
+            bad = {s: r for s, r in res.items() if r in ("mismatch",
+                                                         "unsubscribed")}
+            if bad:
+                raise AssertionError(f"live follower digest: {bad}")
+            pending = [s for s, r in res.items() if r != "ok"]
+            if pending and time.perf_counter() - t0 > timeout:
+                raise AssertionError(
+                    f"live follower digest never compared {len(pending)} "
+                    f"shards clean: {dict(list(res.items())[:8])}")
+        out["digest_s"] = time.perf_counter() - t0
+        out["digest_rounds"] = rounds
+        out["divergence"] = dict(fol.divergence_counts)
+        if fol.divergence_counts.get("mismatch", 0):
+            raise AssertionError(f"live follower digest found a mismatch: "
+                                 f"{fol.divergence_counts}")
+        objs = [tuple(o) for o in req["objs"]]
+        t0 = time.perf_counter()
+        got = []
+        for lo in range(0, len(objs), 8192):
+            vals, _ = node.read_objects(objs[lo:lo + 8192], clock=target)
+            got += vals
+        out["read_s"] = time.perf_counter() - t0
+        out["launches"] = {n: v - before[n] for n, v in ck.LAUNCHES.items()}
+        out["values"] = [sorted(v) if isinstance(v, list) else v
+                         for v in got]
+        routes = {}
+        for (_o, _s), (owner, epoch) in list(fol.shard_route.items()):
+            ent = routes.setdefault(int(owner), [0, 0])
+            ent[0] += 1
+            ent[1] = max(ent[1], int(epoch))
+        out["routes"] = {m: {"shards": n, "max_epoch": e}
+                         for m, (n, e) in sorted(routes.items())}
+        stale = [s for s in range(n_shards)
+                 if fol._route(0, s) >> 16 != req["owners"][s]]
+        if stale:
+            raise AssertionError(f"the live follower routes {len(stale)} "
+                                 f"shards away from their owners: "
+                                 f"{stale[:8]}")
+        out["process_launches"] = dict(ck.LAUNCHES)
+        print(json.dumps(out, default=float), flush=True)
+    finally:
+        loop.stop()
+        fabric.close()
+        node.close()
+    return 0
+
+
+def _lf_attach(dev, n_shards, log_dir, reps, timeout=600.0) -> dict:
+    """Start the live segment's follower of the clustered owner
+    (``live_follower_worker``, a process on ``dev``) on the descriptors of
+    ``reps`` and wait for its attach."""
+    import subprocess
+
+    env = dict(os.environ)
+    env["PYTHONPATH"] = (os.path.dirname(os.path.abspath(__file__))
+                         + os.pathsep + env.get("PYTHONPATH", ""))
+    descs = json.dumps([r.descriptor().to_wire() for r in reps])
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--live-follower",
+         str(dev), str(n_shards), log_dir, descs, "240"],
+        env=env, stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True)
+    f = {"proc": proc}
+    try:
+        f.update(_read_line(proc, timeout))
+    except BaseException:
+        _lf_close(f)
+        raise
+    f["process_s"] = time.perf_counter() - t0
+    return f
+
+
+def _lf_check(f, members, coord, objs, timeout=600.0) -> dict:
+    """After the load: the follower process applies the members' clock, its
+    digest is clean on every shard against the shard's owner, its routes
+    name each shard's owner, and ``objs`` read through it at the members'
+    applied clock equal the owners' values there, read through ``coord``
+    (``live_follower_worker``).  Its ``launches`` are its digest's and its
+    reads', its ``process_launches`` every launch of its process."""
+    proc = f["proc"]
+    for m in members:
+        m.invalidate_seq_cache()
+        m.refresh_peer_clocks()
+    target = np.maximum.reduce([np.asarray(m.node.store.dc_max_vc())
+                                for m in members])
+    owners = {s: m.member_id for m in members for s in m.shards}
+    proc.stdin.write(json.dumps({
+        "target": [int(x) for x in target],
+        "objs": [list(o) for o in objs],
+        "owners": [owners[s] for s in range(len(owners))]}) + "\n")
+    proc.stdin.flush()
+    # the members' clocks keep moving on their ticks while the follower
+    # catches up and compares
+    deadline = time.monotonic() + timeout
+    while not _readable(proc.stdout, 0.05):
+        if time.monotonic() > deadline:
+            raise AssertionError("the live follower went silent")
+        for m in members:
+            m.invalidate_seq_cache()
+            m.refresh_peer_clocks()
+    out = _read_line(proc, 1.0)
+    log(f"takeover live: follower applied {target.tolist()} in "
+        f"{out['catch_up_s']:.1f} s after the load")
+    got = out.pop("values")
+    want = []
+    for lo in range(0, len(objs), 8192):
+        vals, _ = coord.read_objects(objs[lo:lo + 8192], clock=target)
+        want += vals
+    for o, a, b in zip(objs, got, (sorted(v) if isinstance(v, list) else v
+                                   for v in want)):
+        if a != b:
+            raise AssertionError(f"live follower read of {o[0], o[2]}: "
+                                 f"{a!r}, owner {b!r}")
+    if len(got) != len(objs):
+        raise AssertionError(f"the live follower read {len(got)} of "
+                             f"{len(objs)} keys")
+    out["keys_read"] = len(objs)
+    out["clock"] = [int(x) for x in target]
+    return out
+
+
+def _lf_close(f) -> None:
+    proc = f["proc"]
+    try:
+        proc.stdin.close()
+    except OSError:
+        pass
+    try:
+        rc = proc.wait(60)
+    except Exception:  # noqa: BLE001 — killed below
+        rc = None
+    if rc is None:
+        proc.kill()
+        proc.wait(10)
+
+
 def takeover_phase(torch, dev, n_set=TK_SET_KEYS, n_ctr=TK_CTR_KEYS,
                    n_shards=CL_SHARDS, chain_txns=TK_CHAIN,
                    mixed=TK_MIXED, sample=TK_SAMPLE, live=True) -> dict:
@@ -5693,7 +5926,6 @@ def takeover_phase(torch, dev, n_set=TK_SET_KEYS, n_ctr=TK_CTR_KEYS,
     from antidote_tpu_torch.api import AbortError
     from antidote_tpu_torch.cluster import ClusterMember
     from antidote_tpu_torch.cluster.resize import resize_dc
-    from antidote_tpu_torch.config import AntidoteConfig
     from antidote_tpu_torch.log import LogDirMismatch
     from antidote_tpu_torch.log.wal import replay
     from antidote_tpu_torch.materializer import cuda_kernels as ck
@@ -5710,8 +5942,7 @@ def takeover_phase(torch, dev, n_set=TK_SET_KEYS, n_ctr=TK_CTR_KEYS,
             raise RuntimeError(f"the takeover phase needs {need} open "
                                f"files; the hard limit is {hard}")
         resource.setrlimit(resource.RLIMIT_NOFILE, (need, hard))
-    cfg = AntidoteConfig(n_shards=n_shards, max_dcs=D, ops_per_key=K,
-                         snap_versions=2, set_slots=E, keys_per_table=128)
+    cfg = _tk_cfg(n_shards)
     S, C, Bs, Bc = "set_aw", "counter_pn", "b", "c"
     root = tempfile.mkdtemp(prefix="antidote_takeover_")
     dirs = [os.path.join(root, f"m{i}") for i in range(n_mem)]
@@ -5883,17 +6114,62 @@ def takeover_phase(torch, dev, n_set=TK_SET_KEYS, n_ctr=TK_CTR_KEYS,
         leave), one map on every member with owned sets partitioning the
         shards, and the phase's check through the survivors' coordinators,
         the joiner's included, with every key of a moved shard read at the
-        snapshot before the join."""
+        snapshot before the join.
+
+        Every member runs its inter-DC endpoint (``attach_interdc`` on one
+        ``TcpFabric``; the joiner's from its boot).  Between the join and
+        the leave, a follower of the clustered owner on ``dev``
+        (``FollowerReplica``, its own log and fabric) attaches to all four
+        members' descriptors, composing their images, and shadows the
+        leave's moves under the load; after it, its digest is clean on
+        every shard against the shard's owner and its reads of every key
+        of a shard that moved in the leave, and of the phase's sample,
+        equal the owners' at the members' applied clock
+        (``_lf_check``)."""
+        from antidote_tpu_torch.cluster import attach_interdc
+        from antidote_tpu_torch.interdc.tcp import TcpFabric
+        from antidote_tpu_torch.supervise import ThreadLoop
+
+        out: dict = {}
+        # the endpoints come up on members with history: their chains
+        # resume from their logs
+        t0 = time.perf_counter()
+        ifab = TcpFabric()
+        reps = []
+        for m in members:
+            reps.append(attach_interdc(m, ifab))
+            reps[-1].restore_from_log()
+        # the members' endpoints subscribe to nothing, so their fabric has
+        # nothing to deliver: their loop is the tick alone, once a second,
+        # each tick a heartbeat of every owned shard whose safe time moved.
+        # The four members share this interpreter, where member processes
+        # would have one each; a tick at the serving loop's cadence would
+        # ping every shard of every member each ~20 ms (and a pump call
+        # ticks up to three times)
+        iloop = ThreadLoop(lambda: [r.maybe_heartbeat() for r in reps],
+                           interval_s=1.0, name="live-interdc-tick").start()
+        out["endpoints_s"] = time.perf_counter() - t0
+        box: dict = {}
+        try:
+            return live_moves(out, ifab, reps, box, threads)
+        finally:
+            if "follower" in box:
+                _lf_close(box["follower"])
+            iloop.stop()
+            ifab.close()
+
+    def live_moves(out, ifab, reps, box, threads) -> dict:
         import threading
 
         nonlocal members, coords
+        from antidote_tpu_torch.cluster import attach_interdc
         from antidote_tpu_torch.cluster.join import live_join, live_leave
 
-        out: dict = {}
         t0 = time.perf_counter()
         joiner = ClusterMember(cfg, 0, n_new, n_new + 1,
                                log_dir=os.path.join(root, "j"), shards=[],
                                device=dev)
+        reps.append(attach_interdc(joiner, ifab))
         out["joiner_boot_s"] = time.perf_counter() - t0
         members = members + [joiner]
         _tk_wire(members)
@@ -5957,14 +6233,16 @@ def takeover_phase(torch, dev, n_set=TK_SET_KEYS, n_ctr=TK_CTR_KEYS,
                     with lock:
                         acked_ms.append((time.perf_counter() - t1) * 1e3)
 
-        move_ms, moved = [], set()
+        move_ms, moved, moved_in = [], set(), {"join": set(), "leave": set()}
         last = [0.0]
+        phase = ["join"]
 
         def progress(shard, _src, _dst, _done, _total):
             now = time.perf_counter()
             move_ms.append((now - last[0]) * 1e3)
             last[0] = now
             moved.add(int(shard))
+            moved_in[phase[0]].add(int(shard))
 
         # the mover's calls by handler (its thread's only): a move's
         # export, import with its seal, relinquish and broadcasts
@@ -5983,16 +6261,47 @@ def takeover_phase(torch, dev, n_set=TK_SET_KEYS, n_ctr=TK_CTR_KEYS,
                     rpc_ms.setdefault(method, []).append(
                         (time.perf_counter() - t1) * 1e3)
 
+        # every import's seal by member: its own time and its kind (a
+        # full image or a delta link)
+        from antidote_tpu_torch.log.checkpoint import Checkpointer
+
+        seal_ms: dict = {}
+        plain_seal = Checkpointer.seal
+
+        def timed_seal(ckpt):
+            t1 = time.perf_counter()
+            man = plain_seal(ckpt)
+            with lock:
+                seal_ms.setdefault((id(ckpt), man["kind"]), []).append(
+                    (time.perf_counter() - t1) * 1e3)
+            return man
+
         rpcs = {m.member_id: tuple(m.address) for m in members}
         ths = [threading.Thread(target=worker, args=(w,), name=f"live{w}")
                for w in range(threads)]
         for t in ths:
             t.start()
         RpcClient.call = timed_call
+        Checkpointer.seal = timed_seal
         try:
             moving.set()
             for what, fn, arg in (("join", live_join, n_new),
                                   ("leave", live_leave, 1)):
+                if what == "leave":
+                    # the follower of the clustered owner attaches to all
+                    # four members between the moves, under the load
+                    moving.clear()
+                    fo = box["follower"] = _lf_attach(
+                        dev, n_shards, os.path.join(root, "follower"), reps)
+                    out["follower"] = {
+                        k: fo[k] for k in ("mode", "attach_s", "boot",
+                                           "routed_at_attach", "process_s")}
+                    log(f"takeover live: follower attached in "
+                        f"{fo['attach_s']:.1f} s (mode {fo['mode']}; its "
+                        f"process up and attached in {fo['process_s']:.1f} "
+                        "s)")
+                    moving.set()
+                phase[0] = what
                 t1 = last[0] = time.perf_counter()
                 out[f"{what}_moves"] = fn(rpcs, arg, progress=progress)
                 out[f"{what}_s"] = time.perf_counter() - t1
@@ -6001,6 +6310,7 @@ def takeover_phase(torch, dev, n_set=TK_SET_KEYS, n_ctr=TK_CTR_KEYS,
             moving.clear()
         finally:
             RpcClient.call = plain_call
+            Checkpointer.seal = plain_seal
             stop.set()
             for t in ths:
                 t.join(timeout=120)
@@ -6008,6 +6318,16 @@ def takeover_phase(torch, dev, n_set=TK_SET_KEYS, n_ctr=TK_CTR_KEYS,
             m: _ms_pcts(v) for m, v in sorted(rpc_ms.items())
             if m in ("m_export_shard", "m_import_shard",
                      "m_relinquish_shard", "m_set_owner")}
+        by_ckpt = {id(m.node.checkpointer): m for m in members
+                   if m.node.checkpointer is not None}
+        out["seal_ms"] = {
+            f"{by_ckpt[c].member_id}/{kind}": dict(_ms_pcts(v), n=len(v),
+                                                   total_s=sum(v) / 1e3)
+            for (c, kind), v in sorted(seal_ms.items(), key=lambda kv: (
+                by_ckpt[kv[0][0]].member_id, kv[0][1]))}
+        out["chain_len"] = {m.member_id: m.node.checkpointer.chain_len
+                            for m in members
+                            if m.node.checkpointer is not None}
         if errs:
             raise AssertionError(f"live load failed: {errs[:3]}")
         # a departed id is never reused; the sequencer cannot leave
@@ -6043,6 +6363,20 @@ def takeover_phase(torch, dev, n_set=TK_SET_KEYS, n_ctr=TK_CTR_KEYS,
                       + [(k, Bc) for k in range(n_ctr)
                          if key_to_shard(k, Bc, n_shards) in moved])
         check("live", extra_old=moved_keys)
+        # the follower against the owners after the load
+        left = moved_in["leave"]
+        objs = ([(k, S, Bs) for k in range(n_set)
+                 if key_to_shard(k, Bs, n_shards) in left]
+                + [(k, C, Bc) for k in range(n_ctr)
+                   if key_to_shard(k, Bc, n_shards) in left])
+        seen = {(k, b) for k, _, b in objs}
+        objs += [(int(k), S, Bs) for k in rng.choice(n_set, sample,
+                                                     replace=False)
+                 if (int(k), Bs) not in seen]
+        fchk = _lf_check(box["follower"], members, coords[0], objs)
+        out["follower"].update(fchk)
+        log(f"takeover live: follower digest clean on {n_shards} shards in "
+            f"{fchk['digest_s']:.1f} s, {fchk['keys_read']} keys equal")
         out["moved_shards"] = len(moved)
         out["moved_keys_read_old"] = len(moved_keys)
         out["move_ms"] = _ms_pcts(move_ms)
@@ -6296,7 +6630,11 @@ def takeover_phase(torch, dev, n_set=TK_SET_KEYS, n_ctr=TK_CTR_KEYS,
             t0 = time.perf_counter()
             seg = live_segment()
             seg["check_launches"] = dict(member_check_launches)
+            # the follower's process launched its own (its attach, digest
+            # and reads): they are the path's too
+            fol_launches = seg["follower"].pop("process_launches")
             seg["launches"] = {n: v - member_check_launches.get(n, 0)
+                               + fol_launches.get(n, 0)
                                for n, v in ck.LAUNCHES.items()}
             seg["seconds"] = time.perf_counter() - t0
             res["live"] = seg
@@ -6341,6 +6679,8 @@ def main() -> int:
         return wire_worker(sys.argv[2:])
     if sys.argv[1:2] == ["--flash-worker"]:
         return flash_worker(sys.argv[2:])
+    if sys.argv[1:2] == ["--live-follower"]:
+        return live_follower_worker(sys.argv[2:])
     import torch
 
     if not torch.cuda.is_available():

@@ -440,3 +440,147 @@ def test_delta_after_recovery_carries_the_tail_blobs(dcfg, tmp_path):
     n3 = node_at(dcfg, log_dir, recover=True)
     assert n3.read_objects([("s", "set_aw", "b")])[0] == [["x", "y", "z"]]
     n3.close()
+
+
+# ---------------------------------------------------------------------------
+# import seals: the chain bound, and recovery through a long chain
+# ---------------------------------------------------------------------------
+_IMPORT_SHARDS = 12
+_IMPORT_KW = dict(n_shards=_IMPORT_SHARDS, max_dcs=2, ops_per_key=8,
+                  snap_versions=2, set_slots=8, keys_per_table=32)
+
+
+def _compacted_packages(tmp_path):
+    """A durable port node with counters and sets on every shard,
+    checkpointed (so every export is compacted: its log is the tail
+    above the floor) and written to after the image.  Returns the packed
+    package of every shard and the objects with their values."""
+    from antidote_tpu_torch.store import handoff
+
+    src = node_at(AntidoteConfig(**_IMPORT_KW), str(tmp_path / "src"))
+    expect = {}
+    for i in range(4 * _IMPORT_SHARDS):
+        src.update_objects([(f"c{i}", "counter_pn", "b", ("increment", i + 1)),
+                            (f"s{i}", "set_aw", "b", ("add", f"e{i}"))])
+        expect[(f"c{i}", "counter_pn", "b")] = i + 1
+        expect[(f"s{i}", "set_aw", "b")] = [f"e{i}"]
+    src.checkpoint_now()
+    for i in range(0, 4 * _IMPORT_SHARDS, 5):
+        src.update_objects([(f"c{i}", "counter_pn", "b", ("increment", 3)),
+                            (f"s{i}", "set_aw", "b", ("add", f"t{i}"))])
+        expect[(f"c{i}", "counter_pn", "b")] += 3
+        expect[(f"s{i}", "set_aw", "b")] = sorted([f"e{i}", f"t{i}"])
+    datas = []
+    for shard in range(_IMPORT_SHARDS):
+        pkg = handoff.export_shard(src.store, shard)
+        assert pkg["compacted"]
+        datas.append(handoff.pack(pkg))
+    src.close()
+    return datas, expect
+
+
+def _values(node, expect):
+    vals, _ = node.read_objects(list(expect))
+    return [sorted(v) if isinstance(v, list) else v for v in vals]
+
+
+def _jax_import_node(tmp_path, datas):
+    """A JAX node that took the same imports through its own
+    ``receive_handoff`` checkpoint cycles."""
+    from antidote_tpu.api import AntidoteNode as JaxNode
+    from antidote_tpu.config import AntidoteConfig as JaxConfig
+    from antidote_tpu.store import handoff as jhandoff
+
+    jcfg = JaxConfig(batch_buckets=(16,), **_IMPORT_KW)
+    j = JaxNode(jcfg, log_dir=str(tmp_path / "jax"))
+    kinds = []
+    for data in datas:
+        j.receive_handoff(jhandoff.unpack(data))
+        kinds.append(j.checkpointer.last["kind"])
+    return j, kinds
+
+
+def test_import_seals_keep_the_chain_below_rebase_every(tmp_path):
+    """More than ``rebase_every`` compacted imports into a durable node:
+    each import's seal is a delta link until the chain reaches the bound,
+    then a full image that resets it, and no seal rotates the WAL.  The
+    values equal the JAX node's after the same imports."""
+    from antidote_tpu_torch.store import handoff
+
+    datas, expect = _compacted_packages(tmp_path)
+    dst = node_at(AntidoteConfig(**_IMPORT_KW), str(tmp_path / "dst"))
+    gen = dst.store.log.gen
+    kinds, chains = [], []
+    for data in datas:
+        dst.receive_handoff(handoff.unpack(data))
+        kinds.append(dst.checkpointer.last["kind"])
+        chains.append(dst.checkpointer.chain_len)
+    rebase = dst.checkpointer.rebase_every
+    assert rebase == 8 and len(datas) > rebase
+    assert kinds == ["full"] + ["delta"] * 7 + ["full"] + ["delta"] * 3
+    assert max(chains) < rebase and chains[-1] == 3
+    assert dst.store.log.gen == gen
+    assert _values(dst, expect) == [
+        sorted(v) if isinstance(v, list) else v for v in expect.values()]
+    j, jkinds = _jax_import_node(tmp_path, datas)
+    try:
+        # the JAX import keeps no dirty window for the imported rows, so
+        # each of its checkpoints is a full image
+        assert jkinds == ["full"] * len(datas)
+        assert _values(j, expect) == _values(dst, expect)
+    finally:
+        j.store.log.close()
+    dst.close()
+
+
+def test_recovery_through_a_chain_past_rebase_every_equals_jax(tmp_path):
+    """A node whose import seals ran under a larger bound (``rebase_every``
+    64) holds a chain of 11 links, past the default 8.  Recovered, its
+    values equal the JAX node's after the same imports (and the JAX
+    node's own recovery); the first stamp after the recovery — a seal,
+    or a periodic checkpointer's next stamp — is a full image that
+    re-bounds the chain."""
+    from antidote_tpu_torch.store import handoff
+
+    datas, expect = _compacted_packages(tmp_path)
+    cfg = AntidoteConfig(**_IMPORT_KW)
+    log_dir = str(tmp_path / "dst")
+    dst = node_at(cfg, log_dir)
+    dst.start_checkpointer(interval_s=0.0, rebase_every=64)
+    for data in datas:
+        dst.receive_handoff(handoff.unpack(data))
+    assert dst.checkpointer.chain_len == len(datas) - 1 == 11
+    want = _values(dst, expect)
+    dst.close()
+    copy_dir = str(tmp_path / "dst_copy")
+    shutil.copytree(log_dir, copy_dir)
+    chain = ckpt.load_chain(log_dir)
+    assert chain is not None and len(chain[2]) == 11
+    rec = node_at(cfg, log_dir, recover=True)
+    assert _values(rec, expect) == want
+    j, _ = _jax_import_node(tmp_path, datas)
+    try:
+        assert _values(j, expect) == want
+    finally:
+        j.store.log.close()
+    from antidote_tpu.api import AntidoteNode as JaxNode
+    from antidote_tpu.config import AntidoteConfig as JaxConfig
+
+    jrec = JaxNode(JaxConfig(batch_buckets=(16,), **_IMPORT_KW),
+                   log_dir=str(tmp_path / "jax"), recover=True)
+    try:
+        assert _values(jrec, expect) == want
+    finally:
+        jrec.store.log.close()
+    # the default bound on the recovered chain: the next seal rebases
+    cp = rec.start_checkpointer(interval_s=0.0)
+    assert cp.rebase_every == 8 and cp.chain_len == 11
+    assert rec.seal_import()["kind"] == "full" and cp.chain_len == 0
+    rec.close()
+    # a periodic checkpointer's next stamp, on a copy of the long chain
+    again = node_at(cfg, copy_dir, recover=True)
+    cp = again.start_checkpointer(interval_s=0.0)
+    assert cp.chain_len == 11
+    assert again.checkpoint_now()["kind"] == "full" and cp.chain_len == 0
+    assert _values(again, expect) == want
+    again.close()

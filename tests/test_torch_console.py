@@ -387,8 +387,8 @@ def test_serve_follower_of_refusals(tmp_path, capsys):
     assert console.main(["serve", "--device", "cpu", "--follower-of",
                          "127.0.0.1:1"]) == 2  # no --log-dir
     assert console.main(["serve", "--device", "cpu", "--follower-of",
-                         "127.0.0.1:1,127.0.0.1:2", "--log-dir",
-                         str(tmp_path / "a")]) == 2  # a clustered owner
+                         ",", "--log-dir",
+                         str(tmp_path / "a")]) == 2  # no endpoint
     assert console.main(["serve", "--device", "cpu", "--follower-of",
                          "127.0.0.1:1", "--log-dir",
                          str(tmp_path / "b")]) == 2  # nobody there

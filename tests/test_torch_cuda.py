@@ -1243,6 +1243,108 @@ def test_cuda_follower_of_a_cuda_owner_reads_equal_to_a_cpu_follower(
             f.close()
 
 
+def test_cuda_follower_of_a_clustered_cuda_owner_through_a_shard_move(
+        dev, tmp_path):
+    """Two CUDA cluster members with their inter-DC endpoints; a CUDA
+    follower and a CPU follower attach to both members' descriptors and
+    bootstrap by composing their images; the tail flows through a live
+    ``_move_shard`` between the members; at the members' clock both
+    followers read what the members read, their routes follow the move,
+    and their Merkle checks against each shard's owner come out ``ok``."""
+    import time
+
+    from antidote_tpu_torch.cluster import ClusterNode, attach_interdc
+    from antidote_tpu_torch.cluster.join import _move_shard
+    from antidote_tpu_torch.cluster.member import ClusterMember
+    from antidote_tpu_torch.cluster.rpc import RpcClient
+    from antidote_tpu_torch.interdc import FollowerReplica
+    from antidote_tpu_torch.interdc.tcp import TcpFabric
+
+    cfg = AntidoteConfig(n_shards=8, max_dcs=4, ops_per_key=16,
+                         snap_versions=2, set_slots=16, keys_per_table=256)
+    fabrics = [TcpFabric() for _ in range(3)]
+    ms = [ClusterMember(cfg, dc_id=0, member_id=i, n_members=2, device=dev,
+                        log_dir=str(tmp_path / f"m{i}")) for i in range(2)]
+    nodes = []
+    try:
+        for a in ms:
+            for b in ms:
+                if a is not b:
+                    a.connect(b.member_id, *b.address)
+        reps = [attach_interdc(m, fabrics[0]) for m in ms]
+        coord = ClusterNode(ms[0])
+        rng = np.random.default_rng(6)
+
+        def writes(n):
+            for r in range(n):
+                coord.update_objects([
+                    (int(rng.integers(60)), "set_aw", "b",
+                     ("add" if rng.random() < 0.8 else "remove",
+                      int(rng.integers(9)))),
+                    (f"c{r % 7}", "counter_pn", "b", ("increment", r))])
+
+        writes(40)
+        for m in ms:
+            m.node.checkpoint_now()
+        writes(10)
+        fols = []
+        for i, d in ((1, dev), (2, torch.device("cpu"))):
+            node = AntidoteNode(cfg, dc_id=0, device=d,
+                                log_dir=str(tmp_path / f"f{i}"))
+            nodes.append(node)
+            fol = FollowerReplica(node, fabrics[i], f"f{i}",
+                                  fabric_id=300 + i)
+            assert fol.attach([r.descriptor().to_wire()
+                               for r in reps]) == "image"
+            assert len(fol.boot_stats["members"]) == 2
+            fols.append((node, fol, fabrics[i]))
+        objs = [(k, "set_aw", "b") for k in range(60)] + [
+            (f"c{r}", "counter_pn", "b") for r in range(7)]
+
+        def follow_and_compare():
+            deadline = time.monotonic() + 120
+            for node, _fol, fab in fols:
+                while True:
+                    for r in reps:
+                        r.heartbeat()
+                    for m in ms:
+                        m.refresh_peer_clocks()
+                    fabrics[0].pump(timeout=0.05)
+                    fab.pump(timeout=0.05)
+                    target = np.maximum.reduce(
+                        [m.node.store.dc_max_vc() for m in ms])
+                    if (node.store.stable_vc() >= target).all():
+                        break
+                    assert time.monotonic() < deadline
+            want = coord.read_objects(objs, clock=target)[0]
+            for node, fol, _fab in fols:
+                got = node.read_objects(objs, clock=target)[0]
+                assert [sorted(v) if isinstance(v, list) else v
+                        for v in got] == [sorted(v) if isinstance(v, list)
+                                          else v for v in want]
+                assert set(fol.check_divergence().values()) == {"ok"}
+
+        follow_and_compare()
+        moved = next(s for s in range(cfg.n_shards) if s in ms[1].shards)
+        clients = {m.member_id: RpcClient(*m.address) for m in ms}
+        try:
+            _move_shard(clients, moved, 1, 0, 2)
+        finally:
+            for c in clients.values():
+                c.close()
+        writes(20)
+        follow_and_compare()
+        for _node, fol, _fab in fols:
+            assert fol._route(0, moved) == reps[0].fabric_id
+    finally:
+        for m in ms:
+            m.close()
+        for node in nodes:
+            node.close()
+        for f in fabrics:
+            f.close()
+
+
 def test_cuda_shard_digest_equals_the_cpu_digest(dev, tmp_path):
     """One stream into a CUDA node and a CPU node: every shard's digest
     and Merkle root are equal strings (the CUDA side resolves its sets
@@ -1353,7 +1455,10 @@ def test_live_segment_on_the_card_at_a_small_depth(dev):
     each), the refusals hold, the maps agree and partition the shards,
     every key equals the host model through the survivors' coordinators
     (the joiner's included) and the moved keys at the snapshot before the
-    join; the segment launched the kernels of its path."""
+    join; a follower of the clustered owner, attached to the four members
+    between the join and the leave, composes their images, shadows the
+    leave and compares clean on every shard, its reads equal to the
+    owners'; the segment launched the kernels of its path."""
     import sys
     from pathlib import Path
 
@@ -1368,6 +1473,11 @@ def test_live_segment_on_the_card_at_a_small_depth(dev):
     assert live["join_moves"] == 512 and live["leave_moves"] == 512
     assert live["member_ids"] == [0, 2, 3]
     assert live["moved_shards"] == 1024
+    fo = live["follower"]
+    assert fo["mode"] == "image" and len(fo["boot"]["members"]) == 4
+    assert fo["divergence"]["mismatch"] == 0
+    assert fo["divergence"]["ok"] >= 2048 and fo["keys_read"] > 512
+    assert max(live["chain_len"].values()) < 8
     for name in chip_smoke.PATH_KERNELS["live"]:
         assert live["launches"][name] > 0, name
 

@@ -8,17 +8,21 @@ the compaction floor, divergence caught and healed, crash rejoin, a
 bit-rotted newest image, the session gate's park and redirect.  Part B runs
 the wire stack — owner and followers on ``TcpFabric``s with
 ``ProtocolServer``s — and holds the ``SessionClient``'s read-your-writes
-across a follower kill and rejoin.  The clustered-owner case
-(``test_clustered_owner_fleet_shadowing_and_live_shard_move``) is left
-out: followers of a clustered owner come with the cluster's live
-membership.  Part D holds the port against the JAX package over
-``TcpFabric``: a port follower of a JAX owner and a JAX follower of a port
-owner bootstrap by image to equal values, ``ckpt_fetch`` chunks are
-byte-equal, ``install_image(shards=)`` gives equal rows; and no published
-epoch claims a clock the follower has not applied.  Every wait is a
-bounded deadline loop.  Tolerance: exact values and bytes.
+across a follower kill and rejoin.  Part D holds the port against the JAX
+package over ``TcpFabric``: a port follower of a JAX owner and a JAX
+follower of a port owner bootstrap by image to equal values, ``ckpt_fetch``
+chunks are byte-equal, ``install_image(shards=)`` gives equal rows; and no
+published epoch claims a clock the follower has not applied.  Part E
+follows a clustered owner: the port of
+``test_clustered_owner_fleet_shadowing_and_live_shard_move`` on port
+members, a port follower of a JAX clustered owner through a shard move
+(equal values, clean digests), the descriptor refusals that stay, and a
+joiner whose imports were sealed by delta links shipping an image that
+covers them.  Every wait is a bounded deadline loop.  Tolerance: exact
+values and bytes.
 """
 
+import os
 import threading
 import time
 
@@ -1032,3 +1036,365 @@ def test_follower_fabric_without_the_native_pump_refuses(cfg, tmp_path):
     faults.install(faults.FaultPlan(seed=1).error("native_pump.load"))
     with pytest.raises(NativePumpUnavailable):
         TcpFabric()
+
+
+# ---------------------------------------------------------------------------
+# Part E — followers of a clustered owner
+# ---------------------------------------------------------------------------
+def _ccfg():
+    return AntidoteConfig(n_shards=4, max_dcs=3, ops_per_key=8,
+                          snap_versions=2, set_slots=4, keys_per_table=32)
+
+
+def _port_members(ccfg, tmp_path, n=2):
+    from antidote_tpu_torch.cluster.member import ClusterMember
+
+    ms = [ClusterMember(ccfg, dc_id=0, member_id=i, n_members=n,
+                        log_dir=str(tmp_path / f"m{i}"), device="cpu")
+          for i in range(n)]
+    for a in ms:
+        for b in ms:
+            if a is not b:
+                a.connect(b.member_id, *b.address)
+    return ms
+
+
+def _converge_fleet(ms, reps, fabrics, fnode, objs, expect, timeout=60.0):
+    """Heartbeat the members and pump every fabric until the follower's
+    stable snapshot covers the members' clock and its reads there equal
+    ``expect`` (bounded); returns that clock."""
+    deadline = time.monotonic() + timeout
+    while True:
+        for r in reps:
+            r.heartbeat()
+        for m in ms:
+            m.refresh_peer_clocks()
+        for f in fabrics:
+            f.pump(timeout=0.05)
+        target = np.maximum.reduce([m.node.store.dc_max_vc() for m in ms])
+        if (fnode.store.stable_vc() >= target).all():
+            got, _ = fnode.read_objects(objs, clock=target)
+            if got == expect:
+                return target
+        assert time.monotonic() < deadline, (
+            f"fleet follower never converged: {fnode.store.stable_vc()} "
+            f"< {target}")
+
+
+def test_clustered_owner_fleet_shadowing_and_live_shard_move(tmp_path):
+    """A follower shadows a 2-member clustered owner: the bootstrap
+    composes both members' images (each restricted to its owned shards),
+    the tail flows over per-member subscriptions, reads equal the
+    owner's at equal applied clocks (the digest clean on every shard
+    against whichever member owns it), and a live shard move mid-stream
+    re-points catch-up and digest routing through the ownership gossip
+    with no reconnect."""
+    from antidote_tpu_torch.cluster import ClusterNode, attach_interdc
+    from antidote_tpu_torch.cluster.join import _move_shard
+    from antidote_tpu_torch.cluster.rpc import RpcClient
+    from antidote_tpu_torch.interdc.tcp import TcpFabric
+
+    ccfg = _ccfg()
+    fab = TcpFabric(backoff_base=0.05, backoff_max=0.5)
+    ffab = TcpFabric(backoff_base=0.05, backoff_max=0.5)
+    ms = _port_members(ccfg, tmp_path)
+    reps = [attach_interdc(m, fab) for m in ms]
+    coord = ClusterNode(ms[0])
+    fnode = None
+    try:
+        n_keys = 8
+        for _r in range(3):
+            for k in range(n_keys):
+                coord.update_objects([(k, "counter_pn", "b",
+                                       ("increment", 1))])
+        for m in ms:
+            m.node.checkpoint_now()
+        fnode = AntidoteNode(ccfg, dc_id=0, log_dir=str(tmp_path / "fol"),
+                             device="cpu")
+        fol = FollowerReplica(fnode, ffab, "cf1",
+                              owner_client_addr=("owner-host", 1),
+                              fabric_id=301)
+        mode = fol.attach([r.descriptor() for r in reps])
+        assert mode == "image" and fol.state == "serving"
+        assert fol.member_fids == [r.fabric_id for r in reps]
+        assert fol.owner_fid == reps[0].fabric_id
+        assert sorted(fol.boot_stats["members"]) == fol.member_fids
+        assert fol.replica_status()["fleet"]["owner_members"] == 2
+        objs = [(k, "counter_pn", "b") for k in range(n_keys)]
+        _converge_fleet(ms, reps, (fab, ffab), fnode, objs, [3] * n_keys)
+        res = fol.check_divergence()
+        assert set(res.values()) == {"ok"}, res
+        # the live tail keeps flowing from both members
+        for k in range(n_keys):
+            coord.update_objects([(k, "counter_pn", "b", ("increment", 1))])
+        _converge_fleet(ms, reps, (fab, ffab), fnode, objs, [4] * n_keys)
+        # a live shard move, member 1 -> member 0: the open subscriptions
+        # keep delivering and the gossip re-points the routes
+        moved = next(s for s in range(ccfg.n_shards) if s in ms[1].shards)
+        assert fol._route(0, moved) == reps[1].fabric_id
+        clients = {m.member_id: RpcClient(*m.address) for m in ms}
+        try:
+            _move_shard(clients, moved, 1, 0, 2)
+        finally:
+            for c in clients.values():
+                c.close()
+        assert moved in ms[0].shards and moved not in ms[1].shards
+        for k in range(n_keys):
+            coord.update_objects([(k, "counter_pn", "b", ("increment", 1))])
+        _converge_fleet(ms, reps, (fab, ffab), fnode, objs, [5] * n_keys)
+        assert fol.shard_route[(0, moved)][0] == 0
+        res = fol.check_divergence()
+        assert set(res.values()) == {"ok"}, res
+        assert fol._route(0, moved) == reps[0].fabric_id
+        # both members' registries saw the follower's reports
+        for r in reps:
+            assert "cf1" in r.replica_status()["followers"]
+    finally:
+        for m in ms:
+            m.close()
+        fab.close()
+        ffab.close()
+        if fnode is not None:
+            fnode.close()
+
+
+def test_fleet_descriptor_refusals(tmp_path):
+    """What ``attach`` still refuses with a fleet: a descriptor list
+    without the owner DC, and a follower fabric id that collides with a
+    fleet endpoint's."""
+    from antidote_tpu_torch.interdc.messages import Descriptor
+
+    hub = LoopbackHub()
+    node = AntidoteNode(_ccfg(), dc_id=0, log_dir=str(tmp_path / "f"),
+                        device="cpu")
+    try:
+        fol = FollowerReplica(node, hub, "fx", fabric_id=301)
+        peers = [Descriptor(1, "dc1", 4, fabric_id=1),
+                 Descriptor(1, "dc1m1", 4, fabric_id=(1 << 16) | 1)]
+        with pytest.raises(ValueError, match="no descriptor for the owner"):
+            fol.attach(peers)
+        with pytest.raises(ValueError, match="collides"):
+            fol.attach([Descriptor(0, "dc0", 4, fabric_id=0),
+                        Descriptor(0, "dc0m1", 4, fabric_id=301)])
+        assert fol.owner_fid is None and not fol.member_fids
+    finally:
+        node.close()
+
+
+def test_a_joiner_ships_an_image_covering_its_sealed_imports(tmp_path):
+    """A live join imports compacted shards into the joiner, sealed by a
+    full image and then delta links; the members' inter-DC endpoints come
+    up after it (their chains start empty).  A follower attached with no
+    further checkpoint composes images covering every owned shard: the
+    joiner publishes a full image at the follower's ``ckpt_meta`` (the
+    JAX member's imports are full images already), so every value equals
+    the members' and the digest is clean.  Shipping the joiner's older
+    full image instead reads the shards of the later imports as
+    empty."""
+    from antidote_tpu_torch.cluster import ClusterNode, attach_interdc
+    from antidote_tpu_torch.cluster.join import live_join
+    from antidote_tpu_torch.cluster.member import ClusterMember
+    from antidote_tpu_torch.interdc.tcp import TcpFabric
+    from antidote_tpu_torch.log import checkpoint as ckpt
+
+    ccfg = AntidoteConfig(n_shards=8, max_dcs=3, ops_per_key=8,
+                          snap_versions=2, set_slots=4, keys_per_table=32)
+    ms = _port_members(ccfg, tmp_path)
+    fab = TcpFabric(backoff_base=0.05, backoff_max=0.5)
+    ffab = TcpFabric(backoff_base=0.05, backoff_max=0.5)
+    fnode = None
+    try:
+        coord = ClusterNode(ms[0])
+        for k in range(16):
+            coord.update_objects([(k, "counter_pn", "b",
+                                   ("increment", k + 1))])
+        for m in ms:
+            m.node.checkpoint_now()
+        joiner = ClusterMember(ccfg, dc_id=0, member_id=2, n_members=3,
+                               shards=[], log_dir=str(tmp_path / "m2"),
+                               device="cpu")
+        ms.append(joiner)
+        for a in ms:
+            for b in ms:
+                if a is not b and b.member_id not in a.peers:
+                    a.connect(b.member_id, *b.address)
+        assert live_join({m.member_id: tuple(m.address) for m in ms},
+                         2) == 2
+        cp = joiner.node.checkpointer
+        assert cp.chain_len == 1 and cp.sealed_links == 1
+        reps = [attach_interdc(m, fab) for m in ms]
+        fnode = AntidoteNode(ccfg, dc_id=0, log_dir=str(tmp_path / "fol"),
+                             device="cpu")
+        fol = FollowerReplica(fnode, ffab, "cf2",
+                              owner_client_addr=("owner-host", 1),
+                              fabric_id=302)
+        assert fol.attach([r.descriptor() for r in reps]) == "image"
+        objs = [(k, "counter_pn", "b") for k in range(16)]
+        _converge_fleet(ms, reps, (fab, ffab), fnode, objs,
+                        [k + 1 for k in range(16)], timeout=20.0)
+        res = fol.check_divergence()
+        assert set(res.values()) == {"ok"}, res
+        assert cp.sealed_links == 0 and cp.chain_len == 0
+        shipped = fol.boot_stats["members"][reps[2].fabric_id]["id"]
+        assert shipped == cp.last["id"] == 3
+        assert ckpt.manifest_kind(ckpt.load_manifest(os.path.join(
+            ckpt.checkpoint_root(str(tmp_path / "m2")),
+            f"ckpt_{shipped}"))) == "full"
+        # a second follower's request finds nothing sealed since: no image
+        assert reps[2]._serve_ckpt_meta()["id"] == 3
+    finally:
+        for m in ms:
+            m.close()
+        fab.close()
+        ffab.close()
+        if fnode is not None:
+            fnode.close()
+
+
+def test_port_follower_of_a_jax_clustered_owner_follows_a_shard_move(
+        tmp_path, jax_pump):
+    """A port follower of a JAX clustered owner (two JAX members, each
+    with its inter-DC endpoint): the bootstrap composes both members'
+    images, the tail flows through a ``_move_shard`` between the JAX
+    members, the digest is clean on every shard against its owner, and
+    reads at equal applied clocks equal the JAX members' values exactly
+    (before and after the move)."""
+    from antidote_tpu.cluster import ClusterNode as JNode
+    from antidote_tpu.cluster import attach_interdc as jattach
+    from antidote_tpu.cluster.join import _move_shard as jmove
+    from antidote_tpu.cluster.member import ClusterMember as JMember
+    from antidote_tpu.cluster.rpc import RpcClient as JRpc
+    from antidote_tpu.config import AntidoteConfig as JConfig
+    from antidote_tpu.interdc.tcp import TcpFabric as JFabric
+    from antidote_tpu_torch.interdc.tcp import TcpFabric
+
+    jcfg = JConfig(n_shards=4, max_dcs=3, ops_per_key=8, snap_versions=2,
+                   set_slots=4, keys_per_table=32, batch_buckets=(8,))
+    jfab, pfab = JFabric(), TcpFabric()
+    ms = [JMember(jcfg, dc_id=0, member_id=i, n_members=2,
+                  log_dir=str(tmp_path / f"jm{i}")) for i in range(2)]
+    fnode = None
+    try:
+        for a in ms:
+            for b in ms:
+                if a is not b:
+                    a.connect(b.member_id, *b.address)
+        reps = [jattach(m, jfab) for m in ms]
+        coord = JNode(ms[0])
+        _seeded_writes(coord, 61, 24)
+        for m in ms:
+            m.node.checkpoint_now()
+        _seeded_writes(coord, 62, 8, start=24)
+        fnode = AntidoteNode(_ccfg(), dc_id=0, log_dir=str(tmp_path / "pf"),
+                             device="cpu")
+        fol = FollowerReplica(fnode, pfab, "pcf", fabric_id=303,
+                              owner_client_addr=("owner-host", 1))
+        mode = fol.attach([r.descriptor().to_wire() for r in reps])
+        assert mode == "image" and fol.state == "serving"
+        assert fol.member_fids == [r.fabric_id for r in reps]
+        assert sorted(fol.boot_stats["members"]) == fol.member_fids
+
+        def follow(timeout=60.0):
+            deadline = time.monotonic() + timeout
+            while True:
+                for r in reps:
+                    r.heartbeat()
+                for m in ms:
+                    m.refresh_peer_clocks()
+                jfab.pump(timeout=0.05)
+                pfab.pump(timeout=0.05)
+                target = np.maximum.reduce(
+                    [np.asarray(m.node.store.dc_max_vc()) for m in ms])
+                if (fnode.store.stable_vc() >= target).all():
+                    return [int(x) for x in target]
+                assert time.monotonic() < deadline, (
+                    f"follower never converged: {fnode.store.stable_vc()}"
+                    f" < {target}")
+
+        def same_at(clock):
+            want, _ = coord.read_objects(_OBJS, clock=clock)
+            got, _ = fnode.read_objects(_OBJS, clock=clock)
+            assert _norm_vals(got) == _norm_vals(want)
+
+        same_at(follow())
+        assert set(fol.check_divergence().values()) == {"ok"}
+        moved = next(s for s in range(jcfg.n_shards) if s in ms[1].shards)
+        clients = {m.member_id: JRpc(*m.address) for m in ms}
+        try:
+            jmove(clients, moved, 1, 0, 2)
+        finally:
+            for c in clients.values():
+                c.close()
+        assert moved in ms[0].shards and moved not in ms[1].shards
+        _seeded_writes(coord, 63, 12, start=32)
+        deadline = time.monotonic() + 30
+        while fol.shard_route.get((0, moved), (None,))[0] != 0:
+            follow()
+            assert time.monotonic() < deadline, fol.shard_route
+        same_at(follow())
+        res = fol.check_divergence()
+        assert set(res.values()) == {"ok"}, res
+        assert fol._route(0, moved) == reps[0].fabric_id
+        for r in reps:
+            assert "pcf" in r.replica_status()["followers"]
+    finally:
+        for m in ms:
+            m.close()
+        pfab.close()
+        jfab.close()
+        if fnode is not None:
+            fnode.close()
+
+
+def test_a_member_commit_on_two_shards_never_pings_ahead_of_a_link(
+        tmp_path):
+    """A transaction touching two shards of one member commits as two
+    links applied in one group.  With a safe-time ping due at every
+    commit, the first link's publish must not ping the second link's
+    shard at its ts before the second link's message: a follower takes
+    such a ping, then drops the message as a duplicate and never applies
+    it.  (The member published links after moving every link's clock;
+    the JAX member applies and publishes link by link.)"""
+    from antidote_tpu_torch.cluster import ClusterNode, attach_interdc
+
+    ccfg = _ccfg()
+    hub = LoopbackHub()
+    ms = _port_members(ccfg, tmp_path)
+    fnode = None
+    try:
+        reps = [attach_interdc(m, hub) for m in ms]
+        for r in reps:
+            r.HEARTBEAT_EVERY_COMMITS = 1  # a ping due at every commit
+        coord = ClusterNode(ms[0])
+        a, b = sorted(ms[1].shards)[:2]  # two shards of member 1
+        objs = [(a, "counter_pn", "b"), (b, "counter_pn", "b")]
+        coord.update_objects([(k, t, bk, ("increment", 1))
+                              for k, t, bk in objs])
+        for m in ms:
+            m.node.checkpoint_now()
+        fnode = AntidoteNode(ccfg, dc_id=0, log_dir=str(tmp_path / "fol"),
+                             device="cpu")
+        fol = FollowerReplica(fnode, hub, "cf3", fabric_id=304)
+        assert fol.attach([r.descriptor() for r in reps]) == "image"
+        for i in range(2, 6):
+            coord.update_objects([(k, t, bk, ("increment", i))
+                                  for k, t, bk in objs])
+        want = [1 + 2 + 3 + 4 + 5] * 2
+        deadline = time.monotonic() + 30
+        while True:
+            for r in reps:
+                r.heartbeat()
+            hub.pump()
+            target = np.maximum.reduce([m.node.store.dc_max_vc()
+                                        for m in ms])
+            if (fnode.store.stable_vc() >= target).all():
+                break
+            assert time.monotonic() < deadline
+        assert coord.read_objects(objs, clock=target)[0] == want
+        assert fnode.read_objects(objs, clock=target)[0] == want
+        assert set(fol.check_divergence([a, b]).values()) == {"ok"}
+    finally:
+        for m in ms:
+            m.close()
+        if fnode is not None:
+            fnode.close()

@@ -148,3 +148,43 @@ def test_parallel_writes_from_all_dcs(dcs):
     for n in nodes:
         vals, _ = n.read_objects([("shared", "counter_pn", "b")], clock=target)
         assert vals[0] == 6
+
+
+def test_a_burst_of_frames_leaves_in_a_few_sends_in_order():
+    """A subscriber's writer sends what its outbox holds in batches of up
+    to ``SEND_BATCH`` frames, one ``sendall`` a batch: a heartbeat's burst
+    of pings (one a shard) costs a few system calls, and the frames
+    arrive whole and in order."""
+    import socket
+
+    from antidote_tpu_torch.interdc import tcp
+
+    a, b = socket.socketpair()
+
+    class Counting:
+        def __init__(self, sock):
+            self.sock, self.sends = sock, 0
+
+        def sendall(self, data):
+            self.sends += 1
+            self.sock.sendall(data)
+
+        def fileno(self):
+            return self.sock.fileno()
+
+    out = Counting(a)
+    sub = tcp._Subscriber(out)
+    frames = [f"frame {i}".encode() * (1 + i % 5) for i in range(1000)]
+    for f in frames:
+        assert sub.offer(f)
+    sub.stop()
+    dead = []
+    sub.start(dead.append)
+    b.settimeout(10)
+    got = [tcp._recv(b) for _ in frames]
+    sub._thread.join(10)
+    assert got == [(tcp.K_PUSH, f) for f in frames]
+    assert out.sends == -(-len(frames) // tcp._Subscriber.SEND_BATCH)
+    assert not dead and not sub._thread.is_alive()
+    a.close()
+    b.close()
