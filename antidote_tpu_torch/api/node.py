@@ -54,15 +54,20 @@ class AntidoteNode:
     data (WAL records or a published checkpoint) must be opened with
     ``recover=True``, never booted fresh over.  ``store`` adopts an
     existing KVStore (a reshard's output) with its own log and device;
-    ``log_dir`` must be None then.  ``resident_rows`` > 0 attaches the cold
-    tier with that resident budget (it needs ``log_dir``), and
-    ``cold_fault_rate_cap`` caps its fault-ins a second."""
+    ``log_dir`` must be None then.  ``sharding``
+    (``parallel.shard_axis_sharding``, or a ``MeshServingPlane``'s) places
+    every table over a device mesh from its creation, recovery's included;
+    attach the plane afterwards for its stable time.  ``resident_rows`` > 0
+    attaches the cold tier with that resident budget (it needs
+    ``log_dir``), and ``cold_fault_rate_cap`` caps its fault-ins a
+    second."""
 
     def __init__(self, cfg: Optional[AntidoteConfig] = None, dc_id: int = 0,
                  cert: bool = True, log_dir: Optional[str] = None,
                  recover: bool = False, meta=None,
                  store: Optional[KVStore] = None, resident_rows: int = 0,
-                 cold_fault_rate_cap: float = 0.0, device="cuda"):
+                 cold_fault_rate_cap: float = 0.0, device="cuda",
+                 sharding=None):
         if store is not None and cfg is None:
             cfg = store.cfg
         self.cfg = cfg or AntidoteConfig()
@@ -100,7 +105,7 @@ class AntidoteNode:
             raise RuntimeError(
                 "recover=True requires log_dir and cfg.enable_logging")
         self.store = store if store is not None else KVStore(
-            self.cfg, device=device, log=log)
+            self.cfg, device=device, log=log, sharding=sharding)
         self.txm = TransactionManager(
             self.store, my_dc=dc_id,
             cert=self.meta.get_env("txn_cert", cert),
@@ -388,6 +393,10 @@ class AntidoteNode:
             },
             "durable": self.store.log is not None,
         }
+        if self.store.mesh is not None:
+            # the mesh serving plane: devices, per-shard publish rows,
+            # stable-time latency
+            out["mesh"] = self.store.mesh.status()
         # fabric/RPC resilience counters (process-wide)
         out["net"] = {k: v for k, v in net_metrics().snapshot().items()
                       if v}

@@ -29,14 +29,24 @@ _TENSORS = ("snap_vc", "snap_seq", "ops_a", "ops_b", "ops_vc", "ops_origin",
 
 def table_arrays(table) -> Dict[str, Any]:
     """The state-carrying attributes of a table of either package as numpy
-    (``snap``/``head`` as dicts of fields, ``next_seq`` an int)."""
+    (``snap``/``head`` as dicts of fields, ``next_seq`` an int); a placed
+    port table's blocks come back assembled in shard order."""
     def host(x):
         if isinstance(x, torch.Tensor):
             return x.cpu().numpy()
         return np.array(x)
 
     out: Dict[str, Any] = {}
+    placed = getattr(table, "placed", False)
     for name in TABLE_ARRAYS:
+        if placed and name in ("snap", "head"):
+            # a placed port table: its blocks assembled on the host
+            out[name] = {f: table.host_full(name, f)
+                         for f in table.blocks[0].head}
+            continue
+        if placed and name in _TENSORS:
+            out[name] = table.host_full(name)
+            continue
         x = getattr(table, name)
         out[name] = ({f: host(v) for f, v in x.items()}
                      if isinstance(x, dict) else host(x))

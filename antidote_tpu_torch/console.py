@@ -29,7 +29,11 @@ the client protocol.
         --rpcs 0=host:port,1=host:port,2=host:port --leaver 1
 
 ``serve`` puts the node's tables on ``--device`` (``cuda`` by default; a
-machine without a card must ask for ``cpu``) and prints its ready line —
+machine without a card must ask for ``cpu``), or with ``--mesh-devices N``
+over the first N visible cards in shard blocks (``parallel.
+MeshServingPlane``; an N that does not divide the shards, or more cards
+than are visible, exits 2, and the ready line gains ``mesh_devices``), and
+prints its ready line —
 one JSON object on stdout — only after the readiness probe ran a
 transaction on that device (on a card, after the kernels were built) and
 the protocol server bound its port.  The client port belongs to the native
@@ -193,6 +197,20 @@ def cmd_serve(args) -> int:
         # file below its floor was reclaimed
         or has_checkpoints(args.log_dir)
     )
+    mesh_plane = None
+    if args.mesh_devices:
+        # the mesh serving plane: built BEFORE the node so that recovery's
+        # tables are placed at creation, attached after it so that stable
+        # time and per-shard publishes route through it
+        from antidote_tpu_torch.parallel import MeshServingPlane
+
+        try:
+            mesh_plane = MeshServingPlane(
+                cfg, args.mesh_devices,
+                devices=None if device.type == "cuda" else [device])
+        except ValueError as e:
+            log(f"--mesh-devices {args.mesh_devices}: {e}")
+            return 2
     if args.resident_rows > 0 and args.log_dir is None:
         log("--resident-rows requires --log-dir (cold rows live in "
             "checkpoint sidecars)")
@@ -202,7 +220,12 @@ def cmd_serve(args) -> int:
                         recover=recover,
                         resident_rows=args.resident_rows,
                         cold_fault_rate_cap=args.cold_fault_rate_cap,
-                        device=device)
+                        device=device,
+                        sharding=(mesh_plane.sharding
+                                  if mesh_plane is not None else None))
+    if mesh_plane is not None:
+        mesh_plane.metrics = node.metrics
+        mesh_plane.attach(node.store)
     if args.log_dir is not None and args.checkpoint_interval_s > 0:
         node.start_checkpointer(interval_s=args.checkpoint_interval_s,
                                 retain=args.checkpoint_retain,
@@ -348,12 +371,16 @@ def cmd_serve(args) -> int:
                                 "peer_dcs": len(peer_addrs)}})
         log(f"follower {follower.name} of {args.follower_of} serving "
             f"(bootstrap mode={mode}, owner members={len(owner_addrs)})")
+    if mesh_plane is not None:
+        ready["mesh_devices"] = mesh_plane.n_devices
     if interdc is not None:
         # the escrow plane armed at boot: the rights-transfer loop runs
         ready["escrow"] = dict(node.txm.bcounters.status(), loop=True)
     log(f"antidote_tpu_torch dc{args.dc_id} serving on "
         f"{server.host}:{server.port} (device={device}, "
-        f"recovered={recover}, keys={len(node.store.directory)})")
+        f"recovered={recover}, keys={len(node.store.directory)}"
+        + (f", mesh={mesh_plane.n_devices}dev"
+           if mesh_plane is not None else "") + ")")
     print(json.dumps(ready), flush=True)
     try:
         while True:
@@ -632,6 +659,13 @@ def main(argv=None) -> int:
     sv.add_argument("--device", default="cuda",
                     help="device of the node's tables: cuda (default; "
                          "fails without a card) or cpu")
+    sv.add_argument("--mesh-devices", type=int, default=0,
+                    help="place the node's tables over this many devices "
+                         "(the visible cards; on --device cpu the CPU is "
+                         "the one device), n_shards divisible by it; 0 = "
+                         "one device.  Stable time runs stable_min per "
+                         "shard block and epoch publishes go per-shard "
+                         "incremental")
     sv.add_argument("--log-dir", default=None)
     sv.add_argument("--host", default="127.0.0.1")
     sv.add_argument("--port", type=int, default=8087)

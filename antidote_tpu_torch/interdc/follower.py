@@ -530,8 +530,14 @@ class FollowerReplica(DCReplica):
                     if allowed is None or int(k) in allowed:
                         resets[int(k)] = int(v)
             logm.adopt_shard_resets(resets)
-            store = KVStore(cfg, device=old.device, log=logm)
+            store = KVStore(cfg, device=old.device, log=logm,
+                            sharding=old.sharding)
             store.metrics = node.metrics
+            if old.mesh is not None:
+                # a placed follower stays placed across every reinstall:
+                # the plane re-attaches to the fresh store, so its stable
+                # time keeps running per block
+                old.mesh.attach(store)
             store.snapshot_cache_cap = old.snapshot_cache_cap
             store._serving_seq = old._serving_seq
             old.drop_serving_epoch()

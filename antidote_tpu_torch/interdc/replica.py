@@ -966,13 +966,14 @@ class DCReplica:
                 tname, _s, row = ent
                 t = store.table(tname)
                 heads = {}
-                for f, x in t.head.items():
-                    arr = x[shard, row].cpu().numpy()
+                a = t.shard_arrays(shard)
+                for f, x in a["head"].items():
+                    arr = x[row].cpu().numpy()
                     heads[f] = {"b": arr.tobytes(), "dt": str(arr.dtype),
                                 "sh": list(arr.shape)}
                 rows.append([
                     key, bucket, tname, int(t.slots_ub[shard, row]),
-                    [int(v) for v in t.head_vc[shard, row].cpu().numpy()],
+                    [int(v) for v in a["head_vc"][row].cpu().numpy()],
                     heads,
                 ])
             return {"vc": [int(x) for x in store.applied_vc[shard]],

@@ -308,7 +308,6 @@ def install_image(store, txm, image: dict, shards=None) -> dict:
     stamp = np.asarray(image["stamp_vc"], np.int32).copy()
     for arr in (floors, chains, op_ids, stamp):
         arr[sl] = 0
-    dev = store.device
     n_rows_installed = 0
     for tname, tb in image["tables"].items():
         t = store.table(tname)
@@ -325,31 +324,32 @@ def install_image(store, txm, image: dict, shards=None) -> dict:
         while u_cap > t.n_rows:
             t._grow()
 
-        def full(dst, src, snap_slot=False):
+        def full(name, src, field=None, snap_slot=False):
             if rlist is None:
                 # the store is fresh (all-zero tables): zeros + one slice
-                # assign on the host, then one copy to the device
-                arr = np.zeros(tuple(dst.shape), src.dtype)
+                # assign on the host, then one copy to the device (one a
+                # block for a placed table)
+                arr = np.zeros(t.full_shape(name, field), src.dtype)
                 if snap_slot:
                     arr[:, :u_cap, 0] = src
                 else:
                     arr[:, :u_cap] = src
             else:
                 # restricted merge: the other shards' rows stay intact
-                arr = dst.cpu().numpy().copy()
+                arr = t.host_full(name, field).copy()
                 if snap_slot:
                     arr[rlist, :u_cap, 0] = src[rlist]
                 else:
                     arr[rlist, :u_cap] = src[rlist]
-            return torch.from_numpy(arr).to(device=dev, dtype=dst.dtype)
+            t.put_full(name, arr, field)
 
-        for f in t.head:
-            t.head[f] = full(t.head[f], head[f])
-            t.snap[f] = full(t.snap[f], head[f], snap_slot=True)
-        t.head_vc = full(t.head_vc, head_vc)
-        t.snap_vc = full(t.snap_vc, head_vc, snap_slot=True)
+        for f in list(t.blocks[0].head):
+            full("head", head[f], f)
+            full("snap", head[f], f, snap_slot=True)
+        full("head_vc", head_vc)
+        full("snap_vc", head_vc, snap_slot=True)
         seq_col = (np.arange(u_cap)[None, :] < used[:, None]).astype(np.int64)
-        t.snap_seq = full(t.snap_seq, seq_col, snap_slot=True)
+        full("snap_seq", seq_col, snap_slot=True)
         t.next_seq = 2
         if rlist is None:
             t.used_rows[:] = used

@@ -18,7 +18,9 @@ Each wrapper dispatches on where its tensors live: CPU tensors run the
 plain version (the CPU tests' path and the kernels' oracle), CUDA tensors
 launch the kernel or raise.  Nothing falls back.  ``LAUNCHES`` counts the
 kernel launches per name, so a run can show that its path went through
-the kernels.
+the kernels; ``LAUNCHES_BY_DEVICE`` splits them by CUDA device, and
+``LAUNCHES_BY_BLOCK`` by the shard block of a placed table whose work
+made them (``on_block``).
 
 The source is compiled with ``nvcc`` for ``sm_90a`` at first use into
 ``antidote_tpu_torch/_build/`` (named by the source's hash, so an edited
@@ -27,11 +29,13 @@ source rebuilds) and bound through its C entry points with ``ctypes``.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 import torch
@@ -45,6 +49,12 @@ BUILD_DIR = _PKG / "_build"
 #: kernel name -> launches since the last reset
 LAUNCHES = {"orset_presence": 0, "counter_fold": 0, "set_aw_fold": 0,
             "stable_min": 0}
+#: (kernel name, CUDA device index) -> launches since the last reset
+LAUNCHES_BY_DEVICE: dict = {}
+#: (kernel name, shard block) -> launches since the last reset, of the
+#: launches made inside ``on_block``
+LAUNCHES_BY_BLOCK: dict = {}
+_block = threading.local()
 INT32_MAX = 2**31 - 1
 #: stable_min runs as one block up to this many elements (the cluster
 #: path's 2048 x 4 among them), as a grid of at most this many blocks past it
@@ -58,6 +68,20 @@ _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    LAUNCHES_BY_DEVICE.clear()
+    LAUNCHES_BY_BLOCK.clear()
+
+
+@contextlib.contextmanager
+def on_block(b: int):
+    """Tag this thread's launches inside the block with shard block ``b``
+    (a placed table's work on one of its blocks)."""
+    prev = getattr(_block, "b", None)
+    _block.b = b
+    try:
+        yield
+    finally:
+        _block.b = prev
 
 
 def _nvcc() -> str:
@@ -153,6 +177,12 @@ def _launch(name: str, device, entry, *args) -> None:
         raise RuntimeError(f"{entry}: kernel launch failed ({err}): {msg}")
     if name is not None:
         LAUNCHES[name] += 1
+        key = (name, torch.device(device).index or 0)
+        LAUNCHES_BY_DEVICE[key] = LAUNCHES_BY_DEVICE.get(key, 0) + 1
+        b = getattr(_block, "b", None)
+        if b is not None:
+            LAUNCHES_BY_BLOCK[(name, b)] = (
+                LAUNCHES_BY_BLOCK.get((name, b), 0) + 1)
 
 
 def launch_floor(device) -> None:

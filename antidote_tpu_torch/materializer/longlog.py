@@ -13,7 +13,10 @@ takes B keys' logs as ``[B, L]`` op tensors.  Two strategies:
     batched ``apply`` per op slot) with ``n_ops`` masking.
 
 Inclusion semantics are those of ``fold.fold_batch``.  The mesh form,
-``sharded_assoc_fold_fn``, comes with the multi-card slice.
+``sharded_assoc_fold_fn``, folds ONE key's log with its op axis split over
+a mesh's devices: each device reduces its contiguous chunk to a partial
+delta, and the deltas, brought to the first device, merge in sequence
+order (the JAX package's ``all_gather`` of the partials).
 """
 
 from __future__ import annotations
@@ -66,3 +69,53 @@ def fold_long(ty, cfg, state0, ops_a, ops_b, ops_vc, ops_origin, n_ops,
             read_vc)
         applied += got
     return state, applied
+
+
+def sharded_assoc_fold_fn(ty, cfg, mesh):
+    """The sequence-parallel fold of one key over ``mesh``
+    (``parallel.make_mesh``): ``fn(state0, ops_a [L, A], ops_b [L, B],
+    ops_vc [L, D], ops_origin [L], n_ops, base_vc [D], read_vc [D])`` with
+    L a multiple of the mesh size; device ``i`` reduces ops ``[i*L/n,
+    (i+1)*L/n)`` (global slot indices for the ``< n_ops`` mask) to a partial
+    delta, and only the deltas cross to the first device.  Requires
+    ``ty.supports_assoc``.  Returns (state, applied) on the first device;
+    operands may be numpy arrays or tensors on any device."""
+    assert ty.supports_assoc, ty.name
+    devices = mesh.devices
+    n_dev = len(devices)
+
+    def fn(state0, ops_a, ops_b, ops_vc, ops_origin, n_ops, base_vc,
+           read_vc):
+        length = int(ops_vc.shape[0])
+        assert length % n_dev == 0, (length, n_dev)
+        per = length // n_dev
+        n_ops = int(n_ops)
+        deltas, applied = [], []
+        for i, dev in enumerate(devices):
+            def chunk(x, dtype):
+                return torch.as_tensor(x[i * per:(i + 1) * per]).to(
+                    device=dev, dtype=dtype)[None]
+
+            ov = chunk(ops_vc, torch.int32)
+            slots = i * per + torch.arange(per, device=dev)
+            bvc = torch.as_tensor(base_vc).to(device=dev, dtype=torch.int32)
+            rvc = torch.as_tensor(read_vc).to(device=dev, dtype=torch.int32)
+            mask = (~vc.le(ov, bvc[None, None]) & vc.le(ov, rvc[None, None])
+                    & (slots < n_ops)[None])
+            deltas.append(ty.delta_of_ops(
+                cfg, chunk(ops_a, torch.int64), chunk(ops_b, torch.int32),
+                ov, chunk(ops_origin, torch.int32), mask))
+            applied.append(mask.sum(dtype=torch.int32))
+        first = devices[0]
+        total = deltas[0]
+        applied_n = applied[0]
+        for d, a in zip(deltas[1:], applied[1:]):
+            total = ty.delta_merge(total, {f: x.to(first)
+                                           for f, x in d.items()})
+            applied_n = applied_n + a.to(first)
+        state = {f: torch.as_tensor(x).to(first)[None]
+                 for f, x in state0.items()}
+        state = ty.delta_apply(state, total)
+        return {f: x[0] for f, x in state.items()}, applied_n
+
+    return fn

@@ -292,6 +292,13 @@ class ProtocolServer:
                 txm.store.snapshot_cache_cap = int(snapshot_cache_size)
             if txm.store.metrics is None:
                 txm.store.metrics = self.metrics
+        #: the mesh serving plane's launch stage routes every chunk over
+        #: its blocks: the merge chunk scales with the device count, so
+        #: each device still sees a full batch
+        mesh = getattr(getattr(txm, "store", None), "mesh", None) \
+            if txm is not None else None
+        self._epoch_chunk = self.EPOCH_LAUNCH_CHUNK * (
+            mesh.n_devices if mesh is not None else 1)
         #: launched-but-unmaterialized epoch read batches between the
         #: dispatcher and the writeback worker.  BOUNDED: a lagging
         #: writeback stage backpressures the dispatcher (which then
@@ -1153,12 +1160,12 @@ class ProtocolServer:
 
     def _chunk_epoch_works(self, works: List[_StaticWork]):
         """Split eligible works into launch chunks of ≤ EPOCH_LAUNCH_CHUNK
-        total objects (a single oversized work still gets its own
-        chunk)."""
+        total objects, scaled by the mesh device count on a mesh plane (a
+        single oversized work still gets its own chunk)."""
         chunk: List[_StaticWork] = []
         n = 0
         for w in works:
-            if chunk and n + len(w.objects) > self.EPOCH_LAUNCH_CHUNK:
+            if chunk and n + len(w.objects) > self._epoch_chunk:
                 yield chunk
                 chunk, n = [], 0
             chunk.append(w)
@@ -1850,6 +1857,8 @@ class ProtocolServer:
             store = self._txm.store
             out["snapshot_cache"]["size"] = len(store.snapshot_cache)
             out["snapshot_cache"]["cap"] = store.snapshot_cache_cap
+            if store.mesh is not None:
+                out["mesh"] = store.mesh.status()
             out["materializer"] = store.materializer_status()
         return out
 

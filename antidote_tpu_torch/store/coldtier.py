@@ -624,9 +624,8 @@ class ColdTier:
         out: Dict[Tuple[Any, str], bool] = {}
         for tname, items in by_table.items():
             t = self.store.table(tname)
-            ss = t._idx_async([ent[1] for _dk, ent, _r in items])
-            rr = t._idx_async([ent[2] for _dk, ent, _r in items])
-            live = t.head_vc[ss, rr].cpu().numpy()
+            live = t.head_vc_at([ent[1] for _dk, ent, _r in items],
+                                [ent[2] for _dk, ent, _r in items])
             col = self._stored_stamps(sc, tname)
             if col is not None:
                 rs = np.asarray([r.shard for _dk, _e, r in items], np.int64)

@@ -22,6 +22,7 @@ by either package decode in the other.
 from __future__ import annotations
 
 import contextlib
+import logging
 from typing import Any, Dict, List, Optional
 
 import msgpack
@@ -30,9 +31,8 @@ import torch
 
 from antidote_tpu_torch.store.kv import KVStore, effect_from_rec, freeze_key
 from antidote_tpu_torch.store.router import shard_batch
-
-_ROW_ARRAYS = ("snap_vc", "snap_seq", "ops_a", "ops_b", "ops_vc",
-               "ops_origin", "head_vc")
+from antidote_tpu_torch.store.typed_table import ROW_TENSORS as _ROW_ARRAYS
+from antidote_tpu_torch.store.typed_table import _take
 
 
 def _host(x: torch.Tensor) -> np.ndarray:
@@ -40,17 +40,19 @@ def _host(x: torch.Tensor) -> np.ndarray:
 
 
 def _table_slice(t, shard: int, used: int) -> Dict[str, Any]:
+    # the shard's rows on the device of its block
+    a = t.shard_arrays(shard)
     return {
-        "snap": {f: _host(x[shard, :used]) for f, x in t.snap.items()},
-        "snap_vc": _host(t.snap_vc[shard, :used]),
-        "snap_seq": _host(t.snap_seq[shard, :used]),
-        "ops_a": _host(t.ops_a[shard, :used]),
-        "ops_b": _host(t.ops_b[shard, :used]),
-        "ops_vc": _host(t.ops_vc[shard, :used]),
-        "ops_origin": _host(t.ops_origin[shard, :used]),
+        "snap": {f: _host(x[:used]) for f, x in a["snap"].items()},
+        "snap_vc": _host(a["snap_vc"][:used]),
+        "snap_seq": _host(a["snap_seq"][:used]),
+        "ops_a": _host(a["ops_a"][:used]),
+        "ops_b": _host(a["ops_b"][:used]),
+        "ops_vc": _host(a["ops_vc"][:used]),
+        "ops_origin": _host(a["ops_origin"][:used]),
         "n_ops": t.n_ops[shard, :used].copy(),
-        "head": {f: _host(x[shard, :used]) for f, x in t.head.items()},
-        "head_vc": _host(t.head_vc[shard, :used]),
+        "head": {f: _host(x[:used]) for f, x in a["head"].items()},
+        "head_vc": _host(a["head_vc"][:used]),
         # host-tracked serving gates (table-wide, conservative): the
         # importer inherits them, or the provably-fresh fast path would
         # trust stale bounds
@@ -145,7 +147,6 @@ def import_shard(store: KVStore, pkg: Dict[str, Any],
             "package carries no log records — the imported rows could "
             "never recover and their blob payloads would be lost on "
             "re-export; export with include_log=True from a logged source")
-    dev = store.device
     bases: Dict[str, int] = {}
     for tname, sl in pkg["tables"].items():
         t = store.table(tname)
@@ -159,20 +160,22 @@ def import_shard(store: KVStore, pkg: Dict[str, Any],
         # install below would otherwise void, so a delta link after the
         # import covers them (a window a growth already voided stays so)
         window = t._ckpt_dirty
+        # the destination shard's rows, on the device of its block
+        a = t.shard_arrays(dst)
 
         def put(x, arr):
-            x[dst, base:end] = torch.as_tensor(np.asarray(arr), device=dev)
+            x[base:end] = torch.as_tensor(np.asarray(arr), device=x.device)
 
-        for f in t.snap:
-            put(t.snap[f], sl["snap"][f])
-            put(t.head[f], sl["head"][f])
+        for f in a["snap"]:
+            put(a["snap"][f], sl["snap"][f])
+            put(a["head"][f], sl["head"][f])
         # renumber snapshot sequence ids above everything local so the
         # per-key newest-version order is preserved
         seq = np.asarray(sl["snap_seq"], np.int64)
         seq = np.where(seq > 0, seq + t.next_seq, 0)
         t.next_seq += int(sl["next_seq"])
         for name in _ROW_ARRAYS:
-            put(getattr(t, name), seq if name == "snap_seq" else sl[name])
+            put(a[name], seq if name == "snap_seq" else sl[name])
         t.invalidate_epochs()  # out-of-band mutation: frozen copies stale
         if window is not None:
             window.update((dst, r) for r in range(base, end))
@@ -242,11 +245,12 @@ def drop_shard(store: KVStore, shard: int,
         store.cold.drop_shard(shard)
     for t in store.tables.values():
         if int(t.used_rows[shard]):
-            for grp in (t.snap, t.head):
-                for x in grp.values():
-                    x[shard] = 0
+            a = t.shard_arrays(shard)
+            for grp in ("snap", "head"):
+                for x in a[grp].values():
+                    x.zero_()
             for name in _ROW_ARRAYS:
-                getattr(t, name)[shard] = 0
+                a[name].zero_()
             t.invalidate_epochs()
             t.n_ops[shard] = 0
             t.slots_ub[shard] = 0
@@ -305,8 +309,10 @@ def reshard(store: KVStore, new_cfg, log=None, my_dc: Optional[int] = None,
     ingress barrier for the duration — without it a remote transaction
     delivered on a fabric thread mid-copy would land in the old store and
     be lost.  Cold keys are faulted in first: the directory the move walks
-    holds resident keys only.  The placement over a mesh comes with the
-    multi-card slice."""
+    holds resident keys only.  A placed store's new tables keep its
+    placement when the new shard count divides over its devices, and fall
+    back to one block on the placement's first device otherwise (logged),
+    as the JAX package falls back to its default placement."""
     old_cfg = store.cfg
     assert new_cfg.max_dcs == old_cfg.max_dcs
     assert new_cfg.ops_per_key == old_cfg.ops_per_key
@@ -325,7 +331,15 @@ def _reshard_locked(store: KVStore, new_cfg, log) -> KVStore:
     if store.cold is not None:
         for s in range(store.cfg.n_shards):
             store.cold.fault_in_shard(s)
-    new = KVStore(new_cfg, device=store.device, log=log)
+    sharding = store.sharding
+    if sharding is not None and new_cfg.n_shards % sharding.mesh.size:
+        logging.getLogger(__name__).warning(
+            "reshard to n_shards=%d is not divisible by the mesh "
+            "'%s' axis (%d): new store falls back to default device "
+            "placement", new_cfg.n_shards, sharding.mesh.axis_names[0],
+            sharding.mesh.size)
+        sharding = None
+    new = KVStore(new_cfg, device=store.device, log=log, sharding=sharding)
     items = list(store.directory.items())
     new_shards = shard_batch([dk[0] for dk, _ in items],
                              [dk[1] for dk, _ in items], new_cfg.n_shards)
@@ -350,17 +364,27 @@ def _reshard_locked(store: KVStore, new_cfg, log) -> KVStore:
                 dst._grow()
             nr[m] = base + np.arange(cnt)
             dst.used_rows[p] = base + cnt
-        si, ri = src._idx_async(old_s), src._idx_async(old_r)
-        di, dr = dst._idx_async(ns), dst._idx_async(nr)
+        # one gather a source block, scattered into the destination blocks
+        # its rows land on (each on the destination block's device)
+        for sblk, ssel, sls in src._route(old_s):
+            si, ri = sblk.idx_async(sls), sblk.idx_async(_take(old_r, ssel))
+            sub_ns, sub_nr = _take(ns, ssel), _take(nr, ssel)
+            for dblk, dsel, dls in dst._route(sub_ns):
+                di = dblk.idx_async(dls)
+                dr = dblk.idx_async(_take(sub_nr, dsel))
+                pick = None if dsel is None else sblk.idx_async(dsel)
 
-        def move(x_src, x_dst):
-            x_dst[di, dr] = x_src[si, ri].to(x_dst.device)
+                def move(x_src, x_dst):
+                    g = x_src[si, ri]
+                    if pick is not None:
+                        g = g[pick]
+                    x_dst[di, dr] = g.to(x_dst.device)
 
-        for f in dst.snap:
-            move(src.snap[f], dst.snap[f])
-            move(src.head[f], dst.head[f])
-        for name in _ROW_ARRAYS:
-            move(getattr(src, name), getattr(dst, name))
+                for f in dblk.snap:
+                    move(sblk.snap[f], dblk.snap[f])
+                    move(sblk.head[f], dblk.head[f])
+                for name in _ROW_ARRAYS:
+                    move(getattr(sblk, name), getattr(dblk, name))
         dst.n_ops[ns, nr] = src.n_ops[old_s, old_r]
         dst.slots_ub[ns, nr] = src.slots_ub[old_s, old_r]
         dst.next_seq = max(dst.next_seq, src.next_seq)

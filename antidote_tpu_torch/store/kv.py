@@ -298,20 +298,22 @@ def _move_row(src: TypedTable, dst: TypedTable, shard: int, row: int,
     """Move one key's whole device state (head, snapshot versions, op ring)
     into a wider-slot table, zero-padding the widened axes (zeros are empty
     slots), and clear the source row.  Version seqs renumber above every
-    seq of the destination so the per-key newest-version order survives."""
+    seq of the destination so the per-key newest-version order survives.
+    Both tables are placed alike, so the shard's rows share a device."""
+    src_a, dst_a = src.shard_arrays(shard), dst.shard_arrays(shard)
 
     def embed(x_src, x_dst):
-        out = x_dst[shard, new_row]
+        out = x_dst[new_row]
         out.zero_()
-        out[tuple(slice(0, s) for s in x_src.shape[2:])] = x_src[shard, row]
-        x_src[shard, row] = 0
+        out[tuple(slice(0, s) for s in x_src.shape[1:])] = x_src[row]
+        x_src[row] = 0
 
     for grp in _ROW_GROUPS:
-        for f, x in getattr(src, grp).items():
-            embed(x, getattr(dst, grp)[f])
+        for f, x in src_a[grp].items():
+            embed(x, dst_a[grp][f])
     for name in _ROW_ARRAYS:
-        embed(getattr(src, name), getattr(dst, name))
-    seq = dst.snap_seq[shard, new_row]
+        embed(src_a[name], dst_a[name])
+    seq = dst_a["snap_seq"][new_row]
     seq[seq > 0] += seq_shift
 
 
@@ -388,9 +390,19 @@ class _EpochReadPending:
 
 
 class KVStore:
-    def __init__(self, cfg: AntidoteConfig, device="cuda", log=None):
+    def __init__(self, cfg: AntidoteConfig, device="cuda", log=None,
+                 sharding=None):
         self.cfg = cfg
-        self.device = resolve_device(device)
+        #: the placement of every table over a device mesh
+        #: (``parallel.shard_axis_sharding``) or None; the store's own
+        #: device is then the mesh's first
+        self.sharding = sharding
+        self.device = (resolve_device(device) if sharding is None
+                       else sharding.devices[0])
+        #: the mesh serving plane (``parallel.MeshServingPlane``), attached
+        #: by ``MeshServingPlane.attach``; stable time and the giant-key
+        #: fold route through it
+        self.mesh = None
         # the native router routes every key this store binds: a library
         # that cannot be built fails the construction, never a later write
         router.load()
@@ -549,9 +561,12 @@ class KVStore:
         for t in self.tables.values():
             for k, n in t.fold_dispatches.items():
                 per_table[k] = per_table.get(k, 0) + n
-        return {"fold_chunk": int(self.cfg.fold_chunk),
-                "serving_folds": per_table,
-                "replay_folds": dict(self.replay_fold_dispatches)}
+        out = {"fold_chunk": int(self.cfg.fold_chunk),
+               "serving_folds": per_table,
+               "replay_folds": dict(self.replay_fold_dispatches)}
+        if self.mesh is not None:
+            out["giant_folds"] = self.mesh.giant_folds
+        return out
 
     def _is_slotted(self, type_name: str) -> bool:
         hit = self._slotted.get(type_name)
@@ -572,7 +587,7 @@ class KVStore:
             )
             t = TypedTable(get_type(base), scaled_cfg(self.cfg, tier),
                            n_rows=n_rows, device=self.device,
-                           metrics=self.metrics)
+                           metrics=self.metrics, sharding=self.sharding)
             # out-of-band mutations (row growth) invalidate the table's
             # frozen slots; the store-wide epoch that references them
             # must die with them
@@ -944,13 +959,22 @@ class KVStore:
                     if m is not None:
                         m.epoch_publish.inc(mode="defer")
                     return "deferred"
-                _slot, mode, tch, rows = res
+                _slot, mode, tch, rows, shard_rows = res
                 tch = None if (tch is None or pend is None) else tch | pend
                 t._pending_touched = tch
                 touched[tname] = tch
                 if m is not None:
                     m.epoch_publish.inc(mode=mode)
                     m.epoch_rows.inc(rows, mode=mode)
+                    if self.mesh is not None:
+                        # the per-shard publish count: a scatter re-froze
+                        # exactly the dirty shards' rows, a copy every row
+                        # of every shard
+                        sr = (shard_rows if shard_rows is not None
+                              else {s: t.n_rows
+                                    for s in range(self.cfg.n_shards)})
+                        for s, n in sr.items():
+                            m.mesh_publish.inc(n, shard=s)
             else:
                 touched[tname] = pend  # clean since the last success
             slots[tname] = t.serving_slot()
@@ -1178,12 +1202,24 @@ class KVStore:
         for tname_t, items in need.items():
             t = self.table(tname_t)
             slot = ep.tables[tname_t]
-            idx = self._to_device(
-                np.asarray([(s, r) for _i, s, r in items], np.int64).T)
             # every frozen row is fresh at E by construction (frozen
             # head_vc ≤ cap ≤ E): no freshness check
-            resolved = t.latest_resolved_flat(slot["head"], slot["head_vc"],
-                                              idx[0], idx[1])
+            if t.placed:
+                # a placed table: every block gathers its own rows from
+                # its own slice of the frozen slot, on its own device
+                ss = np.asarray([s for _i, s, _r in items], np.int64)
+                rr = np.asarray([r for _i, _s, r in items], np.int64)
+                if self.mesh is None:
+                    resolved = t.routed_gather(slot["head"],
+                                               slot["head_vc"], ss, rr)
+                else:
+                    resolved = self.mesh.epoch_gather(
+                        t, slot["head"], slot["head_vc"], ss, rr)
+            else:
+                idx = self._to_device(
+                    np.asarray([(s, r) for _i, s, r in items], np.int64).T)
+                resolved = t.latest_resolved_flat(
+                    slot["head"], slot["head_vc"], idx[0], idx[1])
             launches.append((tname_t, items, resolved))
             if m is not None:
                 m.serving_reads.inc(len(items), path="gather")
@@ -1210,8 +1246,7 @@ class KVStore:
                     if v is RESOLVE_OVERFLOW:
                         # a truncated top-count view: re-gather this one
                         # key's full frozen state (rare)
-                        full = {f: x[shard, row].cpu().numpy()
-                                for f, x in slot["head"].items()}
+                        full = t.row_state(slot["head"], shard, row)
                         v = ty.value(full, self.blobs, t.cfg)
                 else:
                     v = ty.value(view, self.blobs, t.cfg)
@@ -1294,8 +1329,7 @@ class KVStore:
         base, tier = split_tier(tname_t)
         ty = get_type(base)
         t_old = self.table(tname_t)
-        head_state = {f: x[shard, row].cpu().numpy()
-                      for f, x in t_old.head.items()}
+        head_state = t_old.row_state(None, shard, row)
         used = ty.used_slots(head_state)
         if (min_tier <= tier
                 and used + extra_demand <= ty.slot_capacity(t_old.cfg)):
@@ -1585,12 +1619,21 @@ class KVStore:
           sit at index ≥ n_ops, so the inclusion mask drops them);
         * ``serial`` — a short order-sensitive log: the plain masked fold.
 
-        The ``mesh_assoc`` rung comes with the multi-card slice."""
+        Above them, ``mesh_assoc``: an assoc-safe log of at least
+        ``fold_chunk`` ops with a mesh plane attached folds with its op
+        axis split over the plane's devices
+        (``MeshServingPlane.fold_giant_key``)."""
         dev = self.device
         length = ops_vc.shape[0]
         chunk = max(int(self.cfg.fold_chunk), 2)
         assoc_ok = ty.supports_assoc and (
             not ty.assoc_add_only or not (ops_b[:, 0] == 1).any())
+        if assoc_ok and self.mesh is not None and length >= chunk:
+            state, _ = self.mesh.fold_giant_key(
+                ty, cfg_t, ty.bottom(cfg_t), ops_a, ops_b, ops_vc,
+                ops_origin, np.int32(length),
+                np.zeros(self.cfg.max_dcs, np.int32), read_vc)
+            return state, "mesh_assoc"
         if not assoc_ok and length > chunk:
             pad = (-length) % chunk
 
@@ -1708,7 +1751,14 @@ class KVStore:
 
     # ------------------------------------------------------------------
     def stable_vc(self) -> np.ndarray:
-        """DC-wide stable snapshot = entry-wise min of per-shard clocks."""
+        """DC-wide stable snapshot = entry-wise min of per-shard clocks; on
+        a mesh plane, ``stable_min`` on each block's clock rows on its
+        device, then the min over the blocks (``MeshServingPlane``).  The
+        plane is handed this store's OWN clocks: across a follower
+        reinstall a lock-free start on the old store still reads the old
+        store's clocks."""
+        if self.mesh is not None:
+            return self.mesh.stable_vc(self.applied_vc)
         return stable_min_of(self.applied_vc, self.device)
 
     def dc_max_vc(self) -> np.ndarray:

@@ -18,6 +18,18 @@ The host API is flat — (shards[M], rows[M], ...) — and indexes the tensors
 with (shard, row) pairs directly; the JAX package's padded [P, M'] routing
 and batch buckets only bounded XLA compiles, and the port runs eagerly.
 
+A table built with ``sharding`` (``parallel.shard_axis_sharding``: the JAX
+package's ``NamedSharding`` over the shard axis) is PLACED: its tensors are
+split into contiguous shard blocks, block ``b`` holding shards ``[b*spd,
+(b+1)*spd)`` on the mesh's ``b``-th device (``blocks``).  Every operation
+routes its (shard, row) pairs by block and runs on that block's device; a
+read launches every block's gathers and folds before its first host copy
+and hands its result back in input order (``BlockParts``).  The host
+mirrors (``n_ops``, ``slots_ub``, ``used_rows``, ``free_rows``,
+``max_commit_vc``) stay table-wide.  Without ``sharding`` the table is one
+block over every shard, and ``snap``, ``head``, ``ops_a``, ... name its
+tensors directly.
+
 Commits append to the ring and fold the new slots onto the head, so reads
 at a VC that dominates a row's head VC are pure gathers.  A ring about to
 overflow is GC'd first: the head is copied into a new snapshot version
@@ -39,6 +51,7 @@ Updates are in place (the JAX package donates buffers to the same effect).
 
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, Tuple
 
 import numpy as np
@@ -53,15 +66,165 @@ from antidote_tpu_torch.materializer import fold as fold_mod
 from antidote_tpu_torch.materializer import longlog
 
 
+#: the per-row tensors besides the state field groups ``snap`` and ``head``
+ROW_TENSORS = ("snap_vc", "snap_seq", "ops_a", "ops_b", "ops_vc",
+               "ops_origin", "head_vc")
+ROW_GROUPS = ("snap", "head")
+
+
+def _take(x, sel):
+    return x if sel is None else x[sel]
+
+
+class BlockParts:
+    """One logical tensor held as per-block device tensors (a placed
+    table's read or capture): ``parts[i]`` holds the result's rows
+    ``pos[i]``, or with ``pos`` None the parts concatenate in block order.
+    ``cpu()`` assembles it on the host; no part crosses to another card."""
+
+    def __init__(self, parts, pos=None, n=None):
+        self.parts = list(parts)
+        self.pos = pos
+        self.n = n
+
+    def numpy(self) -> np.ndarray:
+        hs = [p.cpu().numpy() for p in self.parts]
+        if self.pos is None:
+            return np.concatenate(hs)
+        out = np.empty((self.n,) + hs[0].shape[1:], hs[0].dtype)
+        for pos, h in zip(self.pos, hs):
+            out[pos] = h
+        return out
+
+    def cpu(self) -> torch.Tensor:
+        return torch.from_numpy(self.numpy())
+
+
+class Block:
+    """One shard block of a table on one device: shards ``[off, off + n)``
+    as local shards ``[0, n)`` of its tensors."""
+
+    def __init__(self, i: int, device: torch.device, off: int, n: int):
+        self.i, self.device, self.off, self.n = i, device, off, n
+        #: the staging buffers of a one-row install (``_row_stage``)
+        self.stage = None
+
+    def idx(self, x) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(x, np.int64), device=self.device)
+
+    def idx_async(self, x) -> torch.Tensor:
+        """An int64 index tensor on the block's device with no host sync:
+        on a card through pinned memory and an asynchronous copy."""
+        t = torch.from_numpy(np.ascontiguousarray(x, np.int64))
+        if self.device.type != "cuda":
+            return t
+        return t.pin_memory().to(self.device, non_blocking=True)
+
+
+def _one_block(name: str):
+    """The unsharded table's tensor ``name`` (its one block's); a placed
+    table holds its tensors by block and refuses the flat name."""
+
+    def get(self):
+        if self._spd is not None:
+            raise TypeError(f"TypedTable.{name}: a placed table holds its "
+                            "tensors by shard block (``blocks``)")
+        return getattr(self.blocks[0], name)
+
+    def put(self, value):
+        if self._spd is not None:
+            raise TypeError(f"TypedTable.{name}: a placed table holds its "
+                            "tensors by shard block (``blocks``)")
+        setattr(self.blocks[0], name, value)
+
+    return property(get, put)
+
+
+def fold_strategy(ty) -> str:
+    """The ring fold for a read's stale rows: the hand-written kernel of
+    the type where there is one (the plain version of the same function on
+    a CPU table), then the monoid reduction for types whose delta is exact
+    from an ARBITRARY base (the flags; sets are bottom-only,
+    ``CRDTType.assoc_bottom_only``), else the generic serial fold.
+    ``counter_pn`` needs no delta-magnitude gate: ``counter_fold`` sums in
+    int64 (the TPU kernel's int32 sum needed one)."""
+    if ty.name == "set_aw":
+        return "kernel_set_aw"
+    if ty.name == "counter_pn":
+        return "kernel_counter"
+    if ty.supports_assoc and not ty.assoc_bottom_only:
+        return "assoc"
+    return "serial"
+
+
+def read_block(ty, cfg, src, ss, rr, n_ops, read_vcs, strategy: str):
+    """Versioned read of M rows of one block (``src``: its snap, snap_vc,
+    snap_seq and ops tensors; ``ss``/``rr`` index tensors on its device;
+    ``n_ops`` the rows' host ring lengths): the newest retained snapshot
+    version each read VC dominates becomes the base, and the ring is folded
+    over it with ``strategy`` (``fold_strategy``).  Returns
+    (state [M, ...], applied int32[M], complete bool[M]); a row is complete
+    iff its ring holds its whole history or the base is the newest version
+    (the ring only holds ops after the newest version)."""
+    dev = ss.device
+    m = ss.shape[0]
+    svc, sseq = src.snap_vc[ss, rr], src.snap_seq[ss, rr]
+    idx, found = orddict.get_smaller(svc, sseq, read_vcs)
+    idx = idx.long()
+    take = torch.arange(m, device=dev)
+    base_vc = torch.where(found[:, None], svc[take, idx], 0)
+    base = {f: x[ss, rr, idx] for f, x in src.snap.items()}
+    base = fold_mod.where_rows(found, base,
+                               {f: torch.zeros_like(x)
+                                for f, x in base.items()})
+    newest = sseq.max(-1).values
+    complete = (found & (sseq[take, idx] == newest)) | (newest == 0)
+    # rings fill from slot 0 and restart at GC: fold only the prefix the
+    # batch uses
+    kmax = max(int(n_ops.max()), 1)
+    n_ops = torch.as_tensor(n_ops, device=dev)
+    opa = src.ops_a[ss, rr, :kmax]
+    opv = src.ops_vc[ss, rr, :kmax]
+    if strategy == "kernel_counter":
+        cnt, applied = cuda_kernels.counter_fold(
+            base["cnt"], opa[..., 0], opv, n_ops, base_vc, read_vcs)
+        state = {"cnt": cnt}
+    else:
+        opb = src.ops_b[ss, rr, :kmax]
+        opo = src.ops_origin[ss, rr, :kmax]
+        if strategy == "kernel_set_aw":
+            fold = cuda_kernels.set_aw_fold
+        else:
+            generic = (longlog.assoc_fold if strategy == "assoc"
+                       else fold_mod.fold_batch)
+            fold = lambda *a: generic(ty, cfg, *a)  # noqa: E731
+        state, applied = fold(base, opa, opb, opv, opo, n_ops, base_vc,
+                              read_vcs)
+    return state, applied, complete
+
+
 class TypedTable:
     """Host handle for one CRDT type's sharded device tensors."""
 
+    snap = _one_block("snap")
+    snap_vc = _one_block("snap_vc")
+    snap_seq = _one_block("snap_seq")
+    ops_a = _one_block("ops_a")
+    ops_b = _one_block("ops_b")
+    ops_vc = _one_block("ops_vc")
+    ops_origin = _one_block("ops_origin")
+    head = _one_block("head")
+    head_vc = _one_block("head_vc")
+
     def __init__(self, ty: CRDTType, cfg: AntidoteConfig,
                  n_rows: int | None = None, n_shards: int | None = None,
-                 device="cuda", metrics=None):
+                 device="cuda", metrics=None, sharding=None):
         self.ty = ty
         self.cfg = cfg
-        self.device = resolve_device(device)
+        #: the placement (``parallel.shard_axis_sharding``) or None
+        self.sharding = sharding
+        self.device = (resolve_device(device) if sharding is None
+                       else sharding.devices[0])
         #: NodeMetrics (or None): fold dispatches land in its counter
         self.metrics = metrics
         #: per-strategy serving-fold dispatch counts
@@ -89,19 +252,31 @@ class TypedTable:
         a, b = ty.eff_a_width(cfg), ty.eff_b_width(cfg)
         p, n = self.n_shards, self.n_rows
         spec = ty.state_spec(cfg)
+        #: shards a block (None: one block over every shard, unplaced)
+        self._spd = None
+        devices = [self.device]
+        if sharding is not None:
+            self._spd = sharding.shards_per_block(p)
+            devices = list(sharding.devices)
+        spd = self._spd or p
+        #: the shard blocks, in shard order
+        self.blocks = [Block(i, dev, i * spd, spd)
+                       for i, dev in enumerate(devices)]
+        for blk in self.blocks:
+            def mk(shape, dtype):
+                return torch.zeros(shape, dtype=dtype, device=blk.device)
 
-        def mk(shape, dtype):
-            return torch.zeros(shape, dtype=dtype, device=self.device)
-
-        self.snap = {f: mk((p, n, v) + s, dt) for f, (s, dt) in spec.items()}
-        self.snap_vc = mk((p, n, v, d), torch.int32)
-        self.snap_seq = mk((p, n, v), torch.int64)
-        self.ops_a = mk((p, n, k, a), torch.int64)
-        self.ops_b = mk((p, n, k, b), torch.int32)
-        self.ops_vc = mk((p, n, k, d), torch.int32)
-        self.ops_origin = mk((p, n, k), torch.int32)
-        self.head = {f: mk((p, n) + s, dt) for f, (s, dt) in spec.items()}
-        self.head_vc = mk((p, n, d), torch.int32)
+            blk.snap = {f: mk((spd, n, v) + s, dt)
+                        for f, (s, dt) in spec.items()}
+            blk.snap_vc = mk((spd, n, v, d), torch.int32)
+            blk.snap_seq = mk((spd, n, v), torch.int64)
+            blk.ops_a = mk((spd, n, k, a), torch.int64)
+            blk.ops_b = mk((spd, n, k, b), torch.int32)
+            blk.ops_vc = mk((spd, n, k, d), torch.int32)
+            blk.ops_origin = mk((spd, n, k), torch.int32)
+            blk.head = {f: mk((spd, n) + s, dt)
+                        for f, (s, dt) in spec.items()}
+            blk.head_vc = mk((spd, n, d), torch.int32)
         self.n_ops = np.zeros((p, n), np.int32)  # host-authoritative
         #: host-side conservative bound on per-key used element slots —
         #: drives tier promotion (KVStore._promote_key); only over-counts
@@ -128,8 +303,6 @@ class TypedTable:
         #: write windows of freezes whose store-wide publish deferred:
         #: the next successful epoch's touched set must carry them
         self._pending_touched: "frozenset | None" = frozenset()
-        #: the staging buffers of a one-row install (``_row_stage``)
-        self._stage = None
         #: (shard, row) pairs written since the last CHECKPOINT capture —
         #: the delta link's dirty window (independent of the serving
         #: windows above).  None = untracked (past the cap, or an
@@ -139,6 +312,192 @@ class TypedTable:
     #: checkpoint dirty windows larger than this stop tracking: a delta
     #: link carrying most of the table costs what a rebase costs
     _CKPT_DIRTY_CAP = 262144
+
+    # ------------------------------------------------------------------
+    # placement
+    # ------------------------------------------------------------------
+    @property
+    def placed(self) -> bool:
+        return self._spd is not None
+
+    def _route(self, shards: np.ndarray):
+        """(block, sel, local shards) for every block a batch of shard ids
+        touches, ``sel`` the batch positions it holds (None: the whole
+        batch in order — the unplaced table's one block)."""
+        if self._spd is None:
+            return ((self.blocks[0], None, shards),)
+        if len(shards) == 0:
+            return ((self.blocks[0], np.zeros(0, np.int64), shards),)
+        bs = shards // self._spd
+        out = []
+        for i in np.unique(bs).tolist():
+            sel = np.nonzero(bs == i)[0]
+            blk = self.blocks[i]
+            out.append((blk, sel, shards[sel] - blk.off))
+        return out
+
+    def place(self, sharding) -> None:
+        """Move the table's tensors into ``sharding``'s blocks (None: one
+        block over every shard on the current first device).  Frozen
+        copies cut from the old placement die with it; the checkpoint
+        window survives (placement moves no row and changes no content)."""
+        old = self.blocks
+        devices = ([self.device] if sharding is None
+                   else list(sharding.devices))
+        spd = (self.n_shards if sharding is None
+               else sharding.shards_per_block(self.n_shards))
+
+        def piece(get, lo, hi, dev):
+            parts = []
+            for ob in old:
+                a, b = max(lo, ob.off), min(hi, ob.off + ob.n)
+                if a < b:
+                    parts.append(get(ob)[a - ob.off:b - ob.off].to(dev))
+            return parts[0] if len(parts) == 1 else torch.cat(parts)
+
+        blocks = []
+        for i, dev in enumerate(devices):
+            blk = Block(i, dev, i * spd, spd)
+            lo, hi = blk.off, blk.off + spd
+            for grp in ROW_GROUPS:
+                setattr(blk, grp, {
+                    f: piece(lambda ob, g=grp, f=f: getattr(ob, g)[f],
+                             lo, hi, dev)
+                    for f in getattr(old[0], grp)})
+            for name in ROW_TENSORS:
+                setattr(blk, name, piece(
+                    lambda ob, n_=name: getattr(ob, n_), lo, hi, dev))
+            blocks.append(blk)
+        self.blocks = blocks
+        self.sharding = sharding
+        self._spd = None if sharding is None else spd
+        self.device = devices[0]
+        ck = self._ckpt_dirty
+        self.invalidate_epochs()
+        self._ckpt_dirty = ck
+
+    def block_of(self, shard: int) -> Tuple[Block, int]:
+        """(block, local shard) holding ``shard``."""
+        if self._spd is None:
+            return self.blocks[0], int(shard)
+        blk = self.blocks[int(shard) // self._spd]
+        return blk, int(shard) - blk.off
+
+    def _on(self, blk: Block):
+        """Tag the kernel launches of a placed table's block work."""
+        if self._spd is None:
+            return contextlib.nullcontext()
+        return cuda_kernels.on_block(blk.i)
+
+    def _merge(self, parts, n: int):
+        """One result from per-block device results [(sel, tensor or
+        field dict)]: the unplaced table's one tensor as is, else
+        ``BlockParts`` in input order."""
+        if self._spd is None:
+            return parts[0][1]
+        pos = [sel for sel, _ in parts]
+        first = parts[0][1]
+        if isinstance(first, dict):
+            return {f: BlockParts([x[f] for _, x in parts], pos, n)
+                    for f in first}
+        return BlockParts([x for _, x in parts], pos, n)
+
+    @staticmethod
+    def _host_merge(parts, n: int) -> np.ndarray:
+        """One host array in input order from per-block host arrays."""
+        if len(parts) == 1 and parts[0][0] is None:
+            return parts[0][1]
+        first = parts[0][1]
+        out = np.empty((n,) + first.shape[1:], first.dtype)
+        for sel, x in parts:
+            out[sel] = x
+        return out
+
+    def _at(self, head, head_vc, blk: Block):
+        """A frozen (head, head_vc) source's tensors on ``blk`` (frozen
+        copies of a placed table are per-block lists)."""
+        if self._spd is None:
+            return head, head_vc
+        return head[blk.i], head_vc[blk.i]
+
+    def shard_arrays(self, shard: int) -> dict:
+        """Views of one shard's rows of every tensor ([N, ...], on the
+        device of its block): ``snap`` and ``head`` as field dicts, the
+        ``ROW_TENSORS`` by name.  Writes through them land in the table."""
+        blk, ls = self.block_of(shard)
+        out = {g: {f: x[ls] for f, x in getattr(blk, g).items()}
+               for g in ROW_GROUPS}
+        out.update({name: getattr(blk, name)[ls] for name in ROW_TENSORS})
+        return out
+
+    def full_shape(self, name: str, field: str | None = None) -> tuple:
+        """The logical [P, N, ...] shape of tensor ``name`` (a field of the
+        group ``name`` when ``field`` is given)."""
+        x = getattr(self.blocks[0], name)
+        x = x if field is None else x[field]
+        return (self.n_shards,) + tuple(x.shape[1:])
+
+    def host_full(self, name: str, field: str | None = None) -> np.ndarray:
+        """Tensor ``name`` (or group field) whole, [P, N, ...], on the
+        host."""
+        hs = []
+        for blk in self.blocks:
+            x = getattr(blk, name)
+            hs.append((x if field is None else x[field]).cpu().numpy())
+        return hs[0] if len(hs) == 1 else np.concatenate(hs)
+
+    def put_full(self, name: str, arr: np.ndarray,
+                 field: str | None = None) -> None:
+        """Replace tensor ``name`` (or group field) with a whole [P, N, ...]
+        host array: one copy a block to its device."""
+        for blk in self.blocks:
+            x = getattr(blk, name)
+            dst = x if field is None else x[field]
+            part = arr if self._spd is None else arr[blk.off:blk.off + blk.n]
+            new = torch.from_numpy(part).to(device=blk.device,
+                                            dtype=dst.dtype)
+            if field is None:
+                setattr(blk, name, new)
+            else:
+                x[field] = new
+
+    def head_vc_at(self, shards, rows) -> np.ndarray:
+        """The head VCs of (shard, row) pairs on the host: one gather a
+        block, each block's gather launched before the first host copy."""
+        shards = np.asarray(shards, np.int64)
+        rows = np.asarray(rows, np.int64)
+        parts = []
+        for blk, sel, ls in self._route(shards):
+            ss, rr = blk.idx_async(ls), blk.idx_async(_take(rows, sel))
+            parts.append((sel, blk.head_vc[ss, rr]))
+        return self._host_merge([(sel, x.cpu().numpy())
+                                 for sel, x in parts], len(rows))
+
+    def row_state(self, head, shard: int, row: int) -> dict:
+        """One row's state on the host, from a frozen head (a serving slot
+        or table epoch) or, with ``head`` None, from the live head."""
+        blk, ls = self.block_of(shard)
+        if head is None:
+            head = blk.head
+        elif self._spd is not None:
+            head = head[blk.i]
+        return {f: x[ls, row].cpu().numpy() for f, x in head.items()}
+
+    def routed_gather(self, head, head_vc, shards, rows):
+        """The epoch plane's gather of a placed table: each block gathers
+        and resolves its own rows from its own slice of a frozen (head,
+        head_vc) source, with no host sync; the resolved fields come back
+        as ``BlockParts`` in input order."""
+        shards = np.asarray(shards, np.int64)
+        rows = np.asarray(rows, np.int64)
+        parts = []
+        for blk, sel, ls in self._route(shards):
+            idx = blk.idx_async(np.stack([ls, _take(rows, sel)]))
+            h, hvc = self._at(head, head_vc, blk)
+            with self._on(blk):
+                parts.append((sel, self.latest_resolved_flat(h, hvc, idx[0],
+                                                             idx[1])))
+        return self._merge(parts, len(rows))
 
     def take_ckpt_dirty(self) -> "set | None":
         """Consume the checkpoint dirty window (under the commit lock, by
@@ -209,17 +568,27 @@ class TypedTable:
             cb()
 
     def _frozen_copy(self):
-        return ({f: x.clone() for f, x in self.head.items()},
-                self.head_vc.clone())
+        """Clones of the live head: (fields, head_vc), per-block lists of
+        them for a placed table."""
+        if self._spd is None:
+            return ({f: x.clone() for f, x in self.head.items()},
+                    self.head_vc.clone())
+        return ([{f: x.clone() for f, x in blk.head.items()}
+                 for blk in self.blocks],
+                [blk.head_vc.clone() for blk in self.blocks])
 
     def freeze_serving(self, can_donate: bool, force_copy: bool = False):
         """Freeze the live head into the spare serving slot and make it
-        current.  Returns (slot, mode, touched, rows): mode "scatter" (the
-        ``rows`` rows appended since the spare's freeze are written into it
-        in place) or "copy" (the whole head cloned).  ``touched`` is the
-        frozenset of rows appended since the previous freeze (the snapshot
-        cache's validity window; the scatter set spans two windows, one per
-        slot), or None when unknown.
+        current.  Returns (slot, mode, touched, rows, shard_rows): mode
+        "scatter" (the ``rows`` rows appended since the spare's freeze are
+        written into it in place) or "copy" (the whole head cloned).
+        ``touched`` is the frozenset of rows appended since the previous
+        freeze (the snapshot cache's validity window; the scatter set spans
+        two windows, one per slot), or None when unknown.  ``shard_rows``
+        maps shard -> rows re-frozen in it for a placed table's scatter,
+        which writes only the blocks that own dirty rows (the mesh plane's
+        per-shard publish count); None for a copy and for an unplaced
+        table.
 
         Returns None when the freeze must be DEFERRED: the spare may still
         be read by a pinned epoch (``can_donate`` false).  ``force_copy``
@@ -230,6 +599,7 @@ class TypedTable:
         spare_i = 1 - self._serving_cur
         spare = self._serving[spare_i]
         dirty = self._serving_spare_dirty
+        shard_rows = None
         if force_copy or spare is None or dirty is None:
             head, head_vc = self._frozen_copy()
             mode, rows = "copy", self.n_shards * self.n_rows
@@ -237,15 +607,23 @@ class TypedTable:
             return None
         else:
             # the spare's tensors are rewritten in place: index_put_ of
-            # the dirty rows' live state (the JAX package donates them)
+            # the dirty rows' live state (the JAX package donates them),
+            # each block's rows on its own device
             pairs = sorted(dirty)
-            ss = self._idx([p[0] for p in pairs])
-            rr = self._idx([p[1] for p in pairs])
+            shards = np.asarray([p[0] for p in pairs], np.int64)
+            rows_ = np.asarray([p[1] for p in pairs], np.int64)
             head, head_vc = spare["head"], spare["head_vc"]
-            for f, x in head.items():
-                x[ss, rr] = self.head[f][ss, rr]
-            head_vc[ss, rr] = self.head_vc[ss, rr]
+            for blk, sel, ls in self._route(shards):
+                ss, rr = blk.idx(ls), blk.idx(_take(rows_, sel))
+                h, hvc = self._at(head, head_vc, blk)
+                for f, x in h.items():
+                    x[ss, rr] = blk.head[f][ss, rr]
+                hvc[ss, rr] = blk.head_vc[ss, rr]
             mode, rows = "scatter", len(pairs)
+            if self._spd is not None:
+                shard_rows = {}
+                for sh in shards.tolist():
+                    shard_rows[sh] = shard_rows.get(sh, 0) + 1
         slot = {"head": head, "head_vc": head_vc,
                 "cap": self.max_commit_vc.copy()}
         if self._serving_conservative or self._serving_dirty is None:
@@ -257,7 +635,7 @@ class TypedTable:
         self._serving_cur = spare_i
         self._serving_spare_dirty = self._serving_dirty
         self._serving_dirty = set()
-        return slot, mode, touched, rows
+        return slot, mode, touched, rows, shard_rows
 
     # ------------------------------------------------------------------
     # table epochs (rung 2 of the serving read's ladder)
@@ -343,13 +721,13 @@ class TypedTable:
         rows = np.asarray(rows, np.int64)
         if len(rows) == 0:
             return
-        ss, rr = self._idx_async(shards), self._idx_async(rows)
-        for grp in (self.snap, self.head):
-            for x in grp.values():
-                x[ss, rr] = 0
-        for name in ("snap_vc", "snap_seq", "ops_a", "ops_b", "ops_vc",
-                     "ops_origin", "head_vc"):
-            getattr(self, name)[ss, rr] = 0
+        for blk, sel, ls in self._route(shards):
+            ss, rr = blk.idx_async(ls), blk.idx_async(_take(rows, sel))
+            for grp in ROW_GROUPS:
+                for x in getattr(blk, grp).values():
+                    x[ss, rr] = 0
+            for name in ROW_TENSORS:
+                getattr(blk, name)[ss, rr] = 0
         self.n_ops[shards, rows] = 0
         self.slots_ub[shards, rows] = 0
         for s, r in zip(shards.tolist(), rows.tolist()):
@@ -367,11 +745,13 @@ class TypedTable:
             return torch.cat(
                 [x, x.new_zeros((x.shape[0], add) + tuple(x.shape[2:]))], 1)
 
-        self.snap = {f: grow(x) for f, x in self.snap.items()}
-        self.head = {f: grow(x) for f, x in self.head.items()}
-        for name in ("snap_vc", "snap_seq", "ops_a", "ops_b", "ops_vc",
-                     "ops_origin", "head_vc"):
-            setattr(self, name, grow(getattr(self, name)))
+        # every block grows together: a row id means the same extent on
+        # every block
+        for blk in self.blocks:
+            blk.snap = {f: grow(x) for f, x in blk.snap.items()}
+            blk.head = {f: grow(x) for f, x in blk.head.items()}
+            for name in ROW_TENSORS:
+                setattr(blk, name, grow(getattr(blk, name)))
         self.n_ops = np.pad(self.n_ops, ((0, 0), (0, add)))
         self.slots_ub = np.pad(self.slots_ub, ((0, 0), (0, add)))
         self.n_rows += add
@@ -384,9 +764,6 @@ class TypedTable:
     # ------------------------------------------------------------------
     # commit side
     # ------------------------------------------------------------------
-    def _idx(self, x) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(x, np.int64), device=self.device)
-
     def append(self, shards, rows, eff_a, eff_b, vcs, origins):
         """Append a commit-ordered batch of effects.
 
@@ -434,12 +811,18 @@ class TypedTable:
                                      int(np.abs(eff_a[:, 0]).max()))
         np.maximum(self.max_commit_vc, vcs.max(axis=0),
                    out=self.max_commit_vc)
-        ss, rr, sl = self._idx(shards), self._idx(rows), self._idx(slots)
-        dev = self.device
-        self.ops_a[ss, rr, sl] = torch.as_tensor(eff_a, device=dev)
-        self.ops_b[ss, rr, sl] = torch.as_tensor(eff_b, device=dev)
-        self.ops_vc[ss, rr, sl] = torch.as_tensor(vcs, device=dev)
-        self.ops_origin[ss, rr, sl] = torch.as_tensor(origins, device=dev)
+        for blk, sel, ls in self._route(shards):
+            ss, rr = blk.idx(ls), blk.idx(_take(rows, sel))
+            sl = blk.idx(_take(slots, sel))
+            dev = blk.device
+            blk.ops_a[ss, rr, sl] = torch.as_tensor(_take(eff_a, sel),
+                                                    device=dev)
+            blk.ops_b[ss, rr, sl] = torch.as_tensor(_take(eff_b, sel),
+                                                    device=dev)
+            blk.ops_vc[ss, rr, sl] = torch.as_tensor(_take(vcs, sel),
+                                                     device=dev)
+            blk.ops_origin[ss, rr, sl] = torch.as_tensor(
+                _take(origins, sel), device=dev)
         # fold the newly-appended ring slots of each touched key onto its
         # head: slots [n_ops, n_ops + count)
         first = order[new_group]
@@ -453,22 +836,24 @@ class TypedTable:
     def _head_update(self, shards, rows, starts, ends):
         """Apply ring slots [start, end) of each key onto its head state —
         the write-time fold that keeps hot reads pure gathers."""
-        ss, rr = self._idx(shards), self._idx(rows)
-        st, en = self._idx(starts), self._idx(ends)
-        state = {f: x[ss, rr] for f, x in self.head.items()}
-        hvc = self.head_vc[ss, rr]
-        for slot in range(int(starts.min()), int(ends.max())):
-            include = (st <= slot) & (slot < en)
-            op_vc = self.ops_vc[ss, rr, slot]
-            new = self.ty.apply(self.cfg, state, self.ops_a[ss, rr, slot],
-                                self.ops_b[ss, rr, slot], op_vc,
-                                self.ops_origin[ss, rr, slot])
-            state = fold_mod.where_rows(include, new, state)
-            hvc = torch.where(include[:, None], torch.maximum(hvc, op_vc),
-                              hvc)
-        for f, x in self.head.items():
-            x[ss, rr] = state[f]
-        self.head_vc[ss, rr] = hvc
+        for blk, sel, ls in self._route(shards):
+            starts_b, ends_b = _take(starts, sel), _take(ends, sel)
+            ss, rr = blk.idx(ls), blk.idx(_take(rows, sel))
+            st, en = blk.idx(starts_b), blk.idx(ends_b)
+            state = {f: x[ss, rr] for f, x in blk.head.items()}
+            hvc = blk.head_vc[ss, rr]
+            for slot in range(int(starts_b.min()), int(ends_b.max())):
+                include = (st <= slot) & (slot < en)
+                op_vc = blk.ops_vc[ss, rr, slot]
+                new = self.ty.apply(self.cfg, state, blk.ops_a[ss, rr, slot],
+                                    blk.ops_b[ss, rr, slot], op_vc,
+                                    blk.ops_origin[ss, rr, slot])
+                state = fold_mod.where_rows(include, new, state)
+                hvc = torch.where(include[:, None],
+                                  torch.maximum(hvc, op_vc), hvc)
+            for f, x in blk.head.items():
+                x[ss, rr] = state[f]
+            blk.head_vc[ss, rr] = hvc
 
     def gc(self, shards, rows):
         """Fold the given keys' rings into a fresh snapshot version: the
@@ -479,44 +864,53 @@ class TypedTable:
         count = len(rows)
         if count == 0:
             return
-        ss, rr = self._idx(shards), self._idx(rows)
-        seqs = torch.arange(self.next_seq, self.next_seq + count,
-                            dtype=torch.int64, device=self.device)
+        n0 = self.next_seq
         self.next_seq += count
-        slot = orddict.insert_slot(self.snap_seq[ss, rr]).long()
-        for f, x in self.snap.items():
-            x[ss, rr, slot] = self.head[f][ss, rr]
-        self.snap_vc[ss, rr, slot] = self.head_vc[ss, rr]
-        self.snap_seq[ss, rr, slot] = seqs
+        for blk, sel, ls in self._route(shards):
+            ss, rr = blk.idx(ls), blk.idx(_take(rows, sel))
+            # sequence ids in batch order, whatever block a row is on
+            seqs = (torch.arange(n0, n0 + count, dtype=torch.int64,
+                                 device=blk.device) if sel is None
+                    else blk.idx(n0 + sel))
+            slot = orddict.insert_slot(blk.snap_seq[ss, rr]).long()
+            for f, x in blk.snap.items():
+                x[ss, rr, slot] = blk.head[f][ss, rr]
+            blk.snap_vc[ss, rr, slot] = blk.head_vc[ss, rr]
+            blk.snap_seq[ss, rr, slot] = seqs
         self.n_ops[shards, rows] = 0
 
     # ------------------------------------------------------------------
     # checkpoint capture and install
     # ------------------------------------------------------------------
-    def _idx_async(self, x) -> torch.Tensor:
-        """An int64 index tensor on the table's device with no host sync:
-        on a card through pinned memory and an asynchronous copy."""
-        t = torch.from_numpy(np.ascontiguousarray(x, np.int64))
-        if self.device.type != "cuda":
-            return t
-        return t.pin_memory().to(self.device, non_blocking=True)
-
     def copy_head(self, n_rows: int):
         """Device copies of ``head`` and ``head_vc`` over the first
         ``n_rows`` rows of every shard: (fields, head_vc).  Issued on the
         table's stream with no host sync, so a checkpoint stamp can take
         them under the commit lock: a later in-place commit is queued
-        behind the copies, and the host copy runs outside the lock."""
-        return ({f: x[:, :n_rows].clone() for f, x in self.head.items()},
-                self.head_vc[:, :n_rows].clone())
+        behind the copies, and the host copy runs outside the lock.  A
+        placed table's copies are ``BlockParts`` (one clone a block, in
+        shard order)."""
+        if self._spd is None:
+            return ({f: x[:, :n_rows].clone() for f, x in self.head.items()},
+                    self.head_vc[:, :n_rows].clone())
+        return ({f: BlockParts([blk.head[f][:, :n_rows].clone()
+                                for blk in self.blocks])
+                 for f in self.blocks[0].head},
+                BlockParts([blk.head_vc[:, :n_rows].clone()
+                            for blk in self.blocks]))
 
     def gather_rows(self, shards, rows):
         """Device copies of (head fields, head_vc) at the given (shard,
         row) pairs, with no host sync (the delta stamp's capture)."""
-        ss = self._idx_async(shards)
-        rr = self._idx_async(rows)
-        return ({f: x[ss, rr] for f, x in self.head.items()},
-                self.head_vc[ss, rr])
+        shards = np.asarray(shards, np.int64)
+        rows = np.asarray(rows, np.int64)
+        heads, hvcs = [], []
+        for blk, sel, ls in self._route(shards):
+            ss = blk.idx_async(ls)
+            rr = blk.idx_async(_take(rows, sel))
+            heads.append((sel, {f: x[ss, rr] for f, x in blk.head.items()}))
+            hvcs.append((sel, blk.head_vc[ss, rr]))
+        return self._merge(heads, len(rows)), self._merge(hvcs, len(rows))
 
     def install_rows(self, shards, rows, head_rows, head_vc_rows) -> None:
         """Install per-row head states (a delta link's rows, a cold
@@ -542,16 +936,16 @@ class TypedTable:
         self.note_serving_touch(shards, rows)
         self.epochs.clear()
 
-    def _row_stage(self) -> dict:
-        """Staging buffers for one row's install, built once: a host
-        buffer (pinned on a card) laid out as the row's head fields, its
-        head_vc and its sequence id at 8-byte aligned offsets, the device
-        buffer it is copied to, and views of both."""
-        st = self._stage
+    def _row_stage(self, blk: Block) -> dict:
+        """Staging buffers for one row's install on ``blk``, built once a
+        block: a host buffer (pinned on a card) laid out as the row's head
+        fields, its head_vc and its sequence id at 8-byte aligned offsets,
+        the device buffer it is copied to, and views of both."""
+        st = blk.stage
         if st is None:
             specs = [(f, x.dtype, tuple(x.shape[2:]))
-                     for f, x in self.head.items()]
-            specs += [("\0vc", torch.int32, (self.head_vc.shape[-1],)),
+                     for f, x in blk.head.items()]
+            specs += [("\0vc", torch.int32, (blk.head_vc.shape[-1],)),
                       ("\0seq", torch.int64, ())]
             off, lay = 0, {}
             for name, dt, shape in specs:
@@ -561,13 +955,13 @@ class TypedTable:
                 lay[name] = (off, n, dt, one.numpy().dtype, shape)
                 off += n
             host = torch.zeros(max(off, 8), dtype=torch.uint8)
-            on_card = self.device.type == "cuda"
+            on_card = blk.device.type == "cuda"
             if on_card:
                 host = host.pin_memory()
-            dev = (torch.empty_like(host, device=self.device) if on_card
+            dev = (torch.empty_like(host, device=blk.device) if on_card
                    else host)
             hnp = host.numpy()
-            st = self._stage = {
+            st = blk.stage = {
                 "host": host, "dev": dev, "on_card": on_card,
                 "event": torch.cuda.Event() if on_card else None,
                 "np": {k: hnp[o:o + n].view(ndt).reshape(shape)
@@ -580,63 +974,55 @@ class TypedTable:
         """One row (a cold fault-in): the row reaches the device in one
         copy through the staging buffers, and one multi-tensor copy writes
         every destination."""
-        st = self._row_stage()
+        blk, ls = self.block_of(s)
+        st = self._row_stage(blk)
         if st["on_card"]:
             st["event"].synchronize()  # the last row's copy has read it
         hnp = st["np"]
-        for f in self.head:
+        for f in blk.head:
             hnp[f][...] = np.asarray(head_rows[f])[0]
         hnp["\0vc"][...] = hvc
         hnp["\0seq"][...] = self.next_seq
         self.next_seq += 1
         if st["on_card"]:
-            st["dev"].copy_(st["host"], non_blocking=True)
-            st["event"].record()
+            with torch.cuda.device(blk.device):
+                st["dev"].copy_(st["host"], non_blocking=True)
+                st["event"].record()
         v = st["view"]
         dst, src = [], []
-        for f, x in self.head.items():
-            dst += [x[s, r], self.snap[f][s, r, 0]]
+        for f, x in blk.head.items():
+            dst += [x[ls, r], blk.snap[f][ls, r, 0]]
             src += [v[f], v[f]]
-        dst += [self.head_vc[s, r], self.snap_vc[s, r, 0],
-                self.snap_seq[s, r, 0]]
+        dst += [blk.head_vc[ls, r], blk.snap_vc[ls, r, 0],
+                blk.snap_seq[ls, r, 0]]
         src += [v["\0vc"], v["\0vc"], v["\0seq"]]
         torch._foreach_copy_(dst, src)
 
     def _install_many(self, shards, rows, head_rows, hvc_rows) -> None:
         """Several rows (a delta link)."""
         m = len(rows)
-        ss, rr = self._idx(shards), self._idx(rows)
-        dev = self.device
-        for f, x in self.head.items():
-            v = torch.as_tensor(np.asarray(head_rows[f]), device=dev)
-            x[ss, rr] = v
-            self.snap[f][ss, rr, 0] = v
-        hvc = torch.as_tensor(hvc_rows, device=dev)
-        self.head_vc[ss, rr] = hvc
-        self.snap_vc[ss, rr, 0] = hvc
-        self.snap_seq[ss, rr, 0] = torch.arange(
-            self.next_seq, self.next_seq + m, dtype=torch.int64, device=dev)
+        n0 = self.next_seq
+        for blk, sel, ls in self._route(shards):
+            ss, rr = blk.idx(ls), blk.idx(_take(rows, sel))
+            dev = blk.device
+            for f, x in blk.head.items():
+                v = torch.as_tensor(_take(np.asarray(head_rows[f]), sel),
+                                    device=dev)
+                x[ss, rr] = v
+                blk.snap[f][ss, rr, 0] = v
+            hvc = torch.as_tensor(_take(hvc_rows, sel), device=dev)
+            blk.head_vc[ss, rr] = hvc
+            blk.snap_vc[ss, rr, 0] = hvc
+            blk.snap_seq[ss, rr, 0] = (
+                torch.arange(n0, n0 + m, dtype=torch.int64, device=dev)
+                if sel is None else blk.idx(n0 + sel))
         self.next_seq += m
 
     # ------------------------------------------------------------------
     # reads
     # ------------------------------------------------------------------
     def _fold_strategy(self) -> str:
-        """The ring fold for a read's stale rows: the hand-written kernel
-        of the type where there is one (the plain version of the same
-        function on a CPU table), then the monoid reduction for types
-        whose delta is exact from an ARBITRARY base (the flags; sets are
-        bottom-only, ``CRDTType.assoc_bottom_only``), else the generic
-        serial fold.  ``counter_pn`` needs no delta-magnitude gate:
-        ``counter_fold`` sums in int64 (the TPU kernel's int32 sum needed
-        one)."""
-        if self.ty.name == "set_aw":
-            return "kernel_set_aw"
-        if self.ty.name == "counter_pn":
-            return "kernel_counter"
-        if self.ty.supports_assoc and not self.ty.assoc_bottom_only:
-            return "assoc"
-        return "serial"
+        return fold_strategy(self.ty)
 
     def _count_dispatch(self, strategy: str, n: int = 1) -> None:
         self.fold_dispatches[strategy] = (
@@ -645,63 +1031,36 @@ class TypedTable:
         if m is not None:
             m.inc(n, strategy=strategy)
 
-    def _fold_rows(self, shards, rows, read_vcs: torch.Tensor):
-        """Versioned read of M rows: the newest retained snapshot version
-        each read VC dominates becomes the base, and the ring is folded
-        over it.  Returns (state [M, ...], applied int32[M], complete
-        bool[M]); a row is complete iff its ring holds its whole history
-        or the base is the newest version (the ring only holds ops after
-        the newest version)."""
-        ss, rr = self._idx(shards), self._idx(rows)
-        m = len(shards)
-        svc, sseq = self.snap_vc[ss, rr], self.snap_seq[ss, rr]
-        idx, found = orddict.get_smaller(svc, sseq, read_vcs)
-        idx = idx.long()
-        take = torch.arange(m, device=self.device)
-        base_vc = torch.where(found[:, None], svc[take, idx], 0)
-        base = {f: x[ss, rr, idx] for f, x in self.snap.items()}
-        base = fold_mod.where_rows(found, base,
-                           {f: torch.zeros_like(x) for f, x in base.items()})
-        newest = sseq.max(-1).values
-        complete = (found & (sseq[take, idx] == newest)) | (newest == 0)
-        n_ops = self.n_ops[shards, rows]
-        # rings fill from slot 0 and restart at GC: fold only the prefix
-        # the batch uses
-        kmax = max(int(n_ops.max()), 1)
-        n_ops = torch.as_tensor(n_ops, device=self.device)
-        opa = self.ops_a[ss, rr, :kmax]
-        opv = self.ops_vc[ss, rr, :kmax]
-        strategy = self._fold_strategy()
-        if strategy == "kernel_counter":
-            cnt, applied = cuda_kernels.counter_fold(
-                base["cnt"], opa[..., 0], opv, n_ops, base_vc, read_vcs)
-            state = {"cnt": cnt}
-        else:
-            opb = self.ops_b[ss, rr, :kmax]
-            opo = self.ops_origin[ss, rr, :kmax]
-            if strategy == "kernel_set_aw":
-                fold = cuda_kernels.set_aw_fold
-            else:
-                generic = (longlog.assoc_fold if strategy == "assoc"
-                           else fold_mod.fold_batch)
-                fold = lambda *a: generic(self.ty, self.cfg, *a)  # noqa: E731
-            state, applied = fold(base, opa, opb, opv, opo, n_ops, base_vc,
-                                  read_vcs)
-        return state, applied, complete
-
-    def _vcs(self, read_vcs) -> Tuple[np.ndarray, torch.Tensor]:
-        read_vcs = np.array(read_vcs, np.int32)  # owned, writable copy
-        return read_vcs, torch.as_tensor(read_vcs, device=self.device)
+    def _fold_block(self, blk: Block, ls, rows, read_vcs: torch.Tensor):
+        """``read_block`` of M rows of ``blk`` (local shards ``ls``) at
+        read VCs on its device."""
+        ss, rr = blk.idx(ls), blk.idx(rows)
+        n_ops = self.n_ops[ls + blk.off, rows]
+        with self._on(blk):
+            return read_block(self.ty, self.cfg, blk, ss, rr, n_ops,
+                              read_vcs, self._fold_strategy())
 
     def read_latest(self, shards, rows, read_vcs):
         """Head gather.  Returns host copies (state fields [M, ...], fresh
         [M]); a row is fresh iff head_vc ≤ its read VC — then the head IS
         the exact snapshot.  Stale rows must use :meth:`read`."""
-        ss, rr = self._idx(shards), self._idx(rows)
-        _, vcs_t = self._vcs(read_vcs)
-        fresh = vc.le(self.head_vc[ss, rr], vcs_t)
-        state = {f: x[ss, rr].cpu().numpy() for f, x in self.head.items()}
-        return state, fresh.cpu().numpy()
+        shards = np.asarray(shards, np.int64)
+        rows = np.asarray(rows, np.int64)
+        read_vcs = np.array(read_vcs, np.int32)
+        launched = []
+        for blk, sel, ls in self._route(shards):
+            ss, rr = blk.idx(ls), blk.idx(_take(rows, sel))
+            vcs_t = torch.as_tensor(_take(read_vcs, sel), device=blk.device)
+            fresh = vc.le(blk.head_vc[ss, rr], vcs_t)
+            launched.append((sel, {f: x[ss, rr] for f, x in blk.head.items()},
+                             fresh))
+        n = len(rows)
+        state = {f: self._host_merge([(sel, st[f].cpu().numpy())
+                                      for sel, st, _ in launched], n)
+                 for f in launched[0][1]}
+        fresh = self._host_merge([(sel, fr.cpu().numpy())
+                                  for sel, _, fr in launched], n)
+        return state, fresh
 
     def read(self, shards, rows, read_vcs):
         """Versioned read of a flat batch at per-key read VCs (ring fold
@@ -709,17 +1068,29 @@ class TypedTable:
         n_applied [M], complete [M])."""
         shards = np.asarray(shards, np.int64)
         rows = np.asarray(rows, np.int64)
-        _, vcs_t = self._vcs(read_vcs)
-        state, applied, complete = self._fold_rows(shards, rows, vcs_t)
-        return ({f: x.cpu().numpy() for f, x in state.items()},
-                applied.cpu().numpy(), complete.cpu().numpy())
+        read_vcs = np.array(read_vcs, np.int32)
+        launched = []
+        for blk, sel, ls in self._route(shards):
+            vcs_t = torch.as_tensor(_take(read_vcs, sel), device=blk.device)
+            launched.append((sel, self._fold_block(blk, ls, _take(rows, sel),
+                                                   vcs_t)))
+        n = len(rows)
+        state = {f: self._host_merge([(sel, r[0][f].cpu().numpy())
+                                      for sel, r in launched], n)
+                 for f in launched[0][1][0]}
+        return (state,
+                self._host_merge([(sel, r[1].cpu().numpy())
+                                  for sel, r in launched], n),
+                self._host_merge([(sel, r[2].cpu().numpy())
+                                  for sel, r in launched], n))
 
     def _gather(self, head, head_vc, ss, rr, vcs_t=None):
-        """Gather M rows from one (head, head_vc) source — the live head, a
-        table epoch or a serving slot — as device tensors, with no host
-        sync: (state fields [M, ...], fresh bool[M] or None).  Freshness
-        (the source head VC ≤ the read VC: then the gathered state IS the
-        row's exact snapshot) is computed only when ``vcs_t`` is given."""
+        """Gather M rows from one (head, head_vc) source of one block — the
+        live head, a table epoch or a serving slot — as device tensors,
+        with no host sync: (state fields [M, ...], fresh bool[M] or None).
+        Freshness (the source head VC ≤ the read VC: then the gathered
+        state IS the row's exact snapshot) is computed only when ``vcs_t``
+        is given."""
         state = {f: x[ss, rr] for f, x in head.items()}
         fresh = None if vcs_t is None else vc.le(head_vc[ss, rr], vcs_t)
         return state, fresh
@@ -732,15 +1103,16 @@ class TypedTable:
     def latest_resolved_flat(self, head, head_vc, ss, rr):
         """Gather + resolve M rows that are fresh by construction (a read
         VC dominating the source's commits) from one (head, head_vc)
-        source: resolved fields [M, ...] on the device, no host sync.
-        Types without a ``resolve_spec`` return the full state."""
+        source of one block: resolved fields [M, ...] on its device, no
+        host sync.  Types without a ``resolve_spec`` return the full
+        state."""
         return self._resolve(self._gather(head, head_vc, ss, rr)[0])
 
     def read_resolved_flat(self, shards, rows, read_vcs):
         """The serving read.  Returns (resolved fields [M, ...] on the
-        table's device, fresh [M], complete [M] as host arrays), in input
-        order.  For types without a ``resolve_spec`` the fields are the
-        full state.  The ladder:
+        table's device — ``BlockParts`` for a placed table — fresh [M],
+        complete [M] as host arrays), in input order.  For types without a
+        ``resolve_spec`` the fields are the full state.  The ladder:
 
         1. the read VC dominates every commit → live head gather;
         2. the read VC is pinned exactly at a table epoch's cap → frozen
@@ -749,38 +1121,72 @@ class TypedTable:
         3. otherwise two-phase: gather (from the frozen epoch when one
            covers the VC, else the live head), check freshness on the
            host, and fold the ring ONLY for the stale remainder, merged
-           over the gathered batch before the one resolve."""
+           over the gathered batch before the one resolve.
+
+        Each step runs on every block the batch touches before the next
+        step's first host copy."""
         shards = np.asarray(shards, np.int64)
         rows = np.asarray(rows, np.int64)
-        read_vcs, vcs_t = self._vcs(read_vcs)
-        ss, rr = self._idx(shards), self._idx(rows)
-        all_fresh = np.ones(len(rows), bool)
-        if (read_vcs >= self.max_commit_vc).all():
-            resolved = self.latest_resolved_flat(self.head, self.head_vc,
-                                                 ss, rr)
-            return resolved, all_fresh, all_fresh
-        epoch = self._epoch_for(read_vcs)
-        if epoch is not None and (read_vcs >= epoch["cap"]).all():
+        read_vcs = np.array(read_vcs, np.int32)  # owned, writable copy
+        n = len(rows)
+        per = []
+        for blk, sel, ls in self._route(shards):
+            vcs_t = torch.as_tensor(_take(read_vcs, sel), device=blk.device)
+            ss, rr = blk.idx(ls), blk.idx(_take(rows, sel))
+            per.append((blk, sel, ls, vcs_t, ss, rr))
+        all_fresh = np.ones(n, bool)
+        src = None
+        if not (read_vcs >= self.max_commit_vc).all():
+            src = self._epoch_for(read_vcs)
+            if src is None or not (read_vcs >= src["cap"]).all():
+                return self._read_two_phase(per, src, rows, n)
             # pinned at the cap: every frozen row has head_vc ≤ cap = R
-            resolved = self.latest_resolved_flat(
-                epoch["head"], epoch["head_vc"], ss, rr)
-            return resolved, all_fresh, all_fresh
+        resolved = []
+        for blk, sel, _ls, _vcs, ss, rr in per:
+            h, hvc = ((blk.head, blk.head_vc) if src is None else
+                      self._at(src["head"], src["head_vc"], blk))
+            with self._on(blk):
+                resolved.append((sel, self.latest_resolved_flat(h, hvc, ss,
+                                                                rr)))
+        return self._merge(resolved, n), all_fresh, all_fresh
+
+    def _read_two_phase(self, per, epoch, rows, n):
+        """Rung 3 of :meth:`read_resolved_flat`."""
         self.slow_serves += 1
-        src = (self.head, self.head_vc) if epoch is None else (
-            epoch["head"], epoch["head_vc"])
-        state, fresh_t = self._gather(*src, ss, rr, vcs_t)
-        fresh = fresh_t.cpu().numpy()
-        complete = fresh.copy()
-        stale = np.nonzero(~fresh)[0]
-        if len(stale):
+        gathered = []
+        for blk, sel, _ls, vcs_t, ss, rr in per:
+            src = ((blk.head, blk.head_vc) if epoch is None else
+                   self._at(epoch["head"], epoch["head_vc"], blk))
+            gathered.append(self._gather(*src, ss, rr, vcs_t))
+        fresh_b = [fresh_t.cpu().numpy() for _, fresh_t in gathered]
+        complete_b = [f.copy() for f in fresh_b]
+        if any((~f).any() for f in fresh_b):
             self._count_dispatch(self._fold_strategy())
-            st = self._idx(stale)
-            folded, _, comp = self._fold_rows(shards[stale], rows[stale],
-                                              vcs_t[st])
+        folds = []
+        for (blk, sel, ls, vcs_t, _ss, _rr), (state, _), fresh in zip(
+                per, gathered, fresh_b):
+            stale = np.nonzero(~fresh)[0]
+            if not len(stale):
+                folds.append(None)
+                continue
+            st = blk.idx(stale)
+            folded, _, comp = self._fold_block(
+                blk, ls[stale], _take(rows, sel)[stale], vcs_t[st])
             for f, x in state.items():
                 x[st] = folded[f]
-            complete[stale] = comp.cpu().numpy()
-        return self._resolve(state), fresh, complete
+            folds.append((stale, comp))
+        resolved = []
+        for (blk, sel, *_), (state, _), complete, fold in zip(
+                per, gathered, complete_b, folds):
+            if fold is not None:
+                complete[fold[0]] = fold[1].cpu().numpy()
+            with self._on(blk):
+                resolved.append((sel, self._resolve(state)))
+        fresh = self._host_merge(
+            [(p[1], f) for p, f in zip(per, fresh_b)], n)
+        complete = self._host_merge(
+            [(p[1], c) for p, c in zip(per, complete_b)], n)
+        return self._merge(resolved, n), fresh, complete
 
     def read_resolved(self, shards, rows, read_vcs):
         """:meth:`read_resolved_flat` with the resolved fields copied to

@@ -193,15 +193,38 @@ Run from the root of a checkout on a machine with a CUDA card (one card;
    phase's sample equal to the owners' at their applied clock; the import
    seals' seconds and kind by member.  Its figures print on a ``live:``
    line beside the card;
-13. print one JSON line per kernel record, the card line, and last the
+13. the mesh serving plane (``mesh``): ``parallel.MeshServingPlane`` over
+   every card of a machine with 2 or more that divide the 8 shards, else
+   4 blocks of 2 shards on ``cuda:0`` (the device list printed first, and
+   every kernel held against its plain version on every distinct device
+   of the plane); an ``AntidoteNode`` at BASELINE's widths with a log
+   directory and its tables placed by shard block, ``bench_wire.py`` config
+   3's 200,000 ``set_aw`` keys plus 20,000 counters populated through
+   ``KVStore.apply_effect_groups``, a sample of 16,384 keys equal to a
+   twin node without a plane; copy and scatter publishes, the last after
+   two bursts on one shard (``antidote_mesh_publish_total`` moves for that
+   shard alone, by its dirty rows; the other blocks' slots untouched);
+   ``stable_vc`` (``stable_min`` on each block) equal to the applied
+   clocks' min after every commit round, cached; 8 Zipf batches through
+   the epoch plane beside a committing thread, equal to the locked read;
+   historical batches (``set_aw_fold`` on every block) and counters at an
+   older clock (``counter_fold``); ``sharded_step_fn`` on the placed
+   tables; 20,000-op logs of a set and a counter through the
+   ``mesh_assoc`` rung equal to ``assoc``; 5 s of the north-star mix
+   through a native-front-end server on the node, every acknowledged write
+   read back, the status ``mesh`` block.  Its figures print on a
+   ``mesh:`` line beside the card;
+14. print one JSON line per kernel record, the card line, and last the
    ``{"ok": true, ...}`` line.
 
 The launch counts are reset just before the serve, the node workload, the
 serving plane, the cluster, the types phase, the durable phase, the cold
 phase, the wire phase, the native phase, the interdc phase, the follower
-phase, the takeover phase and its live segment, and read just after
-each; each must show the kernels that ``PATH_KERNELS`` names for it, and
-a kernel record's ``launches`` is the sum over the thirteen.
+phase, the takeover phase and its live segment, and the mesh phase, and
+read just after each; each must show the kernels that ``PATH_KERNELS``
+names for it (the mesh phase on every block and every distinct device of
+its plane), and a kernel record's ``launches`` is the sum over the
+fourteen.
 The serve must launch ``orset_presence`` exactly once per
 ``SetAW.resolve``, and a resolve on a CUDA state must call no torch sort.
 Exits non-zero without a CUDA device, and outside a
@@ -382,6 +405,15 @@ TK_CHAIN, TK_MIXED, TK_SAMPLE, TK_NEW_MEMBERS = 64, 64, 2048, 3
 # took 507.0 s against 223.2 s before the follower and the import seals'
 # chain bound, over the 150 s more they were given)
 TK_LIVE_THREADS = 2
+# the mesh phase: bench_wire.py config 3's set_aw keys and counters at
+# BASELINE's widths on a plane of 4 blocks of 2 shards on one card (every
+# card of a machine with 2 or more that divide the 8 shards); its publish
+# rounds of SV_ROUND_KEYS / 4 keys, Zipf epoch-read batches, historical
+# batches, the giant-key fold's log length, the north-star window's
+# workers and seconds, and the sample held against the twin and read back
+MS_KEYS, MS_CTRS, MS_BLOCKS_ONE_CARD = 200_000, 20_000, 4
+MS_ROUNDS, MS_BATCHES, MS_HIST_BATCHES, MS_LONG_OPS = 4, 8, 4, 20_000
+MS_THREADS, MS_WINDOW_S, MS_SAMPLE = 8, 5.0, 16_384
 # the kernels each path must launch: the serve resolves sets (presence)
 # and folds the historical batches; the node session folds a set and a
 # counter at older snapshots; every cluster transaction start merges the
@@ -411,7 +443,10 @@ TK_LIVE_THREADS = 2
 # its reads at the snapshot before the join fold the moved rings on their
 # new owners (sets and counters), and the follower of the clustered owner's
 # digest resolves the sets of every shard on both sides (the owner's and
-# its own); the check's resolves are counted apart
+# its own); the check's resolves are counted apart; the mesh plane
+# resolves every routed epoch gather on every block (sets), folds the
+# historical set batches and counters on every block, and runs stable_min
+# on every block's clock rows
 PATH_KERNELS = {"serve": ("orset_presence", "set_aw_fold"),
                 "node": ("counter_fold", "set_aw_fold"),
                 "serving": ("orset_presence", "set_aw_fold"),
@@ -429,7 +464,9 @@ PATH_KERNELS = {"serve": ("orset_presence", "set_aw_fold"),
                 "takeover": ("stable_min", "set_aw_fold", "counter_fold",
                              "orset_presence"),
                 "live": ("stable_min", "set_aw_fold", "counter_fold",
-                         "orset_presence")}
+                         "orset_presence"),
+                "mesh": ("orset_presence", "set_aw_fold", "counter_fold",
+                         "stable_min")}
 
 
 def log(msg: str) -> None:
@@ -6655,6 +6692,544 @@ def takeover_phase(torch, dev, n_set=TK_SET_KEYS, n_ctr=TK_CTR_KEYS,
         shutil.rmtree(root, ignore_errors=True)
 
 
+def mesh_devices(torch) -> list:
+    """The mesh phase's plane: every visible card when there are two or
+    more and they divide the 8 shards, else 4 blocks on ``cuda:0``."""
+    n = torch.cuda.device_count()
+    if n >= 2 and 8 % n == 0:
+        return [torch.device("cuda", i) for i in range(n)]
+    return [torch.device("cuda", 0)] * MS_BLOCKS_ONE_CARD
+
+
+def mesh_phase(torch, devices, n_keys=MS_KEYS, n_ctrs=MS_CTRS,
+               rounds=MS_ROUNDS, batches=MS_BATCHES, batch=B,
+               hist_batches=MS_HIST_BATCHES, long_ops=MS_LONG_OPS,
+               procs=1, threads=MS_THREADS, window_s=MS_WINDOW_S,
+               sample=MS_SAMPLE) -> dict:
+    """The mesh serving plane (``parallel.MeshServingPlane``) over
+    ``devices``: an ``AntidoteNode`` at BASELINE's widths with a log
+    directory whose tables are placed in shard blocks, one block a device,
+    and a twin node without a plane fed the same groups.  Populate
+    ``n_keys`` ``set_aw`` keys (3 adds a key from SV_POOL values, removes on
+    a tenth) and ``n_ctrs`` counters (2 increments) through
+    ``KVStore.apply_effect_groups``; a sample of the heads equal to the
+    twin's; two copy publishes, ``rounds`` scatters, then two bursts on one
+    shard whose publish moves ``antidote_mesh_publish_total`` for that shard
+    alone, by its dirty rows, and leaves the other blocks' slot tensors
+    untouched; ``stable_vc`` after every commit round equal to the applied
+    clocks' min, the unchanged clocks a cache hit; ``batches`` Zipf batches
+    through the epoch plane while a second thread commits 256-key rounds,
+    each value equal to the locked read at its epoch's clock; historical
+    batches at the clock 60% through the adds (``set_aw_fold`` on every
+    block) and counters between their two increments (``counter_fold``);
+    ``sharded_step_fn`` on the placed tables; ``long_ops``-op logs of one
+    add-only set key and one counter through the ``mesh_assoc`` rung, equal
+    to the ``assoc`` rung; a ``window_s`` window of the north-star mix
+    through a native-front-end ``ProtocolServer`` on the node, every
+    acknowledged write read back equal to the host model.  Every kernel
+    must launch on every block and every distinct device of the plane."""
+    import tempfile
+    import threading
+
+    from antidote_tpu_torch.api import AntidoteNode
+    from antidote_tpu_torch.config import AntidoteConfig
+    from antidote_tpu_torch.crdt import get_type
+    from antidote_tpu_torch.materializer import cuda_kernels as ck
+    from antidote_tpu_torch.parallel import MeshServingPlane, sharded_step_fn
+    from antidote_tpu_torch.proto.client import AntidoteClient
+    from antidote_tpu_torch.proto.server import ProtocolServer
+    from antidote_tpu_torch.store.kv import Effect
+
+    devices = [torch.device(d) for d in devices]
+    distinct = list(dict.fromkeys(devices))
+    on_card = devices[0].type == "cuda"
+    n_blocks = len(devices)
+
+    def sync():
+        if on_card:
+            for d in distinct:
+                torch.cuda.synchronize(d)
+
+    out: dict = {"devices": [str(d) for d in devices], "keys": n_keys,
+                 "counters": n_ctrs}
+    log(f"mesh: plane over {out['devices']}")
+    cfg = AntidoteConfig(n_shards=8, max_dcs=D, ops_per_key=K,
+                         snap_versions=2, set_slots=E,
+                         keys_per_table=n_keys // 8)
+    tmp = tempfile.TemporaryDirectory(prefix="antidote_mesh_")
+    plane = MeshServingPlane(cfg, n_blocks, devices=devices)
+    node = AntidoteNode(cfg, log_dir=os.path.join(tmp.name, "mesh"),
+                        device=devices[0], sharding=plane.sharding)
+    plane.metrics = node.metrics
+    plane.attach(node.store)
+    twin = AntidoteNode(cfg, device=devices[0])
+    store, txm, m = node.store, node.txm, node.metrics
+    srv = None
+    try:
+        # ---- populate both nodes with the same groups --------------------
+        st = orset_stream(np.random.default_rng(83), n_keys)
+        keys, lane0, first_idx = st["keys"], st["lane0"], st["first_idx"]
+        rm_keys, rm_t = st["rm_keys"], st["rm_t"]
+        vals = (st["elems"] % SV_POOL).astype(np.int64)
+        pool_h = np.asarray([store.blobs.intern(v) for v in range(SV_POOL)],
+                            np.int64)
+        for h in pool_h.tolist():
+            twin.store.blobs.intern_bytes(h, store.blobs.bytes_of(h))
+        refs = [((h, store.blobs.bytes_of(h)),) for h in pool_h.tolist()]
+        eff_a = pool_h[vals][:, None]
+        add_b = np.zeros((1 + D,), np.int32)
+        ctr_t0 = int(rm_t.max()) + 1
+        cty = get_type("counter_pn")
+        c_a = np.zeros((2, n_ctrs, cty.eff_a_width(cfg)), np.int64)
+        c_a[0, :, 0] = np.arange(n_ctrs) % 7 + 1
+        c_a[1, :, 0] = np.arange(n_ctrs) % 5 + 2
+        c_b = np.zeros((cty.eff_b_width(cfg),), np.int32)
+        groups = []
+        for lo in range(0, len(keys), POP_BATCH):
+            hi = min(lo + POP_BATCH, len(keys))
+            vcs = np.zeros((hi - lo, D), np.int32)
+            vcs[:, 0] = lane0[lo:hi]
+            groups.append(([Effect(k, "set_aw", "b", eff_a[lo + j], add_b,
+                                   blob_refs=refs[vals[lo + j]])
+                            for j, k in enumerate(keys[lo:hi].tolist())],
+                           list(vcs), [0] * (hi - lo)))
+        for lo in range(0, len(rm_keys), POP_BATCH):
+            kk = rm_keys[lo:lo + POP_BATCH]
+            rb = np.zeros((len(kk), 1 + D), np.int32)
+            rb[:, 0] = 1
+            rb[:, 1] = lane0[first_idx[kk]]
+            vcs = np.zeros((len(kk), D), np.int32)
+            vcs[:, 0] = rm_t[kk]
+            groups.append(([Effect(k, "set_aw", "b", eff_a[first_idx[k]],
+                                   rb[j]) for j, k in enumerate(kk.tolist())],
+                           list(vcs), [0] * len(kk)))
+        for r in range(2):
+            for lo in range(0, n_ctrs, POP_BATCH):
+                hi = min(lo + POP_BATCH, n_ctrs)
+                vcs = np.zeros((hi - lo, D), np.int32)
+                vcs[:, 0] = ctr_t0 + r * n_ctrs + np.arange(lo, hi)
+                groups.append(([Effect(k, "counter_pn", "ctr", c_a[r, k],
+                                       c_b) for k in range(lo, hi)],
+                               list(vcs), [0] * (hi - lo)))
+        t0 = time.perf_counter()
+        for g in groups:
+            store.apply_effect_groups([g])
+        sync()
+        out["populate_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for g in groups:
+            twin.store.apply_effect_groups([g])
+        sync()
+        out["twin_populate_s"] = time.perf_counter() - t0
+        del groups
+        txm.commit_counter = int(store.dc_max_vc()[0])
+        log(f"mesh: populated {len(keys) + len(rm_keys) + 2 * n_ctrs} "
+            f"effects in {out['populate_s']:.1f} s (twin "
+            f"{out['twin_populate_s']:.1f} s)")
+        set_t = store.tables["set_aw"]
+        ctr_t = store.tables["counter_pn"]
+        if not (set_t.placed and ctr_t.placed
+                and [b.device for b in set_t.blocks] == devices):
+            raise AssertionError("the node's tables are not placed")
+        loc = np.asarray([store.directory[(k, "b")][1:]
+                          for k in range(n_keys)], np.int64)
+        cloc = np.asarray([store.directory[(k, "ctr")][1:]
+                           for k in range(n_ctrs)], np.int64)
+        # the host model of the sets
+        key_vals = np.zeros((n_keys, ADDS_PER_KEY), np.int64)
+        occ = np.zeros(n_keys, np.int64)
+        for i, k in enumerate(keys.tolist()):
+            key_vals[k, occ[k]] = vals[i]
+            occ[k] += 1
+        v0 = vals[first_idx]
+        gone = np.zeros(n_keys, bool)
+        gone[rm_keys] = (key_vals[rm_keys] == v0[rm_keys, None]).sum(-1) == 1
+        no_write = np.iinfo(np.int64).max
+        write_t = np.full(n_keys, no_write, np.int64)
+
+        def oracle(k, t):
+            want = set(key_vals[k].tolist())
+            if gone[k] and write_t[k] > t:
+                want.discard(int(v0[k]))
+            return want
+
+        # ---- a sample against the twin ------------------------------------
+        rng = np.random.default_rng(89)
+        pick = rng.choice(n_keys, size=min(sample, n_keys), replace=False)
+        cpick = rng.choice(n_ctrs, size=min(sample // 8, n_ctrs),
+                           replace=False)
+        tw = twin.store.tables
+        for name, t, ks, bucket in (("set_aw", set_t, pick, "b"),
+                                    ("counter_pn", ctr_t, cpick, "ctr")):
+            tl = np.asarray([twin.store.directory[(k, bucket)][1:]
+                             for k in ks.tolist()], np.int64)
+            ml = np.asarray([store.directory[(k, bucket)][1:]
+                             for k in ks.tolist()], np.int64)
+            vc_now = np.broadcast_to(store.dc_max_vc(), (len(ks), D))
+            a, fa = t.read_latest(ml[:, 0], ml[:, 1], vc_now)
+            b, fb = tw[name].read_latest(tl[:, 0], tl[:, 1], vc_now)
+            for f in a:
+                if not np.array_equal(a[f], b[f]):
+                    raise AssertionError(f"mesh {name}.{f} differs from "
+                                         "the twin's")
+        objs = [(int(k), "set_aw", "b") for k in pick]
+        got = store.read_values(objs, store.dc_max_vc())
+        if got != twin.store.read_values(objs, store.dc_max_vc()):
+            raise AssertionError("mesh values differ from the twin's")
+        for k, v in zip(pick.tolist(), got):
+            if set(v) != oracle(k, 0):
+                raise AssertionError(f"mesh key {k}: {v} != model")
+        out["twin_sample"] = len(pick) + len(cpick)
+        twin.close()
+        twin = None
+
+        # ---- publishes, stable time ---------------------------------------
+        stable_checks = {"rounds": 0, "cache_hits": 0}
+
+        def check_stable():
+            sync()
+            t1 = time.perf_counter()
+            got = store.stable_vc()
+            us = (time.perf_counter() - t1) * 1e6
+            if not np.array_equal(got, store.applied_vc.min(0)):
+                raise AssertionError(f"stable_vc {got} != host min")
+            n0 = plane.stable_collectives
+            store.stable_vc()
+            if plane.stable_collectives != n0:
+                raise AssertionError("an unchanged clock missed the cache")
+            stable_checks["rounds"] += 1
+            stable_checks["cache_hits"] += 1
+            return us
+
+        def commit_round(kk):
+            """Re-adds of every populate value of each key (a removed
+            element comes back), 256 updates a transaction, merged."""
+            ups = [(int(k), "set_aw", "b", ("add", int(v)))
+                   for k in kk.tolist() for v in key_vals[k].tolist()]
+            txns, spans = [], []
+            for lo in range(0, len(ups), 256):
+                t = txm.start_transaction()
+                txm.update_objects(ups[lo:lo + 256], t)
+                txns.append(t)
+                spans.append(np.asarray([u[0] for u in ups[lo:lo + 256]]))
+            with txm.commit_lock:
+                for r, ks in zip(txm.commit_transactions_group(txns), spans):
+                    if isinstance(r, Exception):
+                        raise r
+                    np.minimum.at(write_t, ks, int(r[0]))
+
+        def publish():
+            sync()
+            t1 = time.perf_counter()
+            res = txm.publish_serving_epoch()
+            sync()
+            return res, (time.perf_counter() - t1) * 1e3
+
+        stable_us = [check_stable()]
+        pubs = [publish()]
+        commit_round(zipf_distinct(rng, n_keys, SV_ROUND_KEYS // 4))
+        stable_us.append(check_stable())
+        pubs.append(publish())
+        for _ in range(rounds):
+            commit_round(zipf_distinct(rng, n_keys, SV_ROUND_KEYS // 4))
+            stable_us.append(check_stable())
+            pubs.append(publish())
+        # two bursts on one shard: the second publish's scatter holds that
+        # shard's rows alone (the scatter set spans both windows)
+        hot = 3
+        hot_keys = np.nonzero(loc[:, 0] == hot)[0]
+        burst = [rng.choice(hot_keys, size=128, replace=False)
+                 for _ in range(2)]
+        commit_round(burst[0])
+        pubs.append(publish())
+        commit_round(burst[1])
+        stable_us.append(check_stable())
+        hot_blk, _ = set_t.block_of(hot)
+        spare = set_t.serving_spare()
+        before_slot = {b: (spare["head_vc"][b].clone(),
+                           {f: x.clone() for f, x in spare["head"][b].items()})
+                       for b in range(n_blocks) if b != hot_blk.i}
+        pub0 = dict(m.mesh_publish.snapshot())
+        pubs.append(publish())
+        delta = {k: v - pub0.get(k, 0)
+                 for k, v in m.mesh_publish.snapshot().items()}
+        delta = {k[0]: int(v) for k, v in delta.items() if v}
+        dirty = len(set(loc[np.concatenate(burst), 1].tolist()))
+        if delta != {str(hot): dirty}:
+            raise AssertionError(f"burst publish moved {delta}, want only "
+                                 f"shard {hot} by {dirty}")
+        slot = set_t.serving_slot()
+        for b, (hvc, head) in before_slot.items():
+            if not torch.equal(hvc, slot["head_vc"][b]) or any(
+                    not torch.equal(x, slot["head"][b][f])
+                    for f, x in head.items()):
+                raise AssertionError(f"the burst publish wrote block {b}")
+        del before_slot
+        modes = [p[0] for p in pubs]
+        if any(r != "published" for r in modes):
+            raise AssertionError(f"publishes: {modes}")
+        out["publish"] = {
+            "copy_ms": [round(p[1], 3) for p in pubs[:2]],
+            "scatter_ms": [round(p[1], 3) for p in pubs[2:]],
+            "burst_shard": hot, "burst_rows": dirty,
+            "publish_by_shard": plane.status()["publish_by_shard"]}
+        out["stable_vc_us"] = _stats(stable_us)
+
+        # ---- epoch reads under writes --------------------------------------
+        txm.enable_serving_epochs()
+        txm.publish_serving_epoch()
+        stop = threading.Event()
+        errors: list = []
+        w_rounds = [0]
+        wrng = np.random.default_rng(97)
+
+        def writer():
+            try:
+                while not stop.is_set():
+                    commit_round(zipf_distinct(wrng, n_keys, SV_WRITE_KEYS))
+                    w_rounds[0] += 1
+            except Exception as e:  # noqa: BLE001 — fatal, raised below
+                errors.append(e)
+
+        lat, checked, epochs = [], {"locked": 0, "oracle": 0}, set()
+        gathers0 = plane.epoch_gathers
+        wt = threading.Thread(target=writer, name="mesh-writer")
+        wt.start()
+        try:
+            for i in range(batches):
+                kk = zipf_keys(rng, n_keys, batch)
+                objs = [(int(k), "set_aw", "b") for k in kk]
+                t1 = time.perf_counter()
+                ep = store.pin_serving_epoch()
+                try:
+                    pend, fb = store.epoch_read_launch(objs, ep)
+                    got = store.epoch_read_finish(pend)
+                finally:
+                    store.unpin_serving_epoch(ep)
+                lat.append((time.perf_counter() - t1) * 1e3)
+                if fb:
+                    raise AssertionError(f"epoch batch {i}: fallbacks")
+                epochs.add(ep.id)
+                ty = get_type("set_aw")
+                with txm.commit_lock:
+                    res, _, complete = set_t.read_resolved(
+                        loc[kk, 0], loc[kk, 1],
+                        np.broadcast_to(ep.vc, (len(kk), D)))
+                    for j, k in enumerate(kk.tolist()):
+                        if complete[j]:
+                            want = ty.value_from_resolved(
+                                {f: x[j] for f, x in res.items()},
+                                store.blobs, cfg)
+                            checked["locked"] += 1
+                        else:
+                            want = oracle(k, int(ep.vc[0]))
+                            checked["oracle"] += 1
+                        if set(got[j]) != set(want):
+                            raise AssertionError(
+                                f"mesh epoch batch {i}: key {k} = "
+                                f"{got[j]!r}, want {want!r}")
+        finally:
+            stop.set()
+            wt.join(120)
+        if errors:
+            raise errors[0]
+        out["epoch_reads"] = {
+            "batch_ms": _stats(lat), "keys_per_s": batches * batch
+            / (sum(lat) / 1e3), "write_rounds": w_rounds[0],
+            "epochs_seen": len(epochs),
+            "routed_gathers": plane.epoch_gathers - gathers0,
+            "values_checked": checked}
+        log(f"mesh: {batches} epoch batches under {w_rounds[0]} write "
+            f"rounds, p50 {out['epoch_reads']['batch_ms']['p50']:.2f} ms")
+
+        # ---- historical reads: set_aw_fold and counter_fold per block -----
+        mid_t = int(len(keys) * 0.6)
+        mid = np.zeros(D, np.int32)
+        mid[0] = mid_t
+        pos: dict = {}
+        for i, k in enumerate(keys.tolist()):
+            if lane0[i] <= mid_t:
+                pos.setdefault(k, []).append(i)
+        cold = np.nonzero(write_t == no_write)[0]
+        hist_ms = []
+        for _ in range(hist_batches):
+            kk = rng.choice(cold, size=min(batch, len(cold)), replace=False)
+            sync()
+            t1 = time.perf_counter()
+            res, fresh, complete = set_t.read_resolved_flat(
+                loc[kk, 0], loc[kk, 1], np.broadcast_to(mid, (len(kk), D)))
+            top = res["top"].cpu().numpy()
+            hist_ms.append((time.perf_counter() - t1) * 1e3)
+            if fresh.all() or not complete.all():
+                raise AssertionError("historical batch: no stale rows, or "
+                                     "incomplete ones")
+            for j, k in enumerate(kk.tolist()):
+                want = {int(pool_h[vals[i]]) for i in pos.get(k, [])}
+                if {int(h) for h in top[j] if h != 0} != want:
+                    raise AssertionError(f"historical key {k}")
+        cvc = np.zeros(D, np.int32)
+        cvc[0] = ctr_t0 + n_ctrs - 1  # after every first increment
+        sync()
+        t1 = time.perf_counter()
+        res, fresh, complete = ctr_t.read_resolved_flat(
+            cloc[:, 0], cloc[:, 1], np.broadcast_to(cvc, (n_ctrs, D)))
+        cnt = res["value"].cpu().numpy()
+        ctr_ms = (time.perf_counter() - t1) * 1e3
+        if fresh.all() or not (cnt == c_a[0, :, 0]).all():
+            raise AssertionError("counters at the older clock")
+        cur = store.read_values([(k, "counter_pn", "ctr")
+                                 for k in range(0, n_ctrs, 97)],
+                                store.dc_max_vc())
+        if cur != (c_a[0, ::97, 0] + c_a[1, ::97, 0]).tolist():
+            raise AssertionError("counters now")
+        out["historical"] = {"set_batch_ms": _stats(hist_ms),
+                             "counter_batch_ms": ctr_ms}
+
+        # ---- sharded_step_fn on the placed tables --------------------------
+        out["step"] = {}
+        step_rng = np.random.default_rng(101)
+        for name, t, bucket in (("set_aw", set_t, "b"),
+                                ("counter_pn", ctr_t, "ctr")):
+            ty = get_type(name)
+            p = cfg.n_shards
+            ok = [np.nonzero(t.n_ops[s, :int(t.used_rows[s])] < K)[0]
+                  for s in range(p)]
+            mr = min(256, *(len(x) for x in ok))
+            rows = np.stack([step_rng.choice(x, size=mr, replace=False)
+                             for x in ok])
+            slots = t.n_ops[np.arange(p)[:, None], rows].astype(np.int64)
+            stamp = int(store.dc_max_vc()[0]) + 1
+            app_a = np.zeros((p, mr, ty.eff_a_width(cfg)), np.int64)
+            new_h = None
+            if name == "set_aw":
+                new_h = store.blobs.intern(10**9 + 7)
+                app_a[..., 0] = new_h
+            else:
+                app_a[..., 0] = 3
+            app_b = np.zeros((p, mr, ty.eff_b_width(cfg)), np.int32)
+            app_vc = np.zeros((p, mr, D), np.int32)
+            app_vc[..., 0] = stamp + np.arange(p * mr).reshape(p, mr)
+            read_vcs = np.zeros((p, mr, D), np.int32)
+            read_vcs[..., 0] = stamp + p * mr
+            bl = t.blocks
+            want_state, _ = t.read_latest(
+                np.repeat(np.arange(p), mr), rows.reshape(-1),
+                np.broadcast_to(store.dc_max_vc(), (p * mr, D)))
+            sync()
+            t1 = time.perf_counter()
+            outs = sharded_step_fn(ty, cfg, plane.mesh)(
+                [b.snap for b in bl], [b.snap_vc for b in bl],
+                [b.snap_seq for b in bl], [b.ops_a for b in bl],
+                [b.ops_b for b in bl], [b.ops_vc for b in bl],
+                [b.ops_origin for b in bl], rows, slots, app_a, app_b,
+                app_vc, np.zeros((p, mr), np.int32), rows,
+                (slots + 1).astype(np.int32), read_vcs,
+                store.applied_vc.copy())
+            state = {f: torch.cat([x[f].cpu() for x in outs[4]]).numpy()
+                     .reshape((p * mr,) + tuple(x.shape[2:]))
+                     for f, x in outs[4][0].items()}
+            step_ms = (time.perf_counter() - t1) * 1e3
+            applied = torch.cat([x.cpu() for x in outs[5]]).numpy()
+            new_applied = torch.cat([x.cpu() for x in outs[7]]).numpy()
+            stable = torch.cat([x.cpu() for x in outs[8]]).numpy()
+            if not (applied >= 1).all() or not (
+                    stable == new_applied.min(0)).all():
+                raise AssertionError(f"step {name}: applied / stable")
+            if name == "counter_pn":
+                if not (state["cnt"] == want_state["cnt"] + 3).all():
+                    raise AssertionError("step counter_pn values")
+            else:
+                for j in range(0, p * mr, 61):
+                    row = {f: x[j] for f, x in state.items()}
+                    base = {f: x[j] for f, x in want_state.items()}
+                    got = set(ty.value(row, store.blobs, cfg))
+                    if got != set(ty.value(base, store.blobs, cfg)) | {
+                            10**9 + 7}:
+                        raise AssertionError(f"step set_aw row {j}")
+            out["step"][name] = {"ms": step_ms, "rows": p * mr}
+
+        # ---- the giant-key fold: mesh_assoc against assoc ------------------
+        out["giant"] = {}
+        grng = np.random.default_rng(103)
+        for name in ("set_aw", "counter_pn"):
+            ty = get_type(name)
+            n = long_ops
+            a = np.zeros((n, ty.eff_a_width(cfg)), np.int64)
+            b = np.zeros((n, ty.eff_b_width(cfg)), np.int32)
+            o = grng.integers(0, D, size=n).astype(np.int32)
+            v = grng.integers(0, 4, size=(n, D)).astype(np.int32)
+            if name == "set_aw":
+                a[:, 0] = pool_h[grng.integers(0, 12, size=n)]
+                v[np.arange(n), o] = np.arange(1, n + 1)
+            else:
+                a[:, 0] = grng.integers(-5, 6, size=n)
+            read_vc = np.full(D, n, np.int32)
+            res = {}
+            for rung, mesh in (("mesh_assoc", plane), ("assoc", None)):
+                store.mesh = mesh
+                try:
+                    sync()
+                    t1 = time.perf_counter()
+                    st_, strat = store._fold_over_ring(ty, cfg, a, b, v, o,
+                                                       read_vc)
+                    st_ = {f: x.cpu().numpy() for f, x in st_.items()}
+                    ms = (time.perf_counter() - t1) * 1e3
+                finally:
+                    store.mesh = plane
+                if strat != rung:
+                    raise AssertionError(f"giant {name}: rung {strat}")
+                res[rung] = (st_, ms)
+            for f, x in res["assoc"][0].items():
+                if not np.array_equal(x, res["mesh_assoc"][0][f]):
+                    raise AssertionError(f"giant {name}.{f}: mesh_assoc "
+                                         "differs from assoc")
+            out["giant"][name] = {"ops": n, "mesh_assoc_ms":
+                                  res["mesh_assoc"][1],
+                                  "assoc_ms": res["assoc"][1]}
+
+        # ---- the north-star mix through the native front end ---------------
+        model = [oracle(k, 1 << 62) for k in range(n_keys)]
+        srv = ProtocolServer(node, port=0, native_frontend=True)
+        status_c = AntidoteClient(srv.host, srv.port, timeout=60)
+        load, busy, acked, _pre, _post = _wire_load(
+            torch, srv, status_c, n_keys, procs, threads, 1.0, window_s)
+        c = AntidoteClient(srv.host, srv.port, timeout=120)
+        rb, _touched, _join = _wire_readback(
+            c, model, acked, (), store.dc_max_vc(), n_keys, sample, 107)
+        c.close()
+        st_ = status_c.node_status()
+        status_c.close()
+        if "mesh" not in st_:
+            raise AssertionError("the node status has no mesh block")
+        out["north_star"] = {"load": load, "busy": busy, "readback": rb,
+                             "epoch_chunk": srv._epoch_chunk}
+        out["status_mesh"] = st_["mesh"]
+        log(f"mesh: status mesh block {json.dumps(st_['mesh'])}")
+        out["materializer"] = store.materializer_status()
+    finally:
+        if srv is not None:
+            srv.close()
+        if twin is not None:
+            twin.close()
+        node.close()
+        tmp.cleanup()
+    out["launches_by_block"] = {
+        f"{k}@{b}": n for (k, b), n in sorted(ck.LAUNCHES_BY_BLOCK.items())}
+    out["launches_by_device"] = {
+        f"{k}@cuda:{d}": n
+        for (k, d), n in sorted(ck.LAUNCHES_BY_DEVICE.items())}
+    if on_card:
+        missing = [f"{k}@{b}" for k in PATH_KERNELS["mesh"]
+                   for b in range(n_blocks)
+                   if not ck.LAUNCHES_BY_BLOCK.get((k, b))]
+        missing += [f"{k}@{d}" for k in PATH_KERNELS["mesh"]
+                    for d in distinct
+                    if not ck.LAUNCHES_BY_DEVICE.get((k, d.index or 0))]
+        if missing:
+            raise AssertionError(f"the mesh path never launched {missing}")
+    return out
+
+
 def count_resolves(fn):
     """``fn()`` with every ``SetAW.resolve`` call counted: (its result,
     the count)."""
@@ -6779,11 +7354,26 @@ def main() -> int:
     takeover["seconds"] -= live["seconds"]
     print(f"takeover: {json.dumps(takeover)} | card: {card}", flush=True)
     print(f"live: {json.dumps(live)} | card: {card}", flush=True)
+    # the mesh plane: every kernel held against its plain version on every
+    # distinct device of the plane first (cuda:0's above), then the path
+    mdevs = mesh_devices(torch)
+    checked_on = [str(dev)]
+    for d in dict.fromkeys(mdevs):
+        if d != dev:
+            check_kernels(torch, ck, d)
+            check_stable_min(torch, ck, d)
+            checked_on.append(str(d))
+    print(f"mesh devices: {json.dumps([str(d) for d in mdevs])}; kernels "
+          f"held to their plain versions on {json.dumps(checked_on)}",
+          flush=True)
+    mesh = run_path(lambda: mesh_phase(torch, mdevs))
+    mesh["kernels_checked_on"] = checked_on
+    print(f"mesh: {json.dumps(mesh)} | card: {card}", flush=True)
     paths = {"serve": serve, "node": node, "serving": serving,
              "cluster": cluster, "types": types, "durable": durable,
              "cold": cold, "wire": wire, "native": native,
              "interdc": interdc, "follower": follower,
-             "takeover": takeover, "live": live}
+             "takeover": takeover, "live": live, "mesh": mesh}
     for path, res in paths.items():
         log(f"{path}: {json.dumps(res)}")
         missing = [n for n in PATH_KERNELS[path] if res["launches"][n] == 0]

@@ -215,9 +215,18 @@ def test_serve_subprocess_recovers_its_log_dir(tmp_path, capsys):
 
 @pytest.mark.parametrize("flag", ["--pallas", "--mesh-devices=2"])
 def test_serve_refuses_flags_without_a_port_meaning(flag, capsys):
-    with pytest.raises(SystemExit) as ei:
-        console.main(["serve", "--device", "cpu", flag])
-    assert ei.value.code == 2
+    """``--pallas`` has no port meaning: argparse refuses it.
+    ``--mesh-devices`` places the tables over that many cards; the CPU is
+    one device, so a plane of 2 on ``--device cpu`` is refused at boot
+    with the same exit code."""
+    argv = ["serve", "--device", "cpu", flag]
+    if flag == "--pallas":
+        with pytest.raises(SystemExit) as ei:
+            console.main(argv)
+        assert ei.value.code == 2
+    else:
+        assert console.main(argv) == 2
+        assert "1 are visible" in capsys.readouterr().err
 
 
 def test_serve_on_cuda_without_a_card_exits_typed():

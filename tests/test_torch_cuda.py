@@ -1504,3 +1504,146 @@ def test_kill9_across_boot_processes_on_the_card(dev, tmp_path):
     from test_torch_cluster_processes import kill9_story
 
     kill9_story("cuda", tmp_path)
+
+
+# ---------------------------------------------------------------------------
+# the mesh serving plane on the card
+# ---------------------------------------------------------------------------
+def _mesh_workload(node):
+    for i in range(40):
+        node.update_objects([
+            (i, "counter_pn", "b", ("increment", i + 1)),
+            (f"s{i % 32}", "set_aw", "b", ("add", f"e{i}")),
+        ])
+
+
+_MESH_OBJS = ([(i, "counter_pn", "b") for i in range(40)]
+              + [(f"s{j}", "set_aw", "b") for j in range(32)])
+
+
+def _mesh_epoch_read(store):
+    ep = store.pin_serving_epoch()
+    try:
+        pend, fb = store.epoch_read_launch(_MESH_OBJS, ep)
+        assert not fb
+        return ep.id, store.epoch_read_finish(pend)
+    finally:
+        store.unpin_serving_epoch(ep)
+
+
+def test_mesh_plane_of_four_blocks_on_one_card_equals_a_single_node(dev):
+    """A 4-block plane on ``cuda:0`` serves the epoch plane, historical
+    folds and stable time like a node without a plane, and every kernel
+    launches on every block."""
+    from antidote_tpu_torch.parallel import MeshServingPlane
+
+    cfg = AntidoteConfig(n_shards=8, max_dcs=2, ops_per_key=8,
+                         keys_per_table=64)
+    plane = MeshServingPlane(cfg, 4, devices=[dev] * 4)
+    mesh = AntidoteNode(cfg, device=dev, sharding=plane.sharding)
+    plane.metrics = mesh.metrics
+    plane.attach(mesh.store)
+    chip = AntidoteNode(cfg, device=dev)
+    olds = {}
+    for name, node in (("chip", chip), ("mesh", mesh)):
+        node.update_objects([(f"s{j}", "set_aw", "b", ("add", "first"))
+                             for j in range(32)]
+                            + [(i, "counter_pn", "b", ("increment", 100))
+                               for i in range(40)])
+        olds[name] = node.start_transaction()
+        _mesh_workload(node)
+        node.txm.publish_serving_epoch()
+    ck.reset_launches()
+    assert _mesh_epoch_read(mesh.store) == _mesh_epoch_read(chip.store)
+    hist = mesh.read_objects(_MESH_OBJS, olds["mesh"])
+    assert hist == chip.read_objects(_MESH_OBJS, olds["chip"])
+    assert hist[40:] == [["first"]] * 32 and hist[:40] == [100] * 40
+    plane._stable_cache = None  # computed afresh, on every block
+    assert (mesh.store.stable_vc() == mesh.store.applied_vc.min(0)).all()
+    for k in ("orset_presence", "set_aw_fold", "counter_fold", "stable_min"):
+        for b in range(4):
+            assert ck.LAUNCHES_BY_BLOCK.get((k, b), 0) > 0, (k, b)
+    t = mesh.store.tables["set_aw"]
+    assert [b.device for b in t.blocks] == [dev] * 4
+    assert mesh.status()["mesh"]["devices"] == 4
+
+
+def test_console_serve_mesh_devices_one_on_the_card(dev):
+    """``console serve --mesh-devices 1`` places the tables on the card
+    and reaches its ready line with ``mesh_devices: 1``."""
+    import json
+    import os
+    import select
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parent.parent
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(root) + os.pathsep + env.get("PYTHONPATH", "")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "antidote_tpu_torch.console", "serve",
+         "--port", "0", "--shards", "8", "--max-dcs", "2",
+         "--mesh-devices", "1"],
+        cwd=root, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+    try:
+        ready, _, _ = select.select([proc.stdout], [], [], 900)
+        assert ready, "serve printed no ready line"
+        info = json.loads(proc.stdout.readline())
+        assert info["mesh_devices"] == 1
+        from antidote_tpu_torch.proto.client import AntidoteClient
+
+        c = AntidoteClient("127.0.0.1", info["port"], timeout=60)
+        c.update_objects([("k", "counter_pn", "b", ("increment", 5))])
+        assert c.read_objects([("k", "counter_pn", "b")])[0] == [5]
+        st = c.node_status()
+        c.close()
+        assert st["mesh"]["devices"] == 1
+        assert st["mesh"]["shards_per_device"] == 8
+    finally:
+        proc.terminate()
+        try:
+            _, err = proc.communicate(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            _, err = proc.communicate(timeout=30)
+    assert "mesh=1dev" in err
+
+
+def test_mesh_plane_across_two_or_more_cards():
+    """The plane over every visible card: tables placed one block a card,
+    every kernel launched on every card, reads equal to a node without a
+    plane."""
+    n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if n < 2 or 8 % n:
+        pytest.skip(f"needs 2 or more CUDA devices dividing 8 shards "
+                    f"(this machine has {n})")
+    from antidote_tpu_torch.parallel import MeshServingPlane
+
+    cfg = AntidoteConfig(n_shards=8, max_dcs=2, ops_per_key=8,
+                         keys_per_table=64)
+    plane = MeshServingPlane(cfg, n)
+    mesh = AntidoteNode(cfg, device="cuda", sharding=plane.sharding)
+    plane.attach(mesh.store)
+    chip = AntidoteNode(cfg, device="cuda")
+    olds = {}
+    for name, node in (("chip", chip), ("mesh", mesh)):
+        node.update_objects([(f"s{j}", "set_aw", "b", ("add", "first"))
+                             for j in range(32)]
+                            + [(i, "counter_pn", "b", ("increment", 100))
+                               for i in range(40)])
+        olds[name] = node.start_transaction()
+        _mesh_workload(node)
+        node.txm.publish_serving_epoch()
+    ck.reset_launches()
+    assert _mesh_epoch_read(mesh.store) == _mesh_epoch_read(chip.store)
+    assert mesh.read_objects(_MESH_OBJS, olds["mesh"]) == \
+        chip.read_objects(_MESH_OBJS, olds["chip"])
+    plane._stable_cache = None  # computed afresh, on every card
+    assert (mesh.store.stable_vc() == mesh.store.applied_vc.min(0)).all()
+    t = mesh.store.tables["set_aw"]
+    assert [b.device.index for b in t.blocks] == list(range(n))
+    for k in ("orset_presence", "set_aw_fold", "counter_fold", "stable_min"):
+        for d in range(n):
+            assert ck.LAUNCHES_BY_DEVICE.get((k, d), 0) > 0, (k, d)
